@@ -1,21 +1,32 @@
 """Chip smoke test of the PyTorch / CUDA port (sunerf_tpu_torch) on one
 NVIDIA H100: build the hand-written kernels from the sources in this checkout,
-hold each against its plain PyTorch version on the card, then serve the
-committed 8x512 emission bundle through the port's entry points and check
-what comes out.
+hold each against its plain PyTorch version on the card, serve the committed
+8x512 emission bundle through the port's entry points, train the emission
+system at bench.py's workload, and check what comes out.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
 Phases (the first failure ends the run with a non-zero exit):
-  1. build   nvcc builds csrc/fused_mlp_fwd.cu for sm_90a.
+  1. build   nvcc builds csrc/fused_mlp_fwd.cu (K0), fused_mlp_stash_fwd.cu
+             (K1) and fused_mlp_stash_bwd.cu (K2) for sm_90a, in parallel.
   2. kernel  fused_mlp_fwd against fused_mlp_reference on the card, for the
              bundle's two fields at one render chunk's shapes (4096 rays x 60
              fine samples, x 20 coarse samples): per-point |kernel - plain| /
              max|plain| within 2e-2 at the 99.99th percentile, within 1e-1 at
              the maximum, RMS within 2e-3 (see KERNEL_TOL); times by CUDA
              events, median of 20 after warm-up.
+     stash   K1 and K2 against their plain versions at the training step's
+             shapes, random weights from a seed: 8x512 at N = 196,608 (fine)
+             and 65,536 (coarse), 4x128 at 20,480. K1's out under K0's
+             tolerances (and against K0's own out, reported); each layer of
+             its sin stash within 1 bf16 ulp for 99.9% of entries and of its
+             int8 cos stash within 1, against the plain version fed the
+             kernel's upstream activations (free-running figures reported).
+             K2, fed K1's stash and a seeded dy: every gradient within 3e-2
+             of max|plain| (RMS reported); a second run bit-identical. Times
+             of K1, K2 and the plain versions, median of 20.
   3. render  SuNeRFLoader(bundle, device='cuda').render_observer_image at
              256x256 with the launch count set to 0 just before: 16 chunks x
              (coarse + fine) = 32 launches. Finite products; the image within
@@ -27,6 +38,21 @@ Phases (the first failure ends the run with a non-zero exit):
              within 1e-2 of the JAX package's own renders
              (sunerf_tpu_torch/assets/s8_golden_32.npz).
   4. flyby   3 frames through evaluation.video.render_video_frames.
+  5. train   bench.py's workload: make_emission_system() defaults (8x512 for
+             both fields, 64 + 128 samples), LossConfig(), make_optimizer(),
+             1024 rays. One step with the launch counts set to 0 just before:
+             2 K1, 2 K2 and 0 K0 launches. One step (perturb off) against the
+             same Function on the plain versions: loss within 1e-3 relative,
+             every gradient within 3e-2 of max. 30 steps with the kernels and
+             with the float32 field: finite losses, the kernel path's last
+             below its first. Step time (CUDA events, median of 10 after 3
+             warm-up steps), a torch.profiler step by kernel name, the peak
+             of device memory.
+  6. serve   the trained params saved as a bundle and rendered at 64x64 by
+             SuNeRFLoader(device='cuda'): finite maps, K0 launches > 0.
+  7. tune    3 training steps on the committed bundle at its own spec (8x512
+             fine, 4x128 coarse, 20 + 40): finite losses, 2 K1 and 2 K2
+             launches a step (one per field, at widths 512 and 128).
 Then it prints the card's name and power limit, one {"kernels": [...]} line
 and, last, {"ok": true, "device": {...}}.
 """
@@ -38,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +75,16 @@ GOLDEN = 'sunerf_tpu_torch/assets/s8_golden_32.npz'
 VIEW = dict(lat=0.3, lon=1.1, time=0.0, distance=215.0)
 MAPS = ('image', 'height_map', 'absorption_map')
 BF16_TFLOPS = 989.0          # H100 SXM dense bf16 tensor-core peak
+HBM_TBPS = 3.35              # H100 SXM device memory rate
+KERNELS = ('fused_mlp_fwd', 'fused_mlp_stash_fwd', 'fused_mlp_stash_bwd')
+KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
+# the stash checks' shapes: the training step's two fields at 8x512, and the
+# bundle's 4x128 coarse field at one 1024-ray step of 20 samples
+STASH_SHAPES = (('fine', 8, 512, 1024 * 192), ('coarse', 8, 512, 1024 * 64),
+                ('proposal', 4, 128, 1024 * 20))
+GRAD_TOL = 3e-2
+STEP_LOSS_TOL = 1e-3
+N_CURVE = 30
 # kernel vs plain version, per point, as fractions of max|plain|: the bulk
 # (99.99% of points) within 2e-2 and RMS within 2e-3; any point within 1e-1.
 # bf16 roundings that flip between the tensor cores' accumulation and
@@ -109,6 +146,360 @@ def _flops(cfg, n: int) -> float:
     return 2.0 * n * h * (cfg.d_encoded + (cfg.n_layers - 1) * h + cfg.d_output)
 
 
+def _bound(flops: float, nbytes: float) -> tuple:
+    """(least ms on the card, what bounds it): the larger of the operations
+    at the bf16 tensor-core peak and the bytes at the device memory rate."""
+    t_ops = flops / (BF16_TFLOPS * 1e12) * 1e3
+    t_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes else 'bytes')
+
+
+def _param_bytes(cfg) -> int:
+    h = cfg.d_filter
+    return 4 * ((cfg.d_encoded + 1) * h + (cfg.n_layers - 1) * (h + 1) * h
+                + (h + 1) * cfg.d_output)
+
+
+def _bwd_flops(cfg, n: int) -> float:
+    """K2's operations: dW_h and dh, dW_in, dW_out and the first dh."""
+    h = cfg.d_filter
+    return float(n) * (4 * (cfg.n_layers - 1) * h * h + 2 * cfg.d_encoded * h
+                       + 4 * cfg.d_output * h)
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units of the bf16 ulp of the larger magnitude."""
+    af, bf = a.float(), b.float()
+    m = torch.maximum(af.abs(), bf.abs()).clamp_min(2.0 ** -126)
+    return (af - bf).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _grad_err(ref: dict, got: dict) -> dict:
+    """Per gradient: max |got - ref|, that over max|ref|, and RMS over RMS."""
+    out = {}
+    for k in KEYS:
+        r, g = ref[k].double(), got[k].double()
+        d = (g - r).abs()
+        out[k] = dict(max_abs_err=float(d.max()),
+                      max_rel_err=float(d.max() / r.abs().max().clamp_min(1e-30)),
+                      rms_rel_err=float((g - r).pow(2).mean().sqrt()
+                                        / r.pow(2).mean().sqrt().clamp_min(1e-30)))
+    return out
+
+
+def _stash_phase(name: str, n_layers: int, width: int, n: int, device) -> dict:
+    """K1 and K2 against their plain versions at one shape (random weights
+    and points from a seed); their times and bounds."""
+    from sunerf_tpu_torch.models.fields import emission_config, init_nerf
+    from sunerf_tpu_torch.ops import fused_mlp
+    cfg = emission_config(n_layers=n_layers, d_filter=width)
+    gen = torch.Generator(device=device).manual_seed(n)
+    p = init_nerf(gen, cfg, device)
+    pts = torch.rand(n, 4, generator=gen, device=device) * 2.6 - 1.3
+    pts[:, 3] = 0.0
+    dy = torch.randn(n, cfg.d_output, generator=gen, device=device)
+    tag = f'[stash] {name} {n_layers}x{width} N={n}'
+
+    out, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, p, pts)
+    ref_out, ref_hs, ref_cs = fused_mlp.fused_mlp_stash_reference(cfg, p, pts)
+    k0_out = fused_mlp.fused_mlp_forward(cfg, p, pts)
+    lw_hs, lw_cs = fused_mlp.fused_mlp_stash_layerwise(cfg, p, pts, hs)
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(out).all()), f'{tag}: non-finite K1 output')
+    err = _err_stats(ref_out, out)
+    vs_k0 = _err_stats(k0_out, out)
+    hs_ulp1 = float((_bf16_ulps(lw_hs, hs) <= 1).float().mean())
+    cs_diff = int((cs.int() - lw_cs.int()).abs().max())
+    free_hs_ulp1 = float((_bf16_ulps(ref_hs, hs) <= 1).float().mean())
+    free_cs_diff = (cs.int() - ref_cs.int()).abs()
+    free_cs = dict(max=int(free_cs_diff.max()),
+                   share_off=float((free_cs_diff > 0).float().mean()))
+    print(f'{tag}: K1 out vs plain {_fmt(err)}; vs K0 {_fmt(vs_k0)}', flush=True)
+    print(f'{tag}: K1 sin stash within 1 ulp of the layerwise plain version '
+          f'{hs_ulp1:.6f} (free-running {free_hs_ulp1:.6f}); int8 cos max |diff| '
+          f'{cs_diff} (free-running max {free_cs["max"]}, '
+          f'{free_cs["share_off"]:.2e} of entries off)', flush=True)
+    _check(err['p9999_rel_err'] <= KERNEL_TOL and err['rms_rel_err'] <= KERNEL_RMS_TOL
+           and err['max_rel_err'] <= KERNEL_MAX_TOL, f'{tag}: K1 out vs plain {_fmt(err)}')
+    _check(hs_ulp1 >= 0.999, f'{tag}: K1 sin stash within 1 ulp for {hs_ulp1:.6f}')
+    _check(cs_diff <= 1, f'{tag}: K1 int8 cos stash off by {cs_diff}')
+    del ref_hs, ref_cs, lw_hs, lw_cs, free_cs_diff
+
+    grads = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs)
+    again = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs)
+    ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, p, pts, dy, hs, cs)
+    torch.cuda.synchronize()
+    gerr = _grad_err(ref, grads)
+    identical = all(torch.equal(grads[k], again[k]) for k in KEYS)
+    spread = max(float((grads[k] - again[k]).abs().max()) for k in KEYS)
+    print(f'{tag}: K2 vs plain, max / RMS over max|plain| / RMS: ' + '; '.join(
+        f"{k} {e['max_rel_err']:.2e} / {e['rms_rel_err']:.2e}" for k, e in gerr.items())
+        + f'; two runs bit-identical: {identical} (spread {spread:.3e})', flush=True)
+    for k, e in gerr.items():
+        _check(bool(torch.isfinite(grads[k]).all()), f'{tag}: K2 {k} not finite')
+        _check(e['max_rel_err'] <= GRAD_TOL,
+               f"{tag}: K2 {k} vs plain {e['max_rel_err']:.3e} (tol {GRAD_TOL})")
+    _check(identical or spread <= 1e-3 * GRAD_TOL * min(
+        float(ref[k].abs().max()) for k in KEYS), f'{tag}: K2 run-to-run spread {spread}')
+
+    k1_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_forward(cfg, p, pts))
+    k1_plain_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_reference(cfg, p, pts))
+    k2_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs))
+    k2_plain_ms = _cuda_ms(
+        lambda: fused_mlp.fused_mlp_stash_bwd_reference(cfg, p, pts, dy, hs, cs))
+    stash_bytes = n * cfg.n_layers * width * 3
+    io_bytes = n * 4 * (cfg.d_input + cfg.d_output)
+    k1_bound, k1_by = _bound(_flops(cfg, n), io_bytes + stash_bytes + _param_bytes(cfg))
+    k2_bound, k2_by = _bound(_bwd_flops(cfg, n),
+                             io_bytes + stash_bytes + 2 * _param_bytes(cfg))
+    print(f'{tag}: K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.3f}, bound {k1_bound:.3f} '
+          f'by {k1_by}); K2 {k2_ms:.3f} ms (plain {k2_plain_ms:.3f}, bound '
+          f'{k2_bound:.3f} by {k2_by})', flush=True)
+    return {
+        'k1': dict(n=n, layers=n_layers, width=width, ms=k1_ms, plain_ms=k1_plain_ms,
+                   bound_ms=k1_bound, bound_by=k1_by, **err, vs_k0=vs_k0,
+                   hs_within_1ulp_layerwise=hs_ulp1, hs_within_1ulp_free=free_hs_ulp1,
+                   cs_max_diff_layerwise=cs_diff, cs_free=free_cs),
+        'k2': dict(n=n, layers=n_layers, width=width, ms=k2_ms, plain_ms=k2_plain_ms,
+                   bound_ms=k2_bound, bound_by=k2_by,
+                   max_abs_err=max(e['max_abs_err'] for e in gerr.values()),
+                   max_rel_err=max(e['max_rel_err'] for e in gerr.values()),
+                   grads=gerr, bit_identical=identical, run_spread=spread),
+    }
+
+
+class _PlainStash(torch.autograd.Function):
+    """FusedMLPStash's twin on the kernels' plain versions: the same
+    forward, stash and backward arithmetic through PyTorch ops."""
+
+    @staticmethod
+    def forward(ctx, config, points, *weights):
+        from sunerf_tpu_torch.ops import fused_mlp
+        out, hs, cs = fused_mlp.fused_mlp_stash_reference(
+            config, dict(zip(KEYS, weights)), points)
+        ctx.config = config
+        ctx.save_for_backward(points, hs, cs, *weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        from sunerf_tpu_torch.ops import fused_mlp
+        points, hs, cs, *weights = ctx.saved_tensors
+        g = fused_mlp.fused_mlp_stash_bwd_reference(
+            ctx.config, dict(zip(KEYS, weights)), points, dy.contiguous(), hs, cs)
+        return (None, None, *(g[k] for k in KEYS))
+
+
+def _bench_batch(device, n: int = 1024, seed: int = 1) -> dict:
+    """bench.py's batch, made with numpy: rays from (4, 0, 0) toward -x with
+    0.15 normal jitter, normalized; time 0; target 0.05."""
+    rng = np.random.default_rng(seed)
+    rays_o = np.tile(np.array([[4.0, 0.0, 0.0]], np.float32), (n, 1))
+    dirs = np.array([[-1.0, 0.0, 0.0]]) + 0.15 * rng.normal(size=(n, 3))
+    rays_d = (dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).astype(np.float32)
+    return {'rays': torch.from_numpy(np.stack([rays_o, rays_d], axis=1)).to(device),
+            'time': torch.zeros((n, 1), device=device),
+            'target_image': torch.full((n, 1), 0.05, device=device)}
+
+
+def _loss_and_grads(renderer, params: dict, batch: dict) -> tuple:
+    from sunerf_tpu_torch.train.objective import LossConfig, render_loss
+    p = {f: {k: v.detach().clone().requires_grad_() for k, v in sub.items()}
+         for f, sub in params.items()}
+    rays = batch['rays']
+    out = renderer(p, rays[:, 0], rays[:, 1], batch['time'])
+    loss, _ = render_loss(LossConfig(), out, batch['target_image'])
+    loss.backward()
+    return float(loss.detach()), {f: {k: v.grad for k, v in sub.items()}
+                                  for f, sub in p.items()}
+
+
+def _step_times(step, state, batch, warmup: int = 3, reps: int = 10) -> float:
+    """Median CUDA-event time of one whole train step, optimizer included."""
+    for _ in range(warmup):
+        step(state, batch, 0)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch, 0)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _train_phase(device) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    from sunerf_tpu_torch.models.fields import FieldOutput, emission_config
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.systems import make_emission_system
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.optim import make_optimizer
+    from sunerf_tpu_torch.train.step import create_train_state, make_train_step
+
+    cfg = emission_config()
+    renderer, init = make_emission_system(device='cuda')
+    params = init(torch.Generator(device=device).manual_seed(0))
+    batch = _bench_batch(device)
+    opt = make_optimizer()
+    step = make_train_step(renderer, LossConfig(), opt)
+    state = create_train_state(params, opt)
+    step(state, batch, 0)                       # warm-up: libraries loaded
+    torch.cuda.synchronize()
+    fused_mlp.LAUNCHES = fused_mlp.STASH_FWD_LAUNCHES = fused_mlp.STASH_BWD_LAUNCHES = 0
+    _, m = step(state, batch, 0)
+    launches = {'k0': fused_mlp.LAUNCHES, 'k1': fused_mlp.STASH_FWD_LAUNCHES,
+                'k2': fused_mlp.STASH_BWD_LAUNCHES}
+    print(f'[train] one step: {launches["k1"]} K1, {launches["k2"]} K2, '
+          f'{launches["k0"]} K0 launches (expected 2, 2, 0); loss {float(m["loss"]):.6f}',
+          flush=True)
+    _check(launches == {'k0': 0, 'k1': 2, 'k2': 2},
+           f'train step launches {launches}, not 2 K1, 2 K2, 0 K0')
+
+    # one step against the plain path: perturb off, the same params and batch
+    fixed, _ = make_emission_system(device='cuda', perturb=False)
+    plain = dataclasses.replace(fixed, field_apply=lambda p, x: FieldOutput(
+        raw=_PlainStash.apply(cfg, x, *(p[k] for k in KEYS))))
+    loss_k, grads_k = _loss_and_grads(fixed, params, batch)
+    loss_p, grads_p = _loss_and_grads(plain, params, batch)
+    vs_plain = {'loss': loss_k, 'plain_loss': loss_p,
+                'loss_rel_err': abs(loss_k - loss_p) / abs(loss_p),
+                'grads': {f: _grad_err(grads_p[f], grads_k[f]) for f in grads_p}}
+    print(f'[train] one step vs the plain path: loss {loss_k:.7f} vs {loss_p:.7f} '
+          f'(rel {vs_plain["loss_rel_err"]:.2e}, tol {STEP_LOSS_TOL}); grads max/max: '
+          + '; '.join(f"{f}/{k} {e['max_rel_err']:.2e}" for f, g in vs_plain['grads'].items()
+                      for k, e in g.items()), flush=True)
+    _check(vs_plain['loss_rel_err'] <= STEP_LOSS_TOL,
+           f"train loss vs plain {vs_plain['loss_rel_err']:.3e}")
+    for f, g in vs_plain['grads'].items():
+        for k, e in g.items():
+            _check(e['max_rel_err'] <= GRAD_TOL,
+                   f"train grad {f}/{k} vs plain {e['max_rel_err']:.3e} (tol {GRAD_TOL})")
+    del grads_k, grads_p
+
+    # 30 steps with the kernels and with the float32 field
+    curves, states, steps = {}, {}, {}
+    for path, use_fused in (('kernel', True), ('float32', False)):
+        r, _ = make_emission_system(device='cuda', use_fused=use_fused)
+        steps[path] = make_train_step(r, LossConfig(lambda_regularization=0.0), opt)
+        states[path] = create_train_state(params, opt)
+        losses = [steps[path](states[path], batch, 0)[1]['loss'] for _ in range(N_CURVE)]
+        curves[path] = [float(v) for v in losses]
+        print(f'[train] {N_CURVE} steps, {path}: ' + ' '.join(f'{v:.5f}' for v in curves[path]),
+              flush=True)
+        _check(all(np.isfinite(curves[path])), f'{path} losses not finite')
+    _check(curves['kernel'][-1] < curves['kernel'][0],
+           f"kernel path loss did not fall: {curves['kernel'][0]} -> {curves['kernel'][-1]}")
+    gap = abs(curves['kernel'][-1] - curves['float32'][-1]) / curves['float32'][-1]
+    print(f'[train] last loss: kernel {curves["kernel"][-1]:.6f}, float32 '
+          f'{curves["float32"][-1]:.6f} ({gap:.1%} apart)', flush=True)
+
+    step_ms = _step_times(step, state, batch)
+    f32_ms = _step_times(steps['float32'], states['float32'], batch)
+    print(f'[train] step: kernel path {step_ms:.2f} ms ({1024 / step_ms * 1e3:.0f} rays/s); '
+          f'float32 path {f32_ms:.2f} ms ({1024 / f32_ms * 1e3:.0f} rays/s) (CUDA events, '
+          f'median of 10 after 3 warm-up steps)', flush=True)
+    del states, steps
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch, 0)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[train] peak device memory of a kernel-path step: {peak_gib:.2f} GiB',
+          flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, 0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = {'K1': 0.0, 'K2': 0.0, 'K0': 0.0, 'other': 0.0}
+    by_kernel = {}
+    for evt in prof.events():
+        # kernels only: a user annotation (Optimizer.step#Adam.step) spans
+        # kernels that are counted on their own
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, 'is_user_annotation', False) or '#' in evt.name):
+            continue
+        ms = evt.device_time / 1e3
+        by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + ms
+        if 'fused_mlp_fwd_kernel' in evt.name:
+            parts['K1' if 'true' in evt.name else 'K0'] += ms
+        elif any(k in evt.name for k in ('chain_kernel', 'dw_kernel', 'reduce_kernel')):
+            parts['K2'] += ms
+        else:
+            parts['other'] += ms
+    device_ms = sum(parts.values())
+    profile_row = dict(wall_ms=wall_ms, device_ms=device_ms, idle_share=1 - device_ms / wall_ms,
+                       **{f'{k}_ms': v for k, v in parts.items()},
+                       top={k[:70]: v for k, v in sorted(by_kernel.items(),
+                                                        key=lambda kv: -kv[1])[:8]})
+    print(f'[profile] train step: {wall_ms:.2f} ms wall, {device_ms:.2f} ms of device '
+          f'kernels (K1 {parts["K1"]:.2f}, K2 {parts["K2"]:.2f}, other {parts["other"]:.2f}); '
+          f'device idle {profile_row["idle_share"]:.1%}; top: ' + '; '.join(
+              f'{k[:50]} {v:.2f} ms' for k, v in list(profile_row['top'].items())[:6]),
+          flush=True)
+    return dict(launches=launches, vs_plain=vs_plain, curves=curves, step_ms=step_ms,
+                rays_per_s=1024 / step_ms * 1e3, f32_step_ms=f32_ms,
+                peak_gib=peak_gib, profile=profile_row, renderer=renderer, state=state)
+
+
+def _serve_phase(renderer, state):
+    """The trained params as a bundle, rendered by the port's loader."""
+    from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.utils.checkpoint import save_state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trained')
+        save_state(path, state.params, {'renderer_spec': renderer.spec})
+        fused_mlp.LAUNCHES = 0
+        view = SuNeRFLoader(path, device='cuda').render_observer_image(
+            lat=0.3, lon=1.1, time=0.0, distance=4.0, resolution=64)
+        launches = fused_mlp.LAUNCHES
+    print(f'[serve] trained bundle rendered at 64x64: {launches} K0 launches, image '
+          f'max {float(np.max(view.image)):.4g}', flush=True)
+    for k in MAPS:
+        _check(bool(np.isfinite(getattr(view, k)).all()), f'served {k} not finite')
+    _check(launches > 0, 'the served render launched no K0')
+
+
+def _tune_phase(device, gview: dict, g_view) -> list:
+    """3 steps on the committed bundle at its own spec; rays of the golden
+    view, its own kernel render as the target."""
+    from sunerf_tpu_torch.core.geometry import observer_rays
+    from sunerf_tpu_torch.models.fields import params_from_numpy
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.systems import from_spec
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.optim import make_optimizer
+    from sunerf_tpu_torch.train.step import create_train_state, make_train_step
+    from sunerf_tpu_torch.utils.checkpoint import load_state
+    params_np, cfg = load_state(BUNDLE)
+    renderer, _ = from_spec(cfg['renderer_spec'], device='cuda')
+    rays_o, rays_d = observer_rays(gview['lat'], gview['lon'], gview['distance'],
+                                   gview['resolution'])
+    n = rays_o.shape[0] * rays_o.shape[1]
+    batch = {'rays': torch.from_numpy(np.stack([rays_o.reshape(n, 3), rays_d.reshape(n, 3)],
+                                               axis=1)).float().to(device),
+             'time': torch.full((n, 1), gview['time'], device=device),
+             'target_image': torch.from_numpy(g_view.image.reshape(n, -1)).to(device)}
+    opt = make_optimizer()
+    state = create_train_state(params_from_numpy(params_np, device), opt)
+    step = make_train_step(renderer, LossConfig(), opt)
+    fused_mlp.LAUNCHES = fused_mlp.STASH_FWD_LAUNCHES = fused_mlp.STASH_BWD_LAUNCHES = 0
+    losses = [float(step(state, batch, 0)[1]['loss']) for _ in range(3)]
+    launches = (fused_mlp.STASH_FWD_LAUNCHES, fused_mlp.STASH_BWD_LAUNCHES,
+                fused_mlp.LAUNCHES)
+    print(f'[tune] bundle, {n} rays, 3 steps: losses ' + ' '.join(f'{v:.6f}' for v in losses)
+          + f'; K1, K2, K0 launches {launches} (expected 6, 6, 0)', flush=True)
+    _check(all(np.isfinite(losses)), 'fine-tune losses not finite')
+    _check(launches == (6, 6, 0), f'fine-tune launches {launches}, not 6 K1, 6 K2, 0 K0')
+    return losses
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card',
@@ -137,11 +528,15 @@ def main() -> int:
 
     # 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _, log = build.build('fused_mlp_fwd')
-    print(f'[build] fused_mlp_fwd.cu: {time.perf_counter() - t0:.1f} s', flush=True)
-    for line in log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            print('[build]', line.strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(build.build, KERNELS))
+    print(f'[build] {", ".join(KERNELS)}: {time.perf_counter() - t0:.1f} s '
+          f'(parallel nvcc)', flush=True)
+    for name, (path, log) in zip(KERNELS, built):
+        print(f'[build] {name}: {path}')
+        for line in log.splitlines():
+            if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
+                print('[build]', line.strip())
 
     # 2. kernel against its plain version --------------------------------
     params_np, bundle_cfg = load_state(BUNDLE)
@@ -185,6 +580,12 @@ def main() -> int:
                    err['max_rel_err'] <= KERNEL_MAX_TOL,
                    f'{name}: kernel vs plain {_fmt(err)} (tol p99.99 {KERNEL_TOL}, '
                    f'rms {KERNEL_RMS_TOL}, max {KERNEL_MAX_TOL})')
+
+    stash_rows = {}
+    with torch.no_grad():
+        for name, n_layers, width, n in STASH_SHAPES:
+            stash_rows[name] = _stash_phase(name, n_layers, width, n, device)
+    torch.cuda.empty_cache()
 
     # 3. render through the port's loader --------------------------------
     loader = SuNeRFLoader(BUNDLE, device='cuda')
@@ -307,6 +708,10 @@ def main() -> int:
                'flyby frames missing')
     print(f'[flyby] 3 frames at 256x256: {flyby_s:.2f} s', flush=True)
 
+    train = _train_phase(device)
+    _serve_phase(train.pop('renderer'), train.pop('state'))
+    tune = _tune_phase(device, gview, g_fused)
+
     fine = kernel_rows['fine']
     kernels = [{
         'name': 'fused_mlp_fwd', 'route': 'cuda',
@@ -322,6 +727,24 @@ def main() -> int:
         'render_256_profile': breakdown,
         'golden_err': golden_err,
     }]
+    for key, kname, line in (('k1', 'fused_mlp_stash_fwd', 453),
+                             ('k2', 'fused_mlp_stash_bwd', 533)):
+        rows = {name: r[key] for name, r in stash_rows.items()}
+        kernels.append({
+            'name': kname, 'route': 'cuda',
+            'source': f'sunerf_tpu_torch/csrc/{kname}.cu',
+            'replaces': f'sunerf_tpu/ops/pallas/fused_mlp.py:{line}',
+            'launches': train['launches'][key],
+            'max_abs_err': max(r['max_abs_err'] for r in rows.values()),
+            'max_rel_err': max(r['max_rel_err'] for r in rows.values()),
+            'ms': rows['fine']['ms'], 'plain_ms': rows['fine']['plain_ms'],
+            'bound_ms': rows['fine']['bound_ms'], 'bound_by': rows['fine']['bound_by'],
+            'library_ms': None, 'shapes': rows,
+            'train_step_ms': train['step_ms'], 'train_rays_per_s': train['rays_per_s'],
+            'train_step_float32_ms': train['f32_step_ms'],
+            'train_profile': train['profile'], 'train_peak_gib': train['peak_gib'],
+            'train_vs_plain': train['vs_plain'], 'tune_losses': tune,
+        })
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,8 +1,9 @@
 """sunerf_tpu_torch — the PyTorch / CUDA port of sunerf_tpu for NVIDIA Hopper.
 
-Mirrors the JAX package's module paths. The serving path (render a trained
-deployment bundle) runs here; the fused field forward runs as a hand-written
-CUDA kernel on the card (ops/fused_mlp.py, csrc/fused_mlp_fwd.cu) and as its
-plain PyTorch version on CPU tensors. Imports torch, numpy and the standard
-library only.
+Mirrors the JAX package's module paths. The emission head serves (render a
+trained deployment bundle) and trains (train/step.py) here; the fused field
+runs as hand-written CUDA kernels on the card (ops/fused_mlp.py, csrc/: the
+forward, and the stashing forward and backward behind one autograd
+Function) and as their plain PyTorch versions on CPU tensors. Imports
+torch, numpy and the standard library only.
 """

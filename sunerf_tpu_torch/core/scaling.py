@@ -1,12 +1,24 @@
-"""Datetime normalization (sunerf_tpu/core/scaling.py:27-40).
-
-The image intensity scalings come with the training slice.
-"""
+"""Image intensity scaling and datetime normalization
+(sunerf_tpu/core/scaling.py)."""
 from __future__ import annotations
 
+import math
 from datetime import datetime, timedelta
 
+import torch
+
 DEFAULT_SECONDS_PER_DT = 86400.0
+
+
+def image_asinh_scaling(image: torch.Tensor, vmax: float = 1.0,
+                        a: float = 0.005) -> torch.Tensor:
+    """asinh(I / (vmax * a)) / asinh(1 / a) — compresses EUV dynamic range."""
+    normalization = math.asinh(1.0 / a)
+    return torch.asinh(image / (vmax * a)) / normalization
+
+
+def image_log_scaling(image: torch.Tensor, vmin: float, vmax: float) -> torch.Tensor:
+    return (torch.log(image) - vmin) / (vmax - vmin)
 
 
 def normalize_datetime(date: datetime, seconds_per_dt: float = DEFAULT_SECONDS_PER_DT,

@@ -158,14 +158,20 @@ def nerf_apply(config: NeRFConfig, params: dict, points: torch.Tensor) -> FieldO
     return _field_output(config, params, raw)
 
 
-def nerf_apply_fused(config: NeRFConfig, params: dict,
-                     points: torch.Tensor) -> FieldOutput:
-    """The same contract as nerf_apply, through the fused forward
-    (ops/fused_mlp.py): the hand-written CUDA kernel for CUDA tensors, its
-    plain bf16-operand version for CPU tensors. The kernel's raw output
-    excludes the DT base offsets; they are added here."""
+def nerf_apply_fused(config: NeRFConfig, params: dict, points: torch.Tensor,
+                     compute_dpts: bool = True) -> FieldOutput:
+    """The same contract as nerf_apply, through the fused kernels
+    (ops/fused_mlp.py): the hand-written CUDA kernels for CUDA tensors, their
+    plain bf16-operand versions for CPU tensors. With no gradient needed it
+    is the forward K0; when a parameter needs a gradient it is the stashing
+    forward K1 with the stashing backward K2. compute_dpts=False gives the
+    points no gradient (only valid for detached points, as the renderer's
+    are); compute_dpts=True with points that need a gradient raises (K3 is
+    not ported). The kernels' raw output excludes the DT base offsets; they
+    are added here."""
     from sunerf_tpu_torch.ops import fused_mlp
-    raw = fused_mlp.fused_mlp_forward(config, params, points)
+    raw = fused_mlp.fused_mlp_forward(config, params, points,
+                                      compute_dpts=compute_dpts)
     return _field_output(config, params, raw)
 
 

@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds), at
 `build/sunerf_tpu_torch/<name>-<hash>.so` beside the package; the hash covers
-the source and the flags, so an edited source builds anew. A failed build
-raises.
+the source, every shared header `csrc/*.cuh` and the flags, so an edited
+source or header builds anew. A failed build raises.
 """
 from __future__ import annotations
 
@@ -34,10 +34,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'{name}-{digest}.so'
+    h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 
 
 def build(name: str) -> tuple[Path, str]:

@@ -1,6 +1,6 @@
 """System factories wiring fields, heads and renderers together
-(sunerf_tpu/systems.py). This slice serves the emission head; the other
-heads come with later slices."""
+(sunerf_tpu/systems.py). The emission head is ported; the other heads come
+with later slices."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,8 +33,11 @@ def _select_apply(config: NeRFConfig, use_fused: Optional[bool], device):
                                   'encodings)')
     if use_fused is None:
         use_fused = torch.device(device).type == 'cuda'
-    return functools.partial(nerf_apply_fused if use_fused else nerf_apply,
-                             config)
+    if use_fused:
+        # compute_dpts=False: the renderer detaches its sample points, so
+        # the stashing backward computes no point cotangent
+        return functools.partial(nerf_apply_fused, config, compute_dpts=False)
+    return functools.partial(nerf_apply, config)
 
 
 def _spec(head_name: str, config, Rs_per_ds, render_kwargs, **extra) -> dict:

@@ -1,7 +1,8 @@
 """Deployment bundles: a flat npz of parameters + a JSON sidecar carrying the
 renderer/data config (sunerf_tpu/utils/checkpoint.py:135-174) — the same
-files the JAX package writes, so its bundles load here and back. Training
-checkpoints come with the training slice.
+files the JAX package writes, so its bundles load here and back, and a
+trained state's params save with save_state. Resumable training
+checkpoints come with the Trainer (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
