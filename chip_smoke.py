@@ -53,8 +53,32 @@ Phases (the first failure ends the run with a non-zero exit):
   7. tune    3 training steps on the committed bundle at its own spec (8x512
              fine, 4x128 coarse, 20 + 40): finite losses, 2 K1 and 2 K2
              launches a step (one per field, at widths 512 and 128).
+  8. grid    K0, K1 and K2 with the dense feature-grid branch (K5) against
+             their plain versions, random weights and U(-1, 1) tables from a
+             seed, at bench.py grid_quarter's fine field (4x128, G = 16,
+             F = 8, bound 1.3, N = 1024 x 72) and at the NGP recipe's
+             (8x512, levels 16 + 32, N = 1024 x 192): K0/K1 out under
+             KERNEL_TOL, the stash layer by layer, every gradient (the
+             tables' included) within 3e-2 of max and bit-identical over two
+             runs. Times of the three kernels with the grid, of K1 + K2 of
+             the same widths without it, and of the plain versions.
+  9. gridtrain  bench.py grid_quarter, uncut: 4x128 fine field with a 16^3 x 8
+             table, 4x128 proposal coarse field, 24 + 48 samples, 1024 rays.
+             One step with the counts set to 0 just before: 2 K1, 2 K2,
+             0 K0, 2 of them through the grid branch. One step against the
+             plain path (loss 1e-3, grads 3e-2, grid_0 included); 30 steps
+             with the kernels and with the float32 field (finite, falling,
+             last losses within GRID_CURVE_TOL); step time, rays/s, profile.
+ 10. ngp     the MIGRATION.md instant-NGP recipe: 8x512, levels 16 + 32,
+             table_lr_mult 10, adam_eps 1e-15, lambda_table_tv 1e-4, 64 + 128
+             samples: launches of one step (4 through the grid branch),
+             10 finite steps with a falling loss, step time, profile.
+ 11. gridserve  the trained grid_quarter state saved as a bundle and rendered
+             at 256x256 by SuNeRFLoader(device='cuda'): 32 K0 launches, 16
+             through the grid branch; the image within 3e-2 of max of the
+             render through the plain version; render time.
 Then it prints the card's name and power limit, one {"kernels": [...]} line
-and, last, {"ok": true, "device": {...}}.
+(K0, K1, K2 and K5) and, last, {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
@@ -78,6 +102,17 @@ BF16_TFLOPS = 989.0          # H100 SXM dense bf16 tensor-core peak
 HBM_TBPS = 3.35              # H100 SXM device memory rate
 KERNELS = ('fused_mlp_fwd', 'fused_mlp_stash_fwd', 'fused_mlp_stash_bwd')
 KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
+# K2's launches, by kernel name (the grid ones only with grid levels)
+K2_KERNELS = ('chain_kernel', 'dw_kernel', 'reduce_kernel', 'grid_scatter_kernel',
+              'grid_convert_kernel')
+# bench.py grid_quarter's fine field and the MIGRATION.md instant-NGP recipe
+GRID_QUARTER = dict(n_layers=4, d_filter=128, grid_sizes=(16,), grid_features=8,
+                    grid_bound=1.3)
+NGP = dict(grid_sizes=(16, 32), grid_features=8, grid_bound=1.3)
+GRID_SHAPES = (('grid_quarter', GRID_QUARTER, 1024 * 72), ('ngp', NGP, 1024 * 192))
+# the grid_quarter kernel path's last loss of 30 steps against the float32
+# field's, relative
+GRID_CURVE_TOL = 5e-2
 # the stash checks' shapes: the training step's two fields at 8x512, and the
 # bundle's 4x128 coarse field at one 1024-ray step of 20 samples
 STASH_SHAPES = (('fine', 8, 512, 1024 * 192), ('coarse', 8, 512, 1024 * 64),
@@ -177,7 +212,7 @@ def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _grad_err(ref: dict, got: dict) -> dict:
     """Per gradient: max |got - ref|, that over max|ref|, and RMS over RMS."""
     out = {}
-    for k in KEYS:
+    for k in ref:
         r, g = ref[k].double(), got[k].double()
         d = (g - r).abs()
         out[k] = dict(max_abs_err=float(d.max()),
@@ -270,13 +305,14 @@ def _stash_phase(name: str, n_layers: int, width: int, n: int, device) -> dict:
 
 class _PlainStash(torch.autograd.Function):
     """FusedMLPStash's twin on the kernels' plain versions: the same
-    forward, stash and backward arithmetic through PyTorch ops."""
+    forward, stash and backward arithmetic through PyTorch ops (weights in
+    fused_mlp.param_keys order, grid tables included)."""
 
     @staticmethod
     def forward(ctx, config, points, *weights):
         from sunerf_tpu_torch.ops import fused_mlp
         out, hs, cs = fused_mlp.fused_mlp_stash_reference(
-            config, dict(zip(KEYS, weights)), points)
+            config, dict(zip(fused_mlp.param_keys(config), weights)), points)
         ctx.config = config
         ctx.save_for_backward(points, hs, cs, *weights)
         return out
@@ -285,9 +321,18 @@ class _PlainStash(torch.autograd.Function):
     def backward(ctx, dy):
         from sunerf_tpu_torch.ops import fused_mlp
         points, hs, cs, *weights = ctx.saved_tensors
+        keys = fused_mlp.param_keys(ctx.config)
         g = fused_mlp.fused_mlp_stash_bwd_reference(
-            ctx.config, dict(zip(KEYS, weights)), points, dy.contiguous(), hs, cs)
-        return (None, None, *(g[k] for k in KEYS))
+            ctx.config, dict(zip(keys, weights)), points, dy.contiguous(), hs, cs)
+        return (None, None, *(g[k] for k in keys))
+
+
+def _plain_field(cfg):
+    """A field_apply through _PlainStash (grads) or K0's plain version."""
+    from sunerf_tpu_torch.models.fields import FieldOutput
+    from sunerf_tpu_torch.ops import fused_mlp
+    return lambda p, x: FieldOutput(raw=_PlainStash.apply(
+        cfg, x, *(p[k] for k in fused_mlp.param_keys(cfg))))
 
 
 def _bench_batch(device, n: int = 1024, seed: int = 1) -> dict:
@@ -330,9 +375,46 @@ def _step_times(step, state, batch, warmup: int = 3, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def _train_phase(device) -> dict:
+def _profile_step(step, state, batch, tag: str) -> dict:
+    """One step under torch.profiler: device time by kernel, K0/K1/K2 (the
+    grid branch inside them) and the rest, against the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from sunerf_tpu_torch.models.fields import FieldOutput, emission_config
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, 0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = {'K1': 0.0, 'K2': 0.0, 'K0': 0.0, 'other': 0.0}
+    by_kernel = {}
+    for evt in prof.events():
+        # kernels only: a user annotation (Optimizer.step#Adam.step) spans
+        # kernels that are counted on their own
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, 'is_user_annotation', False) or '#' in evt.name):
+            continue
+        ms = evt.device_time / 1e3
+        by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + ms
+        if 'fused_mlp_fwd_kernel' in evt.name:
+            parts['K1' if 'true' in evt.name else 'K0'] += ms
+        elif any(k in evt.name for k in K2_KERNELS):
+            parts['K2'] += ms
+        else:
+            parts['other'] += ms
+    device_ms = sum(parts.values())
+    row = dict(wall_ms=wall_ms, device_ms=device_ms, idle_share=1 - device_ms / wall_ms,
+               **{f'{k}_ms': v for k, v in parts.items()},
+               top={k[:70]: v for k, v in sorted(by_kernel.items(),
+                                                key=lambda kv: -kv[1])[:10]})
+    print(f'[profile] {tag}: {wall_ms:.2f} ms wall, {device_ms:.2f} ms of device '
+          f'kernels (K1 {parts["K1"]:.2f}, K2 {parts["K2"]:.2f}, other {parts["other"]:.2f}); '
+          f'device idle {row["idle_share"]:.1%}; top: ' + '; '.join(
+              f'{k[:50]} {v:.3f} ms' for k, v in list(row['top'].items())[:8]),
+          flush=True)
+    return row
+
+
+def _train_phase(device) -> dict:
+    from sunerf_tpu_torch.models.fields import emission_config
     from sunerf_tpu_torch.ops import fused_mlp
     from sunerf_tpu_torch.systems import make_emission_system
     from sunerf_tpu_torch.train.objective import LossConfig
@@ -360,8 +442,7 @@ def _train_phase(device) -> dict:
 
     # one step against the plain path: perturb off, the same params and batch
     fixed, _ = make_emission_system(device='cuda', perturb=False)
-    plain = dataclasses.replace(fixed, field_apply=lambda p, x: FieldOutput(
-        raw=_PlainStash.apply(cfg, x, *(p[k] for k in KEYS))))
+    plain = dataclasses.replace(fixed, field_apply=_plain_field(cfg))
     loss_k, grads_k = _loss_and_grads(fixed, params, batch)
     loss_p, grads_p = _loss_and_grads(plain, params, batch)
     vs_plain = {'loss': loss_k, 'plain_loss': loss_p,
@@ -411,37 +492,7 @@ def _train_phase(device) -> dict:
     print(f'[train] peak device memory of a kernel-path step: {peak_gib:.2f} GiB',
           flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, 0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    parts = {'K1': 0.0, 'K2': 0.0, 'K0': 0.0, 'other': 0.0}
-    by_kernel = {}
-    for evt in prof.events():
-        # kernels only: a user annotation (Optimizer.step#Adam.step) spans
-        # kernels that are counted on their own
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, 'is_user_annotation', False) or '#' in evt.name):
-            continue
-        ms = evt.device_time / 1e3
-        by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + ms
-        if 'fused_mlp_fwd_kernel' in evt.name:
-            parts['K1' if 'true' in evt.name else 'K0'] += ms
-        elif any(k in evt.name for k in ('chain_kernel', 'dw_kernel', 'reduce_kernel')):
-            parts['K2'] += ms
-        else:
-            parts['other'] += ms
-    device_ms = sum(parts.values())
-    profile_row = dict(wall_ms=wall_ms, device_ms=device_ms, idle_share=1 - device_ms / wall_ms,
-                       **{f'{k}_ms': v for k, v in parts.items()},
-                       top={k[:70]: v for k, v in sorted(by_kernel.items(),
-                                                        key=lambda kv: -kv[1])[:8]})
-    print(f'[profile] train step: {wall_ms:.2f} ms wall, {device_ms:.2f} ms of device '
-          f'kernels (K1 {parts["K1"]:.2f}, K2 {parts["K2"]:.2f}, other {parts["other"]:.2f}); '
-          f'device idle {profile_row["idle_share"]:.1%}; top: ' + '; '.join(
-              f'{k[:50]} {v:.2f} ms' for k, v in list(profile_row['top'].items())[:6]),
-          flush=True)
+    profile_row = _profile_step(step, state, batch, 'train step')
     return dict(launches=launches, vs_plain=vs_plain, curves=curves, step_ms=step_ms,
                 rays_per_s=1024 / step_ms * 1e3, f32_step_ms=f32_ms,
                 peak_gib=peak_gib, profile=profile_row, renderer=renderer, state=state)
@@ -498,6 +549,290 @@ def _tune_phase(device, gview: dict, g_view) -> list:
     _check(all(np.isfinite(losses)), 'fine-tune losses not finite')
     _check(launches == (6, 6, 0), f'fine-tune launches {launches}, not 6 K1, 6 K2, 0 K0')
     return losses
+
+
+def _grid_bytes(cfg) -> int:
+    """Bytes of a config's float32 grid tables."""
+    return 4 * sum(g ** 3 for g in cfg.grid_sizes) * cfg.grid_features
+
+
+def _grid_flops(cfg, n: int, backward: bool) -> float:
+    """Operations of the grid branch beyond the MLP's products: per point,
+    level and feature 8 corners of a multiply and an add (and the corner
+    weights); K2 adds the cotangent product dz_0 W_grid^T and the scatter's
+    8 products per feature."""
+    per = 16.0 * cfg.d_grid
+    if backward:
+        per += 2.0 * cfg.d_filter * cfg.d_grid + 8.0 * cfg.d_grid
+    return n * per
+
+
+def _grid_kernel_phase(name: str, kw: dict, n: int, device) -> dict:
+    """K0, K1 and K2 with the grid branch against their plain versions at
+    one shape; their times, the times of K1 + K2 of the same widths without
+    the grid, and bounds."""
+    from sunerf_tpu_torch.models.fields import emission_config, init_nerf
+    from sunerf_tpu_torch.ops import fused_mlp
+    cfg = emission_config(**kw)
+    gen = torch.Generator(device=device).manual_seed(n + 7)
+    p = init_nerf(gen, cfg, device)
+    for k in fused_mlp.grid_keys(cfg):
+        p[k] = p[k] * 1e4                      # U(-1, 1): tables that carry signal
+    pts = torch.rand(n, 4, generator=gen, device=device) * 3.0 - 1.5
+    pts[:, 3] = 0.0
+    pts[:64, :3] = torch.tensor([1.3, -1.3, 1.3], device=device)   # on the bound
+    dy = torch.randn(n, cfg.d_output, generator=gen, device=device)
+    keys = fused_mlp.param_keys(cfg)
+    tag = f'[grid] {name} {cfg.n_layers}x{cfg.d_filter} levels {cfg.grid_sizes} N={n}'
+
+    k0 = fused_mlp.fused_mlp_forward(cfg, p, pts)
+    out, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, p, pts)
+    ref_out = fused_mlp.fused_mlp_reference(cfg, p, pts)
+    lw_hs, lw_cs = fused_mlp.fused_mlp_stash_layerwise(cfg, p, pts, hs)
+    torch.cuda.synchronize()
+    err0, err1 = _err_stats(ref_out, k0), _err_stats(ref_out, out)
+    hs_ulp1 = float((_bf16_ulps(lw_hs, hs) <= 1).float().mean())
+    cs_diff = int((cs.int() - lw_cs.int()).abs().max())
+    print(f'{tag}: K0 vs plain {_fmt(err0)}; K1 vs plain {_fmt(err1)}; K1 out equals '
+          f'K0 out: {bool(torch.equal(out, k0))}; sin stash within 1 ulp (layerwise) '
+          f'{hs_ulp1:.6f}, int8 cos max |diff| {cs_diff}', flush=True)
+    for label, err in (('K0', err0), ('K1', err1)):
+        _check(bool(torch.isfinite(k0).all() and torch.isfinite(out).all()),
+               f'{tag}: non-finite forward')
+        _check(err['p9999_rel_err'] <= KERNEL_TOL and err['rms_rel_err'] <= KERNEL_RMS_TOL
+               and err['max_rel_err'] <= KERNEL_MAX_TOL, f'{tag}: {label} vs plain {_fmt(err)}')
+    _check(hs_ulp1 >= 0.999, f'{tag}: K1 sin stash within 1 ulp for {hs_ulp1:.6f}')
+    _check(cs_diff <= 1, f'{tag}: K1 int8 cos stash off by {cs_diff}')
+    del lw_hs, lw_cs
+
+    grads = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs)
+    again = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs)
+    ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, p, pts, dy, hs, cs)
+    torch.cuda.synchronize()
+    gerr = _grad_err(ref, grads)
+    identical = {k: bool(torch.equal(grads[k], again[k])) for k in keys}
+    print(f'{tag}: K2 vs plain, max / RMS over max|plain| / RMS: ' + '; '.join(
+        f"{k} {e['max_rel_err']:.2e} / {e['rms_rel_err']:.2e}" for k, e in gerr.items())
+        + f'; two runs bit-identical: {all(identical.values())} (tables: '
+        + ', '.join(f'{k} {identical[k]}' for k in fused_mlp.grid_keys(cfg)) + ')',
+        flush=True)
+    for k, e in gerr.items():
+        _check(bool(torch.isfinite(grads[k]).all()), f'{tag}: K2 {k} not finite')
+        _check(e['max_rel_err'] <= GRAD_TOL,
+               f"{tag}: K2 {k} vs plain {e['max_rel_err']:.3e} (tol {GRAD_TOL})")
+    _check(all(identical.values()), f'{tag}: K2 not bit-identical run to run: {identical}')
+    del again, ref
+
+    # the same widths without the grid: the grid branch's share of the time
+    base_cfg = emission_config(n_layers=cfg.n_layers, d_filter=cfg.d_filter)
+    base = dict(p, w_in=p['w_in'][:base_cfg.d_encoded].contiguous())
+    _, bhs, bcs = fused_mlp.fused_mlp_stash_forward(base_cfg, base, pts)
+    t = dict(
+        k0=_cuda_ms(lambda: fused_mlp.fused_mlp_forward(cfg, p, pts)),
+        k1=_cuda_ms(lambda: fused_mlp.fused_mlp_stash_forward(cfg, p, pts)),
+        k2=_cuda_ms(lambda: fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs)),
+        k1_no_grid=_cuda_ms(lambda: fused_mlp.fused_mlp_stash_forward(base_cfg, base, pts)),
+        k2_no_grid=_cuda_ms(lambda: fused_mlp.fused_mlp_stash_backward(
+            base_cfg, base, pts, dy, bhs, bcs)),
+        k0_plain=_cuda_ms(lambda: fused_mlp.fused_mlp_reference(cfg, p, pts), reps=5),
+        k1_plain=_cuda_ms(lambda: fused_mlp.fused_mlp_stash_reference(cfg, p, pts), reps=5),
+        k2_plain=_cuda_ms(lambda: fused_mlp.fused_mlp_stash_bwd_reference(
+            cfg, p, pts, dy, hs, cs), reps=5))
+    del bhs, bcs
+    io = n * 4 * (cfg.d_input + cfg.d_output)
+    stash = n * cfg.n_layers * cfg.d_filter * 3
+    par, tab = _param_bytes(cfg), _grid_bytes(cfg)
+    b0 = _bound(_flops(cfg, n) + _grid_flops(cfg, n, False), io + par + tab)
+    b1 = _bound(_flops(cfg, n) + _grid_flops(cfg, n, False), io + stash + par + tab)
+    b2 = _bound(_bwd_flops(cfg, n) + _grid_flops(cfg, n, True),
+                io + stash + 2 * par + 2 * tab)
+    # the grid branch's own work: read the points and tables, write d_table
+    b5 = _bound(_grid_flops(cfg, n, False) + _grid_flops(cfg, n, True),
+                n * 4 * cfg.d_input + 2 * tab)
+    marginal = t['k1'] + t['k2'] - t['k1_no_grid'] - t['k2_no_grid']
+    print(f"{tag}: K0 {t['k0']:.3f} ms (plain {t['k0_plain']:.3f}, bound {b0[0]:.3f} by "
+          f"{b0[1]}); K1 {t['k1']:.3f} (plain {t['k1_plain']:.3f}, bound {b1[0]:.3f} by "
+          f"{b1[1]}; no grid {t['k1_no_grid']:.3f}); K2 {t['k2']:.3f} (plain "
+          f"{t['k2_plain']:.3f}, bound {b2[0]:.3f} by {b2[1]}; no grid "
+          f"{t['k2_no_grid']:.3f}); the grid's share of K1 + K2 {marginal:.3f} ms "
+          f"(its own work's bound {b5[0]:.4f} by {b5[1]})", flush=True)
+    table_err = {k: gerr[k] for k in fused_mlp.grid_keys(cfg)}
+    return dict(n=n, layers=cfg.n_layers, width=cfg.d_filter, levels=list(cfg.grid_sizes),
+                k0=dict(ms=t['k0'], plain_ms=t['k0_plain'], bound_ms=b0[0], bound_by=b0[1],
+                        **err0),
+                k1=dict(ms=t['k1'], plain_ms=t['k1_plain'], bound_ms=b1[0], bound_by=b1[1],
+                        no_grid_ms=t['k1_no_grid'], hs_within_1ulp_layerwise=hs_ulp1,
+                        cs_max_diff_layerwise=cs_diff, **err1),
+                k2=dict(ms=t['k2'], plain_ms=t['k2_plain'], bound_ms=b2[0], bound_by=b2[1],
+                        no_grid_ms=t['k2_no_grid'],
+                        max_abs_err=max(e['max_abs_err'] for e in gerr.values()),
+                        max_rel_err=max(e['max_rel_err'] for e in gerr.values()),
+                        grads=gerr, bit_identical=identical),
+                k5=dict(grid_share_ms=marginal, own_bound_ms=b5[0], own_bound_by=b5[1],
+                        table_grads=table_err))
+
+
+def _grid_train_phase(device) -> dict:
+    """bench.py grid_quarter, uncut, through the port's train step."""
+    from sunerf_tpu_torch.models.fields import emission_config
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.systems import make_emission_system
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.optim import make_optimizer
+    from sunerf_tpu_torch.train.step import create_train_state, make_train_step
+
+    fine_cfg = emission_config(**GRID_QUARTER)
+    coarse_cfg = emission_config(n_layers=4, d_filter=128)
+    system = dict(model_config=fine_cfg, coarse_config=coarse_cfg, n_stratified=24,
+                  n_hierarchical=48, device='cuda')
+    renderer, init = make_emission_system(**system)
+    params = init(torch.Generator(device=device).manual_seed(0))
+    batch = _bench_batch(device)
+    opt = make_optimizer()
+    step = make_train_step(renderer, LossConfig(), opt)
+    state = create_train_state(params, opt)
+    step(state, batch, 0)                       # warm-up: libraries loaded
+    torch.cuda.synchronize()
+    fused_mlp.LAUNCHES = fused_mlp.STASH_FWD_LAUNCHES = fused_mlp.STASH_BWD_LAUNCHES = 0
+    fused_mlp.GRID_LAUNCHES = 0
+    _, m = step(state, batch, 0)
+    launches = {'k0': fused_mlp.LAUNCHES, 'k1': fused_mlp.STASH_FWD_LAUNCHES,
+                'k2': fused_mlp.STASH_BWD_LAUNCHES, 'k5': fused_mlp.GRID_LAUNCHES}
+    print(f'[gridtrain] one grid_quarter step: {launches["k1"]} K1, {launches["k2"]} K2, '
+          f'{launches["k0"]} K0 launches, {launches["k5"]} through the grid branch '
+          f'(expected 2, 2, 0, 2); loss {float(m["loss"]):.6f}', flush=True)
+    _check(launches == {'k0': 0, 'k1': 2, 'k2': 2, 'k5': 2},
+           f'grid_quarter step launches {launches}')
+
+    fixed, _ = make_emission_system(perturb=False, **system)
+    plain = dataclasses.replace(fixed, field_apply=_plain_field(fine_cfg),
+                                coarse_field_apply=_plain_field(coarse_cfg))
+    loss_k, grads_k = _loss_and_grads(fixed, params, batch)
+    loss_p, grads_p = _loss_and_grads(plain, params, batch)
+    vs_plain = {'loss': loss_k, 'plain_loss': loss_p,
+                'loss_rel_err': abs(loss_k - loss_p) / abs(loss_p),
+                'grads': {f: _grad_err(grads_p[f], grads_k[f]) for f in grads_p}}
+    print(f'[gridtrain] one step vs the plain path: loss {loss_k:.7f} vs {loss_p:.7f} '
+          f'(rel {vs_plain["loss_rel_err"]:.2e}); grads max/max: '
+          + '; '.join(f"{f}/{k} {e['max_rel_err']:.2e}" for f, g in vs_plain['grads'].items()
+                      for k, e in g.items()), flush=True)
+    _check(vs_plain['loss_rel_err'] <= STEP_LOSS_TOL,
+           f"grid train loss vs plain {vs_plain['loss_rel_err']:.3e}")
+    for f, g in vs_plain['grads'].items():
+        for k, e in g.items():
+            _check(e['max_rel_err'] <= GRAD_TOL,
+                   f"grid train grad {f}/{k} vs plain {e['max_rel_err']:.3e}")
+    _check('grid_0' in vs_plain['grads']['fine'], 'the grid table got no gradient')
+
+    curves, states, steps = {}, {}, {}
+    for path, use_fused in (('kernel', True), ('float32', False)):
+        r, _ = make_emission_system(use_fused=use_fused, **system)
+        steps[path] = make_train_step(r, LossConfig(lambda_regularization=0.0), opt)
+        states[path] = create_train_state(params, opt)
+        losses = [steps[path](states[path], batch, 0)[1]['loss'] for _ in range(N_CURVE)]
+        curves[path] = [float(v) for v in losses]
+        print(f'[gridtrain] {N_CURVE} steps, {path}: '
+              + ' '.join(f'{v:.5f}' for v in curves[path]), flush=True)
+        _check(all(np.isfinite(curves[path])), f'grid {path} losses not finite')
+        _check(curves[path][-1] < curves[path][0], f'grid {path} loss did not fall')
+    gap = abs(curves['kernel'][-1] - curves['float32'][-1]) / curves['float32'][-1]
+    print(f'[gridtrain] last loss: kernel {curves["kernel"][-1]:.6f}, float32 '
+          f'{curves["float32"][-1]:.6f} ({gap:.2%} apart, tol {GRID_CURVE_TOL:.0%})',
+          flush=True)
+    _check(gap <= GRID_CURVE_TOL, f'grid kernel path {gap:.2%} from the float32 field')
+
+    step_ms = _step_times(step, state, batch)
+    f32_ms = _step_times(steps['float32'], states['float32'], batch)
+    print(f'[gridtrain] step: kernel path {step_ms:.2f} ms ({1024 / step_ms * 1e3:.0f} '
+          f'rays/s); float32 path {f32_ms:.2f} ms ({1024 / f32_ms * 1e3:.0f} rays/s) (CUDA '
+          f'events, median of 10 after 3 warm-up steps)', flush=True)
+    profile_row = _profile_step(step, state, batch, 'grid_quarter step')
+    return dict(launches=launches, vs_plain=vs_plain, curves=curves, curve_gap=gap,
+                step_ms=step_ms, rays_per_s=1024 / step_ms * 1e3, f32_step_ms=f32_ms,
+                profile=profile_row, renderer=renderer, state=state,
+                configs=(fine_cfg, coarse_cfg))
+
+
+def _ngp_phase(device) -> dict:
+    """A few steps of the MIGRATION.md instant-NGP recipe at the default
+    width and sample counts."""
+    from sunerf_tpu_torch.models.fields import emission_config
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.systems import make_emission_system
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.optim import OptimConfig, make_optimizer
+    from sunerf_tpu_torch.train.step import create_train_state, make_train_step
+    renderer, init = make_emission_system(model_config=emission_config(**NGP),
+                                          device='cuda')
+    params = init(torch.Generator(device=device).manual_seed(1))
+    batch = _bench_batch(device)
+    opt = make_optimizer(OptimConfig(table_lr_mult=10.0, adam_eps=1e-15))
+    step = make_train_step(renderer, LossConfig(lambda_table_tv=1e-4), opt)
+    state = create_train_state(params, opt)
+    step(state, batch, 0)
+    torch.cuda.synchronize()
+    fused_mlp.LAUNCHES = fused_mlp.STASH_FWD_LAUNCHES = fused_mlp.STASH_BWD_LAUNCHES = 0
+    fused_mlp.GRID_LAUNCHES = 0
+    step(state, batch, 0)
+    launches = {'k0': fused_mlp.LAUNCHES, 'k1': fused_mlp.STASH_FWD_LAUNCHES,
+                'k2': fused_mlp.STASH_BWD_LAUNCHES, 'k5': fused_mlp.GRID_LAUNCHES}
+    _check(launches == {'k0': 0, 'k1': 2, 'k2': 2, 'k5': 4}, f'NGP step launches {launches}')
+    metrics = [step(state, batch, 0)[1] for _ in range(10)]
+    losses = [float(m['loss']) for m in metrics]
+    tv = [float(m['table_tv']) for m in metrics]
+    print(f'[ngp] 8x512, levels {NGP["grid_sizes"]}, table_lr_mult 10, adam_eps 1e-15, '
+          f'lambda_table_tv 1e-4: launches {launches} (expected 2 K1, 2 K2, 4 grid); '
+          f'losses ' + ' '.join(f'{v:.5f}' for v in losses) + f'; table_tv {tv[0]:.3e} -> '
+          f'{tv[-1]:.3e}', flush=True)
+    _check(all(np.isfinite(losses)), 'NGP losses not finite')
+    _check(losses[-1] < losses[0], f'NGP loss did not fall: {losses[0]} -> {losses[-1]}')
+    step_ms = _step_times(step, state, batch, warmup=1, reps=5)
+    print(f'[ngp] step {step_ms:.2f} ms ({1024 / step_ms * 1e3:.0f} rays/s; CUDA events, '
+          f'median of 5)', flush=True)
+    profile_row = _profile_step(step, state, batch, 'NGP step')
+    return dict(launches=launches, losses=losses, table_tv=tv, step_ms=step_ms,
+                rays_per_s=1024 / step_ms * 1e3, profile=profile_row)
+
+
+def _grid_serve_phase(train: dict, device) -> dict:
+    """The trained grid_quarter state as a bundle, rendered at 256^2."""
+    from sunerf_tpu_torch.evaluation.loader import ModelLoader, SuNeRFLoader
+    from sunerf_tpu_torch.models.fields import FieldOutput
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.utils.checkpoint import save_state
+    view = dict(lat=0.3, lon=1.1, time=0.0, distance=4.0, resolution=256)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'grid_quarter')
+        save_state(path, train['state'].params, {'renderer_spec': train['renderer'].spec})
+        loader = SuNeRFLoader(path, device='cuda')
+    _check(tuple(loader.params['fine']['grid_0'].shape) == (16, 16, 16, 8),
+           'the bundle lost its grid table')
+    loader.render_observer_image(**view)             # warm-up: weights packed
+    torch.cuda.synchronize()
+    fused_mlp.LAUNCHES = fused_mlp.GRID_LAUNCHES = 0
+    got = loader.render_observer_image(**view)
+    launches = {'k0': fused_mlp.LAUNCHES, 'k5': fused_mlp.GRID_LAUNCHES}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loader.render_observer_image(**view)
+        times.append((time.perf_counter() - t0) * 1e3)
+    render_ms = statistics.median(times)
+    fine_cfg, coarse_cfg = train['configs']
+    plain_apply = lambda cfg: lambda p, x: FieldOutput(raw=fused_mlp.fused_mlp_reference(cfg, p, x))
+    plain_renderer = dataclasses.replace(loader.renderer, field_apply=plain_apply(fine_cfg),
+                                         coarse_field_apply=plain_apply(coarse_cfg))
+    plain = ModelLoader(plain_renderer, loader.params, device=device).render_observer_image(**view)
+    err = {k: _rel(getattr(plain, k), getattr(got, k)) for k in MAPS}
+    print(f'[gridserve] grid_quarter bundle at 256x256: {launches["k0"]} K0 launches, '
+          f'{launches["k5"]} through the grid branch (expected 32, 16); {render_ms:.1f} ms '
+          f'(median of 3, host clock to the host copy); vs the plain-version render: '
+          + '; '.join(f'{k} {v:.3e}' for k, v in err.items()), flush=True)
+    for k in MAPS:
+        _check(bool(np.isfinite(getattr(got, k)).all()), f'grid render {k} not finite')
+    _check(launches == {'k0': 32, 'k5': 16}, f'grid render launches {launches}')
+    _check(err['image'] <= RENDER_TOL, f"grid render image vs plain {err['image']:.3e}")
+    return dict(launches=launches, render_ms=render_ms, err=err)
 
 
 def main() -> int:
@@ -712,6 +1047,19 @@ def main() -> int:
     _serve_phase(train.pop('renderer'), train.pop('state'))
     tune = _tune_phase(device, gview, g_fused)
 
+    # 8-11. dense feature grids (K5) ----------------------------------------
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        grid_rows = {name: _grid_kernel_phase(name, kw, n, device)
+                     for name, kw, n in GRID_SHAPES}
+    torch.cuda.empty_cache()
+    grid_train = _grid_train_phase(device)
+    grid_serve = _grid_serve_phase(grid_train, device)
+    for k in ('renderer', 'state', 'configs'):
+        grid_train.pop(k)
+    torch.cuda.empty_cache()
+    ngp = _ngp_phase(device)
+
     fine = kernel_rows['fine']
     kernels = [{
         'name': 'fused_mlp_fwd', 'route': 'cuda',
@@ -726,6 +1074,8 @@ def main() -> int:
         'render_256_float32_ms': f32_render_ms, 'render_256_err': render_err,
         'render_256_profile': breakdown,
         'golden_err': golden_err,
+        'grid_shapes': {name: r['k0'] for name, r in grid_rows.items()},
+        'grid_render_256': grid_serve,
     }]
     for key, kname, line in (('k1', 'fused_mlp_stash_fwd', 453),
                              ('k2', 'fused_mlp_stash_bwd', 533)):
@@ -744,7 +1094,31 @@ def main() -> int:
             'train_step_float32_ms': train['f32_step_ms'],
             'train_profile': train['profile'], 'train_peak_gib': train['peak_gib'],
             'train_vs_plain': train['vs_plain'], 'tune_losses': tune,
+            'grid_shapes': {name: r[key] for name, r in grid_rows.items()},
         })
+    gq = grid_rows['grid_quarter']
+    kernels.append({
+        'name': 'fused_mlp_grid (K5, the grid branch of K0/K1/K2)', 'route': 'cuda',
+        'source': 'sunerf_tpu_torch/csrc/fused_mlp_common.cuh',
+        'sources': ['sunerf_tpu_torch/csrc/fused_mlp_common.cuh',
+                    'sunerf_tpu_torch/csrc/fused_mlp_stash_bwd.cu'],
+        'replaces': 'sunerf_tpu/ops/pallas/fused_mlp.py:313',
+        'launches': grid_train['launches']['k5'],
+        'max_abs_err': max(e['max_abs_err'] for r in grid_rows.values()
+                           for e in r['k5']['table_grads'].values()),
+        'max_rel_err': max(e['max_rel_err'] for r in grid_rows.values()
+                           for e in r['k5']['table_grads'].values()),
+        # K1 + K2 with the grid branch at grid_quarter's fine field, the
+        # training path's grid launches
+        'ms': gq['k1']['ms'] + gq['k2']['ms'],
+        'plain_ms': gq['k1']['plain_ms'] + gq['k2']['plain_ms'],
+        'bound_ms': gq['k1']['bound_ms'] + gq['k2']['bound_ms'],
+        'bound_by': gq['k2']['bound_by'], 'library_ms': None,
+        'shapes': {name: r['k5'] for name, r in grid_rows.items()},
+        'train_step_ms': grid_train['step_ms'], 'train_rays_per_s': grid_train['rays_per_s'],
+        'train_step_float32_ms': grid_train['f32_step_ms'], 'train': grid_train,
+        'ngp': ngp, 'serve': grid_serve,
+    })
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

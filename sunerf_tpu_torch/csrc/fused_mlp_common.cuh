@@ -1,8 +1,8 @@
 // Device code shared by the fused-MLP kernels for Hopper (sm_90a): the
 // forward K0 (fused_mlp_fwd.cu), the stashing forward K1
 // (fused_mlp_stash_fwd.cu) and the stashing backward K2
-// (fused_mlp_stash_bwd.cu). See those files for what each replaces and what
-// bounds it.
+// (fused_mlp_stash_bwd.cu), each with the dense feature-grid branch K5. See
+// those files for what each replaces and what bounds it.
 //
 // The block layout of K0 and K1 and of K2's chain kernel: 8 warps per 64
 // points; bf16 activations [64, width + 8] in dynamic shared memory; every
@@ -24,6 +24,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;               // bf16 elements of row padding
 constexpr int kCosPad = 16;           // int8 elements of row padding
 constexpr int kRowsPerWarp = kRows / kWarps;
+
+constexpr int kMaxLevels = 4;         // feature-grid levels the kernels take
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvTwoPi = 0.15915494309189535f;
@@ -174,14 +176,93 @@ __device__ __forceinline__ void for_each_pair(const float (&acc)[4][H / 64][4], 
   }
 }
 
-// Positional encoding of the block's 64 points, [x, sin u, cos u] with
+// The dense feature-grid levels (K5), the same struct on the host
+// (ops/fused_mlp.py _GridArgs, passed by pointer) and in the kernels'
+// parameters. Tables are the float32 parameters themselves, read through
+// L2: the optimizer updates them in place, and nothing caches them.
+struct GridParams {
+  const float* table[kMaxLevels];   // [G, G, G, F] f32, axis order (y, z, x, f)
+  int size[kMaxLevels];             // G of each level
+  int n_levels;                     // 0 = no grid
+  int features;                     // F
+  float bound;                      // the tables span [-bound, bound]^3
+};
+
+inline GridParams grid_params(const void* grid) {
+  GridParams g{};
+  if (grid != nullptr) g = *static_cast<const GridParams*>(grid);
+  return g;
+}
+
+inline bool grid_ok(const GridParams& g) {
+  if (g.n_levels < 0 || g.n_levels > kMaxLevels) return false;
+  if (g.n_levels == 0) return true;
+  if (g.features < 1 || !(g.bound > 0.f)) return false;
+  for (int l = 0; l < g.n_levels; ++l)
+    if (g.table[l] == nullptr || g.size[l] < 2) return false;
+  return true;
+}
+
+// The lower cell corner lo and the offset fr from it, per axis, of point x
+// in a level of G cells a side: u = clip((x / bound + 1) * (G-1)/2, 0, G-1),
+// lo = clip(floor(u), 0, G-2), fr = u - lo (ops/grid_encoding.py _cell).
+// Every operation rounds on its own, as the plain version's tensor ops do.
+__device__ __forceinline__ void grid_cell(const float* x, int G, float bound,
+                                          int (&lo)[3], float (&fr)[3]) {
+  const float scale = 0.5f * static_cast<float>(G - 1);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float u = fminf(fmaxf(__fmul_rn(__fadd_rn(__fdiv_rn(x[a], bound), 1.0f), scale),
+                                0.0f), static_cast<float>(G - 1));
+    const float l = fminf(fmaxf(floorf(u), 0.0f), static_cast<float>(G - 2));
+    lo[a] = static_cast<int>(l);
+    fr[a] = __fsub_rn(u, l);
+  }
+}
+
+// Corner c = 4 dx + 2 dy + dz of a cell: its weight (wx * wy) * wz and its
+// table row (iy * G + iz) * G + ix (ops/grid_encoding.py _corners).
+__device__ __forceinline__ float grid_corner(const int (&lo)[3], const float (&fr)[3],
+                                             int G, int c, int& row) {
+  const int dx = c >> 2, dy = (c >> 1) & 1, dz = c & 1;
+  const float wx = dx ? fr[0] : __fsub_rn(1.0f, fr[0]);
+  const float wy = dy ? fr[1] : __fsub_rn(1.0f, fr[1]);
+  const float wz = dz ? fr[2] : __fsub_rn(1.0f, fr[2]);
+  row = ((lo[1] + dy) * G + lo[2] + dz) * G + lo[0] + dx;
+  return __fmul_rn(__fmul_rn(wx, wy), wz);
+}
+
+// Feature f of grid level `level` at point x: the trilinear interpolation
+// of ops/grid_encoding.py grid_encode, corners summed in the same order with
+// the same roundings, so both give the same bits. 8 loads from L2.
+__device__ __forceinline__ float grid_feature(const GridParams& g, int level,
+                                              const float* x, int f) {
+  const int G = g.size[level];
+  int lo[3];
+  float fr[3];
+  grid_cell(x, G, g.bound, lo, fr);
+  const float* t = g.table[level];
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int row;
+    const float w = grid_corner(lo, fr, G, c, row);
+    acc = __fadd_rn(acc, __fmul_rn(w, __ldg(t + static_cast<size_t>(row) * g.features + f)));
+  }
+  return acc;
+}
+
+// Encoding of the block's 64 points, [x, sin u, cos u, grid features] with
 // u_j = x[dim_j] * freq_j (f32, exact: each phase column has one
-// power-of-two frequency), as bf16 into dst[64, e_pad]; zero past the
-// encoded columns and past row n.
+// power-of-two frequency) and the grid levels' F features each after the
+// sin/cos columns, as bf16 into dst[64, e_pad]; zero past the encoded
+// columns and past row n.
 __device__ __forceinline__ void encode_tile(const float* pts, const int* col_dim,
-                                            const float* col_freq, int n, int d_in,
-                                            int n_cols, int e_pad, int row0,
-                                            __nv_bfloat16* dst, int stride) {
+                                            const float* col_freq, const GridParams& grid,
+                                            int n, int d_in, int n_cols, int e_pad,
+                                            int row0, __nv_bfloat16* dst, int stride) {
+  const int grid0 = d_in + 2 * n_cols;
+  const int grid_end = grid0 + grid.n_levels * grid.features;
   for (int idx = threadIdx.x; idx < kRows * e_pad; idx += kThreads) {
     const int r = idx / e_pad;
     const int c = idx - r * e_pad;
@@ -191,11 +272,14 @@ __device__ __forceinline__ void encode_tile(const float* pts, const int* col_dim
       const float* x = pts + static_cast<size_t>(gr) * d_in;
       if (c < d_in) {
         v = x[c];
-      } else if (c < d_in + 2 * n_cols) {
+      } else if (c < grid0) {
         const int j = (c - d_in) % n_cols;
         const float u = __fmul_rn(x[col_dim[j]], col_freq[j]);
         // cos(u) = sin(u + pi/2), as the TPU kernel's fast_cos
         v = fast_sin(c < d_in + n_cols ? u : __fadd_rn(u, kHalfPi));
+      } else if (c < grid_end) {
+        const int j = c - grid0;
+        v = grid_feature(grid, j / grid.features, x, j % grid.features);
       }
     }
     dst[r * stride + c] = __float2bfloat16_rn(v);
@@ -317,6 +401,7 @@ struct FwdParams {
   float* out;                // [n, d_out]
   __nv_bfloat16* hs;         // [n, L*H] sin stash (K1 only)
   int8_t* cs;                // [n, L*H] int8 cos stash (K1 only)
+  GridParams grid;
   int n, d_in, n_cols, e_pad, n_hidden, d_out;
 };
 
@@ -343,8 +428,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mlp_fwd_kernel(FwdParams p)
   const int row0 = blockIdx.x * kRows;
   const size_t stash_ld = static_cast<size_t>(p.n_hidden + 1) * H;
 
-  encode_tile(p.pts, p.col_dim, p.col_freq, p.n, p.d_in, p.n_cols, p.e_pad, row0,
-              cur, stride);
+  encode_tile(p.pts, p.col_dim, p.col_freq, p.grid, p.n, p.d_in, p.n_cols, p.e_pad,
+              row0, cur, stride);
   __syncthreads();
 
   for (int layer = 0; layer <= p.n_hidden; ++layer) {
@@ -427,7 +512,8 @@ cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
 
 template <bool kStash>
 int fused_mlp_fwd_entry(const FwdParams& p, int d_filter, void* stream) {
-  if (p.n <= 0 || p.e_pad % 16 != 0 || p.e_pad < p.d_in + 2 * p.n_cols)
+  if (p.n <= 0 || p.e_pad % 16 != 0 || !grid_ok(p.grid) ||
+      p.e_pad < p.d_in + 2 * p.n_cols + p.grid.n_levels * p.grid.features)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

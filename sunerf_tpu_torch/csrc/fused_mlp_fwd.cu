@@ -10,6 +10,10 @@
 // with bf16 operands, f32 accumulation and f32 bias and sine. Sines use the
 // TPU kernel's explicit range reduction + 11th-order odd minimax polynomial
 // (fast_sin): phases reach ~400 rad, where unreduced __sinf is wrong.
+// With dense grid levels (K5, the grid branch of _fwd_kernel:
+// _encode_grid/_grid_feats, fused_mlp.py:283-327) enc also holds each
+// level's F trilinear features after the sin/cos columns, computed in f32
+// from the float32 tables (grid_feature in fused_mlp_common.cuh).
 //
 // Bound on this card: operations. 2*N*H*(E + (L-1)*H + d_out) flop on the
 // bf16 tensor cores (989 TFLOP/s dense) — 3.76 Mflop per point at 8x512
@@ -32,7 +36,14 @@
 //   * the padded row stride (H + 8 bf16) keeps the 32-bit fragment loads and
 //     the epilogue stores free of bank conflicts;
 //   * d_out = 2 is a per-point f32 dot product reduced across the warp;
-//   * rows past N read zeros and are never stored (ragged edge masked here).
+//   * rows past N read zeros and are never stored (ragged edge masked here);
+//   * K5: the TPU kernel contracts one-hot hat rows with the table on the MXU
+//     (2*G^3*F flop per point and level: 0.52 Mflop at G = 32, four times a
+//     4x128 MLP) because gathers are slow there. Here each grid column is an
+//     8-corner gather: 8 loads of 4 bytes through L2 (the 128 KB to 1 MB
+//     tables stay resident) and 23 f32 operations, against the MLP's
+//     tensor-core work per point; threads of one row read neighbouring
+//     features of one corner, so a warp's loads share 32-byte sectors.
 // wgmma, TMA and persistent blocks are left for later work.
 
 #include "fused_mlp_common.cuh"
@@ -41,8 +52,8 @@
 extern "C" int sunerf_fused_mlp_fwd(
     const void* pts, const void* col_dim, const void* col_freq,
     const void* w_in, const void* b_in, const void* w_h, const void* b_h,
-    const void* w_out, const void* b_out, void* out, int n, int d_in,
-    int n_cols, int e_pad, int d_filter, int n_hidden, int d_out,
+    const void* w_out, const void* b_out, const void* grid, void* out, int n,
+    int d_in, int n_cols, int e_pad, int d_filter, int n_hidden, int d_out,
     void* stream) {
   sunerf::FwdParams p;
   p.pts = static_cast<const float*>(pts);
@@ -54,6 +65,7 @@ extern "C" int sunerf_fused_mlp_fwd(
   p.b_h = static_cast<const float*>(b_h);
   p.w_out = static_cast<const __nv_bfloat16*>(w_out);
   p.b_out = static_cast<const float*>(b_out);
+  p.grid = sunerf::grid_params(grid);
   p.out = static_cast<float*>(out);
   p.hs = nullptr;
   p.cs = nullptr;

@@ -52,6 +52,24 @@
 //      fixed order, so a run gives the same bits as the last; no atomics.
 // Rows past N are masked in every kernel: they load as zeros and are never
 // stored. wgmma, TMA and a fused dW epilogue are left for later work.
+//
+// K5, the dense feature-grid branch (fused_mlp.py:564-576, :634-644): the
+// recomputed encoding carries the grid features (so dW_in covers their
+// rows), and the table gradients are
+//   denc_grid = dz_0 bf16(W_in[grid rows])^T        [N, levels * F], f32
+//   d_table[level][row(corner), f] += w(corner) * denc_grid[n, level F + f]
+// over the 8 corners of each point's cell. The TPU form contracts one-hot
+// hat rows over the points on the MXU (65.5 kflop per point at G = 16,
+// 0.52 Mflop at G = 32); here the products are a scatter, and a scatter's
+// float atomics would sum in a different order each run. So it sums in
+// 64-bit fixed point instead, where addition is exact and the order does
+// not matter: the chain kernel writes denc_grid and each level's max |.|
+// m; grid_scatter_kernel adds round(w * d * 2^k) with integer atomics, k
+// chosen so that N such terms of size <= m cannot overflow
+// (k = 62 - ceil(log2 N) - e, m < 2^e: resolution m * N * 2^-62, far below
+// f32's); grid_convert_kernel turns the sums back into f32. The gradients
+// are bit-identical run to run, and within f32 rounding of the plain
+// version's float32 index_add.
 
 #include "fused_mlp_common.cuh"
 
@@ -78,6 +96,12 @@ struct BwdParams {
   float* part_dw;               // [splits][p] per-split partials
   float* grad_chain;            // [q]: dW_out [H][d_out], db_out, db_j [L][H]
   float* grad_dw;               // [p]: dW_in [e_pad][H], dW_h [L-1][H][H]
+  GridParams grid;              // dense grid levels (K5), or none
+  const __nv_bfloat16* w_grid;  // [levels * F][H] bf16 grid rows of w_in
+  float* dgrid;                 // [n, levels * F] scratch: denc_grid
+  unsigned int* gmax;           // [levels] bits of max |denc_grid|, zeroed
+  unsigned long long* gacc;     // [sum G^3 F] fixed-point sums, zeroed
+  float* grad_grid;             // [sum G^3 F]: d_table of each level
   int n, d_in, n_cols, e_pad, h, n_hidden, d_out, splits;
   size_t q, p;
 };
@@ -138,9 +162,86 @@ __device__ __forceinline__ void dz_epilogue(const float (&acc)[4][H / 64][4],
   }
 }
 
+// denc_grid[r, j] = sum_c dz_0[r, c] bf16(W_in[grid row j, c]) for the
+// block's rows into p.dgrid, and each level's max |denc_grid| into p.gmax:
+// max over the block, then one atomicMax on the bits (non-negative floats
+// order as their bits do, NaN above infinity; any order gives the same
+// max). Thread t takes row t / 4 and the columns t % 4 + 4 q, four
+// independent sums over c at a time, 8 bf16 per 16-byte load, so the loads
+// and products overlap (a warp per row with a shuffle tree per column left
+// K2 latency-bound at one block per SM: about 1.1 ms per 8x512 field at
+// N = 196,608 on an H100 80GB HBM3 at 700 W, chip_smoke.py).
+template <int H>
+__device__ __forceinline__ void grid_cotangent(const BwdParams& p,
+                                               const __nv_bfloat16* dz0, int stride,
+                                               int row0, unsigned int (*block_max)[kMaxLevels]) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r = threadIdx.x >> 2;
+  const int gr = row0 + r;
+  const int F = p.grid.features;
+  const int n_grid = p.grid.n_levels * F;
+  const __nv_bfloat16* a = dz0 + r * stride;
+  unsigned int mx[kMaxLevels] = {0u, 0u, 0u, 0u};
+  for (int j0 = threadIdx.x & 3; j0 < n_grid; j0 += 16) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const __nv_bfloat16* w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)  // columns past n_grid read the last row, unused
+      w[q] = p.w_grid + static_cast<size_t>(min(j0 + 4 * q, n_grid - 1)) * H;
+#pragma unroll 2
+    for (int c = 0; c < H; c += 8) {
+      const uint4 av = *reinterpret_cast<const uint4*>(a + c);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&av);
+      float af[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 v = __bfloat1622float2(a2[e]);
+        af[2 * e] = v.x;
+        af[2 * e + 1] = v.y;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 wv = __ldg(reinterpret_cast<const uint4*>(w[q] + c));
+        const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&wv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 v = __bfloat1622float2(w2[e]);
+          acc[q] = fmaf(af[2 * e], v.x, acc[q]);
+          acc[q] = fmaf(af[2 * e + 1], v.y, acc[q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + 4 * q;
+      if (j >= n_grid || gr >= p.n) continue;
+      p.dgrid[static_cast<size_t>(gr) * n_grid + j] = acc[q];
+      const unsigned int bits = __float_as_uint(fabsf(acc[q]));
+#pragma unroll
+      for (int l = 0; l < kMaxLevels; ++l)
+        if (l == j / F) mx[l] = max(mx[l], bits);
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx[l] = max(mx[l], __shfl_xor_sync(0xffffffffu, mx[l], off));
+    if (lane == 0) block_max[warp][l] = mx[l];
+  }
+  __syncthreads();
+  if (threadIdx.x < p.grid.n_levels) {
+    unsigned int m = 0u;
+    for (int w = 0; w < kWarps; ++w) m = max(m, block_max[w][threadIdx.x]);
+    atomicMax(p.gmax + threadIdx.x, m);
+  }
+}
+
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1) chain_kernel(BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned int block_max[kWarps][kMaxLevels];  // grid levels only
   const int stride = act_stride<H>(p.e_pad);
   constexpr int kCosStride = H + kCosPad;
   __nv_bfloat16* cur = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -156,8 +257,8 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(BwdParams p) {
   float* part = p.part_chain + blockIdx.x * p.q;
   float* part_db = part + d_out * H + d_out;
 
-  encode_tile(p.pts, p.col_dim, p.col_freq, p.n, p.d_in, p.n_cols, p.e_pad, row0,
-              cur, stride);
+  encode_tile(p.pts, p.col_dim, p.col_freq, p.grid, p.n, p.d_in, p.n_cols, p.e_pad,
+              row0, cur, stride);
   for (int idx = threadIdx.x; idx < kRows * d_out; idx += kThreads) {
     const int gr = row0 + idx / d_out;
     sdy[idx] = gr < p.n ? p.dy[static_cast<size_t>(row0) * d_out + idx] : 0.f;
@@ -231,7 +332,83 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(BwdParams p) {
     nxt = tmp;
   }
   store_rows_bulk(cur, stride * 2, p.dz, ld * 2, H * 2, row0, p.n);  // dz_0
+  if (p.grid.n_levels > 0) grid_cotangent<H>(p, cur, stride, row0, block_max);
   bulk_wait();
+}
+
+// The fixed-point scale exponent k of a level whose terms are at most m in
+// size, n of them to a sum: m < 2^e, k = 62 - e_n - e with n <= 2^e_n.
+__device__ __forceinline__ int grid_scale_exp(float m, int e_n) {
+  int e;
+  frexpf(m, &e);
+  return 62 - e_n - e;
+}
+
+// The level of flat table element i (over the levels' G^3 F elements in
+// order) and its offset within that level.
+__device__ __forceinline__ int grid_level_of(const GridParams& g, size_t& i) {
+  int l = 0;
+  for (; l < g.n_levels - 1; ++l) {
+    const size_t sz = static_cast<size_t>(g.size[l]) * g.size[l] * g.size[l] * g.features;
+    if (i < sz) break;
+    i -= sz;
+  }
+  return l;
+}
+
+// One thread per (point, level, corner, feature): the term
+// w(corner) * denc_grid in f32, scaled by 2^k exactly (in double) and
+// rounded to an integer, added to the level's fixed-point sum. A warp's
+// 32 threads cover 4 corners x 8 features of one point, 8 neighbouring
+// 8-byte words per corner.
+__global__ void grid_scatter_kernel(BwdParams p, int e_n) {
+  const GridParams& g = p.grid;
+  const int F = g.features;
+  const size_t per_point = static_cast<size_t>(g.n_levels) * 8 * F;
+  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<size_t>(p.n) * per_point) return;
+  const int pt = static_cast<int>(t / per_point);
+  int rem = static_cast<int>(t - static_cast<size_t>(pt) * per_point);
+  const int level = rem / (8 * F);
+  rem -= level * 8 * F;
+  const int corner = rem / F;
+  const int f = rem - corner * F;
+  const float m = __uint_as_float(p.gmax[level]);
+  if (!(m > 0.f) || !(m <= 3.402823466e38f)) return;  // all zero, or not finite
+  const int G = g.size[level];
+  int lo[3];
+  float fr[3];
+  grid_cell(p.pts + static_cast<size_t>(pt) * p.d_in, G, g.bound, lo, fr);
+  int row;
+  const float w = grid_corner(lo, fr, G, corner, row);
+  const float v = __fmul_rn(w, p.dgrid[static_cast<size_t>(pt) * g.n_levels * F + level * F + f]);
+  const long long q = __double2ll_rn(static_cast<double>(v)
+                                     * ldexp(1.0, grid_scale_exp(m, e_n)));
+  if (q == 0) return;
+  size_t off = 0;
+  for (int l = 0; l < level; ++l)
+    off += static_cast<size_t>(g.size[l]) * g.size[l] * g.size[l] * F;
+  atomicAdd(p.gacc + off + static_cast<size_t>(row) * F + f,
+            static_cast<unsigned long long>(q));
+}
+
+// d_table = the fixed-point sums times 2^-k, in f32; NaN for a level whose
+// cotangent was not finite, 0 for one that was all zero.
+__global__ void grid_convert_kernel(BwdParams p, size_t total, int e_n) {
+  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  size_t i = t;
+  const int level = grid_level_of(p.grid, i);
+  const float m = __uint_as_float(p.gmax[level]);
+  float v;
+  if (!(m <= 3.402823466e38f))
+    v = __int_as_float(0x7fc00000);
+  else if (!(m > 0.f))
+    v = 0.f;
+  else
+    v = static_cast<float>(static_cast<double>(static_cast<long long>(p.gacc[t]))
+                           * ldexp(1.0, -grid_scale_exp(m, e_n)));
+  p.grad_grid[t] = v;
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* ptr) {
@@ -417,19 +594,25 @@ cudaError_t launch_chain(const BwdParams& p, cudaStream_t stream) {
 }  // namespace
 }  // namespace sunerf
 
-// C entry, bound with ctypes: the four launches of one backward on `stream`.
-// Returns a cudaError_t (0 = launched).
+// C entry, bound with ctypes: the launches of one backward on `stream`
+// (chain, with grid levels the scatter and the conversion, dW, two
+// reductions). Returns a cudaError_t (0 = launched).
 extern "C" int sunerf_fused_mlp_stash_bwd(
     const void* pts, const void* col_dim, const void* col_freq, const void* dy,
     const void* hs, const void* cs, const void* w_h_t, const void* w_out,
     void* dz, void* enc, void* part_chain, void* part_dw, void* grad_chain,
-    void* grad_dw, int n, int d_in, int n_cols, int e_pad, int d_filter,
-    int n_hidden, int d_out, int splits, void* stream) {
+    void* grad_dw, const void* grid, const void* w_grid, void* dgrid, void* gmax,
+    void* gacc, void* grad_grid, int n, int d_in, int n_cols, int e_pad,
+    int d_filter, int n_hidden, int d_out, int splits, void* stream) {
   using namespace sunerf;
-  if (n <= 0 || e_pad % 16 != 0 || e_pad < d_in + 2 * n_cols || d_out < 1 ||
-      d_out > kMaxOut || splits < 1 || n_hidden < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
+  p.grid = grid_params(grid);
+  if (n <= 0 || e_pad % 16 != 0 || !grid_ok(p.grid) ||
+      e_pad < d_in + 2 * n_cols + p.grid.n_levels * p.grid.features || d_out < 1 ||
+      d_out > kMaxOut || splits < 1 || n_hidden < 0 ||
+      (p.grid.n_levels > 0 && (w_grid == nullptr || dgrid == nullptr ||
+                               gmax == nullptr || gacc == nullptr || grad_grid == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.pts = static_cast<const float*>(pts);
   p.col_dim = static_cast<const int*>(col_dim);
   p.col_freq = static_cast<const float*>(col_freq);
@@ -444,6 +627,11 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
   p.part_dw = static_cast<float*>(part_dw);
   p.grad_chain = static_cast<float*>(grad_chain);
   p.grad_dw = static_cast<float*>(grad_dw);
+  p.w_grid = static_cast<const __nv_bfloat16*>(w_grid);
+  p.dgrid = static_cast<float*>(dgrid);
+  p.gmax = static_cast<unsigned int*>(gmax);
+  p.gacc = static_cast<unsigned long long*>(gacc);
+  p.grad_grid = static_cast<float*>(grad_grid);
   p.n = n;
   p.d_in = d_in;
   p.n_cols = n_cols;
@@ -468,6 +656,23 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
+
+  if (p.grid.n_levels > 0) {
+    int e_n = 0;
+    while ((1LL << e_n) < n) ++e_n;
+    size_t total = 0;
+    for (int l = 0; l < p.grid.n_levels; ++l)
+      total += static_cast<size_t>(p.grid.size[l]) * p.grid.size[l] * p.grid.size[l]
+               * p.grid.features;
+    const size_t terms = static_cast<size_t>(n) * p.grid.n_levels * 8 * p.grid.features;
+    grid_scatter_kernel<<<static_cast<unsigned>((terms + 255) / 256), 256, 0, s>>>(p, e_n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    grid_convert_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+        p, total, e_n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   const int m_tiles = ((d_filter > e_pad ? d_filter : e_pad) + kTile - 1) / kTile;
   const int c_tiles = (d_filter + kTile - 1) / kTile;

@@ -10,7 +10,8 @@
 //   cs[:, i*H:(i+1)*H] = int8(round_half_even(127 * cos8(y_i)))
 // with cos8 the TPU kernel's degree-8 even polynomial (fast_sincos_q). Both
 // stashes are [N, L*H] row-major, the TPU kernel's layout; the backward K2
-// (fused_mlp_stash_bwd.cu) reads them.
+// (fused_mlp_stash_bwd.cu) reads them. Dense grid levels (K5) enter the
+// encoding as in K0 (fused_mlp_fwd.cu).
 //
 // Bound on this card: both nearly equal at 8x512. Operations: 2*N*H*(E +
 // (L-1)*H + d_out) flop, 3.76 Mflop per point, 0.747 ms at the fine step's
@@ -35,8 +36,8 @@
 extern "C" int sunerf_fused_mlp_stash_fwd(
     const void* pts, const void* col_dim, const void* col_freq,
     const void* w_in, const void* b_in, const void* w_h, const void* b_h,
-    const void* w_out, const void* b_out, void* out, void* hs, void* cs,
-    int n, int d_in, int n_cols, int e_pad, int d_filter, int n_hidden,
+    const void* w_out, const void* b_out, const void* grid, void* out, void* hs,
+    void* cs, int n, int d_in, int n_cols, int e_pad, int d_filter, int n_hidden,
     int d_out, void* stream) {
   sunerf::FwdParams p;
   p.pts = static_cast<const float*>(pts);
@@ -48,6 +49,7 @@ extern "C" int sunerf_fused_mlp_stash_fwd(
   p.b_h = static_cast<const float*>(b_h);
   p.w_out = static_cast<const __nv_bfloat16*>(w_out);
   p.b_out = static_cast<const float*>(b_out);
+  p.grid = sunerf::grid_params(grid);
   p.out = static_cast<float*>(out);
   p.hs = static_cast<__nv_bfloat16*>(hs);
   p.cs = static_cast<int8_t*>(cs);

@@ -15,14 +15,11 @@ import numpy as np
 import torch
 
 from sunerf_tpu_torch.core.encoding import encoded_dim, positional_encoding
+from sunerf_tpu_torch.ops import grid_encoding as ge
 
 # AIA wavelength channels, index order used wherever a per-wavelength
 # parameter or response table appears.
 AIA_WAVELENGTHS = (94, 131, 171, 193, 211, 304, 335)
-
-_GRID_TODO = ('feature-grid encodings are not ported yet (ROADMAP Queue 1, '
-              'opt-in dials: grid encodings; Queue 2 K5)')
-
 
 class FieldOutput(NamedTuple):
     """Uniform output contract for every field model.
@@ -55,13 +52,18 @@ class NeRFConfig:
     # matmul precision of the JAX package's XLA path; the port's plain path
     # always runs in float32
     precision: str = 'default'
-    # feature-grid encodings (carried for spec round-trips; not ported yet)
+    # learned feature-grid encodings (ops/grid_encoding.py): per level a
+    # dense [G, G, G, F] table, or with grid_rank > 0 VM factors (with
+    # grid_time > 0, HexPlane time planes); their features follow the
+    # positional encoding. () = off
     grid_sizes: tuple = ()
     grid_features: int = 8
     grid_bound: float = 2.0
     grid_rank: int = 0
     grid_time: int = 0
     grid_time_range: tuple = (0.0, 1.0)
+    # a TPU layout flag of the JAX package's fused kernel: accepted, changes
+    # nothing here
     grid_hat_mxu: bool = False
 
     def __post_init__(self):
@@ -119,9 +121,8 @@ def init_nerf(generator: torch.Generator, config: NeRFConfig,
               device='cuda') -> dict:
     """Parameter dict with torch.nn.Linear's default init,
     U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for weights and biases; hidden layers
-    stacked [L-1, H, H]."""
-    if config.grid_sizes:
-        raise NotImplementedError(_GRID_TODO)
+    stacked [L-1, H, H]; per grid level `grid_{i}` (dense), or
+    `grid_planes_{i}` with `grid_lines_{i}` or `grid_tplanes_{i}` (VM)."""
     w_in, b_in = _linear_init(generator, config.d_encoded, config.d_filter, device)
     w_h, b_h = _linear_init(generator, config.d_filter, config.d_filter, device,
                             leading=(config.n_layers - 1,))
@@ -133,6 +134,17 @@ def init_nerf(generator: torch.Generator, config: NeRFConfig,
         params['log_abs'] = torch.full((len(AIA_WAVELENGTHS),), 1e-6,
                                        dtype=torch.float32, device=device)
         params['vol_c'] = torch.tensor(1.0, dtype=torch.float32, device=device)
+    for i, g in enumerate(config.grid_sizes):
+        if config.grid_rank and config.grid_time:
+            params[f'grid_planes_{i}'], params[f'grid_tplanes_{i}'] = \
+                ge.vm_time_init(generator, g, config.grid_time, config.grid_rank,
+                                device=device)
+        elif config.grid_rank:
+            params[f'grid_planes_{i}'], params[f'grid_lines_{i}'] = \
+                ge.vm_init(generator, g, config.grid_rank, device=device)
+        else:
+            params[f'grid_{i}'] = ge.grid_table_init(
+                generator, g, config.grid_features, device=device)
     return params
 
 
@@ -146,11 +158,22 @@ def params_from_numpy(tree: dict, device='cuda') -> dict:
 
 
 def nerf_apply(config: NeRFConfig, params: dict, points: torch.Tensor) -> FieldOutput:
-    """The plain float32 field at [N, d_input] query points."""
-    if config.grid_sizes:
-        raise NotImplementedError(_GRID_TODO)
+    """The plain float32 field at [N, d_input] query points: the positional
+    encoding, then any grid levels' features, through the Sine MLP."""
     x = positional_encoding(points, config.n_freqs, config.scale_factor,
                             n_freqs_time=config.n_freqs_time)
+    feats, bound = [x], config.grid_bound
+    for i in range(len(config.grid_sizes)):
+        if config.grid_rank and config.grid_time:
+            feats.append(ge.vm_encode_time(params[f'grid_planes_{i}'],
+                                           params[f'grid_tplanes_{i}'], points,
+                                           bound=bound, t_range=config.grid_time_range))
+        elif config.grid_rank:
+            feats.append(ge.vm_encode(params[f'grid_planes_{i}'],
+                                      params[f'grid_lines_{i}'], points, bound=bound))
+        else:
+            feats.append(ge.grid_encode(params[f'grid_{i}'], points, bound=bound))
+    x = torch.cat(feats, dim=-1)
     h = torch.sin(x @ params['w_in'] + params['b_in'])
     for w, b in zip(params['w_h'], params['b_h']):
         h = torch.sin(h @ w + b)
@@ -159,7 +182,8 @@ def nerf_apply(config: NeRFConfig, params: dict, points: torch.Tensor) -> FieldO
 
 
 def nerf_apply_fused(config: NeRFConfig, params: dict, points: torch.Tensor,
-                     compute_dpts: bool = True) -> FieldOutput:
+                     compute_dpts: bool = True,
+                     stash_format: str = 'int8') -> FieldOutput:
     """The same contract as nerf_apply, through the fused kernels
     (ops/fused_mlp.py): the hand-written CUDA kernels for CUDA tensors, their
     plain bf16-operand versions for CPU tensors. With no gradient needed it
@@ -167,11 +191,13 @@ def nerf_apply_fused(config: NeRFConfig, params: dict, points: torch.Tensor,
     forward K1 with the stashing backward K2. compute_dpts=False gives the
     points no gradient (only valid for detached points, as the renderer's
     are); compute_dpts=True with points that need a gradient raises (K3 is
-    not ported). The kernels' raw output excludes the DT base offsets; they
-    are added here."""
+    not ported). Dense grid levels run in the kernels' grid branch (K5);
+    only the 'int8' stash is ported. The kernels' raw output excludes the
+    DT base offsets; they are added here."""
     from sunerf_tpu_torch.ops import fused_mlp
     raw = fused_mlp.fused_mlp_forward(config, params, points,
-                                      compute_dpts=compute_dpts)
+                                      compute_dpts=compute_dpts,
+                                      stash_format=stash_format)
     return _field_output(config, params, raw)
 
 

@@ -6,12 +6,18 @@ sunerf_tpu/ops/pallas/fused_mlp.py that the emission paths run.
                            sin stash bf16 + cos stash int8
   K2 _bwd_stash_kernel  -> csrc/fused_mlp_stash_bwd.cu  training backward
                            (fmt 'int8', no point cotangent)
+  K5 the dense feature-grid branch of all three (_encode_grid, d_table):
+     trilinear features of each level's [G, G, G, F] table after the
+     sin/cos columns (grid_feature in csrc/fused_mlp_common.cuh), and in
+     K2 the tables' gradients, summed in fixed point so a run gives the
+     same bits as the last
 
 `fused_mlp_forward` is the entry. With no gradient needed it runs K0; when a
 parameter needs one it runs `FusedMLPStash`, the autograd Function whose
 forward is K1 and whose backward is K2, as the JAX package's custom_vjp
 `_fused_mlp_stash` is. A point cotangent (K3) is not ported: the renderer
-detaches its sample points (compute_dpts=False).
+detaches its sample points (compute_dpts=False). VM grid levels
+(grid_rank > 0) have no kernel, as in the JAX package.
 
 Each kernel's wrapper launches it for CUDA tensors, checks the CUDA error
 code the launch returns and raises on any failure; for CPU tensors it runs
@@ -25,6 +31,8 @@ The kernels read bf16 copies of the weights packed in mma.sync fragment
 order (W_h transposed as well, for K2), prepared once per parameter set and
 cached on the identity and version of its tensors: a training step packs
 once per field, and the optimizer's in-place update invalidates the pack.
+The grid tables are not cached: the kernels read the float32 parameters
+themselves, so an in-place update is seen by the next launch.
 """
 from __future__ import annotations
 
@@ -35,18 +43,23 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
-from sunerf_tpu_torch.core.encoding import encoding_columns
+from sunerf_tpu_torch.core.encoding import encoded_dim, encoding_columns
 from sunerf_tpu_torch.models.fields import NeRFConfig
+from sunerf_tpu_torch.ops.grid_encoding import grid_encode, grid_encode_table_grad
 
 # kernel launches so far, one per wrapper call that launched: a run sets them
 # to 0 and reads them to show that its fields went through the kernels
 LAUNCHES = 0               # K0, fused_mlp_fwd
 STASH_FWD_LAUNCHES = 0     # K1, fused_mlp_stash_fwd
 STASH_BWD_LAUNCHES = 0     # K2, fused_mlp_stash_bwd
+GRID_LAUNCHES = 0          # K5: launches of K0, K1 or K2 with grid levels
 
 KERNEL_WIDTHS = (64, 128, 256, 384, 512)   # d_filter values the kernels take
 MAX_BWD_OUTPUTS = 4                         # d_output values K2 takes: 1..4
+MAX_GRID_LEVELS = 4                         # grid levels the kernels take
 _KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
+_NO_VM_KERNEL = ('VM grid levels (grid_rank > 0) have no fused kernel; they run '
+                 'the float32 field (use_fused=False), as in the JAX package')
 _prepared: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _TWO_PI = 6.283185307179586
 _INV_TWO_PI = 0.15915494309189535
@@ -93,14 +106,33 @@ def cos8_quantized(y: torch.Tensor) -> torch.Tensor:
     return torch.round(c * _COS_SCALE).to(torch.int8)
 
 
-def _encode(config: NeRFConfig, points: torch.Tensor) -> torch.Tensor:
-    """[x, sin u, cos u] as the kernels compute it: cos features are
-    sin(u + pi/2) with u + pi/2 rounded to f32, as in the TPU kernel."""
+def grid_keys(config: NeRFConfig) -> tuple:
+    """The dense grid tables' parameter keys, in level order."""
+    return tuple(f'grid_{i}' for i in range(len(config.grid_sizes)))
+
+
+def param_keys(config: NeRFConfig) -> tuple:
+    """The parameters the kernels read: the MLP's, then the grid tables."""
+    return _KEYS + grid_keys(config)
+
+
+def _grid_offset(config: NeRFConfig) -> int:
+    """The first grid column of the encoding (after x, sin and cos)."""
+    return encoded_dim(config.d_input, config.n_freqs, config.n_freqs_time)
+
+
+def _encode(config: NeRFConfig, params: dict, points: torch.Tensor) -> torch.Tensor:
+    """[x, sin u, cos u, grid features] as the kernels compute it: cos
+    features are sin(u + pi/2) with u + pi/2 rounded to f32, as in the TPU
+    kernel; each grid level's features are grid_encode's, f32."""
     dims, freqs = encoding_columns(config.d_input, config.n_freqs,
                                    config.scale_factor, config.n_freqs_time)
     u = points[:, dims] * torch.tensor(freqs, dtype=points.dtype,
                                        device=points.device)
-    return torch.cat([points, reduced_sin(u), reduced_sin(u + _HALF_PI)], dim=-1)
+    grid = [grid_encode(params[k], points, config.grid_bound)
+            for k in grid_keys(config)]
+    return torch.cat([points, reduced_sin(u), reduced_sin(u + _HALF_PI)] + grid,
+                     dim=-1)
 
 
 def _layers(params: dict):
@@ -113,7 +145,7 @@ def fused_mlp_reference(config: NeRFConfig, params: dict,
     """Plain PyTorch version of K0: the same function with the same
     roundings (bf16 matmul operands, f32 accumulation, f32 bias, and sines
     of arguments range-reduced as the kernels reduce them)."""
-    h = _encode(config, points)
+    h = _encode(config, params, points)
     for w, b in _layers(params):
         h = reduced_sin(_mm(h, w) + b)
     return _mm(h, params['w_out']) + params['b_out']
@@ -125,7 +157,7 @@ def _stash_layers(config: NeRFConfig, params: dict, points: torch.Tensor,
     pre-activation. Layer i+1's input is layer i's bf16 sin, or, given
     `inputs` (a sin stash), that stash's block i."""
     H = config.d_filter
-    h = _encode(config, points)
+    h = _encode(config, params, points)
     hs, cs = [], []
     for i, (w, b) in enumerate(_layers(params)):
         y = _reduce(_mm(h, w) + b)
@@ -162,11 +194,13 @@ def fused_mlp_stash_bwd_reference(config: NeRFConfig, params: dict,
                                   hs: torch.Tensor, cs: torch.Tensor) -> dict:
     """Plain PyTorch version of K2 -> parameter gradients in the JAX layout
     (w_in [E, H], b_in [H], w_h [L-1, H, H], b_h [L-1, H], w_out [H, O],
-    b_out [O]), f32. The TPU kernel's roundings: dy enters both its products
-    as bf16; the dequantized cos is bf16(bf16(cs) * bf16(1/127)); dz is the
-    bf16 product of bf16(dh) and that; products take bf16 operands and
-    accumulate in f32; bias gradients sum dz (and dy) in f32; the encoding
-    is recomputed from the points."""
+    b_out [O], grid_i [G, G, G, F]), f32. The TPU kernel's roundings: dy
+    enters both its products as bf16; the dequantized cos is
+    bf16(bf16(cs) * bf16(1/127)); dz is the bf16 product of bf16(dh) and
+    that; products take bf16 operands and accumulate in f32; bias gradients
+    sum dz (and dy) in f32; the encoding is recomputed from the points. A
+    grid level's cotangent is dz_0 bf16(w_in[its rows])^T, spread over its
+    table by grid_encode_table_grad (float32 index_add)."""
     H, L = config.d_filter, config.n_layers
 
     def sin_(i):
@@ -185,11 +219,18 @@ def fused_mlp_stash_bwd_reference(config: NeRFConfig, params: dict,
         db_h[i] = dz.sum(0)
         dh = dz @ _bf(params['w_h'][i]).t()
     dz = _bf(_bf(dh) * cos_(0))
-    grads['w_in'] = _bf(_encode(config, points)).t() @ dz
+    grads['w_in'] = _bf(_encode(config, params, points)).t() @ dz
     grads['b_in'] = dz.sum(0)
     empty = torch.zeros((0, H), dtype=torch.float32, device=points.device)
     grads['w_h'] = torch.stack(dw_h) if dw_h else empty.reshape(0, H, H)
     grads['b_h'] = torch.stack(db_h) if db_h else empty
+    if config.grid_sizes:
+        F_ = config.grid_features
+        off = _grid_offset(config)
+        denc = dz @ _bf(params['w_in'][off:off + config.d_grid]).t()
+        for i, (k, g) in enumerate(zip(grid_keys(config), config.grid_sizes)):
+            grads[k] = grid_encode_table_grad(points, denc[:, i * F_:(i + 1) * F_],
+                                              g, config.grid_bound)
     return grads
 
 
@@ -218,6 +259,7 @@ class _KernelWeights:
     b_h: torch.Tensor         # [L-1, H] f32
     w_out: torch.Tensor       # [d_out, H] bf16
     b_out: torch.Tensor       # [d_out] f32
+    w_grid: torch.Tensor      # [levels * F, H] bf16 grid rows of w_in (K2)
     e_pad: int
 
 
@@ -227,6 +269,7 @@ def _prepare(config: NeRFConfig, params: dict) -> _KernelWeights:
                                    config.scale_factor, config.n_freqs_time)
     e_pad = -(-config.d_encoded // 16) * 16
     f32 = dict(dtype=torch.float32, device=device)
+    off = _grid_offset(config)
     with torch.no_grad():
         w_in = F.pad(params['w_in'].float(), (0, 0, 0, e_pad - config.d_encoded))
         w_h = params['w_h'].float()
@@ -240,6 +283,7 @@ def _prepare(config: NeRFConfig, params: dict) -> _KernelWeights:
             b_h=params['b_h'].float().contiguous(),
             w_out=params['w_out'].t().to(torch.bfloat16).contiguous(),
             b_out=params['b_out'].float().contiguous(),
+            w_grid=params['w_in'][off:off + config.d_grid].to(torch.bfloat16).contiguous(),
             e_pad=e_pad)
 
 
@@ -261,9 +305,13 @@ def _kernel_weights(config: NeRFConfig, params: dict) -> _KernelWeights:
 def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
     if points.device.type != 'cuda':
         raise ValueError(f'no fused kernel for device {points.device}')
-    if config.grid_sizes:
-        raise NotImplementedError('the fused kernels have no feature-grid '
-                                  'branch yet (ROADMAP Queue 2 K5)')
+    if config.grid_rank:
+        raise NotImplementedError(_NO_VM_KERNEL)
+    if len(config.grid_sizes) > MAX_GRID_LEVELS or min(config.grid_sizes,
+                                                       default=2) < 2:
+        raise ValueError(f'the fused kernels take up to {MAX_GRID_LEVELS} grid '
+                         f'levels of 2 or more cells a side, got '
+                         f'{config.grid_sizes}')
     if config.d_filter not in KERNEL_WIDTHS:
         raise ValueError(f'fused kernel takes d_filter in {KERNEL_WIDTHS}, '
                          f'got {config.d_filter}')
@@ -277,6 +325,9 @@ def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
         if params[k].device != points.device:
             raise ValueError(f'params[{k!r}] is on {params[k].device}, points '
                              f'on {points.device}')
+    for k, g in zip(grid_keys(config), config.grid_sizes):
+        _check_tensor(f'params[{k!r}]', params[k], (g, g, g, config.grid_features),
+                      torch.float32, points.device)
 
 
 def _check_tensor(name: str, t: torch.Tensor, shape, dtype, device):
@@ -285,6 +336,28 @@ def _check_tensor(name: str, t: torch.Tensor, shape, dtype, device):
                          f'{t.dtype} {list(t.shape)} on {t.device}')
     if not t.is_contiguous():
         raise ValueError(f'{name} must be contiguous')
+
+
+class _GridArgs(ctypes.Structure):
+    """GridParams of csrc/fused_mlp_common.cuh, passed by pointer."""
+    _fields_ = [('table', ctypes.c_void_p * MAX_GRID_LEVELS),
+                ('size', ctypes.c_int * MAX_GRID_LEVELS),
+                ('n_levels', ctypes.c_int),
+                ('features', ctypes.c_int),
+                ('bound', ctypes.c_float)]
+
+
+def _grid_args(config: NeRFConfig, params: dict) -> _GridArgs:
+    """The live float32 tables (checked by _check) as the kernels take
+    them; the caller keeps `params` alive over the launch."""
+    args = _GridArgs()
+    for i, (k, g) in enumerate(zip(grid_keys(config), config.grid_sizes)):
+        args.table[i] = params[k].data_ptr()
+        args.size[i] = g
+    args.n_levels = len(config.grid_sizes)
+    args.features = config.grid_features
+    args.bound = config.grid_bound
+    return args
 
 
 def _kernel(name: str, n_ptrs: int, n_ints: int):
@@ -304,16 +377,22 @@ def _launch(name: str, n_ptrs: int, n_ints: int, device, *args):
         raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')
 
 
-def _fwd_args(w: _KernelWeights, points, out):
+def _fwd_args(w: _KernelWeights, points, grid: _GridArgs, out):
     return (points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
             w.w_in.data_ptr(), w.b_in.data_ptr(), w.w_h.data_ptr(),
             w.b_h.data_ptr(), w.w_out.data_ptr(), w.b_out.data_ptr(),
-            out.data_ptr())
+            ctypes.addressof(grid), out.data_ptr())
 
 
 def _fwd_ints(config, w: _KernelWeights, n: int):
     return (n, config.d_input, w.col_dim.numel(), w.e_pad, config.d_filter,
             config.n_layers - 1, config.d_output)
+
+
+def _count_grid(config: NeRFConfig):
+    global GRID_LAUNCHES
+    if config.grid_sizes:
+        GRID_LAUNCHES += 1
 
 
 def _forward_k0(config: NeRFConfig, params: dict,
@@ -330,9 +409,11 @@ def _forward_k0(config: NeRFConfig, params: dict,
     if n == 0:
         return out
     w = _kernel_weights(config, params)
-    _launch('fused_mlp_fwd', 10, 7, points.device,
-            *_fwd_args(w, points, out), *_fwd_ints(config, w, n))
+    grid = _grid_args(config, params)
+    _launch('fused_mlp_fwd', 11, 7, points.device,
+            *_fwd_args(w, points, grid, out), *_fwd_ints(config, w, n))
     LAUNCHES += 1
+    _count_grid(config)
     return out
 
 
@@ -353,9 +434,11 @@ def fused_mlp_stash_forward(config: NeRFConfig, params: dict,
     if n == 0:
         return out, hs, cs
     w = _kernel_weights(config, params)
-    _launch('fused_mlp_stash_fwd', 12, 7, dev, *_fwd_args(w, points, out),
+    grid = _grid_args(config, params)
+    _launch('fused_mlp_stash_fwd', 13, 7, dev, *_fwd_args(w, points, grid, out),
             hs.data_ptr(), cs.data_ptr(), *_fwd_ints(config, w, n))
     STASH_FWD_LAUNCHES += 1
+    _count_grid(config)
     return out, hs, cs
 
 
@@ -369,16 +452,22 @@ def _dw_splits(config: NeRFConfig, n: int, e_pad: int, sm_count: int) -> int:
 
 
 def _grads_from_flat(config: NeRFConfig, grad_chain: torch.Tensor,
-                     grad_dw: torch.Tensor, e_pad: int) -> dict:
-    """K2's two f32 output buffers -> gradients in the JAX layout (views)."""
+                     grad_dw: torch.Tensor, grad_grid: torch.Tensor,
+                     e_pad: int) -> dict:
+    """K2's f32 output buffers -> gradients in the JAX layout (views)."""
     H, L, O = config.d_filter, config.n_layers, config.d_output
     db = grad_chain[O * H + O:].view(L, H)
-    return {'w_in': grad_dw[:e_pad * H].view(e_pad, H)[:config.d_encoded],
-            'b_in': db[0],
-            'w_h': grad_dw[e_pad * H:].view(L - 1, H, H),
-            'b_h': db[1:],
-            'w_out': grad_chain[:O * H].view(H, O),
-            'b_out': grad_chain[O * H:O * H + O]}
+    grads = {'w_in': grad_dw[:e_pad * H].view(e_pad, H)[:config.d_encoded],
+             'b_in': db[0],
+             'w_h': grad_dw[e_pad * H:].view(L - 1, H, H),
+             'b_h': db[1:],
+             'w_out': grad_chain[:O * H].view(H, O),
+             'b_out': grad_chain[O * H:O * H + O]}
+    off, F_ = 0, config.grid_features
+    for k, g in zip(grid_keys(config), config.grid_sizes):
+        grads[k] = grad_grid[off:off + g ** 3 * F_].view(g, g, g, F_)
+        off += g ** 3 * F_
+    return grads
 
 
 def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
@@ -404,38 +493,48 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
     f32 = dict(dtype=torch.float32, device=dev)
     grad_chain = torch.empty(O * H + O + L * H, **f32)
     grad_dw = torch.empty(e_pad * H + (L - 1) * H * H, **f32)
+    n_table = sum(g ** 3 for g in config.grid_sizes) * config.grid_features
+    grad_grid = torch.empty(n_table, **f32)
     if n == 0:
-        grad_chain.zero_()
-        grad_dw.zero_()
-        return _grads_from_flat(config, grad_chain, grad_dw, e_pad)
+        for t in (grad_chain, grad_dw, grad_grid):
+            t.zero_()
+        return _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
     splits = _dw_splits(config, n, e_pad,
-                       torch.cuda.get_device_properties(dev).multi_processor_count)
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
     dz = torch.empty((n, L * H), dtype=torch.bfloat16, device=dev)
     enc = torch.empty((n, e_pad), dtype=torch.bfloat16, device=dev)
     part_chain = torch.empty((-(-n // 64), grad_chain.numel()), **f32)
     part_dw = torch.empty((splits, grad_dw.numel()), **f32)
-    _launch('fused_mlp_stash_bwd', 14, 8, dev,
+    grid = _grid_args(config, params)
+    # K5 scratch: the grid cotangent, each level's max |.| (as float bits)
+    # and the fixed-point sums, the last two zeroed
+    dgrid = torch.empty((n, config.d_grid), **f32)
+    gmax = torch.zeros(len(config.grid_sizes), dtype=torch.int32, device=dev)
+    gacc = torch.zeros(n_table, dtype=torch.int64, device=dev)
+    _launch('fused_mlp_stash_bwd', 20, 8, dev,
             points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
             dy.data_ptr(), hs.data_ptr(), cs.data_ptr(), w.w_h_t.data_ptr(),
             w.w_out.data_ptr(), dz.data_ptr(), enc.data_ptr(),
             part_chain.data_ptr(), part_dw.data_ptr(), grad_chain.data_ptr(),
-            grad_dw.data_ptr(), n, config.d_input, w.col_dim.numel(), e_pad, H,
-            L - 1, O, splits)
+            grad_dw.data_ptr(), ctypes.addressof(grid), w.w_grid.data_ptr(),
+            dgrid.data_ptr(), gmax.data_ptr(), gacc.data_ptr(), grad_grid.data_ptr(),
+            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, splits)
     STASH_BWD_LAUNCHES += 1
-    return _grads_from_flat(config, grad_chain, grad_dw, e_pad)
+    _count_grid(config)
+    return _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
 
 
 class FusedMLPStash(torch.autograd.Function):
-    """raw = the field at `points`, differentiable in the parameters: the
-    forward is K1 (fused_mlp_stash_forward), which stashes each layer's sin
-    and cos for the backward, K2 (fused_mlp_stash_backward). The points get
-    no gradient (None), as with the JAX kernel's compute_dpts=False."""
+    """raw = the field at `points`, differentiable in the parameters (the
+    MLP's, then any grid tables: param_keys order): the forward is K1
+    (fused_mlp_stash_forward), which stashes each layer's sin and cos for
+    the backward, K2 (fused_mlp_stash_backward). The points get no gradient
+    (None), as with the JAX kernel's compute_dpts=False."""
 
     @staticmethod
-    def forward(ctx, config, points, w_in, b_in, w_h, b_h, w_out, b_out):
-        weights = (w_in, b_in, w_h, b_h, w_out, b_out)
-        out, hs, cs = fused_mlp_stash_forward(config, dict(zip(_KEYS, weights)),
-                                              points)
+    def forward(ctx, config, points, *weights):
+        params = dict(zip(param_keys(config), weights))
+        out, hs, cs = fused_mlp_stash_forward(config, params, points)
         ctx.config = config
         ctx.save_for_backward(points, hs, cs, *weights)
         return out
@@ -443,27 +542,44 @@ class FusedMLPStash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         points, hs, cs, *weights = ctx.saved_tensors
-        grads = fused_mlp_stash_backward(ctx.config, dict(zip(_KEYS, weights)),
+        keys = param_keys(ctx.config)
+        grads = fused_mlp_stash_backward(ctx.config, dict(zip(keys, weights)),
                                          points, dy.contiguous(), hs, cs)
-        return (None, None, *(grads[k] for k in _KEYS))
+        return (None, None, *(grads[k] for k in keys))
 
 
 def fused_mlp_forward(config: NeRFConfig, params: dict, points: torch.Tensor,
-                      compute_dpts: bool = True) -> torch.Tensor:
+                      compute_dpts: bool = True,
+                      stash_format: str = 'int8') -> torch.Tensor:
     """raw [N, d_output] of the field at [N, d_input] points, base offsets
     excluded. With no gradient needed: K0. When a parameter needs a gradient:
     FusedMLPStash (K1 forward, K2 backward). compute_dpts=True with points
-    that need a gradient raises: that cotangent is K3, not ported;
-    compute_dpts=False gives the points no gradient (the renderer detaches
-    them)."""
+    that need a gradient raises: that cotangent is K3, not ported (and, for
+    grid configs, not defined in the JAX kernels either); compute_dpts=False
+    gives the points no gradient (the renderer detaches them). stash_format
+    'int8' is the only stash ported ('lsb' and 'i8pair' are K6a/K6b; grid
+    configs take 'int8' only, as in the JAX package)."""
+    if config.grid_rank:
+        raise NotImplementedError(_NO_VM_KERNEL)
+    if stash_format != 'int8':
+        if config.grid_sizes:
+            raise NotImplementedError(f'grid-encoding configs support the int8 '
+                                      f'stash only, got {stash_format!r}')
+        raise NotImplementedError(f'stash_format {stash_format!r} is not ported '
+                                  f'(K6a/K6b, ROADMAP Queue 2)')
+    keys = param_keys(config)
     if torch.is_grad_enabled():
         if compute_dpts and points.requires_grad:
+            if config.grid_sizes:
+                raise NotImplementedError(
+                    'grid-encoding configs skip point cotangents (the renderer '
+                    'detaches sample points); pass compute_dpts=False or use '
+                    'nerf_apply')
             raise NotImplementedError(
                 'the fused kernels have no point cotangent yet (K3, the '
                 'compute_dpts=True branch of the stashing backward: ROADMAP '
                 'Queue 2); pass compute_dpts=False with detached points, or '
                 'use nerf_apply')
-        if any(params[k].requires_grad for k in _KEYS):
-            return FusedMLPStash.apply(config, points,
-                                       *(params[k] for k in _KEYS))
+        if any(params[k].requires_grad for k in keys):
+            return FusedMLPStash.apply(config, points, *(params[k] for k in keys))
     return _forward_k0(config, params, points)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Optional
 
 import torch
@@ -26,13 +27,17 @@ _HEAD_TODO = {
 def _select_apply(config: NeRFConfig, use_fused: Optional[bool], device):
     """Pick the field evaluation path: use_fused=None takes the fused kernel
     when the device is CUDA and the plain float32 field otherwise; True or
-    False forces the choice."""
-    if config.grid_sizes:
-        raise NotImplementedError('feature-grid encodings are not ported yet '
-                                  '(ROADMAP Queue 1, opt-in dials: grid '
-                                  'encodings)')
+    False forces the choice. Dense grid levels run in the kernels' grid
+    branch; VM levels (grid_rank > 0) have no kernel and always take the
+    float32 field, with a warning, as in the JAX package."""
     if use_fused is None:
         use_fused = torch.device(device).type == 'cuda'
+    if use_fused and config.grid_rank:
+        warnings.warn(
+            'grid_rank/grid_time tables run the float32 field path, not the '
+            'fused kernels: expect a lower step rate than dense-table or '
+            'plain-MLP configs (systems._select_apply)', stacklevel=3)
+        use_fused = False
     if use_fused:
         # compute_dpts=False: the renderer detaches its sample points, so
         # the stashing backward computes no point cotangent

@@ -23,15 +23,10 @@ class LossConfig:
     image_scaling: str = 'asinh'   # 'asinh' (emission) | 'none' (DT)
     scaling_vmax: float = 1.0
     scaling_a: float = 0.005
-    # total-variation penalty on feature-grid tables; 0.0 = off
+    # total-variation penalty on feature-grid tables (grid_* params,
+    # ops/grid_encoding.py table_tv), the few-view smoothness prior of grid
+    # encodings; 0.0 = off
     lambda_table_tv: float = 0.0
-
-    def __post_init__(self):
-        if self.lambda_table_tv:
-            raise NotImplementedError(
-                'lambda_table_tv: the table TV penalty acts on feature-grid '
-                'encodings, which are not ported yet (ROADMAP Queue 1 item 10, '
-                'grid encodings)')
 
 
 def scale_image(config: LossConfig, image: torch.Tensor) -> torch.Tensor:

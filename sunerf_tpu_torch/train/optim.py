@@ -7,7 +7,13 @@ clip is optax's formula, written out (torch.nn.utils.clip_grad_norm_ divides
 by norm + 1e-6 instead), and the step is torch.optim.Adam with its learning
 rate set before each step to the schedule at the count of updates made so
 far, as optax reads it (the first update uses lr(0)). Adam's defaults agree:
-b1 0.9, b2 0.999, eps added outside the square root.
+b1 0.9, b2 0.999, eps added outside the square root (adam_eps, a float32
+1e-15 for the instant-NGP table recipe, enters both as the same float32).
+
+table_lr_mult scales the updates of feature-grid tables (parameters whose
+key starts with 'grid_'), which the JAX package does after Adam
+(_scale_table_updates); here the tables form their own parameter group whose
+learning rate is the schedule's times the multiplier, the same update.
 """
 from __future__ import annotations
 
@@ -24,15 +30,11 @@ class OptimConfig:
     lr_iterations: float = 1e6
     lr_floor: float = 5e-5
     grad_clip: float = 0.5
-    # learning-rate multiplier of feature-grid tables; 1.0 = off
+    # feature-grid table recipe (instant-NGP: tables at ~10x the MLP's lr,
+    # a tiny Adam eps); the multiplier applies to grid_* params only,
+    # 1.0 = off
     table_lr_mult: float = 1.0
     adam_eps: float = 1e-8
-
-    def __post_init__(self):
-        if self.table_lr_mult != 1.0:
-            raise NotImplementedError(
-                'table_lr_mult: feature-grid tables are not ported yet '
-                '(ROADMAP Queue 1 item 10, grid encodings)')
 
 
 def lr_schedule(config: OptimConfig = OptimConfig()):
@@ -60,6 +62,15 @@ def clip_by_global_norm(grads: list, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def _named_leaves(tree, is_table=False) -> list:
+    """(is a grid table, tensor) for every leaf of a nested dict: a leaf is
+    a table when a key on its path starts with 'grid_'."""
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items()
+                for leaf in _named_leaves(v, is_table or str(k).startswith('grid_'))]
+    return [(is_table, tree)]
+
+
 class Optimizer:
     """Global-norm clip, then Adam on the schedule, over parameter tensors
     that the step updates in place (the JAX package's make_optimizer)."""
@@ -68,19 +79,25 @@ class Optimizer:
         self.config = config
         self.schedule = lr_schedule(config)
 
-    def init(self, params: list) -> torch.optim.Adam:
-        """The optimizer state: a torch.optim.Adam over `params`."""
-        return torch.optim.Adam(params, lr=self.schedule(0), betas=(0.9, 0.999),
-                                eps=self.config.adam_eps)
+    def init(self, params: dict) -> torch.optim.Adam:
+        """The optimizer state: a torch.optim.Adam over the tensors of the
+        nested dict `params`, the grid tables (found by key) in a group of
+        their own."""
+        leaves = _named_leaves(params)
+        groups = [{'params': [p for t, p in leaves if t == table], 'lr_mult': mult}
+                  for table, mult in ((False, 1.0), (True, self.config.table_lr_mult))]
+        return torch.optim.Adam([g for g in groups if g['params']], lr=self.schedule(0),
+                                betas=(0.9, 0.999), eps=self.config.adam_eps)
 
     def update(self, adam: torch.optim.Adam, count: int) -> torch.Tensor:
         """Clip the parameters' .grad, then take Adam's step `count` (the
-        number of updates made before this one) at lr(count). Returns the
-        global gradient norm before clipping."""
+        number of updates made before this one) at lr(count), times
+        table_lr_mult for the grid tables. Returns the global gradient norm
+        before clipping."""
         grads = [p.grad for group in adam.param_groups for p in group['params']]
         norm = clip_by_global_norm(grads, self.config.grad_clip)
         for group in adam.param_groups:
-            group['lr'] = self.schedule(count)
+            group['lr'] = self.schedule(count) * group['lr_mult']
         adam.step()
         return norm
 

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sunerf_tpu_torch.ops.grid_encoding import table_tv
 from sunerf_tpu_torch.rendering.renderer import Renderer
 from sunerf_tpu_torch.train.objective import LossConfig, render_loss
 from sunerf_tpu_torch.train.optim import Optimizer
@@ -29,12 +30,6 @@ class TrainState:
     params: dict                 # {'coarse': {...}, 'fine': {...}} leaf tensors
     opt_state: torch.optim.Optimizer
     step: int = 0                # steps taken
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
 
 
 def create_train_state(params: dict, optimizer: Optimizer,
@@ -50,7 +45,7 @@ def create_train_state(params: dict, optimizer: Optimizer,
         return tree.detach().float().clone().requires_grad_(True)
 
     params = copy(params)
-    return TrainState(params=params, opt_state=optimizer.init(_leaves(params)))
+    return TrainState(params=params, opt_state=optimizer.init(params))
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -74,8 +69,9 @@ def make_train_step(renderer: Renderer, loss_config: LossConfig,
     [B, C] (+ wavelength [B, W] for multi-channel heads), on the params'
     device. seed: the run's integer seed; the step's sampling generator is
     step_generator(seed, state.step). metrics: loss, coarse_loss, fine_loss,
-    regularization_loss, psnr as 0-d tensors (reading them waits for the
-    device).
+    regularization_loss, psnr (and table_tv, when loss_config.lambda_table_tv
+    adds lambda_table_tv * table_tv(params) to the loss) as 0-d tensors
+    (reading them waits for the device).
 
     mesh, microbatch, spike_guard and ema_decay are not ported and raise;
     donate=True raises too (the step updates its state in place)."""
@@ -93,6 +89,10 @@ def make_train_step(renderer: Renderer, loss_config: LossConfig,
         outputs = renderer(state.params, rays[:, 0], rays[:, 1], batch['time'],
                            generator=generator, wavelengths=batch.get('wavelength'))
         loss, metrics = render_loss(loss_config, outputs, batch['target_image'])
+        if loss_config.lambda_table_tv:
+            tv = table_tv(state.params)
+            loss = loss + loss_config.lambda_table_tv * tv
+            metrics = dict(metrics, loss=loss, table_tv=tv)
         state.opt_state.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.update(state.opt_state, state.step)

@@ -1,5 +1,6 @@
 """The fused kernels (csrc/fused_mlp_fwd.cu K0, fused_mlp_stash_fwd.cu K1,
-fused_mlp_stash_bwd.cu K2) against their plain PyTorch versions on the card.
+fused_mlp_stash_bwd.cu K2, and their dense feature-grid branch K5) against
+their plain PyTorch versions on the card.
 CUDA kernels have no CPU mode, so these tests need a card and skip without
 one; run them on the card with
 
@@ -10,6 +11,8 @@ Tolerances, as fractions of max|plain|:
     single rounding flips compound over the layers;
   * 3e-2 for the parameter gradients (tests/test_fused_mlp.py holds the
     JAX kernel's to 3%): bf16 dz flips compound down the chain;
+  * the grid tables' gradients (K5) within 3e-2 of max too, and
+    bit-identical run to run (fixed-point sums, no float atomics);
   * each layer of the sin stash within 1 bf16 ulp for 99.9% of entries and
     of the int8 cos stash within 1 everywhere, against the plain version fed
     the kernel's own upstream activations (fused_mlp_stash_layerwise): f32
@@ -33,10 +36,13 @@ def cuda():
     return torch.device('cuda')
 
 
-def _setup(device, n_layers, d_filter, n, requires_grad=False):
-    cfg = emission_config(n_layers=n_layers, d_filter=d_filter, n_freqs_time=3)
+def _setup(device, n_layers, d_filter, n, requires_grad=False, grid_sizes=()):
+    cfg = emission_config(n_layers=n_layers, d_filter=d_filter, n_freqs_time=3,
+                          grid_sizes=grid_sizes, grid_bound=1.3)
     gen = torch.Generator(device=device).manual_seed(n)
     params = init_nerf(gen, cfg, device)
+    for k in fused_mlp.grid_keys(cfg):
+        params[k] = params[k] * 1e4     # tables that carry signal: U(-1, 1)
     if requires_grad:
         params = {k: v.requires_grad_() for k, v in params.items()}
     pts = torch.rand(n, 4, generator=gen, device=device) * 2.6 - 1.3
@@ -129,6 +135,44 @@ def test_function_grads_match_plain_path(cuda):
         assert _rel(ref[k], params[k].grad) <= 3e-2, k
     with pytest.raises(NotImplementedError, match='K3'):
         fused_mlp.fused_mlp_forward(cfg, params, pts.clone().requires_grad_())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_layers,d_filter,grid_sizes,n', [
+    (3, 64, (8,), 1), (4, 128, (16,), 20480), (8, 512, (16, 32), 4097),
+])
+def test_grid_kernels_match_plain_versions(cuda, n_layers, d_filter, grid_sizes, n):
+    """K0, K1 and K2 with the grid branch against their plain versions, K2
+    fed K1's stash; the table gradients bit-identical over two runs; a table
+    updated in place is read by the next launch (tables are not cached)."""
+    cfg, params, pts, dy = _setup(cuda, n_layers, d_filter, n, grid_sizes=grid_sizes)
+    pts[0, :3] = 1.3                    # a point exactly on the bound
+    keys = fused_mlp.param_keys(cfg)
+    grid0 = fused_mlp.GRID_LAUNCHES
+    with torch.no_grad():
+        k0 = fused_mlp.fused_mlp_forward(cfg, params, pts)
+        out, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, params, pts)
+        ref_out, _, _ = fused_mlp.fused_mlp_stash_reference(cfg, params, pts)
+        grads = fused_mlp.fused_mlp_stash_backward(cfg, params, pts, dy, hs, cs)
+        ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, params, pts, dy, hs, cs)
+        again = fused_mlp.fused_mlp_stash_backward(cfg, params, pts, dy, hs, cs)
+    torch.cuda.synchronize()
+    assert fused_mlp.GRID_LAUNCHES == grid0 + 4
+    assert _rel(ref_out, k0) <= 2e-2 and _rel(ref_out, out) <= 2e-2
+    torch.testing.assert_close(out, k0, rtol=0, atol=0)
+    lw_hs, lw_cs = fused_mlp.fused_mlp_stash_layerwise(cfg, params, pts, hs)
+    assert float((bf16_ulps(lw_hs, hs) <= 1).float().mean()) >= 0.999
+    assert int((cs.int() - lw_cs.int()).abs().max()) <= 1
+    for k in keys:
+        assert grads[k].shape == params[k].shape, k
+        assert bool(torch.isfinite(grads[k]).all()), k
+        assert _rel(ref[k], grads[k]) <= 3e-2, (k, _rel(ref[k], grads[k]))
+        assert torch.equal(grads[k], again[k]), k
+    with torch.no_grad():
+        params['grid_0'].add_(0.5)
+        moved = fused_mlp.fused_mlp_forward(cfg, params, pts)
+        assert _rel(fused_mlp.fused_mlp_reference(cfg, params, pts), moved) <= 2e-2
+    assert not torch.equal(moved, k0)
 
 
 @pytest.mark.gpu

@@ -162,9 +162,12 @@ def test_renderer_rejects_unported_options():
         make_emission_system(device='cpu', tier_fraction=0.5)
     with pytest.raises(NotImplementedError, match='occupancy'):
         make_emission_system(device='cpu', occupancy={'nvol': [8, 8, 8]})
-    with pytest.raises(NotImplementedError, match='grid'):
-        make_emission_system(model_config=emission_config(grid_sizes=(8,)),
-                             device='cpu')
+    # feature grids are ported: dense levels take the fused path, VM levels
+    # (grid_rank) the float32 field, with a warning
+    make_emission_system(model_config=emission_config(grid_sizes=(8,)), device='cpu')
+    with pytest.warns(UserWarning, match='grid_rank'):
+        make_emission_system(model_config=emission_config(grid_sizes=(8,), grid_rank=2),
+                             use_fused=True, device='cpu')
     _, config = load_state(BUNDLE)
     spec = dict(config['renderer_spec'], head='thomson')
     with pytest.raises(NotImplementedError, match='Thomson head'):

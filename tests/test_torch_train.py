@@ -244,8 +244,8 @@ def test_render_loss_and_scalings_match_jax():
     np.testing.assert_allclose(
         image_log_scaling(torch.from_numpy(img + 0.1), vmin=-3.0, vmax=1.0).numpy(),
         (np.log(img + 0.1) + 3.0) / 4.0, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match='grid'):
-        LossConfig(lambda_table_tv=0.1)
+    # the table TV term is ported (tests/test_torch_grid.py holds it to JAX)
+    assert LossConfig(lambda_table_tv=0.1).lambda_table_tv == 0.1
 
 
 def test_lr_schedule_matches_jax():
@@ -256,8 +256,10 @@ def test_lr_schedule_matches_jax():
         np.testing.assert_allclose(sched(step), float(ref(jnp.int32(step))),
                                    rtol=1e-6, err_msg=str(step))
     assert sched(5 * 10 ** 6) == pytest.approx(5e-5)
-    with pytest.raises(NotImplementedError, match='grid'):
-        OptimConfig(table_lr_mult=10.0)
+    # the grid-table recipe leaves the schedule as it is (the multiplier
+    # scales the tables' updates: tests/test_torch_grid.py)
+    ngp = lr_schedule(OptimConfig(table_lr_mult=10.0, adam_eps=1e-15))
+    assert all(ngp(step) == sched(step) for step in (0, 1000))
 
 
 def _adam_moments(state):
@@ -285,7 +287,7 @@ def test_optimizer_matches_optax(grad_scale):
     jstate = jopt.init(jp)
     opt = make_optimizer()
     tp = {k: torch.from_numpy(v.copy()).requires_grad_() for k, v in params.items()}
-    adam = opt.init(list(tp.values()))
+    adam = opt.init(tp)
     for count, g in enumerate(grads):
         updates, jstate = jopt.update(jax.tree.map(jnp.asarray, g), jstate, jp)
         jp = optax.apply_updates(jp, updates)
