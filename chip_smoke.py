@@ -77,12 +77,36 @@ Phases (the first failure ends the run with a non-zero exit):
              at 256x256 by SuNeRFLoader(device='cuda'): 32 K0 launches, 16
              through the grid branch; the image within 3e-2 of max of the
              render through the plain version; render time.
+ 12. dpts    K1 + K2 with the point cotangent K3 at 8x512, N = 196,608, and
+             4x128, N = 20,480: dpts within 5e-2 of max of the plain version;
+             the parameter gradients bit-identical to K2's without K3; K3's
+             cost as K2-with-dpts minus K2.
+ 13. recompute  K0 + K4 (stash=False) at 8x512, N = 262,144 through the
+             autograd Function: out bit-identical to the no-grad K0; every
+             gradient within 3e-2 and dpts within 5e-2 of max of the plain
+             version; the growth of max_memory_allocated during the backward
+             at N and 2N, the same within 5% and under a quarter of the int8
+             stash path's forward + backward growth at N.
+ 14. lsb, i8pair  K6a / K6b at 8x512, N = 262,144: out bit-identical to K1's;
+             the stash layer by layer (lsb within 1 bf16 ulp of the sine for
+             99.9% with the sign bit off only where |cos| < 1e-3; i8pair
+             within 1); every gradient within 3e-2 and dpts within 5e-2 of max
+             of the plain version at the same group (768); times and bounds.
+ 15. bench_kernel  sunerf_tpu_torch/scripts/bench_kernel.py at N = 262,144, the
+             launch counts set to 0 just before: its rows (K0, the three
+             formats' fwd+bwd with K3 and fwd only, recompute fwd+bwd).
+ 16. probe_step  sunerf_tpu_torch/scripts/probe_step.py: bench.py's step under
+             {}, {'stash': False}, {'stash_format': 'lsb'} and
+             {'stash_format': 'i8pair'}: ms/step, rays/s, the launches of one
+             step (e.g. stash=False: 2 K0 + 2 K4, no K1/K2); 30 steps from the
+             same weights, finite and falling, the last loss within 1% of {}'s.
 Then it prints the card's name and power limit, one {"kernels": [...]} line
-(K0, K1, K2 and K5) and, last, {"ok": true, "device": {...}}.
+(K0, K1, K2, K3, K4, K5, K6a and K6b) and, last, {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -100,11 +124,26 @@ VIEW = dict(lat=0.3, lon=1.1, time=0.0, distance=215.0)
 MAPS = ('image', 'height_map', 'absorption_map')
 BF16_TFLOPS = 989.0          # H100 SXM dense bf16 tensor-core peak
 HBM_TBPS = 3.35              # H100 SXM device memory rate
-KERNELS = ('fused_mlp_fwd', 'fused_mlp_stash_fwd', 'fused_mlp_stash_bwd')
+INT8_TOPS = 1979.0           # H100 SXM dense int8 tensor-core peak
+KERNELS = ('fused_mlp_fwd', 'fused_mlp_stash_fwd', 'fused_mlp_stash_bwd',
+           'fused_mlp_recompute_bwd')
 KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
-# K2's launches, by kernel name (the grid ones only with grid levels)
+# K2's launches, by kernel name (the grid ones only with grid levels, the
+# i8pair ones only for that format)
 K2_KERNELS = ('chain_kernel', 'dw_kernel', 'reduce_kernel', 'grid_scatter_kernel',
-              'grid_convert_kernel')
+              'grid_convert_kernel', 'dw_i8_kernel', 'dz_absmax_kernel')
+DPTS_TOL = 5e-2
+MEM_TOL = 5e-2                # K4's backward growth at 2N against N, relative
+# the knob sets of the probe_step phase and the launches of one step
+PROBE_KNOBS = (
+    ({}, dict(LAUNCHES=0, STASH_FWD_LAUNCHES=2, STASH_BWD_LAUNCHES=2)),
+    ({'stash': False}, dict(LAUNCHES=2, RECOMPUTE_BWD_LAUNCHES=2)),
+    ({'stash_format': 'lsb'}, dict(STASH_FWD_LAUNCHES=2, STASH_BWD_LAUNCHES=2,
+                                   LSB_LAUNCHES=4)),
+    ({'stash_format': 'i8pair'}, dict(STASH_FWD_LAUNCHES=2, STASH_BWD_LAUNCHES=2,
+                                      I8PAIR_LAUNCHES=4)),
+)
+PROBE_CURVE_TOL = 1e-2
 # bench.py grid_quarter's fine field and the MIGRATION.md instant-NGP recipe
 GRID_QUARTER = dict(n_layers=4, d_filter=128, grid_sizes=(16,), grid_features=8,
                     grid_bound=1.3)
@@ -395,7 +434,9 @@ def _profile_step(step, state, batch, tag: str) -> dict:
         ms = evt.device_time / 1e3
         by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + ms
         if 'fused_mlp_fwd_kernel' in evt.name:
-            parts['K1' if 'true' in evt.name else 'K0'] += ms
+            # the second template argument is the stash format, 0 for K0
+            fmt = re.search(r'fused_mlp_fwd_kernel<\d+, (?:\([\w:]+\))?(\d)', evt.name)
+            parts['K0' if fmt and fmt.group(1) == '0' else 'K1'] += ms
         elif any(k in evt.name for k in K2_KERNELS):
             parts['K2'] += ms
         else:
@@ -835,6 +876,301 @@ def _grid_serve_phase(train: dict, device) -> dict:
     return dict(launches=launches, render_ms=render_ms, err=err)
 
 
+def _setup_field(n_layers: int, width: int, n: int, device, seed: int):
+    """An emission field of the given widths, random weights, points in the
+    sampling shell and a dy, all from a seed."""
+    from sunerf_tpu_torch.models.fields import emission_config, init_nerf
+    cfg = emission_config(n_layers=n_layers, d_filter=width)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = init_nerf(gen, cfg, device)
+    pts = torch.rand(n, 4, generator=gen, device=device) * 2.6 - 1.3
+    pts[:, 3] = torch.rand(n, generator=gen, device=device)
+    dy = torch.randn(n, cfg.d_output, generator=gen, device=device)
+    return cfg, p, pts, dy
+
+
+def _dpts_flops(cfg, n: int) -> float:
+    """K3's operations: denc over the x, sin and cos columns, and per phase
+    column the cotangent's products."""
+    n_enc = cfg.d_encoded - cfg.d_grid
+    return float(n) * (2 * n_enc * cfg.d_filter + 8 * (n_enc - cfg.d_input))
+
+
+def _dpts_phase(name: str, n_layers: int, width: int, n: int, device) -> dict:
+    """K1 + K2/K3 against the plain version: dpts, and the parameter
+    gradients bit-identical with and without K3; K3's cost."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    cfg, p, pts, dy = _setup_field(n_layers, width, n, device, seed=n + 11)
+    tag = f'[dpts] {name} {n_layers}x{width} N={n}'
+    _, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, p, pts)
+    with_dpts = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs, compute_dpts=True)
+    without = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs)
+    ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, p, pts, dy, hs, cs, compute_dpts=True)
+    torch.cuda.synchronize()
+    identical = {k: bool(torch.equal(with_dpts[k], without[k])) for k in KEYS}
+    derr = _grad_err({'dpts': ref['dpts']}, {'dpts': with_dpts['dpts']})['dpts']
+    print(f"{tag}: dpts vs plain max {derr['max_rel_err']:.2e} RMS {derr['rms_rel_err']:.2e} "
+          f"(tol {DPTS_TOL}); parameter gradients with and without K3 bit-identical: "
+          f"{identical}", flush=True)
+    _check(bool(torch.isfinite(with_dpts['dpts']).all()), f'{tag}: dpts not finite')
+    _check(derr['max_rel_err'] <= DPTS_TOL, f"{tag}: dpts vs plain {derr['max_rel_err']:.3e}")
+    _check(all(identical.values()), f'{tag}: K3 changed the parameter gradients: {identical}')
+    del ref, with_dpts, without
+    # K2 and K2 + K3 in turns (A B B A B A), the median of each
+    k2_runs, k23_runs = [], []
+    for with_k3 in (False, True, True, False, False, True):
+        ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_backward(
+            cfg, p, pts, dy, hs, cs, compute_dpts=with_k3))
+        (k23_runs if with_k3 else k2_runs).append(ms)
+    k2_ms, k23_ms = statistics.median(k2_runs), statistics.median(k23_runs)
+    plain_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_bwd_reference(
+        cfg, p, pts, dy, hs, cs, compute_dpts=True), warmup=1, reps=3)
+    plain_k2_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_bwd_reference(
+        cfg, p, pts, dy, hs, cs), warmup=1, reps=3)
+    # K3's own work: read the points, write dpts
+    bound = _bound(_dpts_flops(cfg, n), n * 4 * 2 * cfg.d_input)
+    print(f'{tag}: K2 {k2_ms:.3f} ms ({" ".join(f"{v:.3f}" for v in k2_runs)}), K2 + K3 '
+          f'{k23_ms:.3f} ms ({" ".join(f"{v:.3f}" for v in k23_runs)}): K3 '
+          f'{k23_ms - k2_ms:.3f} ms '
+          f'(bound {bound[0]:.4f} by {bound[1]}); plain K2 + K3 {plain_ms:.1f} ms, plain '
+          f'K3 {plain_ms - plain_k2_ms:.1f} ms', flush=True)
+    return dict(n=n, layers=n_layers, width=width, k2_ms=k2_ms, k2_k3_ms=k23_ms,
+                k2_runs=k2_runs, k2_k3_runs=k23_runs,
+                ms=k23_ms - k2_ms, plain_ms=plain_ms - plain_k2_ms, plain_k2_k3_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], max_abs_err=derr['max_abs_err'],
+                max_rel_err=derr['max_rel_err'], dpts_err=derr, bit_identical=identical)
+
+
+def _kernel_breakdown(fn, tag: str) -> dict:
+    """Device ms by kernel name of one fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for evt in prof.key_averages():
+        if evt.self_device_time_total > 0 and not evt.key.startswith('aten::'):
+            # the kernel's name and template arguments, without its namespaces
+            m = re.search(r'(\w+(?:<[^<>]*>)?)\(', evt.key)
+            name = m.group(1) if m else evt.key[:60]
+            by_kernel[name] = by_kernel.get(name, 0.0) + evt.self_device_time_total / 1e3
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+    print(f'[profile] {tag}: {sum(by_kernel.values()):.3f} ms of device kernels; '
+          + '; '.join(f'{k} {v:.3f}' for k, v in top.items()), flush=True)
+    return top
+
+
+def _bwd_growth(fn) -> int:
+    """Bytes by which max_memory_allocated rises over fn() above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _recompute_phase(n: int, device) -> dict:
+    """K0 + K4 through FusedMLPRecompute at 8x512: out, gradients, dpts,
+    memory at N and 2N against the int8 stash path, times."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    cfg, p, pts, dy = _setup_field(8, 512, n, device, seed=5)
+    keys = fused_mlp.param_keys(cfg)
+    tag = f'[recompute] 8x512 N={n}'
+    leaves = {k: p[k].detach().clone().requires_grad_() for k in keys}
+    x = pts.clone().requires_grad_()
+    out = fused_mlp.fused_mlp_forward(cfg, leaves, x, stash=False)
+    with torch.no_grad():
+        k0 = fused_mlp.fused_mlp_forward(cfg, p, pts)
+    same = bool(torch.equal(out.detach(), k0))
+    out.backward(dy)
+    got = dict({k: leaves[k].grad for k in keys}, dpts=x.grad)
+    ref = fused_mlp.fused_mlp_recompute_bwd_reference(cfg, p, pts, dy)
+    torch.cuda.synchronize()
+    gerr = _grad_err(ref, got)
+    print(f'{tag}: out under grad equals the no-grad K0: {same}; K4 vs plain, max / RMS: '
+          + '; '.join(f"{k} {e['max_rel_err']:.2e} / {e['rms_rel_err']:.2e}"
+                      for k, e in gerr.items()), flush=True)
+    _check(same, f'{tag}: the output under grad is not K0\'s')
+    for k, e in gerr.items():
+        _check(bool(torch.isfinite(got[k]).all()), f'{tag}: {k} not finite')
+        tol = DPTS_TOL if k == 'dpts' else GRAD_TOL
+        _check(e['max_rel_err'] <= tol, f"{tag}: {k} vs plain {e['max_rel_err']:.3e} (tol {tol})")
+    del got, ref, out, leaves, x
+    torch.cuda.empty_cache()
+
+    # memory: K4's backward at N and 2N, the int8 stash path's forward +
+    # backward at N
+    def k4_growth(m):
+        c, q, pt, d = _setup_field(8, 512, m, device, seed=6)
+        lv = [q[k].requires_grad_() for k in keys]
+        xx = pt.requires_grad_()
+        o = fused_mlp.fused_mlp_forward(c, q, xx, stash=False)
+        g = _bwd_growth(lambda: torch.autograd.grad(o, lv + [xx], d))
+        del o, lv, xx, q
+        torch.cuda.empty_cache()
+        return g
+
+    def stash_growth(m):
+        c, q, pt, d = _setup_field(8, 512, m, device, seed=6)
+        lv = [q[k].requires_grad_() for k in keys]
+
+        def run():
+            o = fused_mlp.fused_mlp_forward(c, q, pt, compute_dpts=False)
+            torch.autograd.grad(o, lv, d)
+        g = _bwd_growth(run)
+        del lv, q
+        torch.cuda.empty_cache()
+        return g
+    grow = {'k4_n': k4_growth(n), 'k4_2n': k4_growth(2 * n), 'int8_n': stash_growth(n)}
+    rel = abs(grow['k4_2n'] - grow['k4_n']) / grow['k4_n']
+    print(f"{tag}: max_memory_allocated growth: K4 backward {grow['k4_n'] / 2 ** 30:.3f} GiB "
+          f"at N, {grow['k4_2n'] / 2 ** 30:.3f} GiB at 2N ({rel:.1%} apart, tol "
+          f"{MEM_TOL:.0%}); int8 stash path forward + backward {grow['int8_n'] / 2 ** 30:.3f} "
+          f"GiB at N ({grow['k4_n'] / grow['int8_n']:.1%})", flush=True)
+    _check(rel <= MEM_TOL, f'{tag}: K4 memory grows with N: {grow}')
+    _check(grow['k4_n'] < grow['int8_n'] / 4, f'{tag}: K4 memory not under a quarter: {grow}')
+
+    k4_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_recompute_backward(cfg, p, pts, dy), reps=10)
+    k4_kernels = _kernel_breakdown(
+        lambda: fused_mlp.fused_mlp_recompute_backward(cfg, p, pts, dy), f'{tag} K4')
+    plain_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_recompute_bwd_reference(cfg, p, pts, dy),
+                        warmup=1, reps=3)
+    flops = _flops(cfg, n) + _bwd_flops(cfg, n) + _dpts_flops(cfg, n)
+    bound = _bound(flops, n * 4 * (2 * cfg.d_input + cfg.d_output) + 2 * _param_bytes(cfg))
+    print(f'{tag}: K4 {k4_ms:.3f} ms (plain {plain_ms:.1f}, bound {bound[0]:.3f} by '
+          f'{bound[1]})', flush=True)
+    return dict(n=n, ms=k4_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                max_abs_err=max(e['max_abs_err'] for e in gerr.values()),
+                max_rel_err=max(e['max_rel_err'] for e in gerr.values()), grads=gerr,
+                out_equals_k0=same, memory_bytes=grow, memory_2n_vs_n=rel,
+                kernels_ms=k4_kernels)
+
+
+def _format_phase(fmt: str, n: int, device) -> dict:
+    """K6a ('lsb') or K6b ('i8pair') at 8x512 against K1 and the plain
+    versions; times and bounds."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    cfg, p, pts, dy = _setup_field(8, 512, n, device, seed=7)
+    group = fused_mlp.STASH_BWD_TILE
+    tag = f'[{fmt}] 8x512 N={n}'
+    k1_out, k1_hs, _ = fused_mlp.fused_mlp_stash_forward(cfg, p, pts)
+    out, hs, _ = fused_mlp.fused_mlp_stash_forward(cfg, p, pts, fmt)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out, k1_out))
+    lw, _ = fused_mlp.fused_mlp_stash_layerwise(cfg, p, pts, k1_hs, fmt)
+    if fmt == 'lsb':
+        # the sine within 1 bf16 ulp (2 apart once the last bit is cleared),
+        # and the sign bit: where it differs, |cos| of the plain version's
+        # reduced pre-activation
+        bits, lw_bits = hs.view(torch.int16), lw.view(torch.int16)
+        ulp1 = float((_bf16_ulps((lw_bits & -2).view(torch.bfloat16),
+                                 (bits & -2).view(torch.bfloat16)) <= 2).float().mean())
+        off = ((bits ^ lw_bits) & 1) != 0
+        worst_cos = 0.0
+        if bool(off.any()):
+            _, ys = fused_mlp._stash_layers(cfg, p, pts, inputs=k1_hs)
+            worst_cos = float(torch.cos(torch.cat(ys, 1)[off]).abs().max())
+            del ys
+        stash = dict(within_1ulp_layerwise=ulp1, sign_bits_off=int(off.sum()),
+                     sign_off_max_abs_cos=worst_cos)
+        ok = ulp1 >= 0.999 and worst_cos < 1e-3
+    else:
+        diff = int((hs.int() - lw.int()).abs().max())
+        stash = dict(max_count_diff_layerwise=diff)
+        ok = diff <= 1
+    del lw, k1_hs
+    print(f'{tag}: out equals K1\'s: {same}; stash layer by layer {stash}', flush=True)
+    _check(same, f'{tag}: out differs from K1\'s')
+    _check(ok, f'{tag}: stash vs the layerwise plain version {stash}')
+
+    grads = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, None, fmt, True, group)
+    ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, p, pts, dy, hs, None, fmt, True, group)
+    torch.cuda.synchronize()
+    gerr = _grad_err(ref, grads)
+    print(f'{tag}: backward vs plain (group {group}), max / RMS: ' + '; '.join(
+        f"{k} {e['max_rel_err']:.2e} / {e['rms_rel_err']:.2e}" for k, e in gerr.items()),
+        flush=True)
+    for k, e in gerr.items():
+        _check(bool(torch.isfinite(grads[k]).all()), f'{tag}: {k} not finite')
+        tol = DPTS_TOL if k == 'dpts' else GRAD_TOL
+        _check(e['max_rel_err'] <= tol, f"{tag}: {k} vs plain {e['max_rel_err']:.3e} (tol {tol})")
+    del grads, ref
+    fwd_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_forward(cfg, p, pts, fmt))
+    bwd_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, None,
+                                                                 fmt, True, group))
+    fwd_plain = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_reference(cfg, p, pts, fmt),
+                         warmup=1, reps=3)
+    bwd_plain = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_bwd_reference(
+        cfg, p, pts, dy, hs, None, fmt, True, group), warmup=1, reps=3)
+    bwd_kernels = _kernel_breakdown(lambda: fused_mlp.fused_mlp_stash_backward(
+        cfg, p, pts, dy, hs, None, fmt, True, group), f'{tag} backward')
+    io = n * 4 * (cfg.d_input + cfg.d_output)
+    stash_bytes = n * cfg.n_layers * cfg.d_filter * 2
+    b_fwd = _bound(_flops(cfg, n), io + stash_bytes + _param_bytes(cfg))
+    # the backward with K3; 'i8pair' takes dW_h's products on the int8 cores
+    bwd_flops = _bwd_flops(cfg, n) + _dpts_flops(cfg, n)
+    i8_flops = 2.0 * n * (cfg.n_layers - 1) * cfg.d_filter ** 2 if fmt == 'i8pair' else 0.0
+    t_ops = ((bwd_flops - i8_flops) / (BF16_TFLOPS * 1e12)
+             + i8_flops / (INT8_TOPS * 1e12)) * 1e3
+    t_bytes = (io + stash_bytes + 2 * _param_bytes(cfg) + n * 4 * cfg.d_input) \
+        / (HBM_TBPS * 1e12) * 1e3
+    b_bwd = (max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes')
+    print(f'{tag}: forward {fwd_ms:.3f} ms (plain {fwd_plain:.1f}, bound {b_fwd[0]:.3f} by '
+          f'{b_fwd[1]}); backward with K3 {bwd_ms:.3f} ms (plain {bwd_plain:.1f}, bound '
+          f'{b_bwd[0]:.3f} by {b_bwd[1]})', flush=True)
+    return dict(n=n, group=group, fwd_ms=fwd_ms, bwd_ms=bwd_ms, ms=fwd_ms + bwd_ms,
+                fwd_plain_ms=fwd_plain, bwd_plain_ms=bwd_plain, plain_ms=fwd_plain + bwd_plain,
+                fwd_bound_ms=b_fwd[0], fwd_bound_by=b_fwd[1], bwd_bound_ms=b_bwd[0],
+                bwd_bound_by=b_bwd[1], bound_ms=b_fwd[0] + b_bwd[0],
+                bound_by='operations' if 'operations' in (b_fwd[1], b_bwd[1]) else 'bytes',
+                max_abs_err=max(e['max_abs_err'] for e in gerr.values()),
+                max_rel_err=max(e['max_rel_err'] for e in gerr.values()), grads=gerr,
+                out_equals_k1=same, stash=stash, bwd_kernels_ms=bwd_kernels)
+
+
+def _bench_kernel_phase() -> dict:
+    """The ported kernel micro-benchmark, with its launches counted."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.scripts import bench_kernel, probe_step
+    for k in probe_step.COUNTERS:
+        setattr(fused_mlp, k, 0)
+    print('[bench_kernel] python -m sunerf_tpu_torch.scripts.bench_kernel --n 262144 '
+          '(CUDA events, median of 20)', flush=True)
+    rows = bench_kernel.main(['--n', '262144'])
+    launches = probe_step.launch_counts()
+    print(f'[bench_kernel] launches over the run: {launches}', flush=True)
+    for k in ('DPTS_LAUNCHES', 'RECOMPUTE_BWD_LAUNCHES', 'LSB_LAUNCHES', 'I8PAIR_LAUNCHES'):
+        _check(launches[k] > 0, f'bench_kernel launched no {k}')
+    return dict(rows=rows, launches=launches)
+
+
+def _probe_step_phase(device) -> dict:
+    """bench.py's step under the four knob sets of the ported probe_step."""
+    from sunerf_tpu_torch.scripts import probe_step
+    rows = []
+    for knob, expect in PROBE_KNOBS:
+        row = probe_step.measure(knob, device=device, n_steps=N_CURVE)
+        launches = {k: v for k, v in row['launches'].items() if v}
+        want = {k: v for k, v in expect.items() if v}
+        print(f"[probe_step] {str(knob):28s} {row['ms']:7.2f} ms/step {row['rays_per_s']:8.0f} "
+              f"rays/s; launches of one step {launches} (expected {want}); {N_CURVE} steps "
+              f"{row['losses'][0]:.5f} -> {row['losses'][-1]:.5f}", flush=True)
+        _check(launches == want, f'probe_step {knob}: launches {launches}, not {want}')
+        _check(all(np.isfinite(row['losses'])), f'probe_step {knob}: losses not finite')
+        _check(row['losses'][-1] < row['losses'][0], f'probe_step {knob}: loss did not fall')
+        rows.append(row)
+    base = rows[0]['losses'][-1]
+    for row in rows[1:]:
+        gap = abs(row['losses'][-1] - base) / base
+        row['last_loss_vs_default'] = gap
+        print(f"[probe_step] {row['knob']}: last loss {gap:.3%} from {{}}'s (tol "
+              f"{PROBE_CURVE_TOL:.0%})", flush=True)
+        _check(gap <= PROBE_CURVE_TOL, f"probe_step {row['knob']}: last loss {gap:.3%} off")
+    return dict(rows=rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card',
@@ -1060,6 +1396,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     ngp = _ngp_phase(device)
 
+    # 12-16. the other backward paths (K3, K4, K6a, K6b) ------------------
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        dpts_rows = {'fine': _dpts_phase('fine', 8, 512, 1024 * 192, device),
+                     'proposal': _dpts_phase('proposal', 4, 128, 1024 * 20, device)}
+    torch.cuda.empty_cache()
+    recompute = _recompute_phase(262144, device)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        formats = {fmt: _format_phase(fmt, 262144, device) for fmt in ('lsb', 'i8pair')}
+    torch.cuda.empty_cache()
+    bench = _bench_kernel_phase()
+    torch.cuda.empty_cache()
+    probe = _probe_step_phase(device)
+    probe_launches = {str(r['knob']): r['launches'] for r in probe['rows']}
+
     fine = kernel_rows['fine']
     kernels = [{
         'name': 'fused_mlp_fwd', 'route': 'cuda',
@@ -1119,6 +1471,50 @@ def main() -> int:
         'train_step_float32_ms': grid_train['f32_step_ms'], 'train': grid_train,
         'ngp': ngp, 'serve': grid_serve,
     })
+    fine_dpts = dpts_rows['fine']
+    kernels.append({
+        'name': 'fused_mlp_dpts (K3, the point cotangent of K2)', 'route': 'cuda',
+        'source': 'sunerf_tpu_torch/csrc/fused_mlp_backward.cuh',
+        'replaces': 'sunerf_tpu/ops/pallas/fused_mlp.py:646',
+        'launches': bench['launches']['DPTS_LAUNCHES'],
+        'max_abs_err': max(r['max_abs_err'] for r in dpts_rows.values()),
+        'max_rel_err': max(r['max_rel_err'] for r in dpts_rows.values()),
+        'ms': fine_dpts['ms'], 'plain_ms': fine_dpts['plain_ms'],
+        'bound_ms': fine_dpts['bound_ms'], 'bound_by': fine_dpts['bound_by'],
+        'library_ms': None, 'shapes': dpts_rows,
+    })
+    kernels.append({
+        'name': 'fused_mlp_recompute_bwd (K4)', 'route': 'cuda',
+        'source': 'sunerf_tpu_torch/csrc/fused_mlp_recompute_bwd.cu',
+        'replaces': 'sunerf_tpu/ops/pallas/fused_mlp.py:834',
+        'launches': probe_launches[str({'stash': False})]['RECOMPUTE_BWD_LAUNCHES'],
+        'bench_kernel_launches': bench['launches']['RECOMPUTE_BWD_LAUNCHES'],
+        'max_abs_err': recompute['max_abs_err'], 'max_rel_err': recompute['max_rel_err'],
+        'ms': recompute['ms'], 'plain_ms': recompute['plain_ms'],
+        'bound_ms': recompute['bound_ms'], 'bound_by': recompute['bound_by'],
+        'library_ms': None, 'detail': recompute,
+    })
+    for fmt, kname, line, counter in (('lsb', 'K6a', 481, 'LSB_LAUNCHES'),
+                                      ('i8pair', 'K6b', 503, 'I8PAIR_LAUNCHES')):
+        r = formats[fmt]
+        kernels.append({
+            'name': f"fused_mlp_stash_fwd/bwd '{fmt}' ({kname})", 'route': 'cuda',
+            'source': 'sunerf_tpu_torch/csrc/fused_mlp_stash_fwd.cu',
+            'sources': ['sunerf_tpu_torch/csrc/fused_mlp_stash_fwd.cu',
+                        'sunerf_tpu_torch/csrc/fused_mlp_stash_bwd.cu',
+                        'sunerf_tpu_torch/csrc/fused_mlp_backward.cuh'],
+            'replaces': f'sunerf_tpu/ops/pallas/fused_mlp.py:{line}',
+            'launches': probe_launches[str({'stash_format': fmt})][counter],
+            'bench_kernel_launches': bench['launches'][counter],
+            'max_abs_err': r['max_abs_err'], 'max_rel_err': r['max_rel_err'],
+            'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+            'bound_by': r['bound_by'], 'library_ms': None, 'detail': r,
+        })
+    kernels[-1]['bench_kernel'] = bench['rows']
+    kernels[-1]['probe_step'] = [{k: v for k, v in row.items() if k != 'losses'}
+                                 for row in probe['rows']]
+    for k in kernels:
+        _check(k['launches'] > 0, f"{k['name']}: no launches on its path")
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

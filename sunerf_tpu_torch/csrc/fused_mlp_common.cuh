@@ -1,8 +1,9 @@
 // Device code shared by the fused-MLP kernels for Hopper (sm_90a): the
-// forward K0 (fused_mlp_fwd.cu), the stashing forward K1
-// (fused_mlp_stash_fwd.cu) and the stashing backward K2
-// (fused_mlp_stash_bwd.cu), each with the dense feature-grid branch K5. See
-// those files for what each replaces and what bounds it.
+// forward K0 (fused_mlp_fwd.cu), the stashing forwards K1, K6a and K6b
+// (fused_mlp_stash_fwd.cu) and the recompute backward's forward pass
+// (fused_mlp_recompute_bwd.cu), each with the dense feature-grid branch K5.
+// The backwards share fused_mlp_backward.cuh. See those files for what each
+// replaces and what bounds it.
 //
 // The block layout of K0 and K1 and of K2's chain kernel: 8 warps per 64
 // points; bf16 activations [64, width + 8] in dynamic shared memory; every
@@ -31,6 +32,14 @@ constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvTwoPi = 0.15915494309189535f;
 constexpr float kHalfPi = 1.5707963267948966f;
 constexpr float kCosScale = 127.0f;
+constexpr float kHalfPiSq = 2.4674011002723395f;   // (pi/2)^2 rounded to f32
+
+// What a forward writes beside its output: nothing (K0), the bf16 sin and
+// int8 cos stashes (K1, 'int8'), the packed bf16 sin with sign(cos) in its
+// last bit (K6a, 'lsb'), the int8 sin and cos pairs (K6b, 'i8pair'), or the
+// bf16 sin and bf16 cos of the recompute backward K4
+enum Stash : int { kNoStash = 0, kStashInt8 = 1, kStashLsb = 2, kStashI8pair = 3,
+                   kStashBf16Cos = 4 };
 
 // x - 2*pi*round(x / 2*pi), rounding 2*pi*k before subtracting (no fused
 // multiply-add), as the plain version does: at |x| ~ 70 that rounding is
@@ -59,6 +68,21 @@ __device__ __forceinline__ int cos8_q(float y) {
   const float c = 9.999598405e-01f + y2 * (-4.997933042e-01f + y2 * (4.149612510e-02f
                   + y2 * (-1.339285342e-03f + y2 * 1.879295230e-05f)));
   return __float2int_rn(c * kCosScale);
+}
+
+// cos on a reduced argument by the TPU kernel's degree-10 even polynomial
+// (_COS_C of fast_sincos, max abs err 7.8e-7): the recompute backward's cos
+__device__ __forceinline__ float cos10(float y) {
+  const float y2 = y * y;
+  return 9.999992216e-01f + y2 * (-4.999942681e-01f + y2 * (4.165982217e-02f
+         + y2 * (-1.385891583e-03f + y2 * (2.420439995e-05f + y2 * -2.197887694e-07f))));
+}
+
+// The bits of bf16(s) with the last mantissa bit replaced by `neg`
+// (_pack_sin_csign: 1 = cos < 0)
+__device__ __forceinline__ uint32_t pack_sin_csign(float s, bool neg) {
+  return (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(s))) & 0xFFFEu)
+         | (neg ? 1u : 0u);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -386,8 +410,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Forward of K0 and K1: kStash adds each layer's sin (bf16) and cos (int8)
-// stash, [n, (n_hidden + 1) * H] row-major each, as the TPU kernel's.
+// Forward of K0, K1, K6a, K6b and K4's recompute: kFmt (Stash) picks what
+// each layer writes beside the output, row-major with L = n_hidden + 1:
+// K1 hs bf16 [n, L*H] and cs int8 [n, L*H]; K6a hs packed bf16 [n, L*H];
+// K6b hs int8 [n, 2*L*H], layer i's sin in columns [2iH, 2iH + H) and its
+// cos in [2iH + H, 2(i+1)H); K4 hs bf16 [n, L*H] and cs bf16 [n, L*H].
 struct FwdParams {
   const float* pts;          // [n, d_in]
   const int* col_dim;        // [n_cols] input dim of each phase column
@@ -399,8 +426,8 @@ struct FwdParams {
   const __nv_bfloat16* w_out;  // [d_out][H]
   const float* b_out;        // [d_out]
   float* out;                // [n, d_out]
-  __nv_bfloat16* hs;         // [n, L*H] sin stash (K1 only)
-  int8_t* cs;                // [n, L*H] int8 cos stash (K1 only)
+  void* hs;                  // the sin stash (see above), or null for K0
+  void* cs;                  // the cos stash of K1 and K4, else null
   GridParams grid;
   int n, d_in, n_cols, e_pad, n_hidden, d_out;
 };
@@ -410,21 +437,30 @@ __host__ __device__ constexpr int act_stride(int e_pad) {
   return (H > e_pad ? H : e_pad) + kPad;
 }
 
-template <int H, bool kStash>
+// The stashing forwards add staging tiles after the two activation
+// buffers: K1 two int8 cos tiles [64, H + 16] (alternating by layer), K6a
+// and K6b one tile [64, 2H + 16] bytes (bf16 [64, H + 8] or the int8
+// pairs), which fits in the same bytes; K4's recompute keeps K1's layout
+// and writes its bf16 cos from the registers.
+template <int H, int kFmt>
 __host__ __device__ constexpr size_t fwd_smem_bytes(int e_pad) {
   return 2 * kRows * act_stride<H>(e_pad) * sizeof(__nv_bfloat16)
-         + (kStash ? 2 * kRows * (H + kCosPad) : 0);
+         + (kFmt != kNoStash ? 2 * kRows * (H + kCosPad) : 0);
 }
 
-template <int H, bool kStash>
+template <int H, int kFmt>
 __global__ void __launch_bounds__(kThreads, 1) fused_mlp_fwd_kernel(FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int stride = act_stride<H>(p.e_pad);
   constexpr int kCosStride = H + kCosPad;
+  constexpr int kStage16 = H + kPad;          // bf16 staging row stride (K6a)
+  constexpr int kStage8 = 2 * H + 16;         // int8 pair staging row stride (K6b)
   __nv_bfloat16* cur = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* nxt = cur + kRows * stride;
-  // two int8 cos staging tiles, alternating by layer (K1 only)
+  // K1: two int8 cos staging tiles, alternating by layer; K6a and K6b: one
+  // staging tile in the same bytes
   int8_t* cq_tiles = reinterpret_cast<int8_t*>(nxt + kRows * stride);
+  __nv_bfloat16* stage16 = reinterpret_cast<__nv_bfloat16*>(cq_tiles);
   const int row0 = blockIdx.x * kRows;
   const size_t stash_ld = static_cast<size_t>(p.n_hidden + 1) * H;
 
@@ -443,17 +479,25 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mlp_fwd_kernel(FwdParams p)
       block_matmul<H>(cur, stride, p.e_pad, w, acc);
     else
       block_matmul<H>(cur, stride, H, w, acc);
-    if constexpr (kStash) {
+    if constexpr (kFmt == kStashInt8 || kFmt == kStashBf16Cos) {
       int8_t* cq = cq_tiles + (layer & 1) * kRows * kCosStride;
       for_each_pair<H>(acc, [&](int row, int col, float v0, float v1) {
         const float y0 = reduce_2pi(v0 + bias[col]);
         const float y1 = reduce_2pi(v1 + bias[col + 1]);
         *reinterpret_cast<uint32_t*>(nxt + row * stride + col) =
             pack_bf16(sin_poly(y0), sin_poly(y1));
-        char2 q;
-        q.x = static_cast<char>(cos8_q(y0));
-        q.y = static_cast<char>(cos8_q(y1));
-        *reinterpret_cast<char2*>(cq + row * kCosStride + col) = q;
+        if constexpr (kFmt == kStashInt8) {
+          char2 q;
+          q.x = static_cast<char>(cos8_q(y0));
+          q.y = static_cast<char>(cos8_q(y1));
+          *reinterpret_cast<char2*>(cq + row * kCosStride + col) = q;
+        } else if (row0 + row < p.n) {
+          // K4's scratch bf16 cos, written from the registers: two staging
+          // tiles of it do not fit beside the activations at H = 512
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.cs)
+                                       + static_cast<size_t>(row0 + row) * stash_ld
+                                       + layer * H + col) = pack_bf16(cos10(y0), cos10(y1));
+        }
       });
       fence_proxy_async();
       // the previous layer's copies have read their tiles, which the next
@@ -463,8 +507,46 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mlp_fwd_kernel(FwdParams p)
       __syncthreads();
       // the sin stash is the bf16 activation that feeds the next layer; the
       // copies overlap the next layer's products
-      store_rows_bulk(nxt, stride * 2, p.hs + layer * H, stash_ld * 2, H * 2, row0, p.n);
-      store_rows_bulk(cq, kCosStride, p.cs + layer * H, stash_ld, H, row0, p.n);
+      store_rows_bulk(nxt, stride * 2, static_cast<__nv_bfloat16*>(p.hs) + layer * H,
+                      stash_ld * 2, H * 2, row0, p.n);
+      if constexpr (kFmt == kStashInt8)
+        store_rows_bulk(cq, kCosStride, static_cast<int8_t*>(p.cs) + layer * H, stash_ld, H,
+                        row0, p.n);
+    } else if constexpr (kFmt != kNoStash) {
+      // one staging tile: the previous layer's copy out of it has read it
+      bulk_wait_read();
+      __syncthreads();
+      for_each_pair<H>(acc, [&](int row, int col, float v0, float v1) {
+        const float y0 = reduce_2pi(v0 + bias[col]);
+        const float y1 = reduce_2pi(v1 + bias[col + 1]);
+        const float s0 = sin_poly(y0);
+        const float s1 = sin_poly(y1);
+        // the next layer takes bf16(sin) in every format, so out is K1's
+        *reinterpret_cast<uint32_t*>(nxt + row * stride + col) = pack_bf16(s0, s1);
+        if constexpr (kFmt == kStashLsb) {
+          *reinterpret_cast<uint32_t*>(stage16 + row * kStage16 + col) =
+              pack_sin_csign(s0, __fmul_rn(y0, y0) > kHalfPiSq)
+              | (pack_sin_csign(s1, __fmul_rn(y1, y1) > kHalfPiSq) << 16);
+        } else {
+          // the sin rounded from f32, not from its bf16
+          char2 q;
+          q.x = static_cast<char>(__float2int_rn(__fmul_rn(s0, kCosScale)));
+          q.y = static_cast<char>(__float2int_rn(__fmul_rn(s1, kCosScale)));
+          int8_t* stage8 = cq_tiles + row * kStage8;
+          *reinterpret_cast<char2*>(stage8 + col) = q;
+          q.x = static_cast<char>(cos8_q(y0));
+          q.y = static_cast<char>(cos8_q(y1));
+          *reinterpret_cast<char2*>(stage8 + H + col) = q;
+        }
+      });
+      fence_proxy_async();
+      __syncthreads();
+      if constexpr (kFmt == kStashLsb)
+        store_rows_bulk(stage16, kStage16 * 2, static_cast<__nv_bfloat16*>(p.hs) + layer * H,
+                        stash_ld * 2, H * 2, row0, p.n);
+      else
+        store_rows_bulk(cq_tiles, kStage8, static_cast<int8_t*>(p.hs) + layer * 2 * H,
+                        2 * stash_ld, 2 * H, row0, p.n);
     } else {
       for_each_pair<H>(acc, [&](int row, int col, float v0, float v1) {
         *reinterpret_cast<uint32_t*>(nxt + row * stride + col) =
@@ -495,34 +577,35 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mlp_fwd_kernel(FwdParams p)
         p.out[static_cast<size_t>(gr) * p.d_out + o] = s + p.b_out[o];
     }
   }
-  if constexpr (kStash) bulk_wait();
+  if constexpr (kFmt != kNoStash) bulk_wait();
 }
 
-template <int H, bool kStash>
+template <int H, int kFmt>
 cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<H, kStash>(p.e_pad);
+  const size_t smem = fwd_smem_bytes<H, kFmt>(p.e_pad);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<H, kStash>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_mlp_fwd_kernel<H, kFmt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + kRows - 1) / kRows);
-  fused_mlp_fwd_kernel<H, kStash><<<grid, kThreads, smem, stream>>>(p);
+  fused_mlp_fwd_kernel<H, kFmt><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kStash>
+template <int kFmt>
 int fused_mlp_fwd_entry(const FwdParams& p, int d_filter, void* stream) {
   if (p.n <= 0 || p.e_pad % 16 != 0 || !grid_ok(p.grid) ||
-      p.e_pad < p.d_in + 2 * p.n_cols + p.grid.n_levels * p.grid.features)
+      p.e_pad < p.d_in + 2 * p.n_cols + p.grid.n_levels * p.grid.features ||
+      (kFmt != kNoStash && kFmt != kStashInt8 && p.grid.n_levels > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d_filter) {
-    case 64: err = launch_fwd<64, kStash>(p, s); break;
-    case 128: err = launch_fwd<128, kStash>(p, s); break;
-    case 256: err = launch_fwd<256, kStash>(p, s); break;
-    case 384: err = launch_fwd<384, kStash>(p, s); break;
-    case 512: err = launch_fwd<512, kStash>(p, s); break;
+    case 64: err = launch_fwd<64, kFmt>(p, s); break;
+    case 128: err = launch_fwd<128, kFmt>(p, s); break;
+    case 256: err = launch_fwd<256, kFmt>(p, s); break;
+    case 384: err = launch_fwd<384, kFmt>(p, s); break;
+    case 512: err = launch_fwd<512, kFmt>(p, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

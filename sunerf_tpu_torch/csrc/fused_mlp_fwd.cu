@@ -19,7 +19,8 @@
 // bf16 tensor cores (989 TFLOP/s dense) — 3.76 Mflop per point at 8x512
 // against 16 bytes of point input and 8 bytes of output, so bytes never bind.
 // Design against that bound, simple first (the kernel body is
-// fused_mlp_fwd_kernel<H, false> in fused_mlp_common.cuh, shared with K1):
+// fused_mlp_fwd_kernel<H, kNoStash> in fused_mlp_common.cuh, shared with
+// K1, K6a, K6b and K4's recompute):
 //   * one block of 8 warps per 64 points; two bf16 activation buffers
 //     [64, max(H, E_pad) + 8] in dynamic shared memory (133 KB at H = 512)
 //     hold each layer's input and output, so activations never reach device
@@ -75,5 +76,5 @@ extern "C" int sunerf_fused_mlp_fwd(
   p.e_pad = e_pad;
   p.n_hidden = n_hidden;
   p.d_out = d_out;
-  return sunerf::fused_mlp_fwd_entry<false>(p, d_filter, stream);
+  return sunerf::fused_mlp_fwd_entry<sunerf::kNoStash>(p, d_filter, stream);
 }

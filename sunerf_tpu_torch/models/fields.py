@@ -182,20 +182,28 @@ def nerf_apply(config: NeRFConfig, params: dict, points: torch.Tensor) -> FieldO
 
 
 def nerf_apply_fused(config: NeRFConfig, params: dict, points: torch.Tensor,
+                     stash=None, stash_bwd_tile: int = 768,
                      compute_dpts: bool = True,
                      stash_format: str = 'int8') -> FieldOutput:
     """The same contract as nerf_apply, through the fused kernels
     (ops/fused_mlp.py): the hand-written CUDA kernels for CUDA tensors, their
     plain bf16-operand versions for CPU tensors. With no gradient needed it
-    is the forward K0; when a parameter needs a gradient it is the stashing
-    forward K1 with the stashing backward K2. compute_dpts=False gives the
-    points no gradient (only valid for detached points, as the renderer's
-    are); compute_dpts=True with points that need a gradient raises (K3 is
-    not ported). Dense grid levels run in the kernels' grid branch (K5);
-    only the 'int8' stash is ported. The kernels' raw output excludes the
-    DT base offsets; they are added here."""
+    is the forward K0. Under differentiation, stash=True or None (the
+    default, the JAX package's choice on its chip) is the stashing forward
+    of stash_format ('int8' K1, 'lsb' K6a, 'i8pair' K6b) with the stashing
+    backward K2 (the points' gradient K3); stash=False is K0 with the
+    recompute backward K4, which keeps no activations. compute_dpts=False
+    gives the points no gradient on the stashing path (only valid for
+    detached points, as the renderer's are). stash_bwd_tile is the 'i8pair'
+    backward's dz scale group (points per scale), the one tile size with a
+    numerical meaning; the JAX function's tile, bwd_tile and stash_tile size
+    TPU blocks and have no counterpart here. Dense grid levels run in the
+    kernels' grid branch (K5), with the 'int8' stash and no point
+    cotangent. The kernels' raw output excludes the DT base offsets; they
+    are added here."""
     from sunerf_tpu_torch.ops import fused_mlp
-    raw = fused_mlp.fused_mlp_forward(config, params, points,
+    raw = fused_mlp.fused_mlp_forward(config, params, points, stash=stash,
+                                      stash_bwd_tile=stash_bwd_tile,
                                       compute_dpts=compute_dpts,
                                       stash_format=stash_format)
     return _field_output(config, params, raw)

@@ -1,44 +1,56 @@
 """Fused positional encoding + Sine MLP: the ports of the TPU kernels of
-sunerf_tpu/ops/pallas/fused_mlp.py that the emission paths run.
+sunerf_tpu/ops/pallas/fused_mlp.py.
 
   K0 _fwd_kernel        -> csrc/fused_mlp_fwd.cu        forward, no gradient
   K1 _fwd_stash_kernel  -> csrc/fused_mlp_stash_fwd.cu  training forward,
-                           sin stash bf16 + cos stash int8
+                           sin stash bf16 + cos stash int8 ('int8')
   K2 _bwd_stash_kernel  -> csrc/fused_mlp_stash_bwd.cu  training backward
-                           (fmt 'int8', no point cotangent)
-  K5 the dense feature-grid branch of all three (_encode_grid, d_table):
+  K3 its compute_dpts=True branch -> the same file: the point cotangent
+  K4 _bwd_kernel        -> csrc/fused_mlp_recompute_bwd.cu  the recompute
+                           backward of stash=False (no activation memory)
+  K5 the dense feature-grid branch of K0-K2 (_encode_grid, d_table):
      trilinear features of each level's [G, G, G, F] table after the
      sin/cos columns (grid_feature in csrc/fused_mlp_common.cuh), and in
      K2 the tables' gradients, summed in fixed point so a run gives the
      same bits as the last
+  K6a _fwd_stash_lsb_kernel and the lsb branch of K2 ('lsb': one bf16
+      stream, sign(cos) in the sin's last bit)
+  K6b _fwd_stash_i8pair_kernel, _mm_i8 and the i8pair branch of K2
+      ('i8pair': one int8 stream of sin/cos pairs, dW_h on the int8 cores)
 
-`fused_mlp_forward` is the entry. With no gradient needed it runs K0; when a
-parameter needs one it runs `FusedMLPStash`, the autograd Function whose
-forward is K1 and whose backward is K2, as the JAX package's custom_vjp
-`_fused_mlp_stash` is. A point cotangent (K3) is not ported: the renderer
-detaches its sample points (compute_dpts=False). VM grid levels
-(grid_rank > 0) have no kernel, as in the JAX package.
+`fused_mlp_forward` is the entry, with fused_nerf_raw's knobs. With no
+gradient needed it runs K0. When a parameter (or, with compute_dpts, the
+points) needs one it runs, for stash=True (or None), `FusedMLPStash`, the
+autograd Function whose forward is the stashing forward of `stash_format`
+(K1, K6a or K6b) and whose backward is K2 (with K3 for the points), as the
+JAX package's custom_vjp `_fused_mlp_stash` is; for stash=False
+`FusedMLPRecompute`, whose forward is K0 and whose backward is K4, as
+`_fused_mlp`. VM grid levels (grid_rank > 0) have no kernel, as in the JAX
+package; dense grid levels take the 'int8' stash and no point cotangent.
 
 Each kernel's wrapper launches it for CUDA tensors, checks the CUDA error
 code the launch returns and raises on any failure; for CPU tensors it runs
 the kernel's plain PyTorch version (`fused_mlp_reference`,
-`fused_mlp_stash_reference`, `fused_mlp_stash_bwd_reference`), which
-repeats its numerics: bf16 matmul operands, f32 accumulation, f32 bias and
-the kernels' range-reduced sine. Raw outputs exclude the DT base offsets
-(nerf_apply_fused adds them).
+`fused_mlp_stash_reference`, `fused_mlp_stash_bwd_reference`,
+`fused_mlp_recompute_bwd_reference`), which repeats its numerics: bf16
+matmul operands, f32 accumulation, f32 bias and the kernels' range-reduced
+sine. Raw outputs exclude the DT base offsets (nerf_apply_fused adds them).
 
 The kernels read bf16 copies of the weights packed in mma.sync fragment
-order (W_h transposed as well, for K2), prepared once per parameter set and
-cached on the identity and version of its tensors: a training step packs
-once per field, and the optimizer's in-place update invalidates the pack.
-The grid tables are not cached: the kernels read the float32 parameters
-themselves, so an in-place update is seen by the next launch.
+order (W_h transposed as well; the posenc rows of W_in transposed for the
+point cotangent, only when a backward computes it), prepared once per
+parameter set and cached on the identity and version of its tensors: a
+training step packs once per field, and the optimizer's in-place update
+invalidates the pack. The grid tables
+are not cached: the kernels read the float32 parameters themselves, so an
+in-place update is seen by the next launch.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
@@ -50,9 +62,13 @@ from sunerf_tpu_torch.ops.grid_encoding import grid_encode, grid_encode_table_gr
 # kernel launches so far, one per wrapper call that launched: a run sets them
 # to 0 and reads them to show that its fields went through the kernels
 LAUNCHES = 0               # K0, fused_mlp_fwd
-STASH_FWD_LAUNCHES = 0     # K1, fused_mlp_stash_fwd
-STASH_BWD_LAUNCHES = 0     # K2, fused_mlp_stash_bwd
+STASH_FWD_LAUNCHES = 0     # stashing forwards, fused_mlp_stash_fwd (K1, K6a, K6b)
+STASH_BWD_LAUNCHES = 0     # stashing backwards, fused_mlp_stash_bwd (K2, K6a, K6b)
 GRID_LAUNCHES = 0          # K5: launches of K0, K1 or K2 with grid levels
+DPTS_LAUNCHES = 0          # K3: launches of the stashing backward with dpts
+RECOMPUTE_BWD_LAUNCHES = 0  # K4, fused_mlp_recompute_bwd
+LSB_LAUNCHES = 0           # K6a: 'lsb' stashing forward and backward launches
+I8PAIR_LAUNCHES = 0        # K6b: 'i8pair' stashing forward and backward launches
 
 KERNEL_WIDTHS = (64, 128, 256, 384, 512)   # d_filter values the kernels take
 MAX_BWD_OUTPUTS = 4                         # d_output values K2 takes: 1..4
@@ -60,17 +76,38 @@ MAX_GRID_LEVELS = 4                         # grid levels the kernels take
 _KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
 _NO_VM_KERNEL = ('VM grid levels (grid_rank > 0) have no fused kernel; they run '
                  'the float32 field (use_fused=False), as in the JAX package')
+_NO_GRID_DPTS = ('grid-encoding configs skip point cotangents (the renderer '
+                 'detaches sample points); pass compute_dpts=False or use nerf_apply')
+_NO_GRID_RECOMPUTE = ('grid-encoding configs differentiate through the stashing '
+                      'backward only (stash=True); the recompute backward has no '
+                      'd_table path')
 _prepared: WeakIdKeyDictionary = WeakIdKeyDictionary()
+_prepared_enc: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _TWO_PI = 6.283185307179586
 _INV_TWO_PI = 0.15915494309189535
 _HALF_PI = 1.5707963267948966
 # degree-8 even cos polynomial of the TPU kernel (_COS8_C, max abs err 4.1e-5)
 _COS8_C = (9.999598405e-01, -4.997933042e-01, 4.149612510e-02,
            -1.339285342e-03, 1.879295230e-05)
+# the TPU kernels' polynomials: odd degree-11 sin on [-pi, pi] (fast_sin)
+# and even degree-10 cos (_COS_C of fast_sincos, max abs err 7.8e-7)
+_SIN_C = (9.999995999e-01, -1.666655263e-01, 8.332402961e-03,
+          -1.980863262e-04, 2.699713829e-06, -2.036221213e-08)
+_COS_C = (9.999992216e-01, -4.999942681e-01, 4.165982217e-02,
+          -1.385891583e-03, 2.420439995e-05, -2.197887694e-07)
+_HALF_PI_SQ = 2.4674011002723395    # (pi/2)^2
 _COS_SCALE = 127.0
-# bf16(1 / 127), the dequantization factor of the int8 cos stash
+# bf16(1 / 127), the dequantization factor of the int8 stashes
 _INV_COS_SCALE_BF16 = 0.00787353515625
-_DW_TILE = 128          # K2's dW output tile (csrc/fused_mlp_stash_bwd.cu)
+# f32((1/127)^2), the i8pair dW scale factor (exact in f32, so every
+# rounding path gives the same value)
+_INV_COS_SQ = float(np.float32((1.0 / 127.0) * (1.0 / 127.0)))
+_DW_TILE = 128          # K2's dW output tile (csrc/fused_mlp_backward.cuh)
+_DPTS_COLS = 128        # K3's encoding-column chunk (the packed W_in^T's padding)
+STASH_FORMATS = ('int8', 'lsb', 'i8pair')
+_FMT_CODE = {'int8': 0, 'lsb': 1, 'i8pair': 2}
+STASH_BWD_TILE = 768    # the i8pair dz scale group: fused_nerf_raw's stash_bwd_tile
+RECOMPUTE_CHUNK = 32768  # K4's points per recompute chunk (a multiple of 64)
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -104,6 +141,50 @@ def cos8_quantized(y: torch.Tensor) -> torch.Tensor:
     d0, d1, d2, d3, d4 = _COS8_C
     c = d0 + y2 * (d1 + y2 * (d2 + y2 * (d3 + y2 * d4)))
     return torch.round(c * _COS_SCALE).to(torch.int8)
+
+
+def _sin_poly(y: torch.Tensor) -> torch.Tensor:
+    y2 = y * y
+    c0, c1, c2, c3, c4, c5 = _SIN_C
+    return y * (c0 + y2 * (c1 + y2 * (c2 + y2 * (c3 + y2 * (c4 + y2 * c5)))))
+
+
+def _cos10(y: torch.Tensor) -> torch.Tensor:
+    y2 = y * y
+    d0, d1, d2, d3, d4, d5 = _COS_C
+    return d0 + y2 * (d1 + y2 * (d2 + y2 * (d3 + y2 * (d4 + y2 * d5))))
+
+
+def fast_sincos(x: torch.Tensor):
+    """(sin x, cos x) of one range reduction, the TPU kernels' fast_sincos
+    (the recompute backward's sin and its degree-10 cos), every operation
+    rounded on its own: the JAX function's bits, op by op."""
+    y = _reduce(x)
+    return _sin_poly(y), _cos10(y)
+
+
+def fast_sin_csign(x: torch.Tensor):
+    """(sin x, cos x < 0): the sign from y^2 > (pi/2)^2 of the reduced y,
+    the 'lsb' stash's bit (fast_sin_csign)."""
+    y = _reduce(x)
+    return _sin_poly(y), y * y > _HALF_PI_SQ
+
+
+def pack_sin_csign(h: torch.Tensor, neg_cos: torch.Tensor) -> torch.Tensor:
+    """bf16 h with its last mantissa bit replaced by neg_cos (1 = cos < 0):
+    the 'lsb' stash (_pack_sin_csign)."""
+    bits = h.to(torch.bfloat16).view(torch.int16)
+    bits = (bits & -2) | neg_cos.to(torch.int16)
+    return bits.view(torch.bfloat16)
+
+
+def unpack_sin_cos(raw: torch.Tensor):
+    """Inverse of pack_sin_csign: (raw, bf16 cos), cos = sign sqrt(max(1 -
+    s^2, 0)) in f32 from the packed value s itself (_unpack_sin_cos)."""
+    neg = (raw.view(torch.int16) & 1) != 0
+    s = raw.float()
+    c = torch.sqrt(torch.clamp_min(1.0 - s * s, 0.0))
+    return raw, torch.where(neg, -c, c).to(torch.bfloat16)
 
 
 def grid_keys(config: NeRFConfig) -> tuple:
@@ -153,77 +234,119 @@ def fused_mlp_reference(config: NeRFConfig, params: dict,
 
 def _stash_layers(config: NeRFConfig, params: dict, points: torch.Tensor,
                   inputs: torch.Tensor = None):
-    """Each Sine layer's (bf16 sin, int8 cos8) of one range-reduced
-    pre-activation. Layer i+1's input is layer i's bf16 sin, or, given
-    `inputs` (a sin stash), that stash's block i."""
+    """Each Sine layer's (bf16 sin, range-reduced pre-activation y). Layer
+    i+1's input is layer i's bf16 sin, or, given `inputs` (a bf16 sin
+    stash), that stash's block i."""
     H = config.d_filter
     h = _encode(config, params, points)
-    hs, cs = [], []
+    hs, ys = [], []
     for i, (w, b) in enumerate(_layers(params)):
         y = _reduce(_mm(h, w) + b)
         hs.append(torch.sin(y).to(torch.bfloat16))
-        cs.append(cos8_quantized(y))
+        ys.append(y)
         h = hs[-1] if inputs is None else inputs[:, i * H:(i + 1) * H]
-    return hs, cs
+    return hs, ys
+
+
+def _stash_of(fmt: str, hs: list, ys: list):
+    """(hs, cs) of a stash format from each layer's bf16 sin and reduced y:
+    'int8' bf16 sin and int8 cos8 x127; 'lsb' the sin packed with the cos
+    sign (cs None); 'i8pair' [round(127 sin) | int8 cos8] per layer in one
+    int8 row (cs None)."""
+    if fmt == 'int8':
+        return torch.cat(hs, 1), torch.cat([cos8_quantized(y) for y in ys], 1)
+    if fmt == 'lsb':
+        return torch.cat([pack_sin_csign(h, y * y > _HALF_PI_SQ)
+                          for h, y in zip(hs, ys)], 1), None
+    if fmt == 'i8pair':
+        return torch.cat([t for y in ys for t in (
+            torch.round(torch.sin(y) * _COS_SCALE).to(torch.int8), cos8_quantized(y))],
+            1), None
+    raise ValueError(f'stash_format must be one of {STASH_FORMATS}, got {fmt!r}')
 
 
 def fused_mlp_stash_reference(config: NeRFConfig, params: dict,
-                              points: torch.Tensor):
-    """Plain PyTorch version of K1 -> (out [N, d_out] f32, hs [N, L*H] bf16,
-    cs [N, L*H] int8). out is K0's (bit for bit fused_mlp_reference's);
-    layer i's block of hs is the bf16 sine that feeds layer i+1, and of cs
-    the int8 cos8 of the same reduced argument."""
-    hs, cs = _stash_layers(config, params, points)
+                              points: torch.Tensor, fmt: str = 'int8'):
+    """Plain PyTorch version of the stashing forwards -> (out [N, d_out]
+    f32, hs, cs). out is K0's (bit for bit fused_mlp_reference's). 'int8'
+    (K1): hs [N, L*H] bf16, layer i's block the bf16 sine that feeds layer
+    i+1, and cs [N, L*H] the int8 cos8 of the same reduced argument; 'lsb'
+    (K6a): hs the packed bf16 sin, cs None; 'i8pair' (K6b): hs int8
+    [N, 2*L*H], cs None."""
+    hs, ys = _stash_layers(config, params, points)
     out = _mm(hs[-1], params['w_out']) + params['b_out']
-    return out, torch.cat(hs, 1), torch.cat(cs, 1)
+    return (out, *_stash_of(fmt, hs, ys))
 
 
 def fused_mlp_stash_layerwise(config: NeRFConfig, params: dict,
-                              points: torch.Tensor, hs: torch.Tensor):
-    """(hs, cs) of the plain version with each layer's input taken from the
-    given sin stash (layer 0's from the encoding): the stash that a kernel
-    should write given its own upstream activations. Holding a kernel's
-    stash to it isolates each layer's roundings from the bf16 flips
-    upstream, which compound over the layers."""
-    out_hs, out_cs = _stash_layers(config, params, points, inputs=hs)
-    return torch.cat(out_hs, 1), torch.cat(out_cs, 1)
+                              points: torch.Tensor, hs: torch.Tensor,
+                              fmt: str = 'int8'):
+    """(hs, cs) of the plain version in format `fmt` with each layer's
+    input taken from the given bf16 sin stash (K1's hs; layer 0's input
+    from the encoding): the stash that a kernel should write given its own
+    upstream activations, which are K1's in every format. Holding a
+    kernel's stash to it isolates each layer's roundings from the bf16
+    flips upstream, which compound over the layers."""
+    return _stash_of(fmt, *_stash_layers(config, params, points, inputs=hs))
 
 
-def fused_mlp_stash_bwd_reference(config: NeRFConfig, params: dict,
-                                  points: torch.Tensor, dy: torch.Tensor,
-                                  hs: torch.Tensor, cs: torch.Tensor) -> dict:
-    """Plain PyTorch version of K2 -> parameter gradients in the JAX layout
-    (w_in [E, H], b_in [H], w_h [L-1, H, H], b_h [L-1, H], w_out [H, O],
-    b_out [O], grid_i [G, G, G, F]), f32. The TPU kernel's roundings: dy
-    enters both its products as bf16; the dequantized cos is
-    bf16(bf16(cs) * bf16(1/127)); dz is the bf16 product of bf16(dh) and
-    that; products take bf16 operands and accumulate in f32; bias gradients
-    sum dz (and dy) in f32; the encoding is recomputed from the points. A
-    grid level's cotangent is dz_0 bf16(w_in[its rows])^T, spread over its
-    table by grid_encode_table_grad (float32 index_add)."""
+def _dw_i8(s8: torch.Tensor, dz: torch.Tensor, group: int) -> torch.Tensor:
+    """The i8pair dW_h: per group of `group` points, m = max|dz| (f32),
+    scale = 127 / m (0 when m = 0), dz8 = round_half_even(dz scale); the
+    group's exact integer sum s8^T dz8 (float64 products of integers below
+    2^53) to f32, times f32(m * (1/127)^2), summed over the groups in
+    order in f32."""
+    n, H = dz.shape
+    acc = torch.zeros((s8.shape[1], H), dtype=torch.float32, device=dz.device)
+    for g0 in range(0, n, group):
+        d = dz[g0:g0 + group]
+        m = d.abs().max()
+        scale = torch.where(m > 0, _COS_SCALE / m, torch.zeros_like(m))
+        dz8 = torch.round(d * scale)
+        prod = (s8[g0:g0 + group].double().t() @ dz8.double()).float()
+        acc = acc + prod * (m * _INV_COS_SQ)
+    return acc
+
+
+def _point_cotangent(config: NeRFConfig, params: dict, points: torch.Tensor,
+                     dz0: torch.Tensor) -> torch.Tensor:
+    """K3: dpts = denc_x + (cos u dsin - sin u dcos) K^T with denc =
+    dz_0 bf16(W_in[:n_enc])^T over the x, sin and cos columns, u = x K in
+    f32 and its sine and cosine by the kernels' range reduction."""
+    D = config.d_input
+    dims, freqs = encoding_columns(D, config.n_freqs, config.scale_factor,
+                                   config.n_freqs_time)
+    nc = len(dims)
+    denc = dz0 @ _bf(params['w_in'][:D + 2 * nc]).t()
+    f = torch.tensor(freqs, dtype=points.dtype, device=points.device)
+    u = points[:, dims] * f
+    du = reduced_sin(u + _HALF_PI) * denc[:, D:D + nc] - reduced_sin(u) * denc[:, D + nc:]
+    k = torch.zeros((D, nc), dtype=points.dtype, device=points.device)
+    k[torch.tensor(dims, device=points.device), torch.arange(nc, device=points.device)] = f
+    return denc[:, :D] + du @ k.t()
+
+
+def _chain_grads(config: NeRFConfig, params: dict, points: torch.Tensor,
+                 dy: torch.Tensor, sin_, cos_, dw_h, compute_dpts: bool) -> dict:
+    """The backward of every format given the layers' stashed sin (the dW
+    operand), their gate cos and the hidden layers' dW product; with
+    compute_dpts the point cotangent under 'dpts'."""
     H, L = config.d_filter, config.n_layers
-
-    def sin_(i):
-        return hs[:, i * H:(i + 1) * H].float()
-
-    def cos_(i):
-        return _bf(cs[:, i * H:(i + 1) * H].float() * _INV_COS_SCALE_BF16)
-
     dyb = _bf(dy)
     grads = {'w_out': sin_(L - 1).t() @ dyb, 'b_out': dy.sum(0)}
     dh = dyb @ _bf(params['w_out']).t()
-    dw_h, db_h = [None] * (L - 1), [None] * (L - 1)
+    dws, dbs = [None] * (L - 1), [None] * (L - 1)
     for i in range(L - 2, -1, -1):
         dz = _bf(_bf(dh) * cos_(i + 1))
-        dw_h[i] = sin_(i).t() @ dz
-        db_h[i] = dz.sum(0)
+        dws[i] = dw_h(i, dz)
+        dbs[i] = dz.sum(0)
         dh = dz @ _bf(params['w_h'][i]).t()
     dz = _bf(_bf(dh) * cos_(0))
     grads['w_in'] = _bf(_encode(config, params, points)).t() @ dz
     grads['b_in'] = dz.sum(0)
     empty = torch.zeros((0, H), dtype=torch.float32, device=points.device)
-    grads['w_h'] = torch.stack(dw_h) if dw_h else empty.reshape(0, H, H)
-    grads['b_h'] = torch.stack(db_h) if db_h else empty
+    grads['w_h'] = torch.stack(dws) if dws else empty.reshape(0, H, H)
+    grads['b_h'] = torch.stack(dbs) if dbs else empty
     if config.grid_sizes:
         F_ = config.grid_features
         off = _grid_offset(config)
@@ -231,7 +354,73 @@ def fused_mlp_stash_bwd_reference(config: NeRFConfig, params: dict,
         for i, (k, g) in enumerate(zip(grid_keys(config), config.grid_sizes)):
             grads[k] = grid_encode_table_grad(points, denc[:, i * F_:(i + 1) * F_],
                                               g, config.grid_bound)
+    if compute_dpts:
+        grads['dpts'] = _point_cotangent(config, params, points, dz)
     return grads
+
+
+def fused_mlp_stash_bwd_reference(config: NeRFConfig, params: dict,
+                                  points: torch.Tensor, dy: torch.Tensor,
+                                  hs: torch.Tensor, cs: torch.Tensor,
+                                  fmt: str = 'int8', compute_dpts: bool = False,
+                                  group: int = STASH_BWD_TILE) -> dict:
+    """Plain PyTorch version of the stashing backward -> parameter gradients
+    in the JAX layout (w_in [E, H], b_in [H], w_h [L-1, H, H], b_h [L-1, H],
+    w_out [H, O], b_out [O], grid_i [G, G, G, F]), f32, and with
+    compute_dpts the point cotangent (K3) under 'dpts' [N, d_in]. The TPU
+    kernel's roundings: dy enters both its products as bf16; dz is the bf16
+    product of bf16(dh) and the layer's gate; products take bf16 operands
+    and accumulate in f32; bias gradients sum dz (and dy) in f32; the
+    encoding is recomputed from the points. The gate and the stashed sin by
+    format: 'int8' (K2) bf16(bf16(cs) * bf16(1/127)) and hs; 'lsb' (K6a)
+    bf16(sign sqrt(max(1 - s^2, 0))) of the packed hs in f32, and the packed
+    hs itself; 'i8pair' (K6b) bf16(bf16(q) * bf16(1/127)) of the int8 cos
+    and sin, and dW_h from the int8 sin and dz quantized per group of
+    `group` points (_dw_i8). A grid level's cotangent is dz_0
+    bf16(w_in[its rows])^T, spread over its table by grid_encode_table_grad
+    (float32 index_add)."""
+    H = config.d_filter
+    if fmt == 'i8pair':
+        def sin8(i):
+            return hs[:, 2 * i * H:2 * i * H + H]
+
+        def sin_(i):
+            return _bf(sin8(i).float() * _INV_COS_SCALE_BF16)
+
+        def cos_(i):
+            return _bf(hs[:, 2 * i * H + H:2 * (i + 1) * H].float() * _INV_COS_SCALE_BF16)
+
+        def dw_h(i, dz):
+            return _dw_i8(sin8(i), dz, group)
+    else:
+        def sin_(i):
+            return hs[:, i * H:(i + 1) * H].float()
+
+        if fmt == 'lsb':
+            def cos_(i):
+                return unpack_sin_cos(hs[:, i * H:(i + 1) * H])[1].float()
+        elif fmt == 'int8':
+            def cos_(i):
+                return _bf(cs[:, i * H:(i + 1) * H].float() * _INV_COS_SCALE_BF16)
+        else:
+            raise ValueError(f'stash_format must be one of {STASH_FORMATS}, got {fmt!r}')
+
+        def dw_h(i, dz):
+            return sin_(i).t() @ dz
+    return _chain_grads(config, params, points, dy, sin_, cos_, dw_h, compute_dpts)
+
+
+def fused_mlp_recompute_bwd_reference(config: NeRFConfig, params: dict,
+                                      points: torch.Tensor, dy: torch.Tensor) -> dict:
+    """Plain PyTorch version of K4 -> the parameter gradients and 'dpts'
+    [N, d_in]: the forward again with each layer's bf16 sin and
+    bf16(cos10(y)) (fast_sincos's degree-10 cos of the reduced y), then K2's
+    gradient math with that bf16 cos as the gate, and K3's point
+    cotangent."""
+    hs, ys = _stash_layers(config, params, points)
+    cs = [_bf(_cos10(y)) for y in ys]
+    return _chain_grads(config, params, points, dy, lambda i: hs[i].float(),
+                        lambda i: cs[i], lambda i, dz: hs[i].float().t() @ dz, True)
 
 
 def pack_fragments(w: torch.Tensor) -> torch.Tensor:
@@ -299,6 +488,24 @@ def _kernel_weights(config: NeRFConfig, params: dict) -> _KernelWeights:
     if hit is None or hit[0] != stamp:
         hit = (stamp, _prepare(config, params))
         _prepared[params['w_in']] = hit
+    return hit[1]
+
+
+def _enc_weights(config: NeRFConfig, w_in: torch.Tensor) -> torch.Tensor:
+    """Packed fragments of w_in[:n_enc]^T, the x, sin and cos rows, columns
+    padded to a multiple of 128: the point cotangent's (K3, K4) operand,
+    prepared only for the backwards that compute it and cached like
+    _kernel_weights."""
+    stamp = (config, id(w_in), _version(w_in))
+    hit = _prepared_enc.get(w_in)
+    if hit is None or hit[0] != stamp:
+        n_enc = config.d_input + 2 * len(encoding_columns(
+            config.d_input, config.n_freqs, config.scale_factor, config.n_freqs_time)[0])
+        with torch.no_grad():
+            w_t = F.pad(w_in[:n_enc].float().t(), (0, -(-n_enc // _DPTS_COLS) * _DPTS_COLS
+                                                    - n_enc))
+            hit = (stamp, pack_fragments(w_t))
+        _prepared_enc[w_in] = hit
     return hit[1]
 
 
@@ -417,28 +624,56 @@ def _forward_k0(config: NeRFConfig, params: dict,
     return out
 
 
+def _count_format(fmt: str):
+    global LSB_LAUNCHES, I8PAIR_LAUNCHES
+    if fmt == 'lsb':
+        LSB_LAUNCHES += 1
+    elif fmt == 'i8pair':
+        I8PAIR_LAUNCHES += 1
+
+
+def _check_format(config: NeRFConfig, fmt: str):
+    if fmt not in STASH_FORMATS:
+        raise ValueError(f'stash_format must be one of {STASH_FORMATS}, got {fmt!r}')
+    if config.grid_sizes and fmt != 'int8':
+        raise NotImplementedError(f'grid-encoding configs support the int8 stash '
+                                  f'only, got {fmt!r}')
+
+
+def _stash_shapes(config: NeRFConfig, n: int, fmt: str) -> dict:
+    """The stash tensors' (shape, dtype) of each format."""
+    lh = config.n_layers * config.d_filter
+    return {'int8': ((n, lh), torch.bfloat16, (n, lh), torch.int8),
+            'lsb': ((n, lh), torch.bfloat16, None, None),
+            'i8pair': ((n, 2 * lh), torch.int8, None, None)}[fmt]
+
+
 def fused_mlp_stash_forward(config: NeRFConfig, params: dict,
-                            points: torch.Tensor):
-    """The K1 wrapper -> (out [N, d_out] f32, hs [N, L*H] bf16, cs [N, L*H]
-    int8). CUDA tensors launch the kernel (or raise), CPU tensors run its
+                            points: torch.Tensor, fmt: str = 'int8'):
+    """The stashing forward's wrapper (K1 'int8', K6a 'lsb', K6b 'i8pair')
+    -> (out [N, d_out] f32, hs, cs) as fused_mlp_stash_reference returns
+    them. CUDA tensors launch the kernel (or raise), CPU tensors run its
     plain version."""
     global STASH_FWD_LAUNCHES
+    _check_format(config, fmt)
     if points.device.type == 'cpu':
-        return fused_mlp_stash_reference(config, params, points)
+        return fused_mlp_stash_reference(config, params, points, fmt)
     _check(config, params, points)
-    n, lh = points.shape[0], config.n_layers * config.d_filter
-    dev = points.device
+    n, dev = points.shape[0], points.device
+    hs_shape, hs_dtype, cs_shape, cs_dtype = _stash_shapes(config, n, fmt)
     out = torch.empty((n, config.d_output), dtype=torch.float32, device=dev)
-    hs = torch.empty((n, lh), dtype=torch.bfloat16, device=dev)
-    cs = torch.empty((n, lh), dtype=torch.int8, device=dev)
+    hs = torch.empty(hs_shape, dtype=hs_dtype, device=dev)
+    cs = None if cs_shape is None else torch.empty(cs_shape, dtype=cs_dtype, device=dev)
     if n == 0:
         return out, hs, cs
     w = _kernel_weights(config, params)
     grid = _grid_args(config, params)
-    _launch('fused_mlp_stash_fwd', 13, 7, dev, *_fwd_args(w, points, grid, out),
-            hs.data_ptr(), cs.data_ptr(), *_fwd_ints(config, w, n))
+    _launch('fused_mlp_stash_fwd', 13, 8, dev, *_fwd_args(w, points, grid, out),
+            hs.data_ptr(), None if cs is None else cs.data_ptr(),
+            *_fwd_ints(config, w, n), _FMT_CODE[fmt])
     STASH_FWD_LAUNCHES += 1
     _count_grid(config)
+    _count_format(fmt)
     return out, hs, cs
 
 
@@ -454,7 +689,8 @@ def _dw_splits(config: NeRFConfig, n: int, e_pad: int, sm_count: int) -> int:
 def _grads_from_flat(config: NeRFConfig, grad_chain: torch.Tensor,
                      grad_dw: torch.Tensor, grad_grid: torch.Tensor,
                      e_pad: int) -> dict:
-    """K2's f32 output buffers -> gradients in the JAX layout (views)."""
+    """The backwards' f32 output buffers -> gradients in the JAX layout
+    (views)."""
     H, L, O = config.d_filter, config.n_layers, config.d_output
     db = grad_chain[O * H + O:].view(L, H)
     grads = {'w_in': grad_dw[:e_pad * H].view(e_pad, H)[:config.d_encoded],
@@ -470,24 +706,48 @@ def _grads_from_flat(config: NeRFConfig, grad_chain: torch.Tensor,
     return grads
 
 
+def _check_backward(config: NeRFConfig, dy: torch.Tensor, n: int, dev):
+    if not 1 <= config.d_output <= MAX_BWD_OUTPUTS:
+        raise ValueError(f'the backward kernels take d_output in 1..'
+                         f'{MAX_BWD_OUTPUTS}, got {config.d_output}')
+    _check_tensor('dy', dy, (n, config.d_output), torch.float32, dev)
+
+
+def _check_group(group: int):
+    """The i8pair scale group on the card: whole 32-point dW chunks, and
+    int32 sums that cannot overflow."""
+    if group < 32 or group % 32 or group * 127 * 127 >= 2 ** 31:
+        raise ValueError(f'the i8pair kernel takes stash_bwd_tile a multiple of 32 '
+                         f'below {2 ** 31 // 127 ** 2}, got {group}')
+
+
 def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
                              points: torch.Tensor, dy: torch.Tensor,
-                             hs: torch.Tensor, cs: torch.Tensor) -> dict:
-    """The K2 wrapper -> parameter gradients in the JAX layout (see
-    fused_mlp_stash_bwd_reference). CUDA tensors launch the kernel (or
-    raise), CPU tensors run its plain version."""
-    global STASH_BWD_LAUNCHES
+                             hs: torch.Tensor, cs, fmt: str = 'int8',
+                             compute_dpts: bool = False,
+                             group: int = STASH_BWD_TILE) -> dict:
+    """The stashing backward's wrapper (K2, with K3 for compute_dpts, K6a
+    'lsb', K6b 'i8pair' with its dz scale group of `group` points) ->
+    parameter gradients in the JAX layout and, with compute_dpts, 'dpts'
+    (see fused_mlp_stash_bwd_reference). CUDA tensors launch the kernels
+    (or raise), CPU tensors run their plain version."""
+    global STASH_BWD_LAUNCHES, DPTS_LAUNCHES
+    _check_format(config, fmt)
+    if compute_dpts and config.grid_sizes:
+        raise NotImplementedError(_NO_GRID_DPTS)
     if points.device.type == 'cpu':
-        return fused_mlp_stash_bwd_reference(config, params, points, dy, hs, cs)
+        return fused_mlp_stash_bwd_reference(config, params, points, dy, hs, cs, fmt,
+                                             compute_dpts, group)
     _check(config, params, points)
-    if not 1 <= config.d_output <= MAX_BWD_OUTPUTS:
-        raise ValueError(f'the stashing backward takes d_output in 1..'
-                         f'{MAX_BWD_OUTPUTS}, got {config.d_output}')
     dev = points.device
     n, H, L, O = points.shape[0], config.d_filter, config.n_layers, config.d_output
-    _check_tensor('dy', dy, (n, O), torch.float32, dev)
-    _check_tensor('hs', hs, (n, L * H), torch.bfloat16, dev)
-    _check_tensor('cs', cs, (n, L * H), torch.int8, dev)
+    _check_backward(config, dy, n, dev)
+    hs_shape, hs_dtype, cs_shape, cs_dtype = _stash_shapes(config, n, fmt)
+    _check_tensor('hs', hs, hs_shape, hs_dtype, dev)
+    if cs_shape is not None:
+        _check_tensor('cs', cs, cs_shape, cs_dtype, dev)
+    if fmt == 'i8pair':
+        _check_group(group)
     w = _kernel_weights(config, params)
     e_pad = w.e_pad
     f32 = dict(dtype=torch.float32, device=dev)
@@ -495,10 +755,12 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
     grad_dw = torch.empty(e_pad * H + (L - 1) * H * H, **f32)
     n_table = sum(g ** 3 for g in config.grid_sizes) * config.grid_features
     grad_grid = torch.empty(n_table, **f32)
+    dpts = torch.empty((n, config.d_input), **f32) if compute_dpts else None
     if n == 0:
         for t in (grad_chain, grad_dw, grad_grid):
             t.zero_()
-        return _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
+        grads = _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
+        return dict(grads, dpts=dpts) if compute_dpts else grads
     splits = _dw_splits(config, n, e_pad,
                         torch.cuda.get_device_properties(dev).multi_processor_count)
     dz = torch.empty((n, L * H), dtype=torch.bfloat16, device=dev)
@@ -511,31 +773,94 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
     dgrid = torch.empty((n, config.d_grid), **f32)
     gmax = torch.zeros(len(config.grid_sizes), dtype=torch.int32, device=dev)
     gacc = torch.zeros(n_table, dtype=torch.int64, device=dev)
-    _launch('fused_mlp_stash_bwd', 20, 8, dev,
+    # i8pair: each group's max |dz_j| of the hidden layers
+    dz_max = (torch.empty((-(-n // group), max(L - 1, 1)), **f32) if fmt == 'i8pair'
+              else None)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    _launch('fused_mlp_stash_bwd', 23, 10, dev,
             points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
-            dy.data_ptr(), hs.data_ptr(), cs.data_ptr(), w.w_h_t.data_ptr(),
+            dy.data_ptr(), hs.data_ptr(), ptr(cs), w.w_h_t.data_ptr(),
             w.w_out.data_ptr(), dz.data_ptr(), enc.data_ptr(),
             part_chain.data_ptr(), part_dw.data_ptr(), grad_chain.data_ptr(),
             grad_dw.data_ptr(), ctypes.addressof(grid), w.w_grid.data_ptr(),
             dgrid.data_ptr(), gmax.data_ptr(), gacc.data_ptr(), grad_grid.data_ptr(),
-            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, splits)
+            ptr(dpts), ptr(_enc_weights(config, params['w_in']) if compute_dpts else None),
+            ptr(dz_max),
+            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, splits,
+            _FMT_CODE[fmt], group)
     STASH_BWD_LAUNCHES += 1
     _count_grid(config)
-    return _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
+    _count_format(fmt)
+    grads = _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
+    if compute_dpts:
+        DPTS_LAUNCHES += 1
+        grads['dpts'] = dpts
+    return grads
+
+
+def fused_mlp_recompute_backward(config: NeRFConfig, params: dict,
+                                 points: torch.Tensor, dy: torch.Tensor) -> dict:
+    """The K4 wrapper -> parameter gradients and 'dpts' (see
+    fused_mlp_recompute_bwd_reference). Its scratch is sized by
+    RECOMPUTE_CHUNK points, not N. CUDA tensors launch the kernels (or
+    raise), CPU tensors run the plain version."""
+    global RECOMPUTE_BWD_LAUNCHES
+    if config.grid_sizes:
+        raise NotImplementedError(_NO_GRID_RECOMPUTE)
+    if points.device.type == 'cpu':
+        return fused_mlp_recompute_bwd_reference(config, params, points, dy)
+    _check(config, params, points)
+    dev = points.device
+    n, H, L, O = points.shape[0], config.d_filter, config.n_layers, config.d_output
+    _check_backward(config, dy, n, dev)
+    w = _kernel_weights(config, params)
+    e_pad = w.e_pad
+    f32 = dict(dtype=torch.float32, device=dev)
+    grad_chain = torch.empty(O * H + O + L * H, **f32)
+    grad_dw = torch.empty(e_pad * H + (L - 1) * H * H, **f32)
+    dpts = torch.empty((n, config.d_input), **f32)
+    if n == 0:
+        grad_chain.zero_()
+        grad_dw.zero_()
+        return dict(_grads_from_flat(config, grad_chain, grad_dw, grad_chain[:0], e_pad),
+                    dpts=dpts)
+    c = min(RECOMPUTE_CHUNK, -(-n // 64) * 64)
+    splits = _dw_splits(config, c, e_pad,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    hs, cs, dz = (torch.empty((c, L * H), **bf16) for _ in range(3))
+    out = torch.empty((c, O), **f32)
+    enc = torch.empty((c, e_pad), **bf16)
+    part_chain = torch.empty((c // 64, grad_chain.numel()), **f32)
+    part_dw = torch.empty((splits, grad_dw.numel()), **f32)
+    _launch('fused_mlp_recompute_bwd', 22, 9, dev,
+            points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
+            w.w_in.data_ptr(), w.b_in.data_ptr(), w.w_h.data_ptr(), w.b_h.data_ptr(),
+            w.w_out.data_ptr(), w.b_out.data_ptr(), dy.data_ptr(), w.w_h_t.data_ptr(),
+            _enc_weights(config, params['w_in']).data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            out.data_ptr(),
+            dz.data_ptr(), enc.data_ptr(), part_chain.data_ptr(), part_dw.data_ptr(),
+            grad_chain.data_ptr(), grad_dw.data_ptr(), dpts.data_ptr(),
+            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, splits, c)
+    RECOMPUTE_BWD_LAUNCHES += 1
+    return dict(_grads_from_flat(config, grad_chain, grad_dw, grad_chain[:0], e_pad),
+                dpts=dpts)
 
 
 class FusedMLPStash(torch.autograd.Function):
     """raw = the field at `points`, differentiable in the parameters (the
-    MLP's, then any grid tables: param_keys order): the forward is K1
-    (fused_mlp_stash_forward), which stashes each layer's sin and cos for
-    the backward, K2 (fused_mlp_stash_backward). The points get no gradient
-    (None), as with the JAX kernel's compute_dpts=False."""
+    MLP's, then any grid tables: param_keys order) and, with compute_dpts,
+    in the points: the forward is the stashing forward of `fmt` (K1, K6a or
+    K6b: fused_mlp_stash_forward), which stashes each layer's sin and cos
+    for the backward, the stashing backward (K2 / K6a / K6b, with K3 for
+    the points: fused_mlp_stash_backward). Without compute_dpts the points
+    get no gradient (None), as with the JAX kernel's compute_dpts=False."""
 
     @staticmethod
-    def forward(ctx, config, points, *weights):
+    def forward(ctx, config, points, fmt, compute_dpts, group, *weights):
         params = dict(zip(param_keys(config), weights))
-        out, hs, cs = fused_mlp_stash_forward(config, params, points)
-        ctx.config = config
+        out, hs, cs = fused_mlp_stash_forward(config, params, points, fmt)
+        ctx.config, ctx.fmt, ctx.compute_dpts, ctx.group = config, fmt, compute_dpts, group
         ctx.save_for_backward(points, hs, cs, *weights)
         return out
 
@@ -543,43 +868,67 @@ class FusedMLPStash(torch.autograd.Function):
     def backward(ctx, dy):
         points, hs, cs, *weights = ctx.saved_tensors
         keys = param_keys(ctx.config)
-        grads = fused_mlp_stash_backward(ctx.config, dict(zip(keys, weights)),
-                                         points, dy.contiguous(), hs, cs)
-        return (None, None, *(grads[k] for k in keys))
+        dpts = ctx.compute_dpts and ctx.needs_input_grad[1]
+        grads = fused_mlp_stash_backward(ctx.config, dict(zip(keys, weights)), points,
+                                         dy.contiguous(), hs, cs, ctx.fmt, dpts, ctx.group)
+        return (None, grads.get('dpts'), None, None, None, *(grads[k] for k in keys))
+
+
+class FusedMLPRecompute(torch.autograd.Function):
+    """raw = the field at `points`, differentiable in the parameters and the
+    points, with no activation memory: the forward is K0 (the no-grad
+    render's kernel, so `out` is its bits), the backward K4
+    (fused_mlp_recompute_backward), which recomputes the activations chunk
+    by chunk. The JAX package's stash=False custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, config, points, *weights):
+        params = dict(zip(param_keys(config), weights))
+        out = _forward_k0(config, params, points)
+        ctx.config = config
+        ctx.save_for_backward(points, *weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        points, *weights = ctx.saved_tensors
+        keys = param_keys(ctx.config)
+        grads = fused_mlp_recompute_backward(ctx.config, dict(zip(keys, weights)),
+                                             points, dy.contiguous())
+        dpts = grads['dpts'] if ctx.needs_input_grad[1] else None
+        return (None, dpts, *(grads[k] for k in keys))
 
 
 def fused_mlp_forward(config: NeRFConfig, params: dict, points: torch.Tensor,
+                      stash=None, stash_bwd_tile: int = STASH_BWD_TILE,
                       compute_dpts: bool = True,
                       stash_format: str = 'int8') -> torch.Tensor:
     """raw [N, d_output] of the field at [N, d_input] points, base offsets
-    excluded. With no gradient needed: K0. When a parameter needs a gradient:
-    FusedMLPStash (K1 forward, K2 backward). compute_dpts=True with points
-    that need a gradient raises: that cotangent is K3, not ported (and, for
-    grid configs, not defined in the JAX kernels either); compute_dpts=False
-    gives the points no gradient (the renderer detaches them). stash_format
-    'int8' is the only stash ported ('lsb' and 'i8pair' are K6a/K6b; grid
-    configs take 'int8' only, as in the JAX package)."""
+    excluded, with fused_nerf_raw's knobs. With no gradient needed: K0.
+    When a parameter needs a gradient, or the points do and compute_dpts is
+    on: stash=True or None (the stashing path, JAX's default on the chip)
+    runs FusedMLPStash with `stash_format` ('int8' K1 + K2, 'lsb' K6a,
+    'i8pair' K6b, whose dz scale groups are stash_bwd_tile points; the
+    points' gradient is K3); stash=False runs FusedMLPRecompute (K0 + K4,
+    no activation memory; it always gives the points their gradient).
+    compute_dpts=False gives the points no gradient on the stashing path
+    (the renderer detaches them). Grid configs take the 'int8' stash only
+    and no point cotangent, and their recompute backward raises, as in the
+    JAX package."""
     if config.grid_rank:
         raise NotImplementedError(_NO_VM_KERNEL)
-    if stash_format != 'int8':
-        if config.grid_sizes:
-            raise NotImplementedError(f'grid-encoding configs support the int8 '
-                                      f'stash only, got {stash_format!r}')
-        raise NotImplementedError(f'stash_format {stash_format!r} is not ported '
-                                  f'(K6a/K6b, ROADMAP Queue 2)')
+    _check_format(config, stash_format)
+    stash = True if stash is None else bool(stash)
     keys = param_keys(config)
     if torch.is_grad_enabled():
-        if compute_dpts and points.requires_grad:
+        wants_dpts = points.requires_grad and (compute_dpts or not stash)
+        if wants_dpts and config.grid_sizes:
+            raise NotImplementedError(_NO_GRID_DPTS)
+        if wants_dpts or any(params[k].requires_grad for k in keys):
+            if stash:
+                return FusedMLPStash.apply(config, points, stash_format, compute_dpts,
+                                           stash_bwd_tile, *(params[k] for k in keys))
             if config.grid_sizes:
-                raise NotImplementedError(
-                    'grid-encoding configs skip point cotangents (the renderer '
-                    'detaches sample points); pass compute_dpts=False or use '
-                    'nerf_apply')
-            raise NotImplementedError(
-                'the fused kernels have no point cotangent yet (K3, the '
-                'compute_dpts=True branch of the stashing backward: ROADMAP '
-                'Queue 2); pass compute_dpts=False with detached points, or '
-                'use nerf_apply')
-        if any(params[k].requires_grad for k in keys):
-            return FusedMLPStash.apply(config, points, *(params[k] for k in keys))
+                raise NotImplementedError(_NO_GRID_RECOMPUTE)
+            return FusedMLPRecompute.apply(config, points, *(params[k] for k in keys))
     return _forward_k0(config, params, points)

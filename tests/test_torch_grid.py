@@ -284,8 +284,19 @@ def test_grid_guards():
     for fmt in ('lsb', 'i8pair'):
         with pytest.raises(NotImplementedError, match='int8 stash only'):
             nerf_apply_fused(tc, tp, pts, stash_format=fmt)
-    with pytest.raises(NotImplementedError, match='K6'):
-        nerf_apply_fused(NeRFConfig(n_layers=2, d_filter=64), {}, pts, stash_format='lsb')
+    # without grid levels the other stash formats are taken (K6a, K6b), and
+    # an unknown one is refused
+    plain = NeRFConfig(n_layers=2, d_filter=64, n_freqs=2)
+    pp = {k: v.requires_grad_() for k, v in params_from_numpy(_params(plain), 'cpu').items()}
+    for fmt in ('lsb', 'i8pair'):
+        out = nerf_apply_fused(plain, pp, pts, stash_format=fmt).raw
+        torch.testing.assert_close(out.detach(), fused_mlp.fused_mlp_reference(plain, pp, pts),
+                                   rtol=0, atol=0)
+    with pytest.raises(ValueError, match='stash_format'):
+        nerf_apply_fused(plain, pp, pts, stash_format='fp8')
+    # the recompute backward has no table gradient
+    with pytest.raises(NotImplementedError, match='stashing backward only'):
+        nerf_apply_fused(tc, tp, pts, stash=False)
     vm = NeRFConfig(n_layers=2, d_filter=64, grid_sizes=(8,), grid_rank=2)
     with pytest.raises(NotImplementedError, match='grid_rank'):
         nerf_apply_fused(vm, init_nerf(torch.Generator().manual_seed(0), vm, 'cpu'), pts)

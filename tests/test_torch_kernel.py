@@ -1,6 +1,8 @@
 """The fused kernels (csrc/fused_mlp_fwd.cu K0, fused_mlp_stash_fwd.cu K1,
-fused_mlp_stash_bwd.cu K2, and their dense feature-grid branch K5) against
-their plain PyTorch versions on the card.
+fused_mlp_stash_bwd.cu K2 with the point cotangent K3, their dense
+feature-grid branch K5, the 'lsb' and 'i8pair' stashes K6a and K6b, and
+fused_mlp_recompute_bwd.cu K4) against their plain PyTorch versions on the
+card.
 CUDA kernels have no CPU mode, so these tests need a card and skip without
 one; run them on the card with
 
@@ -17,7 +19,11 @@ Tolerances, as fractions of max|plain|:
     of the int8 cos stash within 1 everywhere, against the plain version fed
     the kernel's own upstream activations (fused_mlp_stash_layerwise): f32
     sums in another order, and a polynomial evaluated with and without fused
-    multiply-adds, move a value across a rounding boundary at most by one.
+    multiply-adds, move a value across a rounding boundary at most by one;
+    the same for the 'lsb' stash (its sign bit may differ only where
+    |cos| < 1e-3) and the 'i8pair' pairs;
+  * 5e-2 for the point cotangent (tests/test_fused_mlp.py:85); the
+    parameter gradients bit-identical with and without it.
 """
 import pytest
 import torch
@@ -133,8 +139,16 @@ def test_function_grads_match_plain_path(cuda):
     assert _rel(ref_out, out.detach()) <= 2e-2
     for k in KEYS:
         assert _rel(ref[k], params[k].grad) <= 3e-2, k
-    with pytest.raises(NotImplementedError, match='K3'):
-        fused_mlp.fused_mlp_forward(cfg, params, pts.clone().requires_grad_())
+    # points that need a gradient: K2 with K3, the point cotangent
+    x = pts.clone().requires_grad_()
+    dpts0 = fused_mlp.DPTS_LAUNCHES
+    fused_mlp.fused_mlp_forward(cfg, params, x).backward(dy)
+    torch.cuda.synchronize()
+    assert fused_mlp.DPTS_LAUNCHES == dpts0 + 1
+    with torch.no_grad():
+        ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, params, pts, dy, hs, cs,
+                                                      compute_dpts=True)
+    assert _rel(ref['dpts'], x.grad) <= 5e-2
 
 
 @pytest.mark.gpu
@@ -192,3 +206,89 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match='hs'):
         fused_mlp.fused_mlp_stash_backward(cfg, params, pts, torch.zeros(8, 2, device=cuda),
                                            hs.float(), cs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_layers,d_filter,n', [(4, 128, 20480), (8, 512, 4097)])
+def test_point_cotangent_matches_plain_version(cuda, n_layers, d_filter, n):
+    """K2 with K3: dpts against the plain version, and the parameter
+    gradients the same bits as K2's without it."""
+    cfg, params, pts, dy = _setup(cuda, n_layers, d_filter, n)
+    with torch.no_grad():
+        _, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, params, pts)
+        d0 = fused_mlp.DPTS_LAUNCHES
+        with_dpts = fused_mlp.fused_mlp_stash_backward(cfg, params, pts, dy, hs, cs,
+                                                       compute_dpts=True)
+        without = fused_mlp.fused_mlp_stash_backward(cfg, params, pts, dy, hs, cs)
+        ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, params, pts, dy, hs, cs,
+                                                      compute_dpts=True)
+    torch.cuda.synchronize()
+    assert fused_mlp.DPTS_LAUNCHES == d0 + 1 and 'dpts' not in without
+    assert with_dpts['dpts'].shape == (n, 4) and bool(torch.isfinite(with_dpts['dpts']).all())
+    assert _rel(ref['dpts'], with_dpts['dpts']) <= 5e-2
+    for k in KEYS:
+        assert torch.equal(with_dpts[k], without[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('fmt', ['lsb', 'i8pair'])
+@pytest.mark.parametrize('n_layers,d_filter,n', [(4, 128, 20480), (8, 512, 4097)])
+def test_stash_formats_match_plain_versions(cuda, fmt, n_layers, d_filter, n):
+    """K6a / K6b: the output K1's bits, the stash layer by layer, every
+    gradient (dpts included) against the plain version at the same group."""
+    cfg, params, pts, dy = _setup(cuda, n_layers, d_filter, n)
+    counter = 'LSB_LAUNCHES' if fmt == 'lsb' else 'I8PAIR_LAUNCHES'
+    before = getattr(fused_mlp, counter)
+    with torch.no_grad():
+        k1_out, k1_hs, _ = fused_mlp.fused_mlp_stash_forward(cfg, params, pts)
+        out, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, params, pts, fmt)
+        lw, _ = fused_mlp.fused_mlp_stash_layerwise(cfg, params, pts, k1_hs, fmt)
+        grads = fused_mlp.fused_mlp_stash_backward(cfg, params, pts, dy, hs, cs, fmt, True)
+        again = fused_mlp.fused_mlp_stash_backward(cfg, params, pts, dy, hs, cs, fmt, True)
+        ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, params, pts, dy, hs, cs, fmt, True)
+    torch.cuda.synchronize()
+    assert getattr(fused_mlp, counter) == before + 3 and cs is None
+    torch.testing.assert_close(out, k1_out, rtol=0, atol=0)
+    if fmt == 'lsb':
+        masked = (hs.view(torch.int16) & -2).view(torch.bfloat16)
+        lw_masked = (lw.view(torch.int16) & -2).view(torch.bfloat16)
+        assert float((bf16_ulps(lw_masked, masked) <= 2).float().mean()) >= 0.999
+        assert float(((hs.view(torch.int16) ^ lw.view(torch.int16)) & 1).float().mean()) < 1e-4
+    else:
+        assert int((hs.int() - lw.int()).abs().max()) <= 1
+    tol = {'lsb': 3e-2, 'i8pair': 6e-2}[fmt]
+    for k in KEYS:
+        assert bool(torch.isfinite(grads[k]).all()), k
+        assert _rel(ref[k], grads[k]) <= tol, (k, _rel(ref[k], grads[k]))
+        assert torch.equal(grads[k], again[k]), k
+    assert _rel(ref['dpts'], grads['dpts']) <= 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_layers,d_filter,n,chunk', [(4, 128, 20480, 4096),
+                                                       (8, 512, 4097, 32768)])
+def test_recompute_backward_matches_plain_version(cuda, monkeypatch, n_layers, d_filter, n,
+                                                 chunk):
+    """K4, over one chunk and over several: gradients and dpts against the
+    plain version, the same bits run to run; under autograd the output is
+    K0's."""
+    monkeypatch.setattr(fused_mlp, 'RECOMPUTE_CHUNK', chunk)
+    cfg, params, pts, dy = _setup(cuda, n_layers, d_filter, n, requires_grad=True)
+    before = fused_mlp.RECOMPUTE_BWD_LAUNCHES
+    with torch.no_grad():
+        grads = fused_mlp.fused_mlp_recompute_backward(cfg, params, pts, dy)
+        again = fused_mlp.fused_mlp_recompute_backward(cfg, params, pts, dy)
+        ref = fused_mlp.fused_mlp_recompute_bwd_reference(cfg, params, pts, dy)
+    torch.cuda.synchronize()
+    assert fused_mlp.RECOMPUTE_BWD_LAUNCHES == before + 2
+    for k in KEYS:
+        assert _rel(ref[k], grads[k]) <= 3e-2, (k, _rel(ref[k], grads[k]))
+        assert torch.equal(grads[k], again[k]), k
+    assert _rel(ref['dpts'], grads['dpts']) <= 5e-2
+    x = pts.clone().requires_grad_()
+    out = fused_mlp.fused_mlp_forward(cfg, params, x, stash=False)
+    with torch.no_grad():
+        torch.testing.assert_close(out, fused_mlp.fused_mlp_forward(cfg, params, pts),
+                                   rtol=0, atol=0)
+    out.backward(dy)
+    assert _rel(ref['dpts'], x.grad) <= 5e-2

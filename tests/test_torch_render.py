@@ -253,8 +253,15 @@ def test_fused_wrapper_on_cpu_runs_the_plain_version():
     assert fused_mlp.LAUNCHES == before
     torch.testing.assert_close(out, fused_mlp.fused_mlp_reference(cfg, params, pts),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match='backward'):
-        fused_mlp.fused_mlp_forward(cfg, params, pts.clone().requires_grad_())
+    # points that need a gradient take the stashing path's plain versions,
+    # with the point cotangent (K3); the output is still K0's
+    x = pts.clone().requires_grad_()
+    out = fused_mlp.fused_mlp_forward(cfg, params, x)
+    out.sum().backward()
+    assert fused_mlp.LAUNCHES == before and fused_mlp.DPTS_LAUNCHES == 0
+    torch.testing.assert_close(out.detach(), fused_mlp.fused_mlp_reference(cfg, params, pts),
+                               rtol=0, atol=0)
+    assert x.grad.shape == pts.shape and bool(torch.isfinite(x.grad).all())
 
 
 # -------------------------------------------------------------- video, IO
