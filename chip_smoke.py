@@ -10,7 +10,10 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (the first failure ends the run with a non-zero exit):
   1. build   nvcc builds csrc/fused_mlp_fwd.cu (K0), fused_mlp_stash_fwd.cu
-             (K1) and fused_mlp_stash_bwd.cu (K2) for sm_90a, in parallel.
+             (K1, K6a, K6b), fused_mlp_stash_bwd.cu (K2, K3),
+             fused_mlp_recompute_bwd.cu (K4), grid_tap_encode.cu (P1) and
+             grid_hat_encode.cu (P2) for sm_90a, in parallel, and prints
+             -Xptxas -v's registers and spills.
   2. kernel  fused_mlp_fwd against fused_mlp_reference on the card, for the
              bundle's two fields at one render chunk's shapes (4096 rays x 60
              fine samples, x 20 coarse samples): per-point |kernel - plain| /
@@ -100,8 +103,20 @@ Phases (the first failure ends the run with a non-zero exit):
              {'stash_format': 'i8pair'}: ms/step, rays/s, the launches of one
              step (e.g. stash=False: 2 K0 + 2 K4, no K1/K2); 30 steps from the
              same weights, finite and falling, the last loss within 1% of {}'s.
+ 17. grid_probes  sunerf_tpu_torch/scripts/probe_grid_taps.py (P1, N = 65,536,
+             G = 32 and 64, F = 8) and probe_grid_hatbuild.py (P2, N =
+             262,144, G = 32, F = 8, the three variants) at their defaults,
+             the launch counts set to 0 just before; both --check modes on
+             the card. P1 against its plain version at G = 32 and 64, N =
+             65,536 and 262,144: max abs error within 1e-5; P2, each variant,
+             at the script's shape: within 1e-2 of max|plain| + 1e-4, RMS
+             within 1e-4 of max. Times of the kernels, the plain versions and
+             torch.nn.functional.grid_sample (the yardstick: 5-D for P1, 4-D
+             for P2) per call from CUDA graphs of 20 or more calls over input
+             sets that exceed L2 (P2's plain version: events, median of 5).
 Then it prints the card's name and power limit, one {"kernels": [...]} line
-(K0, K1, K2, K3, K4, K5, K6a and K6b) and, last, {"ok": true, "device": {...}}.
+(K0, K1, K2, K3, K4, K5, K6a, K6b, P1 and P2) and, last, {"ok": true,
+"device": {...}}.
 """
 import dataclasses
 import json
@@ -125,8 +140,9 @@ MAPS = ('image', 'height_map', 'absorption_map')
 BF16_TFLOPS = 989.0          # H100 SXM dense bf16 tensor-core peak
 HBM_TBPS = 3.35              # H100 SXM device memory rate
 INT8_TOPS = 1979.0           # H100 SXM dense int8 tensor-core peak
+F32_TFLOPS = 67.0            # H100 SXM float32 peak outside the tensor cores
 KERNELS = ('fused_mlp_fwd', 'fused_mlp_stash_fwd', 'fused_mlp_stash_bwd',
-           'fused_mlp_recompute_bwd')
+           'fused_mlp_recompute_bwd', 'grid_tap_encode', 'grid_hat_encode')
 KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
 # K2's launches, by kernel name (the grid ones only with grid levels, the
 # i8pair ones only for that format)
@@ -170,6 +186,18 @@ KERNEL_RMS_TOL = 2e-3
 KERNEL_MAX_TOL = 1e-1
 RENDER_TOL = 3e-2
 F32_GOLDEN_TOL = 1e-2
+# the grid-encode probes: P1 at F = 8, G = 32 and 64, at its script's N and
+# at bench_kernel's; P2 at its script's shape (N, G, F); bound 1.3 and
+# points U(-1.2, 1.2) as both scripts draw them
+TAP_SHAPES = tuple((g, n) for n in (65536, 262144) for g in (32, 64))
+HAT_SHAPE = (262144, 32, 8)
+PROBE_BOUND = 1.3
+# P1 kernel vs plain, abs: the same float32 operations in the same order.
+# P2, of max|plain|: within 1e-2 (+ 1e-4), RMS within 1e-4: the same bf16
+# weights, float32 sums of four nonzero products in another order.
+TAP_TOL = 1e-5
+HAT_TOL = 1e-2
+HAT_RMS_TOL = 1e-4
 
 
 def _rel(ref, got) -> float:
@@ -212,6 +240,35 @@ def _cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _graph_ms(fns, calls: int = 20, reps: int = 5) -> float:
+    """Device ms of one call: `calls` calls, cycling through the callables
+    `fns` (one per input set), captured in one CUDA graph, each output kept
+    to the end so no two calls share one; the replay timed by CUDA events,
+    median of `reps`, over the calls. Host dispatch, which dwarfs a kernel of
+    a few microseconds, is left out; input sets that together exceed the
+    50 MB L2 make each call find its inputs in device memory."""
+    for f in fns[:2]:
+        f()
+    torch.cuda.synchronize()
+    calls = max(calls, len(fns))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+        outs = [fns[i % len(fns)]() for i in range(calls)]
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del outs, graph
     return statistics.median(times)
 
 
@@ -1171,6 +1228,154 @@ def _probe_step_phase(device) -> dict:
     return dict(rows=rows)
 
 
+def _tap_row(G: int, n: int, gen, device) -> dict:
+    """P1 against its plain version and grid_sample at one shape."""
+    from torch.nn.functional import grid_sample
+    from sunerf_tpu_torch.ops import grid_probes as gp
+    F, b = 8, PROBE_BOUND
+    table4 = torch.randn((G, G, G, F), generator=gen, device=device)
+    packed = gp.pack_table(table4)
+    # input sets (points, and the outputs each call writes) of 100 MB in all
+    sets = -(-100_000_000 // (n * (12 + 4 * F)))
+    pts = [torch.rand((n, 3), generator=gen, device=device) * 2.4 - 1.2
+           for _ in range(sets)]
+    out = gp.tap_encode(packed, pts[0], G, b)
+    ref = gp.tap_encode_reference(packed, pts[0], G, b)
+    # the library call: a [1, F, G(y), G(z), G(x)] volume at (x, z, y) / b
+    vol = table4.permute(3, 0, 1, 2)[None].contiguous()
+    grids = [(p[:, [0, 2, 1]] / b).reshape(1, n, 1, 1, 3).contiguous() for p in pts]
+    lib = lambda g: grid_sample(vol, g, mode='bilinear', padding_mode='border',
+                                align_corners=True)
+    lib_out = lib(grids[0]).reshape(F, n).T
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(out).all()), f'P1 G={G} N={n}: non-finite output')
+    err = float((out - ref).abs().max())
+    lib_err = float((lib_out - ref).abs().max())
+    ms = _graph_ms([lambda p=p: gp.tap_encode(packed, p, G, b) for p in pts])
+    plain_ms = _graph_ms([lambda p=p: gp.tap_encode_reference(packed, p, G, b) for p in pts])
+    library_ms = _graph_ms([lambda g=g: lib(g) for g in grids])
+    # one call between CUDA events, as the script times it: host dispatch
+    # included
+    event_ms = _cuda_ms(lambda: gp.tap_encode(packed, pts[0], G, b))
+    # bytes: the points and outputs once, the table once; operations: the
+    # taps' multiply-adds and the corner weights, float32 on the CUDA cores
+    nbytes = n * (12 + 4 * F) + 4 * G ** 3 * F
+    t_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
+    t_ops = n * (2 * 8 * F + 16) / (F32_TFLOPS * 1e12) * 1e3
+    row = dict(G=G, n=n, features=F, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by='bytes' if t_bytes >= t_ops else 'operations',
+               ns_per_tap=ms * 1e6 / (n * 8), event_ms=event_ms, input_sets=sets,
+               max_abs_err=err,
+               library_max_abs_err=lib_err, max_abs=float(ref.abs().max()))
+    print(f"[grid_probes] P1 G={G} N={n}: kernel {ms:.4f} ms ({row['ns_per_tap']:.4f} ns a "
+          f"tap; {event_ms:.4f} by events around one call), plain {plain_ms:.4f}, "
+          f"grid_sample {library_ms:.4f}, bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}; kernel vs plain max abs "
+          f"{err:.2e} (tol {TAP_TOL}), grid_sample vs plain {lib_err:.2e}", flush=True)
+    _check(err <= TAP_TOL, f'P1 G={G} N={n}: kernel vs plain {err:.3e}')
+    return row
+
+
+def _hat_rows(gen, device) -> dict:
+    """P2, each variant, against its plain version, and grid_sample."""
+    from torch.nn.functional import grid_sample
+    from sunerf_tpu_torch.ops import grid_probes as gp
+    n, G, F = HAT_SHAPE
+    b = PROBE_BOUND
+    table = torch.randn((G * G, G * F), generator=gen, device=device).to(torch.bfloat16)
+    pts = torch.rand((n, 3), generator=gen, device=device) * 2.4 - 1.2
+    e1, e2 = (torch.from_numpy(e).to(device, torch.bfloat16)
+              for e in gp.expansion_matrices(G))
+    # bytes: points, output and table once (E too for expand); operations:
+    # the 4 nonzero hats of a row times the table, float32; the dense
+    # product's own time on the bf16 tensor cores beside it
+    base_bytes = n * 12 + 4 * n * G * F + 2 * G ** 3 * F
+    t_ops = n * 8 * G * F / (F32_TFLOPS * 1e12) * 1e3
+    dense_tc_ms = 2.0 * n * G ** 3 * F / (BF16_TFLOPS * 1e12) * 1e3
+    rows = {}
+    for variant in gp.HAT_VARIANTS:
+        ops = (e1, e2) if variant == 'expand' else ()
+        out = gp.hat_encode(table, pts, G, b, variant, *ops)
+        ref = gp.hat_encode_reference(table, pts, G, b, variant, *ops)
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(out).all()), f'P2 {variant}: non-finite output')
+        m = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        rms = float((out - ref).pow(2).mean().sqrt())
+        del out, ref
+        ms = _graph_ms([lambda: gp.hat_encode(table, pts, G, b, variant, *ops)])
+        # ~4 GB of intermediates a call: one call at a time, between events
+        plain_ms = _cuda_ms(lambda: gp.hat_encode_reference(table, pts, G, b, variant, *ops),
+                            warmup=1, reps=5)
+        t_bytes = (base_bytes + (4 * G ** 3 if variant == 'expand' else 0)) \
+            / (HBM_TBPS * 1e12) * 1e3
+        rows[variant] = dict(n=n, G=G, features=F, ms=ms, plain_ms=plain_ms,
+                             bound_ms=max(t_bytes, t_ops),
+                             bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                             dense_tc_ms=dense_tc_ms, max_abs_err=err, max_rel_err=err / m,
+                             rms_rel_err=rms / m)
+        print(f"[grid_probes] P2 {variant} N={n} G={G} F={F}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f}, bound {rows[variant]['bound_ms']:.4f} ms by "
+              f"{rows[variant]['bound_by']} (dense product on the tensor cores "
+              f"{dense_tc_ms:.4f}); kernel vs plain max {err / m:.2e} RMS {rms / m:.2e} of "
+              f"max (tol {HAT_TOL} + 1e-4, RMS {HAT_RMS_TOL})", flush=True)
+        _check(err <= HAT_TOL * m + 1e-4 and rms <= HAT_RMS_TOL * m,
+               f'P2 {variant}: kernel vs plain max {err:.3e}, RMS {rms:.3e} of max {m:.3e}')
+    # the library call: a [1, G F, G(y), G(z)] plane at (z, y) / b, on the
+    # float32 copy of the table (the function up to the kernel's bf16 hats);
+    # grid_sample takes coordinates of the input's type, so its bf16 form
+    # also rounds the points and is recorded beside it, not in its place
+    ref = gp.hat_encode_reference(table, pts, G, b, 'iota')
+    plane = table.float().T.reshape(1, G * F, G, G).contiguous()
+    grid = (pts[:, [2, 1]] / b).reshape(1, n, 1, 2).contiguous()
+    lib = lambda v, g: grid_sample(v, g, mode='bilinear', padding_mode='border',
+                                   align_corners=True)
+    m = float(ref.abs().max())
+    lib_err = float((lib(plane, grid).reshape(G * F, n).T - ref).abs().max()) / m
+    library = dict(library_ms=_graph_ms([lambda: lib(plane, grid)]),
+                   library_dtype='float32', library_max_rel_err=lib_err)
+    plane16, grid16 = plane.bfloat16(), grid.bfloat16()
+    try:        # whether grid_sample dispatches bf16 on CUDA: recorded, no check
+        lib_bf16 = lib(plane16, grid16)
+    except RuntimeError as e:
+        library['library_bf16'] = f'not dispatched: {str(e)[:80]}'
+    else:
+        library['library_bf16_ms'] = _graph_ms([lambda: lib(plane16, grid16)])
+        library['library_bf16_max_rel_err'] = float(
+            (lib_bf16.float().reshape(G * F, n).T - ref).abs().max()) / m
+    print(f'[grid_probes] P2 grid_sample on the float32 table: {library}', flush=True)
+    for r in rows.values():
+        r.update(library)
+    return rows
+
+
+def _grid_probe_phase(device) -> dict:
+    """P1 and P2: the two ported probe scripts at their defaults with their
+    launches counted, their --check modes on the card, then each kernel
+    against its plain version and grid_sample."""
+    from sunerf_tpu_torch.ops import grid_probes as gp
+    from sunerf_tpu_torch.scripts import probe_grid_hatbuild, probe_grid_taps
+    print('[grid_probes] python -m sunerf_tpu_torch.scripts.probe_grid_taps; python -m '
+          'sunerf_tpu_torch.scripts.probe_grid_hatbuild (CUDA events, median of 20)',
+          flush=True)
+    gp.TAP_LAUNCHES = gp.HAT_LAUNCHES = 0
+    taps = probe_grid_taps.main([])
+    hats = probe_grid_hatbuild.main([])
+    launches = dict(TAP_LAUNCHES=gp.TAP_LAUNCHES, HAT_LAUNCHES=gp.HAT_LAUNCHES)
+    print(f'[grid_probes] launches over the two scripts\' runs: {launches}', flush=True)
+    _check(launches['TAP_LAUNCHES'] > 0, 'probe_grid_taps launched no P1')
+    _check(launches['HAT_LAUNCHES'] > 0, 'probe_grid_hatbuild launched no P2')
+    checks = dict(taps=probe_grid_taps.main(['--check']),
+                  hatbuild=probe_grid_hatbuild.main(['--check']))
+    gen = torch.Generator(device=device).manual_seed(3)
+    with torch.no_grad():
+        tap_rows = {f'G={g} N={n}': _tap_row(g, n, gen, device) for g, n in TAP_SHAPES}
+        hat_rows = _hat_rows(gen, device)
+    return dict(launches=launches, taps=taps, hatbuild=hats, checks=checks,
+                tap_rows=tap_rows, hat_rows=hat_rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card',
@@ -1412,6 +1617,10 @@ def main() -> int:
     probe = _probe_step_phase(device)
     probe_launches = {str(r['knob']): r['launches'] for r in probe['rows']}
 
+    # 17. the grid-encode probes (P1, P2) ------------------------------------
+    torch.cuda.empty_cache()
+    probes = _grid_probe_phase(device)
+
     fine = kernel_rows['fine']
     kernels = [{
         'name': 'fused_mlp_fwd', 'route': 'cuda',
@@ -1513,6 +1722,33 @@ def main() -> int:
     kernels[-1]['bench_kernel'] = bench['rows']
     kernels[-1]['probe_step'] = [{k: v for k, v in row.items() if k != 'losses'}
                                  for row in probe['rows']]
+    tap = probes['tap_rows']['G=32 N=262144']
+    kernels.append({
+        'name': 'grid_tap_encode (P1)', 'route': 'cuda',
+        'source': 'sunerf_tpu_torch/csrc/grid_tap_encode.cu',
+        'replaces': 'scripts/probe_grid_taps.py:31',
+        'launches': probes['launches']['TAP_LAUNCHES'],
+        'max_abs_err': max(r['max_abs_err'] for r in probes['tap_rows'].values()),
+        'ms': tap['ms'], 'plain_ms': tap['plain_ms'], 'bound_ms': tap['bound_ms'],
+        'bound_by': tap['bound_by'], 'library_ms': tap['library_ms'],
+        'library': 'torch.nn.functional.grid_sample, 5-D, float32',
+        'shapes': probes['tap_rows'], 'script': probes['taps'],
+        'check': probes['checks']['taps'],
+    })
+    hat = probes['hat_rows']['iota']
+    kernels.append({
+        'name': 'grid_hat_encode (P2)', 'route': 'cuda',
+        'source': 'sunerf_tpu_torch/csrc/grid_hat_encode.cu',
+        'replaces': 'scripts/probe_grid_hatbuild.py:35',
+        'launches': probes['launches']['HAT_LAUNCHES'],
+        'max_abs_err': max(r['max_abs_err'] for r in probes['hat_rows'].values()),
+        'max_rel_err': max(r['max_rel_err'] for r in probes['hat_rows'].values()),
+        'ms': hat['ms'], 'plain_ms': hat['plain_ms'], 'bound_ms': hat['bound_ms'],
+        'bound_by': hat['bound_by'], 'library_ms': hat['library_ms'],
+        'library': 'torch.nn.functional.grid_sample, 4-D, float32',
+        'dense_tc_ms': hat['dense_tc_ms'], 'variants': probes['hat_rows'],
+        'script': probes['hatbuild'], 'check': probes['checks']['hatbuild'],
+    })
     for k in kernels:
         _check(k['launches'] > 0, f"{k['name']}: no launches on its path")
     print(smi)

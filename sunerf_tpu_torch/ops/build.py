@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds), at
 `build/sunerf_tpu_torch/<name>-<hash>.so` beside the package; the hash covers
 the source, every shared header `csrc/*.cuh` and the flags, so an edited
-source or header builds anew. A failed build raises.
+source or header builds anew. A failed build raises. `launch` calls a
+library's C entry on the current stream and raises on the CUDA error code it
+returns; `check_tensor` is the wrappers' check of what they pass it.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'sunerf_tpu_torch'
@@ -67,3 +71,35 @@ def load(name: str) -> ctypes.CDLL:
             path, _ = build(name)
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def signature(n_ptrs: int, n_ints: int, n_floats: int = 0) -> tuple:
+    """ctypes argument types of a C entry that takes n_ptrs pointers, then
+    n_ints ints, then n_floats floats (the stream follows them)."""
+    return ((ctypes.c_void_p,) * n_ptrs + (ctypes.c_int,) * n_ints
+            + (ctypes.c_float,) * n_floats)
+
+
+def launch(name: str, argtypes: tuple, device, *args):
+    """Calls the C entry sunerf_<name> of csrc/<name>.cu (built on first use)
+    with `args`, typed by `argtypes` (see `signature`), and the current
+    stream of `device`. Raises on the CUDA error code it returns."""
+    fn = getattr(load(name), f'sunerf_{name}')
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')
+
+
+def check_tensor(name: str, t, shape, dtype, device):
+    """Raises ValueError unless `t` is a contiguous `dtype` tensor of `shape`
+    on `device`, as a kernel takes it."""
+    if (not isinstance(t, torch.Tensor) or t.dtype != dtype
+            or tuple(t.shape) != tuple(shape) or t.device != device):
+        got = (f'{t.dtype} {list(t.shape)} on {t.device}' if isinstance(t, torch.Tensor)
+               else repr(t))
+        raise ValueError(f'{name} must be {dtype} {list(shape)} on {device}, got {got}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')

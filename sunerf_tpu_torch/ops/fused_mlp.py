@@ -57,6 +57,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from sunerf_tpu_torch.core.encoding import encoded_dim, encoding_columns
 from sunerf_tpu_torch.models.fields import NeRFConfig
+from sunerf_tpu_torch.ops import build
 from sunerf_tpu_torch.ops.grid_encoding import grid_encode, grid_encode_table_grad
 
 # kernel launches so far, one per wrapper call that launched: a run sets them
@@ -533,16 +534,8 @@ def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
             raise ValueError(f'params[{k!r}] is on {params[k].device}, points '
                              f'on {points.device}')
     for k, g in zip(grid_keys(config), config.grid_sizes):
-        _check_tensor(f'params[{k!r}]', params[k], (g, g, g, config.grid_features),
-                      torch.float32, points.device)
-
-
-def _check_tensor(name: str, t: torch.Tensor, shape, dtype, device):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
-        raise ValueError(f'{name} must be {dtype} {list(shape)} on {device}, got '
-                         f'{t.dtype} {list(t.shape)} on {t.device}')
-    if not t.is_contiguous():
-        raise ValueError(f'{name} must be contiguous')
+        build.check_tensor(f'params[{k!r}]', params[k], (g, g, g, config.grid_features),
+                           torch.float32, points.device)
 
 
 class _GridArgs(ctypes.Structure):
@@ -567,21 +560,8 @@ def _grid_args(config: NeRFConfig, params: dict) -> _GridArgs:
     return args
 
 
-def _kernel(name: str, n_ptrs: int, n_ints: int):
-    """The C entry sunerf_<name> of csrc/<name>.cu, built on first use."""
-    from sunerf_tpu_torch.ops import build
-    fn = getattr(build.load(name), f'sunerf_{name}')
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, n_ptrs: int, n_ints: int, device, *args):
-    with torch.cuda.device(device):
-        err = _kernel(name, n_ptrs, n_ints)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')
+    build.launch(name, build.signature(n_ptrs, n_ints), device, *args)
 
 
 def _fwd_args(w: _KernelWeights, points, grid: _GridArgs, out):
@@ -710,7 +690,7 @@ def _check_backward(config: NeRFConfig, dy: torch.Tensor, n: int, dev):
     if not 1 <= config.d_output <= MAX_BWD_OUTPUTS:
         raise ValueError(f'the backward kernels take d_output in 1..'
                          f'{MAX_BWD_OUTPUTS}, got {config.d_output}')
-    _check_tensor('dy', dy, (n, config.d_output), torch.float32, dev)
+    build.check_tensor('dy', dy, (n, config.d_output), torch.float32, dev)
 
 
 def _check_group(group: int):
@@ -743,9 +723,9 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
     n, H, L, O = points.shape[0], config.d_filter, config.n_layers, config.d_output
     _check_backward(config, dy, n, dev)
     hs_shape, hs_dtype, cs_shape, cs_dtype = _stash_shapes(config, n, fmt)
-    _check_tensor('hs', hs, hs_shape, hs_dtype, dev)
+    build.check_tensor('hs', hs, hs_shape, hs_dtype, dev)
     if cs_shape is not None:
-        _check_tensor('cs', cs, cs_shape, cs_dtype, dev)
+        build.check_tensor('cs', cs, cs_shape, cs_dtype, dev)
     if fmt == 'i8pair':
         _check_group(group)
     w = _kernel_weights(config, params)

@@ -1,8 +1,9 @@
 """The fused kernels (csrc/fused_mlp_fwd.cu K0, fused_mlp_stash_fwd.cu K1,
 fused_mlp_stash_bwd.cu K2 with the point cotangent K3, their dense
 feature-grid branch K5, the 'lsb' and 'i8pair' stashes K6a and K6b, and
-fused_mlp_recompute_bwd.cu K4) against their plain PyTorch versions on the
-card.
+fused_mlp_recompute_bwd.cu K4), and the grid-encode probes P1
+(grid_tap_encode.cu) and P2 (grid_hat_encode.cu), against their plain
+PyTorch versions on the card.
 CUDA kernels have no CPU mode, so these tests need a card and skip without
 one; run them on the card with
 
@@ -23,13 +24,16 @@ Tolerances, as fractions of max|plain|:
     the same for the 'lsb' stash (its sign bit may differ only where
     |cos| < 1e-3) and the 'i8pair' pairs;
   * 5e-2 for the point cotangent (tests/test_fused_mlp.py:85); the
-    parameter gradients bit-identical with and without it.
+    parameter gradients bit-identical with and without it;
+  * P1 within 1e-5 abs (the same float32 operations in the same order), P2
+    within 1e-2 of max + 1e-4 with RMS within 1e-4 of max (the same bf16
+    weights, float32 sums in another order).
 """
 import pytest
 import torch
 
 from sunerf_tpu_torch.models.fields import emission_config, init_nerf
-from sunerf_tpu_torch.ops import fused_mlp
+from sunerf_tpu_torch.ops import fused_mlp, grid_probes
 
 KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
 
@@ -292,3 +296,29 @@ def test_recompute_backward_matches_plain_version(cuda, monkeypatch, n_layers, d
                                    rtol=0, atol=0)
     out.backward(dy)
     assert _rel(ref['dpts'], x.grad) <= 5e-2
+
+
+@pytest.mark.gpu
+def test_grid_probe_kernels_match_plain_versions(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for G, Fe in ((8, 8), (6, 16), (32, 8)):
+        table4 = torch.randn((G, G, G, Fe), generator=gen, device=cuda)
+        pts = torch.rand((1000, 3), generator=gen, device=cuda) * 3.2 - 1.6
+        packed = grid_probes.pack_table(table4)
+        before = grid_probes.TAP_LAUNCHES
+        got = grid_probes.tap_encode(packed, pts, G, 1.3)
+        assert grid_probes.TAP_LAUNCHES == before + 1
+        ref = grid_probes.tap_encode_reference(packed, pts, G, 1.3)
+        assert (got - ref).abs().max() <= 1e-5
+    for G in (8, 13, 32):
+        table = torch.randn((G * G, G * 8), generator=gen, device=cuda).bfloat16()
+        pts = torch.rand((1000, 3), generator=gen, device=cuda) * 3.2 - 1.6
+        e1, e2 = (torch.from_numpy(e).to(cuda, torch.bfloat16)
+                  for e in grid_probes.expansion_matrices(G))
+        for variant in grid_probes.HAT_VARIANTS:
+            ops = (e1, e2) if variant == 'expand' else ()
+            got = grid_probes.hat_encode(table, pts, G, 1.3, variant, *ops)
+            ref = grid_probes.hat_encode_reference(table, pts, G, 1.3, variant, *ops)
+            m = ref.abs().max()
+            assert (got - ref).abs().max() <= 1e-2 * m + 1e-4
+            assert (got - ref).pow(2).mean().sqrt() <= 1e-4 * m
