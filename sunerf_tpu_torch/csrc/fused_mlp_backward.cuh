@@ -5,7 +5,7 @@
 // what each replaces and what bounds it.
 //
 // One backward pass over n points is these launches, in stream order:
-//   1. chain_kernel: K0's block layout (64 points, 8 warps, mma.sync against
+//   1. chain_kernel: K1's block layout (64 points, 8 warps, mma.sync against
 //      W_h^T packed in fragment order by the wrapper). It carries the
 //      row-parallel chain dy -> dh -> dz_{L-1} -> dh -> ... -> dz_0 with dz
 //      in shared memory, each dz_j gated by the layer's cos (the "gate",
@@ -704,7 +704,7 @@ __device__ __forceinline__ uint32_t gather_bytes(const uint32_t (&w)[4], int b) 
 }
 
 // 'i8pair' dW_h (the i8pair branch of _bwd_stash_kernel, _mm_i8): per group
-// g of G points (G a multiple of 32, splits a multiple of G), with
+// g of G points (any G >= 1 with G 127^2 < 2^31; splits a multiple of G), with
 // m = dz_max[g][j-1], scale = 127 / m (0 when m = 0) and
 // dz8 = round_half_even(dz_j scale),
 //   dW_h[j-1] += f32(sum over g's points of sin8_{j-1} (x) dz8, int32)
@@ -751,71 +751,86 @@ __global__ void __launch_bounds__(kThreads) dw_i8_kernel(BwdParams p, int pts_pe
 
   // staging: warp w takes the chunk's points 4w..4w+3, lane l the columns
   // 4l..4l+3 of the tile (coalesced rows), transposed into one word per
-  // column
+  // column. A chunk that crosses a group boundary is taken one group
+  // segment at a time, its other points' dz8 zero, each segment's int32 sum
+  // under its own group's scale; with G a multiple of 32 every chunk is one
+  // segment.
   for (int p0 = begin; p0 < end; p0 += kChunk) {
-    const int grp = p0 / p.group;
-    const float m = p.dz_max[static_cast<size_t>(grp) * p.n_hidden + j - 1];
-    const float scale = m > 0.f ? __fdiv_rn(kCosScale, m) : 0.f;
-    uint32_t wa[4], wb[4];
+    const int c_end = min(p0 + kChunk, end);
+    uint32_t wa[4];
+    uint2 raw[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int pt = p0 + 4 * warp + i;
       wa[i] = 0u;
-      wb[i] = 0u;
-      if (pt < end && m0 + 4 * lane < H)
+      raw[i] = make_uint2(0u, 0u);
+      if (pt < c_end && m0 + 4 * lane < H)
         wa[i] = *reinterpret_cast<const uint32_t*>(a + static_cast<size_t>(pt) * 2 * ld
                                                    + m0 + 4 * lane);
-      if (pt < end && c0 + 4 * lane < H) {
-        const uint2 d = *reinterpret_cast<const uint2*>(b + static_cast<size_t>(pt) * ld
-                                                        + c0 + 4 * lane);
-        const uint32_t dw[2] = {d.x, d.y};
-        uint32_t q = 0u;
+      if (pt < c_end && c0 + 4 * lane < H)
+        raw[i] = *reinterpret_cast<const uint2*>(b + static_cast<size_t>(pt) * ld
+                                                 + c0 + 4 * lane);
+    }
+    for (int s0 = p0; s0 < c_end;) {
+      const int grp = s0 / p.group;
+      const int s1 = min(c_end, (grp + 1) * p.group);
+      const float m = p.dz_max[static_cast<size_t>(grp) * p.n_hidden + j - 1];
+      const float scale = m > 0.f ? __fdiv_rn(kCosScale, m) : 0.f;
+      uint32_t wb[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t bits = (dw[e >> 1] >> (16 * (e & 1))) & 0xFFFFu;
-          const int v = __float2int_rn(__fmul_rn(__uint_as_float(bits << 16), scale));
-          q |= (static_cast<uint32_t>(v) & 0xFFu) << (8 * e);
+      for (int i = 0; i < 4; ++i) {
+        const int pt = p0 + 4 * warp + i;
+        const uint32_t dw[2] = {raw[i].x, raw[i].y};
+        uint32_t q = 0u;
+        if (pt >= s0 && pt < s1) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t bits = (dw[e >> 1] >> (16 * (e & 1))) & 0xFFFFu;
+            const int v = __float2int_rn(__fmul_rn(__uint_as_float(bits << 16), scale));
+            q |= (static_cast<uint32_t>(v) & 0xFFu) << (8 * e);
+          }
         }
         wb[i] = q;
       }
-    }
-    __syncthreads();   // the previous chunk's fragments are read
+      __syncthreads();   // the previous segment's fragments are read
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      sa[4 * lane + e][warp] = gather_bytes(wa, e);
-      sb[4 * lane + e][warp] = gather_bytes(wb, e);
-    }
-    __syncthreads();
-    uint32_t af[2][4];
+      for (int e = 0; e < 4; ++e) {
+        sa[4 * lane + e][warp] = gather_bytes(wa, e);
+        sb[4 * lane + e][warp] = gather_bytes(wb, e);
+      }
+      __syncthreads();
+      uint32_t af[2][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r = wm * 32 + mt * 16 + g;
-      af[mt][0] = sa[r][t];
-      af[mt][1] = sa[r + 8][t];
-      af[mt][2] = sa[r][4 + t];
-      af[mt][3] = sa[r + 8][4 + t];
-    }
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = wm * 32 + mt * 16 + g;
+        af[mt][0] = sa[r][t];
+        af[mt][1] = sa[r + 8][t];
+        af[mt][2] = sa[r][4 + t];
+        af[mt][3] = sa[r + 8][4 + t];
+      }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int c = wc * 64 + nt * 8 + g;
-      const uint32_t b0 = sb[c][t];
-      const uint32_t b1 = sb[c][4 + t];
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = wc * 64 + nt * 8 + g;
+        const uint32_t b0 = sb[c][t];
+        const uint32_t b1 = sb[c][4 + t];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_s8(iacc[mt][nt], af[mt], b0, b1);
-    }
-    // the group ends: its exact int32 sum, scaled, into the f32 sum
-    if ((p0 + kChunk) % p.group == 0 || p0 + kChunk >= end) {
-      const float s = __fmul_rn(m, inv_sq);
+        for (int mt = 0; mt < 2; ++mt) mma_s8(iacc[mt][nt], af[mt], b0, b1);
+      }
+      // the group ends: its exact int32 sum, scaled, into the f32 sum
+      if (s1 == (grp + 1) * p.group || s1 >= end) {
+        const float sc = __fmul_rn(m, inv_sq);
 #pragma unroll
-      for (int x = 0; x < 2; ++x)
+        for (int x = 0; x < 2; ++x)
 #pragma unroll
-        for (int y = 0; y < 8; ++y)
+          for (int y = 0; y < 8; ++y)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            acc[x][y][k] = __fadd_rn(acc[x][y][k],
-                                     __fmul_rn(static_cast<float>(iacc[x][y][k]), s));
-            iacc[x][y][k] = 0;
-          }
+            for (int k = 0; k < 4; ++k) {
+              acc[x][y][k] = __fadd_rn(acc[x][y][k],
+                                       __fmul_rn(static_cast<float>(iacc[x][y][k]), sc));
+              iacc[x][y][k] = 0;
+            }
+      }
+      s0 = s1;
     }
   }
 

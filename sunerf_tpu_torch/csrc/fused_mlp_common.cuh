@@ -1,11 +1,12 @@
 // Device code shared by the fused-MLP kernels for Hopper (sm_90a): the
-// forward K0 (fused_mlp_fwd.cu), the stashing forwards K1, K6a and K6b
-// (fused_mlp_stash_fwd.cu) and the recompute backward's forward pass
-// (fused_mlp_recompute_bwd.cu), each with the dense feature-grid branch K5.
-// The backwards share fused_mlp_backward.cuh. See those files for what each
-// replaces and what bounds it.
+// stashing forwards K1, K6a and K6b (fused_mlp_stash_fwd.cu) and the
+// recompute backward's forward pass (fused_mlp_recompute_bwd.cu), each with
+// the dense feature-grid branch K5, and the sine, bf16 and grid helpers of
+// the forward K0 (fused_mlp_fwd_wgmma.cu). The backwards share
+// fused_mlp_backward.cuh. See those files for what each replaces and what
+// bounds it.
 //
-// The block layout of K0 and K1 and of K2's chain kernel: 8 warps per 64
+// The block layout of K1 and of K2's chain kernel: 8 warps per 64
 // points; bf16 activations [64, width + 8] in dynamic shared memory; every
 // warp owns H/8 output columns for all 64 rows and runs mma.sync m16n8k16
 // bf16 -> f32 against weights packed in B-fragment order
@@ -34,11 +35,11 @@ constexpr float kHalfPi = 1.5707963267948966f;
 constexpr float kCosScale = 127.0f;
 constexpr float kHalfPiSq = 2.4674011002723395f;   // (pi/2)^2 rounded to f32
 
-// What a forward writes beside its output: nothing (K0), the bf16 sin and
+// What a forward writes beside its output: the bf16 sin and
 // int8 cos stashes (K1, 'int8'), the packed bf16 sin with sign(cos) in its
 // last bit (K6a, 'lsb'), the int8 sin and cos pairs (K6b, 'i8pair'), or the
 // bf16 sin and bf16 cos of the recompute backward K4
-enum Stash : int { kNoStash = 0, kStashInt8 = 1, kStashLsb = 2, kStashI8pair = 3,
+enum Stash : int { kStashInt8 = 1, kStashLsb = 2, kStashI8pair = 3,
                    kStashBf16Cos = 4 };
 
 // x - 2*pi*round(x / 2*pi), rounding 2*pi*k before subtracting (no fused
@@ -410,7 +411,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Forward of K0, K1, K6a, K6b and K4's recompute: kFmt (Stash) picks what
+// Forward of K1, K6a, K6b and K4's recompute: kFmt (Stash) picks what
 // each layer writes beside the output, row-major with L = n_hidden + 1:
 // K1 hs bf16 [n, L*H] and cs int8 [n, L*H]; K6a hs packed bf16 [n, L*H];
 // K6b hs int8 [n, 2*L*H], layer i's sin in columns [2iH, 2iH + H) and its
@@ -426,7 +427,7 @@ struct FwdParams {
   const __nv_bfloat16* w_out;  // [d_out][H]
   const float* b_out;        // [d_out]
   float* out;                // [n, d_out]
-  void* hs;                  // the sin stash (see above), or null for K0
+  void* hs;                  // the sin stash (see above)
   void* cs;                  // the cos stash of K1 and K4, else null
   GridParams grid;
   int n, d_in, n_cols, e_pad, n_hidden, d_out;
@@ -445,7 +446,7 @@ __host__ __device__ constexpr int act_stride(int e_pad) {
 template <int H, int kFmt>
 __host__ __device__ constexpr size_t fwd_smem_bytes(int e_pad) {
   return 2 * kRows * act_stride<H>(e_pad) * sizeof(__nv_bfloat16)
-         + (kFmt != kNoStash ? 2 * kRows * (H + kCosPad) : 0);
+         + 2 * kRows * (H + kCosPad);
 }
 
 template <int H, int kFmt>
@@ -502,7 +503,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mlp_fwd_kernel(FwdParams p)
       fence_proxy_async();
       // the previous layer's copies have read their tiles, which the next
       // layer's epilogue overwrites after this barrier; so one barrier a
-      // layer, as in K0, and the warps drift apart between barriers
+      // layer, and the warps drift apart between barriers
       bulk_wait_read();
       __syncthreads();
       // the sin stash is the bf16 activation that feeds the next layer; the
@@ -512,7 +513,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mlp_fwd_kernel(FwdParams p)
       if constexpr (kFmt == kStashInt8)
         store_rows_bulk(cq, kCosStride, static_cast<int8_t*>(p.cs) + layer * H, stash_ld, H,
                         row0, p.n);
-    } else if constexpr (kFmt != kNoStash) {
+    } else {
       // one staging tile: the previous layer's copy out of it has read it
       bulk_wait_read();
       __syncthreads();
@@ -547,12 +548,6 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mlp_fwd_kernel(FwdParams p)
       else
         store_rows_bulk(cq_tiles, kStage8, static_cast<int8_t*>(p.hs) + layer * 2 * H,
                         2 * stash_ld, 2 * H, row0, p.n);
-    } else {
-      for_each_pair<H>(acc, [&](int row, int col, float v0, float v1) {
-        *reinterpret_cast<uint32_t*>(nxt + row * stride + col) =
-            pack_bf16(fast_sin(v0 + bias[col]), fast_sin(v1 + bias[col + 1]));
-      });
-      __syncthreads();
     }
     __nv_bfloat16* tmp = cur;
     cur = nxt;
@@ -577,7 +572,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mlp_fwd_kernel(FwdParams p)
         p.out[static_cast<size_t>(gr) * p.d_out + o] = s + p.b_out[o];
     }
   }
-  if constexpr (kFmt != kNoStash) bulk_wait();
+  bulk_wait();
 }
 
 template <int H, int kFmt>
@@ -596,7 +591,7 @@ template <int kFmt>
 int fused_mlp_fwd_entry(const FwdParams& p, int d_filter, void* stream) {
   if (p.n <= 0 || p.e_pad % 16 != 0 || !grid_ok(p.grid) ||
       p.e_pad < p.d_in + 2 * p.n_cols + p.grid.n_levels * p.grid.features ||
-      (kFmt != kNoStash && kFmt != kStashInt8 && p.grid.n_levels > 0))
+      (kFmt != kStashInt8 && p.grid.n_levels > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -11,7 +11,7 @@
 //     db_j = sum over points of dz_j (f32)
 //     dW_j = hs_{j-1}^T dz_j for j >= 1 (the hidden layers),
 //            bf16(enc)^T dz_0 for j = 0 (enc recomputed from the points
-//            as K0 computes it)
+//            as the forward computes it)
 //     dh   = dz_j bf16(W_h[j-1])^T for j >= 1
 // every product with bf16 operands and f32 accumulation. By format:
 //   'int8' (K2): hs is K1's bf16 sin, gate_j = bf16(bf16(cs_j) * bf16(1/127));
@@ -21,9 +21,10 @@
 //   'i8pair' (K6b, :580-601): hs_j = bf16(bf16(sin8_j) * bf16(1/127)) (dW_out)
 //       and gate_j the same of cos8_j; dW_h[j-1] on the int8 tensor cores:
 //       per group of `group` points (the TPU kernel's backward tile, 768 by
-//       default) dz_j is quantized to int8 with scale 127 / max|dz_j| over
-//       the group, and the group's exact int32 sum sin8^T dz8 is scaled by
-//       max * (1/127)^2 in f32.
+//       default; any group from 1 to 133,144 = (2^31 - 1) / 127^2, so the
+//       int32 sums cannot overflow) dz_j is quantized to int8 with scale
+//       127 / max|dz_j| over the group, and the group's exact int32 sum
+//       sin8^T dz8 is scaled by max * (1/127)^2 in f32.
 // compute_dpts (K3, :634-635, :646-655) adds the point cotangent
 //   dpts = denc_x + (cos u dsin - sin u dcos) K^T,  denc = dz_0 bf16(W_in)^T
 // over the x, sin and cos columns; the parameter gradients are the same
@@ -100,7 +101,7 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
       e_pad < d_in + 2 * n_cols + p.grid.n_levels * p.grid.features || d_out < 1 ||
       d_out > kMaxOut || splits < 1 || n_hidden < 0 || grid_bad || fmt < 0 || fmt > 2 ||
       (dpts != nullptr && w_enc_t == nullptr) ||
-      (fmt == 2 && (group < kChunk || group % kChunk != 0 || dz_max == nullptr)))
+      (fmt == 2 && (group < 1 || group > 133144 || dz_max == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   p.pts = static_cast<const float*>(pts);
   p.col_dim = static_cast<const int*>(col_dim);

@@ -3,7 +3,7 @@
 //
 // K1 replaces the TPU kernel sunerf_tpu/ops/pallas/fused_mlp.py:_fwd_stash_kernel
 // with the 'int8' stash (the training forward; pallas_call in
-// _fused_mlp_stash_fwd). Same function: K0's output (fused_mlp_fwd.cu), plus,
+// _fused_mlp_stash_fwd). Same function: K0's output (fused_mlp_fwd_wgmma.cu), plus,
 // for every Sine layer i of L, with z_i its pre-activation and y_i the
 // range-reduced z_i that the sine also uses,
 //   hs[:, i*H:(i+1)*H] = bf16(sin y_i)   — the same bf16 value that feeds
@@ -12,7 +12,7 @@
 // with cos8 the TPU kernel's degree-8 even polynomial (fast_sincos_q). Both
 // stashes are [N, L*H] row-major, the TPU kernel's layout; the backward K2
 // (fused_mlp_stash_bwd.cu) reads them. Dense grid levels (K5) enter the
-// encoding as in K0 (fused_mlp_fwd.cu).
+// encoding as in K0.
 //
 // K6a replaces _fwd_stash_lsb_kernel (stash_format 'lsb'): one bf16 stream
 // [N, L*H] holding bf16(sin y_i) with its last mantissa bit replaced by
@@ -29,13 +29,13 @@
 // N = 196,608 at 989 TFLOP/s bf16 dense. Bytes: K1's stashes write 3*L*H =
 // 12,288 bytes per point, 0.722 ms at 3.35 TB/s; K6a's and K6b's one stream
 // 2*L*H = 8,192 bytes, 0.481 ms.
-// Design: K0's kernel (fused_mlp_fwd_kernel<H, fmt> in fused_mlp_common.cuh)
-// with the stash stores added to each layer's epilogue. K1 writes the bf16
-// sines into the next activation buffer, as K0 does, and the int8 cosines
+// Design: the mma.sync forward (fused_mlp_fwd_kernel<H, fmt> in
+// fused_mlp_common.cuh) with the stash stores in each layer's epilogue. K1
+// writes the bf16 sines into the next activation buffer, and the int8 cosines
 // into one of two staging tiles [64, H + 16] in shared memory (+66 KB, 200 KB
 // in all at H = 512); then the bulk-copy (TMA) engine copies both tiles to
 // the stashes, one cp.async.bulk per row, while the warps go on to the next
-// layer's products. The two staging tiles keep K0's one barrier a layer.
+// layer's products. The two staging tiles keep one barrier a layer.
 // K6a's and K6b's rows are twice as wide (a bf16 tile [64, H + 8] or the
 // int8 pairs [64, 2H + 16]), so one staging tile fits in the same 66 KB, and
 // a layer waits for the previous layer's copy out of it before its epilogue:

@@ -1,7 +1,8 @@
 """Fused positional encoding + Sine MLP: the ports of the TPU kernels of
 sunerf_tpu/ops/pallas/fused_mlp.py.
 
-  K0 _fwd_kernel        -> csrc/fused_mlp_fwd.cu        forward, no gradient
+  K0 _fwd_kernel        -> csrc/fused_mlp_fwd_wgmma.cu  forward, no gradient
+                           (wgmma from a bulk-copy weight ring)
   K1 _fwd_stash_kernel  -> csrc/fused_mlp_stash_fwd.cu  training forward,
                            sin stash bf16 + cos stash int8 ('int8')
   K2 _bwd_stash_kernel  -> csrc/fused_mlp_stash_bwd.cu  training backward
@@ -38,7 +39,8 @@ sine. Raw outputs exclude the DT base offsets (nerf_apply_fused adds them).
 
 The kernels read bf16 copies of the weights packed in mma.sync fragment
 order (W_h transposed as well; the posenc rows of W_in transposed for the
-point cotangent, only when a backward computes it), prepared once per
+point cotangent, only when a backward computes it; for K0's wgmma kernel,
+its ring chunks, `pack_wgmma`, only when it runs), prepared once per
 parameter set and cached on the identity and version of its tensors: a
 training step packs once per field, and the optimizer's in-place update
 invalidates the pack. The grid tables
@@ -62,7 +64,7 @@ from sunerf_tpu_torch.ops.grid_encoding import grid_encode, grid_encode_table_gr
 
 # kernel launches so far, one per wrapper call that launched: a run sets them
 # to 0 and reads them to show that its fields went through the kernels
-LAUNCHES = 0               # K0, fused_mlp_fwd
+LAUNCHES = 0               # K0, fused_mlp_fwd_wgmma
 STASH_FWD_LAUNCHES = 0     # stashing forwards, fused_mlp_stash_fwd (K1, K6a, K6b)
 STASH_BWD_LAUNCHES = 0     # stashing backwards, fused_mlp_stash_bwd (K2, K6a, K6b)
 GRID_LAUNCHES = 0          # K5: launches of K0, K1 or K2 with grid levels
@@ -72,6 +74,8 @@ LSB_LAUNCHES = 0           # K6a: 'lsb' stashing forward and backward launches
 I8PAIR_LAUNCHES = 0        # K6b: 'i8pair' stashing forward and backward launches
 
 KERNEL_WIDTHS = (64, 128, 256, 384, 512)   # d_filter values the kernels take
+_WGMMA_KC = 32          # K0's weight rows per ring chunk
+MAX_K0_OUTPUTS = 8      # d_output values K0 takes: 1..8, its head's wgmma width
 MAX_BWD_OUTPUTS = 4                         # d_output values K2 takes: 1..4
 MAX_GRID_LEVELS = 4                         # grid levels the kernels take
 _KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
@@ -84,6 +88,7 @@ _NO_GRID_RECOMPUTE = ('grid-encoding configs differentiate through the stashing 
                       'd_table path')
 _prepared: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _prepared_enc: WeakIdKeyDictionary = WeakIdKeyDictionary()
+_prepared_wgmma: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _TWO_PI = 6.283185307179586
 _INV_TWO_PI = 0.15915494309189535
 _HALF_PI = 1.5707963267948966
@@ -437,6 +442,27 @@ def pack_fragments(w: torch.Tensor) -> torch.Tensor:
     return wb.permute(perm).contiguous().reshape(*lead, n // 8, k // 16, 32, 4)
 
 
+def pack_wgmma(w_in: torch.Tensor, w_h: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+    """w_in [E, H], w_h [L-1, H, H] and w_out [H, O] float -> bf16
+    [chunks, 32 H], the K0 wgmma kernel's ring chunks in the order it reads
+    them: the rows of w_in (zero-padded to a multiple of 32), then of each
+    w_h[i], 32 rows a chunk, each chunk in wgmma's no-swizzle K-major B
+    layout, element (k, n) at ((k // 8) * (H // 8) + n // 8) * 64 + (n % 8) * 8
+    + k % 8; then the head, w_out^T with its O columns zero-padded to 8,
+    element (k, n) at (k // 8) * 64 + n * 8 + k % 8, the chunk zero-padded."""
+    e, h = w_in.shape
+    k_in = -(-e // _WGMMA_KC) * _WGMMA_KC
+    rows = torch.cat([F.pad(w_in, (0, 0, 0, k_in - e)), w_h.reshape(-1, h)])
+    # (chunk, k group, k, n group, n) -> (chunk, k group, n group, n, k)
+    t = rows.to(torch.bfloat16).reshape(-1, _WGMMA_KC // 8, 8, h // 8, 8)
+    layers = t.permute(0, 1, 3, 4, 2).reshape(-1, _WGMMA_KC * h)
+    # (k group, k, n) -> (k group, n, k)
+    head = F.pad(w_out.to(torch.bfloat16), (0, MAX_K0_OUTPUTS - w_out.shape[1]))
+    head = head.reshape(h // 8, 8, MAX_K0_OUTPUTS).permute(0, 2, 1).reshape(-1)
+    head = F.pad(head, (0, _WGMMA_KC * h - head.numel())).reshape(1, -1)
+    return torch.cat([layers, head]).contiguous()
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class _KernelWeights:
     """One parameter set as the kernels read it (device tensors)."""
@@ -507,6 +533,19 @@ def _enc_weights(config: NeRFConfig, w_in: torch.Tensor) -> torch.Tensor:
                                                     - n_enc))
             hit = (stamp, pack_fragments(w_t))
         _prepared_enc[w_in] = hit
+    return hit[1]
+
+
+def _wgmma_weights(params: dict) -> torch.Tensor:
+    """pack_wgmma of this parameter set, prepared only for the K0 wgmma
+    kernel and cached like _kernel_weights."""
+    stamp = tuple((id(params[k]), _version(params[k])) for k in ('w_in', 'w_h', 'w_out'))
+    hit = _prepared_wgmma.get(params['w_in'])
+    if hit is None or hit[0] != stamp:
+        with torch.no_grad():
+            hit = (stamp, pack_wgmma(params['w_in'].float(), params['w_h'].float(),
+                                     params['w_out'].float()))
+        _prepared_wgmma[params['w_in']] = hit
     return hit[1]
 
 
@@ -584,12 +623,15 @@ def _count_grid(config: NeRFConfig):
 
 def _forward_k0(config: NeRFConfig, params: dict,
                 points: torch.Tensor) -> torch.Tensor:
-    """The K0 wrapper: CUDA tensors launch the kernel (or raise), CPU
-    tensors run its plain version."""
+    """The K0 wrapper: CUDA tensors launch csrc/fused_mlp_fwd_wgmma.cu (or
+    raise), CPU tensors run its plain version."""
     global LAUNCHES
     if points.device.type == 'cpu':
         return fused_mlp_reference(config, params, points)
     _check(config, params, points)
+    if not 1 <= config.d_output <= MAX_K0_OUTPUTS:
+        raise ValueError(f'the fused forward takes d_output from 1 to {MAX_K0_OUTPUTS}, '
+                         f'got {config.d_output}')
     n = points.shape[0]
     out = torch.empty((n, config.d_output), dtype=torch.float32,
                       device=points.device)
@@ -597,8 +639,11 @@ def _forward_k0(config: NeRFConfig, params: dict,
         return out
     w = _kernel_weights(config, params)
     grid = _grid_args(config, params)
-    _launch('fused_mlp_fwd', 11, 7, points.device,
-            *_fwd_args(w, points, grid, out), *_fwd_ints(config, w, n))
+    _launch('fused_mlp_fwd_wgmma', 9, 7, points.device,
+            points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
+            _wgmma_weights(params).data_ptr(), w.b_in.data_ptr(), w.b_h.data_ptr(),
+            w.b_out.data_ptr(), ctypes.addressof(grid), out.data_ptr(),
+            *_fwd_ints(config, w, n))
     LAUNCHES += 1
     _count_grid(config)
     return out
@@ -694,11 +739,11 @@ def _check_backward(config: NeRFConfig, dy: torch.Tensor, n: int, dev):
 
 
 def _check_group(group: int):
-    """The i8pair scale group on the card: whole 32-point dW chunks, and
-    int32 sums that cannot overflow."""
-    if group < 32 or group % 32 or group * 127 * 127 >= 2 ** 31:
-        raise ValueError(f'the i8pair kernel takes stash_bwd_tile a multiple of 32 '
-                         f'below {2 ** 31 // 127 ** 2}, got {group}')
+    """The i8pair scale group on the card: any group whose int32 sums
+    cannot overflow."""
+    if group < 1 or group * 127 * 127 >= 2 ** 31:
+        raise ValueError(f'the i8pair kernel takes stash_bwd_tile from 1 to '
+                         f'{(2 ** 31 - 1) // 127 ** 2}, got {group}')
 
 
 def fused_mlp_stash_backward(config: NeRFConfig, params: dict,

@@ -6,8 +6,9 @@ K4), at the 8x512 emission field and N = 262,144 points.
 
     python -m sunerf_tpu_torch.scripts.bench_kernel [--n 262144]
 
-Times: CUDA events, median of --reps calls after --warmup (on --device cpu
-the host clock, through the plain versions: a CPU number). TFLOP/s from the
+Times: utils/profiling.timeit, CUDA events around each of 3 batches of
+--reps back-to-back calls after warm-up, the median batch per call (on
+--device cpu the host clock, through the plain versions: a CPU number). TFLOP/s from the
 JAX script's counts: the forward 2 N H (E + (L-1) H + d_out), forward +
 backward three times that. The JAX script's tile flags size TPU blocks and
 have no counterpart; --i8pair-group is the one tile with a numerical

@@ -14,10 +14,12 @@ then take wyz @ table [G^2, G F] with bf16 operands and f32 sums, the table
 in bf16 as the JAX script has it. --tile sizes the TPU kernel's point blocks
 and has no counterpart here: it is accepted and unused.
 
-Times: CUDA events, median of --reps calls after 3 warm-up calls (on
---device cpu the host clock, through the plain version: a CPU number). Draws
-come from torch.Generator seeds 0 (table, standard normal) and 1 (points,
-U(-1.2, 1.2)), so they differ from the JAX script's jax.random draws.
+Times: utils/profiling.timeit, --reps back-to-back calls after 3 warm-up
+calls captured in one CUDA graph, each of 3 replays between CUDA events,
+the median replay per call (on --device cpu the host clock, through the
+plain version: a CPU number). Draws come from torch.Generator seeds 0
+(table, standard normal) and 1 (points, U(-1.2, 1.2)), so they differ from
+the JAX script's jax.random draws.
 --check runs the JAX script's check (G = 8, bound 1.3, 200 points U(-2, 2)):
 'expand' and 'inkernel' within 2% of max|iota| + 1e-4 of 'iota'.
 """
@@ -99,7 +101,7 @@ def main(argv=None) -> dict:
         enc = make_encode(G, F, 1.3, args.tile, variant)
         operands = (e1, e2) if variant == 'expand' else ()
         out[f'{variant}_ms'] = timeit(enc, table, pts, *operands, device=device,
-                                      reps=args.reps)
+                                      reps=args.reps, graph=True)
         print(json.dumps(out), flush=True)
     print(json.dumps(out))
     return out

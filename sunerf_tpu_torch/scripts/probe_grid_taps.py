@@ -12,9 +12,11 @@ packed as the JAX script packs it, [G^3 / P, 128] with P = 128 // F, which
 on the card is the same bytes as [G^3, F]. --tile sizes the TPU kernel's
 point blocks and has no counterpart here: it is accepted and unused.
 
-Times: CUDA events, median of --reps calls after 3 warm-up calls (on
---device cpu the host clock, through the plain version: a CPU number, not
-the card's). Draws come from torch.Generator seeds 1 (points, U(-1.2, 1.2))
+Times: utils/profiling.timeit, --reps back-to-back calls after 3 warm-up
+calls captured in one CUDA graph, each of 3 replays between CUDA events,
+the median replay per call, so a kernel of a few microseconds is not read
+as one call's host dispatch (on --device cpu the host clock, through the
+plain version: a CPU number, not the card's). Draws come from torch.Generator seeds 1 (points, U(-1.2, 1.2))
 and 2 (table, standard normal), so they differ from the JAX script's
 jax.random draws. --check compares the kernel (or, on the CPU, its plain
 version) with ops/grid_encoding.py grid_encode on the JAX script's check
@@ -90,7 +92,8 @@ def main(argv=None) -> dict:
         table4 = torch.randn((G, G, G, args.features), generator=gen(2), device=device)
         packed = pack_table(table4)
         enc = make_tap_encode(G, args.features, 1.3, args.tile)
-        ms = timeit(enc, packed, pts, device=device, reps=args.reps)
+        ms = timeit(enc, packed, pts, device=device, reps=args.reps,
+                   graph=True)
         out[f'taps_{G}^3_ms'] = ms
         out[f'taps_{G}^3_ns_per_tap'] = ms * 1e6 / (args.n * 8)
         print(json.dumps({k: v for k, v in out.items() if str(G) in k}), flush=True)

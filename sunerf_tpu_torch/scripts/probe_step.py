@@ -9,7 +9,8 @@ The step is bench.py's: the 8x512 emission field for both passes (posenc
 4 -> 84), 64 + 128 samples, 1024 rays from (4, 0, 0) toward -x with 0.15
 normal jitter, target 0.05, LossConfig(), make_optimizer(); weights random
 from seed 0. Per knob set it prints ms/step and rays/s (CUDA events around
-whole steps, median of --reps after warm-up; on --device cpu the host
+each of 3 batches of --reps back-to-back steps after warm-up, the median
+batch per step; on --device cpu the host
 clock, a CPU number) and the kernel launches of one step. The renderer
 detaches its sample points, so no step computes a point cotangent.
 """

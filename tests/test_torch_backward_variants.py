@@ -253,6 +253,33 @@ def test_i8pair_gradients_depend_on_the_group():
         assert torch.equal(g8[k], g16[k]), k
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_i8pair_stash(seed=5):
+    """JAX's i8pair stashing forward at TINY (stash tile 16): the residuals
+    and, for the port, the stash rows below N."""
+    jc, _, params, pts, _ = _setup(seed)
+    _, residuals = jax.jit(lambda p, x: jfm._fused_mlp_stash_fwd(
+        jfm._dims_from_config(jc), 16, 16, True, False, 'i8pair', p, x))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(pts))
+    return residuals, _stash_to_torch('i8pair', residuals[2])
+
+
+@pytest.mark.parametrize('group', [8, 16, 24])
+def test_i8pair_plain_matches_jax_at_the_group(group):
+    """Every gradient of the i8pair backward's plain version at scale groups
+    that are not multiples of 32 (the card's dW_i8 kernel splits its 32-point
+    chunks at their boundaries) against JAX's interpret-mode kernel at the
+    same stash_bwd_tile, within the i8pair tolerance."""
+    jc, tc, params, pts, dy = _setup(seed=5)
+    residuals, hs = _jax_i8pair_stash()
+    ref = jax.jit(lambda r, g: jfm._fused_mlp_stash_bwd(
+        jfm._dims_from_config(jc), 16, group, True, False, 'i8pair', r, g))(
+        residuals, jnp.asarray(dy))[0]
+    got = _port_grads(tc, params, pts, dy, 'i8pair', hs, None, False, group)
+    for k in KEYS:
+        assert _rel(ref[k], got[k].numpy()) < GRAD_TOL['i8pair'], (group, k)
+
+
 @pytest.mark.parametrize('knob', [dict(stash=False), dict(stash_format='lsb'),
                                   dict(stash_format='i8pair')])
 def test_autograd_paths_match_jax(knob):

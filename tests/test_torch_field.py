@@ -21,6 +21,7 @@ import torch
 
 from sunerf_tpu.core.encoding import positional_encoding as jax_posenc
 from sunerf_tpu.models.fields import NeRFConfig as JaxNeRFConfig
+from sunerf_tpu.models.fields import init_nerf as jax_init_nerf
 from sunerf_tpu.models.fields import nerf_apply as jax_nerf_apply
 from sunerf_tpu.models.fields import nerf_apply_fused as jax_nerf_apply_fused
 from sunerf_tpu.utils.checkpoint import load_state as jax_load_state
@@ -28,7 +29,7 @@ from sunerf_tpu_torch.core.encoding import encoded_dim, positional_encoding
 from sunerf_tpu_torch.models.fields import (NeRFConfig, density_temperature_config,
                                             emission_config, init_nerf, nerf_apply,
                                             nerf_apply_fused, params_from_numpy)
-from sunerf_tpu_torch.ops.fused_mlp import fused_mlp_reference, pack_fragments
+from sunerf_tpu_torch.ops.fused_mlp import fused_mlp_reference, pack_fragments, pack_wgmma
 
 torch.set_num_threads(1)
 
@@ -182,3 +183,46 @@ def test_pack_fragments_follows_the_mma_fragment_layout(lead):
             for ks in range(k // 16):
                 rebuilt[..., 16 * ks + kofs, 8 * nt + g] = packed[..., nt, ks, :, j]
     torch.testing.assert_close(rebuilt, w.to(torch.bfloat16), rtol=0, atol=0)
+
+
+# ------------------------------------------------------------ the K0 wgmma kernel's weights
+
+def _core_unpack(block: np.ndarray, n_k: int, n_n: int) -> np.ndarray:
+    """One K-major no-swizzle block (flat) -> [n_k, n_n]: element (k, n) at
+    ((k // 8) * (n_n // 8) + n // 8) * 64 + (n % 8) * 8 + k % 8."""
+    k, n = np.meshgrid(np.arange(n_k), np.arange(n_n), indexing='ij')
+    return block[((k // 8) * (n_n // 8) + n // 8) * 64 + (n % 8) * 8 + k % 8]
+
+
+def _bf16_np(x) -> np.ndarray:
+    return torch.as_tensor(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize('d_filter,grid_sizes,d_output', [
+    (128, (), 2), (512, (), 2), (128, (4,), 2), (128, (), 8)])
+def test_k0_wgmma_packing_unpacks_to_the_jax_layout(d_filter, grid_sizes, d_output):
+    """pack_wgmma's chunks, unpacked, are bf16(w_in) zero-padded to a
+    multiple of 32 rows, then each bf16(w_h[i]), and last the head
+    bf16(w_out)^T zero-padded to 8 outputs, of JAX-initialised params at
+    TINY depth (3 layers), exactly."""
+    jc = JaxNeRFConfig(n_layers=3, d_filter=d_filter, n_freqs=4, grid_sizes=grid_sizes,
+                       grid_features=8, d_output=d_output)
+    jp = jax.tree.map(np.array, jax_init_nerf(jax.random.PRNGKey(0), jc))
+    params = params_from_numpy(jp, 'cpu')
+    packed = pack_wgmma(params['w_in'].float(), params['w_h'].float(), params['w_out'].float())
+    assert packed.dtype == torch.bfloat16 and packed.shape[1] == 32 * d_filter
+    flat = packed.float().numpy()
+    rows = np.concatenate([_core_unpack(c, 32, d_filter) for c in flat[:-1]])
+    e = jp['w_in'].shape[0]
+    k_in = -(-e // 32) * 32
+    assert rows.shape == (k_in + 2 * d_filter, d_filter)
+    np.testing.assert_array_equal(rows[:e], _bf16_np(jp['w_in']))
+    np.testing.assert_array_equal(rows[e:k_in], 0.0)
+    for i in range(2):
+        np.testing.assert_array_equal(rows[k_in + i * d_filter:k_in + (i + 1) * d_filter],
+                                      _bf16_np(jp['w_h'][i]))
+    at = packed.shape[0] - 1
+    head = _core_unpack(flat[at], d_filter, 8)
+    np.testing.assert_array_equal(head[:, :d_output], _bf16_np(jp['w_out']))
+    np.testing.assert_array_equal(head[:, d_output:], 0.0)
+    assert not flat[at][d_filter * 8:].any()

@@ -169,3 +169,64 @@ def test_hat_variant_and_launch_signature():
         probe_grid_hatbuild.make_encode(8, 8, 1.3, 64, 'onehot')
     assert build.signature(2, 1, 2) == (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_float, ctypes.c_float)
+
+
+@pytest.mark.parametrize('warmup,reps,batches', [(3, 20, 3), (0, 1, 1), (2, 4, 5)])
+def test_timeit_on_the_cpu_times_batches_of_calls(warmup, reps, batches):
+    """utils/profiling.timeit, which the probe scripts time with: fn is
+    called warmup + reps * batches times, and the result is ms per call
+    (the median batch over its reps), here a 2 ms sleep."""
+    import time
+
+    from sunerf_tpu_torch.utils.profiling import timeit
+    calls = []
+
+    def fn(x):
+        calls.append(x)
+        time.sleep(2e-3)
+
+    ms = timeit(fn, 7, device='cpu', warmup=warmup, reps=reps, batches=batches)
+    assert calls == [7] * (warmup + reps * batches)
+    assert 2.0 <= ms < 20.0, ms
+
+
+def _core_unpack(block: np.ndarray, n_k: int, n_n: int) -> np.ndarray:
+    """One K-major no-swizzle block (flat) -> [n_k, n_n]: element (k, n) at
+    ((k // 8) * (n_n // 8) + n // 8) * 64 + (n % 8) * 8 + k % 8."""
+    k, n = np.meshgrid(np.arange(n_k), np.arange(n_n), indexing='ij')
+    return block[((k // 8) * (n_n // 8) + n // 8) * 64 + (n % 8) * 8 + k % 8]
+
+
+@pytest.mark.parametrize('G,F', [(8, 8), (5, 8), (32, 8), (6, 48)])
+def test_hat_table_layout_round_trips(G, F):
+    """hat_table_layout: every (column tile, 64-row chunk) block unpacks to
+    its part of the table, zero past G^2 rows and G F columns."""
+    rng = np.random.default_rng(G * F)
+    table = torch.from_numpy(rng.normal(size=(G * G, G * F)).astype(np.float32))
+    table = table.to(torch.bfloat16)
+    laid = grid_probes.hat_table_layout(table)
+    tiles, chunks = -(-G * F // 256), -(-G * G // 64)
+    assert laid.shape == (tiles, chunks, 64 * 256)
+    full = np.zeros((chunks * 64, tiles * 256), np.float32)
+    for ct in range(tiles):
+        for kc in range(chunks):
+            full[kc * 64:(kc + 1) * 64, ct * 256:(ct + 1) * 256] = _core_unpack(
+                laid[ct, kc].float().numpy(), 64, 256)
+    np.testing.assert_array_equal(full[:G * G, :G * F], table.float().numpy())
+    assert not full[G * G:].any() and not full[:, G * F:].any()
+
+
+@pytest.mark.parametrize('G', [8, 5, 20])
+def test_hat_e_layout_round_trips(G):
+    """hat_e_layout: per 64-column chunk, E1's and E2's blocks unpack to
+    their columns of E1 and E2, zero past G rows and G^2 columns."""
+    e1, e2 = (torch.from_numpy(e).to(torch.bfloat16)
+              for e in grid_probes.expansion_matrices(G))
+    laid = grid_probes.hat_e_layout(e1, e2)
+    gp, chunks = -(-G // 16) * 16, -(-G * G // 64)
+    assert laid.shape == (chunks, 2, gp * 64)
+    for m, e in enumerate((e1, e2)):
+        full = np.concatenate([_core_unpack(laid[kc, m].float().numpy(), gp, 64)
+                               for kc in range(chunks)], axis=1)
+        np.testing.assert_array_equal(full[:G, :G * G], e.float().numpy())
+        assert not full[G:].any() and not full[:, G * G:].any()
