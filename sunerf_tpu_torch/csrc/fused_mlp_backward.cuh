@@ -5,25 +5,51 @@
 // what each replaces and what bounds it.
 //
 // One backward pass over n points is these launches, in stream order:
-//   1. chain_kernel: K1's block layout (64 points, 8 warps, mma.sync against
-//      W_h^T packed in fragment order by the wrapper). It carries the
-//      row-parallel chain dy -> dh -> dz_{L-1} -> dh -> ... -> dz_0 with dz
-//      in shared memory, each dz_j gated by the layer's cos (the "gate",
-//      below); it writes dz to a scratch [n, L*H] by the bulk-copy (TMA)
-//      engine, the recomputed bf16 encoding to a scratch [n, E_pad], and per
-//      block f32 partials of dW_out, db_out and every db_j. With kDpts it
-//      ends with the point cotangent (K3); with grid levels with the grid
-//      cotangent (K5).
+//   0. prep_kernel, a block per 64-point tile: per tile f32 partials of
+//      dW_out = hs_{L-1}^T bf16(dy) and db_out, and the recomputed bf16
+//      encoding to a scratch [n, E_pad] for dW_in (many blocks an SM hide
+//      the loads' latency, which inside the chain kernel's tile loop cost
+//      the tensor cores their time);
+//   1. chain_wgmma_kernel: the row-parallel chain dy -> dh -> dz_{L-1} ->
+//      dh -> ... -> dz_0, each dz_j gated by the layer's cos (the "gate",
+//      below), on wgmma in K0's design (fused_mlp_fwd_wgmma.cuh): 64-point
+//      tiles, two consumer warpgroups each taking H/2 columns of
+//      dh = dz_j W_h[j-1]^T (m64n{H/2}k16), dz_j in place in one bf16 buffer
+//      in wgmma's K-major core-matrix layout, W_h[j-1]^T streamed in 32-row
+//      k-chunks through a bulk-copy ring by a producer warp (pack_wgmma_bwd:
+//      W_h's core-matrix chunks as stored, K-major for B), persistent blocks.
+//      The epilogue gates the accumulators into dz_{j-1} in the buffer; the
+//      copy engine stores each dz_j, tile by tile in the buffer's own order,
+//      to a scratch [tiles][L][64 x H] (one 64 KB bulk copy a tile and layer
+//      at 8x512) for the dW products; db_j are column sums of the buffer in
+//      a fixed order, into per tile f32 partials. With kDpts it ends with
+//      the point cotangent (K3, one more
+//      wgmma against W_in[:n_enc]^T from the ring); with grid levels with
+//      the grid cotangent (K5).
 //   2. K5 only: grid_scatter_kernel and grid_convert_kernel.
 //   3. 'i8pair' only: dz_absmax_kernel, each group's max |dz_j|.
-//   4. dw_kernel: each dW as a product contracting over the points, split
-//      over the points into `splits` ranges with f32 partials per split;
-//      for 'i8pair' the hidden layers' dW go to dw_i8_kernel instead.
-//   5. reduce_kernel twice: the partials summed over blocks and splits in a
-//      fixed order (added to the running sums with `accumulate`, for K4's
+//   4. dw_wgmma_kernel: dW_in = enc^T dz_0 and dW_h[j-1] = hs_{j-1}^T dz_j,
+//      products contracting over the points, as work items (split, job,
+//      128-row by TN-column output tile) walked by persistent blocks: a
+//      producer warp brings each 64-point chunk of A (the stash or the
+//      encoding: two TMA boxes [64 points x 64 columns] of a 2-D tensor
+//      map, 128-byte swizzled) and of B (dz, one bulk copy of the scratch's
+//      tile) through a ring, and two consumer warpgroups take 64 rows each,
+//      wgmma m64n{TN}k16 with A from registers (ldmatrix.trans of the
+//      swizzled tile, which reads 8 points' same columns from 8 bank
+//      groups: A is the stash transposed) and B = dz MN-major from shared
+//      memory. With a bulk copy a point row for A instead (64 of 256 bytes
+//      a chunk) the kernel took 3.8 ms at the fine step where the B copies
+//      alone take 1.2 ms (H100 80GB HBM3, 700 W): the copy engine's rate in
+//      small copies, not the bytes, bound it. f32 partials per split.
+//      'i8pair' runs it for dW_in alone and sends the hidden layers' dW to
+//      dw_i8_kernel, over ranges of its own (splits8) into partials of its
+//      own, so neither kernel's split count sizes the other's partials.
+//   5. reduce_kernel: the partials summed over tiles and splits in a fixed
+//      order (added to the running sums with `accumulate`, for K4's
 //      chunks), so a run gives the same bits as the last; no atomics.
-// Rows past n are masked in every kernel: they load as zeros and are never
-// stored.
+// Rows past n are masked in every kernel: they load as zeros (dz) or are
+// multiplied by zero rows of dz, and are never stored.
 //
 // The gate of layer j, the value dz_j = bf16(bf16(dh) * gate) multiplies by:
 //   kGateInt8: bf16(bf16(q) * bf16(1/127)) of an int8 cos x127 stash (K1's
@@ -31,28 +57,52 @@
 //   kGateBf16: a bf16 cos (K4's recomputed fast_sincos cos);
 //   kGateLsb:  bf16(sign * sqrt(max(1 - s^2, 0))) in f32 from K6a's packed
 //              bf16 sin s, its last bit the sign (_unpack_sin_cos).
-// The int8 gates are staged in shared memory: two tiles [64, H + 16] that
-// land by cp.async while the warps run the previous product (one barrier a
-// layer). A bf16 gate tile takes twice the bytes, and two do not fit beside
-// the activation buffers at H = 512, so the bf16 gates are read in the
-// epilogue straight from device memory (through L1 and L2).
+// The int8 gate tile [64, H] of a layer comes through the weight ring
+// itself, in the stage after the layer's weight chunks (64 H bytes, a
+// weight chunk's size): H / 128 TMA boxes [64 rows x 128 bytes] of a 2-D
+// tensor map of the stash, 128-byte swizzled so the epilogue's reads of 8
+// rows' same columns fall in 8 bank groups, prefetched into L2 one layer
+// ahead. The bf16 and lsb gates, twice the bytes, are read in the epilogue
+// straight from device memory (through L1 and L2).
 #pragma once
 
 #include "fused_mlp_common.cuh"
+#include "hopper.cuh"
 
 namespace sunerf {
 namespace {
 
+namespace hp = sunerf::hopper;
+
 constexpr int kMaxOut = 4;        // d_out the chain kernel takes
-constexpr int kTile = 128;        // dw_kernel output tile (rows and columns)
-constexpr int kChunk = 32;        // points per dw_kernel step
-constexpr int kTileStride = kTile + 8;
-constexpr int kDptsCols = 128;    // encoding columns per K3 product
-constexpr int kQuadStride = kChunk / 4 + 4;   // dw_i8_kernel staging row, 32-bit words
+constexpr int kMaxDpts = 8;       // d_in the point cotangent takes
+constexpr int kRows = 64;         // points a chain tile and a dW chunk
+constexpr int kKC = 32;           // weight rows (k) per ring chunk
+constexpr int kConsumerWarps = 8; // two warpgroups
+constexpr int kConsumers = kConsumerWarps * 32;
+constexpr int kThreads = kConsumers + 32;   // + the producer warp
+constexpr int kMaxStages = 32;
+constexpr int kRowGroups = kRows / 8;
+constexpr size_t kSmemLimit = 232448;   // a block's shared memory on sm_90
+// the chain kernel's head: barriers [0, 512), block maxima [512, 640),
+// then dy [64][d_out] f32, later K3's [64][kMaxDpts] f32, at 1024
+constexpr int kChainHead = 3072;
+constexpr int kDwBar = 1024;      // the dW kernel's barriers, before its stages
+constexpr int kDwTM = 128;        // dW output rows a work item (two warpgroups)
+constexpr int kBox = 64;          // rows of a TMA box; bf16 columns of a dW A box
+constexpr int kGateBox = 128;     // int8 columns of a gate box (a 128-byte swizzled row)
+// dw_i8_kernel: mma.sync int8, 128x128 output tiles, 32-point chunks
+constexpr int kI8Threads = 256;
+constexpr int kI8Tile = 128;
+constexpr int kI8Chunk = 32;
+constexpr int kQuadStride = kI8Chunk / 4 + 4;   // staging row, 32-bit words
 
 enum Gate : int { kGateInt8 = 0, kGateBf16 = 1, kGateLsb = 2 };
 
 struct BwdParams {
+  CUtensorMap gate_map;         // int8 gates: [n, gate columns] with gate_ld-byte rows
+  CUtensorMap enc_map;          // the encoding scratch [n, e_pad], bf16
+  CUtensorMap hs_map;           // the bf16 sin stash [n, L*H] ('int8', 'lsb', K4)
   const float* pts;             // [n, d_in]
   const int* col_dim;           // [n_cols]
   const float* col_freq;        // [n_cols]
@@ -62,12 +112,14 @@ struct BwdParams {
   const void* gate;             // layer 0's gate, int8 or bf16 (see above)
   size_t gate_ld;               // its row stride, elements
   int gate_layer;               // elements from one layer's gate to the next
-  const uint2* w_h_t;           // [L-1][H/8][H/16][32] packed fragments of w_h[i]^T
+  const __nv_bfloat16* w_bwd;   // [L-1][H/32][32 x H] pack_wgmma_bwd: w_h[j]^T chunks
+  const __nv_bfloat16* w_dpts;  // K3: pack_wgmma_dpts: w_in[:n_enc]^T chunks, or null
   const __nv_bfloat16* w_out;   // [d_out][H]
-  __nv_bfloat16* dz;            // [n, L*H] scratch
+  __nv_bfloat16* dz;            // [tiles][L][64 x H] scratch, core-matrix order
   __nv_bfloat16* enc;           // [n, e_pad] scratch
-  float* part_chain;            // [n_tiles][q] per-block partials
-  float* part_dw;               // [splits][p] per-split partials
+  float* part_chain;            // [tiles][q] per-tile partials
+  float* part_dw;               // [splits][dw_ld] the dW kernel's per-split partials
+  float* part_i8;               // 'i8pair': [splits8][(L-1) H^2] dw_i8_kernel's partials
   float* grad_chain;            // [q]: dW_out [H][d_out], db_out, db_j [L][H]
   float* grad_dw;               // [p]: dW_in [e_pad][H], dW_h [L-1][H][H]
   GridParams grid;              // dense grid levels (K5), or none
@@ -77,14 +129,23 @@ struct BwdParams {
   unsigned long long* gacc;     // [sum G^3 F] fixed-point sums, zeroed
   float* grad_grid;             // [sum G^3 F]: d_table of each level
   float* dpts;                  // K3: [n, d_in], or null
-  const uint2* w_enc_t;         // K3: packed fragments of w_in[:n_enc]^T, padded
-                                //     to a multiple of kDptsCols columns
   int n_enc;                    // K3: encoding columns x, sin, cos (d_in + 2 n_cols)
   float* dz_max;                // 'i8pair': [n_groups][L-1] max |dz_j|, j >= 1
   int group;                    // 'i8pair': points per dz scale group
-  int n, d_in, n_cols, e_pad, h, n_hidden, d_out, splits;
+  int n, d_in, n_cols, e_pad, h, n_hidden, d_out;
+  int splits, pps;              // dW: point ranges of pps points (a multiple of 64)
+  int splits8;                  // 'i8pair': dw_i8_kernel's point ranges
+  int stages, stage_bytes;      // the launched kernel's ring
   size_t q, p;
+  size_t dw_ld;                 // a split's partials in part_dw: p, or e_pad H for 'i8pair'
 };
+
+// Element (point pt, layer j, column c) of the dz scratch: tile pt / 64,
+// then layer j's [64 x H] block in K-major core-matrix order.
+__host__ __device__ __forceinline__ size_t dz_index(int pt, int j, int c, int L, int H) {
+  return (static_cast<size_t>(pt >> 6) * L + j) * (kRows * H)
+         + hp::core_offset(pt & (kRows - 1), c, kRowGroups);
+}
 
 // bf16(bf16(q) * bf16(1/127)): the TPU kernel's dequantized int8
 __device__ __forceinline__ float cos_dequant(int8_t q) {
@@ -100,84 +161,203 @@ __device__ __forceinline__ float lsb_cos(uint32_t bits) {
   return bf16_round((bits & 1u) ? -c : c);
 }
 
-// Where a layer's gate is read: an int8 staged tile [64, H + 16], or the
-// block's rows [0, last_row] of a bf16 gate in device memory, `ld` elements
-// apart.
+// Where a layer's gate is read: an int8 ring stage (H / 128 swizzled boxes
+// [64][128], or one plain box [64][64] at H = 64), or the tile's rows
+// [0, last] of a bf16 gate in device memory, `ld` elements apart.
 struct GateRef {
+  const unsigned char* tile;
   const void* base;
   size_t ld;
-  int last_row;
+  int last;
 };
 
-// The gate at (row, col) of the block. bf16 rows past n read the block's
-// last row: their dh is zero, so any finite gate gives dz = 0.
+// The gates at (row, col) and (row, col + 1) of the tile, col even, from one
+// load. bf16 rows past n read the tile's last row, and int8 rows past n are
+// zeros: their dh is zero, so any finite gate gives dz = 0.
 template <int H, int kGate>
-__device__ __forceinline__ float gate_at(const GateRef& g, int row, int col) {
+__device__ __forceinline__ float2 gate_pair(const GateRef& g, int row, int col) {
   if constexpr (kGate == kGateInt8) {
-    return cos_dequant(static_cast<const int8_t*>(g.base)[row * (H + kCosPad) + col]);
+    const int at = H < kGateBox ? row * H + col
+        : (col / kGateBox) * (kBox * kGateBox) + hp::swizzle128(row, col % kGateBox);
+    const char2 q = *reinterpret_cast<const char2*>(g.tile + at);
+    return make_float2(cos_dequant(q.x), cos_dequant(q.y));
   } else {
-    const uint32_t bits = __ldg(static_cast<const unsigned short*>(g.base)
-                                + static_cast<size_t>(min(row, g.last_row)) * g.ld + col);
-    if constexpr (kGate == kGateBf16) return __uint_as_float(bits << 16);
-    else return lsb_cos(bits);
+    const uint32_t bits = __ldg(reinterpret_cast<const unsigned int*>(
+        static_cast<const unsigned short*>(g.base)
+        + static_cast<size_t>(min(row, g.last)) * g.ld + col));
+    if constexpr (kGate == kGateBf16)
+      return make_float2(__uint_as_float(bits << 16), __uint_as_float(bits & 0xFFFF0000u));
+    else
+      return make_float2(lsb_cos(bits & 0xFFFFu), lsb_cos(bits >> 16));
   }
 }
 
-template <int H>
-__host__ __device__ constexpr size_t chain_smem_bytes(int e_pad, int d_out) {
-  return 2 * kRows * act_stride<H>(e_pad) * sizeof(__nv_bfloat16)
-         + 2 * kRows * (H + kCosPad) + kRows * d_out * sizeof(float);
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) hp::mbar_arrive(empty);
 }
 
-// K3's f32 staging of the encoding cotangent [64, n_enc padded + 4], laid
-// over the dead gate tiles and dy after both activation buffers (either
-// buffer may hold dz_0, which K3 and the copy engine still read); it may
-// need more than those bytes at small widths
-template <int H>
-__host__ __device__ constexpr size_t chain_dpts_smem_bytes(int e_pad, int d_out, int n_enc) {
-  const size_t base = chain_smem_bytes<H>(e_pad, d_out);
-  const size_t need = 2 * kRows * act_stride<H>(e_pad) * sizeof(__nv_bfloat16)
-      + kRows * static_cast<size_t>((n_enc + kDptsCols - 1) / kDptsCols * kDptsCols + 4)
-        * sizeof(float);
-  return base > need ? base : need;
+// The tile's recomputed encoding [x, sin u, cos u, grid features, zeros]
+// as bf16 rows of the scratch [n, e_pad], as the forward computes it: cos
+// u = sin(u + pi/2), as the TPU kernel's fast_cos.
+__device__ __forceinline__ void encode_rows(const BwdParams& p, int row0, int rows) {
+  const int grid0 = p.d_in + 2 * p.n_cols;
+  const int grid_end = grid0 + p.grid.n_levels * p.grid.features;
+  for (int idx = threadIdx.x; idx < rows * p.e_pad; idx += kConsumers) {
+    const int r = idx / p.e_pad;
+    const int c = idx - r * p.e_pad;
+    const float* x = p.pts + static_cast<size_t>(row0 + r) * p.d_in;
+    float v = 0.f;
+    if (c < p.d_in) {
+      v = x[c];
+    } else if (c < grid0) {
+      const int j = (c - p.d_in) % p.n_cols;
+      const float u = __fmul_rn(x[p.col_dim[j]], p.col_freq[j]);
+      v = fast_sin(c < p.d_in + p.n_cols ? u : __fadd_rn(u, kHalfPi));
+    } else if (c < grid_end) {
+      const int j = c - grid0;
+      v = grid_feature(p.grid, j / p.grid.features, x, j % p.grid.features);
+    }
+    p.enc[static_cast<size_t>(row0) * p.e_pad + idx] = __float2bfloat16_rn(v);
+  }
 }
 
-// dst = dz = bf16(bf16(dh) * gate) from block_matmul's dh accumulators and
-// the gate tile; db[col] = the column's sum over the block's 64 rows, in a
-// fixed order (each thread's 8 rows, then across the 8 row groups by
-// shuffles).
-template <int H, int kGate>
-__device__ __forceinline__ void dz_epilogue(const float (&acc)[4][H / 64][4],
-                                            const GateRef& gate, __nv_bfloat16* dst,
-                                            int stride, float* db) {
-  constexpr int kTiles = H / 8 / kWarps;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+// dW_out = hs_{L-1}^T bf16(dy) and db_out = sum(dy) over the tile's rows
+// into its partials: a column pair per thread, rows in order.
+__device__ __forceinline__ void dw_out_partial(const BwdParams& p, int row0, int rows,
+                                               const float* sdy, float* part) {
+  const int L = p.n_hidden + 1, d_out = p.d_out, H = p.h;
+  const size_t ld = static_cast<size_t>(L) * H;
+  for (int m = 2 * threadIdx.x; m < H; m += 2 * kConsumers) {
+    float acc[kMaxOut][2] = {};
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) {
+      float h0, h1;
+      if (p.hs8 != nullptr) {
+        // 'i8pair': hs_{L-1} is bf16(bf16(q) * bf16(1/127)) of the int8 sin
+        const char2 v = *reinterpret_cast<const char2*>(
+            p.hs8 + static_cast<size_t>(row0 + r) * 2 * ld + static_cast<size_t>(L - 1) * 2 * H + m);
+        h0 = cos_dequant(v.x);
+        h1 = cos_dequant(v.y);
+      } else {
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            p.hs + static_cast<size_t>(row0 + r) * ld + static_cast<size_t>(L - 1) * H + m));
+        h0 = v.x;
+        h1 = v.y;
+      }
 #pragma unroll
-  for (int nt = 0; nt < kTiles; ++nt) {
-    const int col = (warp * kTiles + nt) * 8 + t * 2;
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = mt * 16 + g + half * 8;
-        const float d0 = bf16_round(bf16_round(acc[mt][nt][2 * half])
-                                    * gate_at<H, kGate>(gate, row, col));
-        const float d1 = bf16_round(bf16_round(acc[mt][nt][2 * half + 1])
-                                    * gate_at<H, kGate>(gate, row, col + 1));
-        *reinterpret_cast<uint32_t*>(dst + row * stride + col) = pack_bf16(d0, d1);
-        s0 += d0;
-        s1 += d1;
+      for (int o = 0; o < kMaxOut; ++o) {
+        if (o < d_out) {
+          const float d = bf16_round(sdy[r * d_out + o]);
+          acc[o][0] += h0 * d;
+          acc[o][1] += h1 * d;
+        }
       }
     }
 #pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    for (int o = 0; o < kMaxOut; ++o) {
+      if (o < d_out) {
+        part[m * d_out + o] = acc[o][0];
+        part[(m + 1) * d_out + o] = acc[o][1];
+      }
     }
+  }
+  if (threadIdx.x < d_out) {
+    float s = 0.f;
+    for (int r = 0; r < kRows; ++r) s += sdy[r * d_out + threadIdx.x];
+    part[d_out * H + threadIdx.x] = s;
+  }
+}
+
+// dy of a tile's rows (zeros past n) into sdy [64][d_out]
+__device__ __forceinline__ void load_dy(const BwdParams& p, int row0, int rows, float* sdy) {
+  for (int idx = threadIdx.x; idx < kRows * p.d_out; idx += kConsumers)
+    sdy[idx] = idx / p.d_out < rows ? p.dy[static_cast<size_t>(row0) * p.d_out + idx] : 0.f;
+}
+
+// The tile's dW_out and db_out partials and its rows of the encoding
+// scratch: a block of kConsumers threads per 64-point tile.
+__global__ void __launch_bounds__(kConsumers) prep_kernel(BwdParams p) {
+  __shared__ float sdy[kRows * kMaxOut];
+  const int row0 = blockIdx.x * kRows;
+  const int rows = min(kRows, p.n - row0);
+  load_dy(p, row0, rows, sdy);
+  encode_rows(p, row0, rows);
+  __syncthreads();
+  dw_out_partial(p, row0, rows, sdy, p.part_chain + static_cast<size_t>(blockIdx.x) * p.q);
+}
+
+// Sums over the butterfly of the 8 lanes with the same lane % 4 (the rows
+// g + 8 i of a column pair), in a fixed order.
+__device__ __forceinline__ void sum_rows(float& s0, float& s1) {
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+  }
+}
+
+// dz_{L-1} = bf16(bf16(dh) * gate) with dh = bf16(dy) bf16(W_out)^T (d_out
+// terms) into the buffer, and db_{L-1}: warp w takes the column groups
+// w + 8 i, lane (g, q) the pair 2q of a group and the rows g + 8 k, so each
+// warp's shared-memory accesses are 128 contiguous bytes.
+template <int H, int kGate>
+__device__ __forceinline__ void first_dz(const BwdParams& p, const float* sdy, const GateRef& gate,
+                                         __nv_bfloat16* act, float* db) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int d_out = p.d_out;
+  for (int cg = warp; cg < H / 8; cg += kConsumerWarps) {
+    const int col = 8 * cg + 2 * q;
+    float w0[kMaxOut], w1[kMaxOut];
+#pragma unroll
+    for (int o = 0; o < kMaxOut; ++o) {
+      w0[o] = o < d_out ? __bfloat162float(p.w_out[o * H + col]) : 0.f;
+      w1[o] = o < d_out ? __bfloat162float(p.w_out[o * H + col + 1]) : 0.f;
+    }
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = g + 8 * k;
+      float dh0 = 0.f, dh1 = 0.f;
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o) {
+        if (o < d_out) {
+          const float d = bf16_round(sdy[r * d_out + o]);
+          dh0 += d * w0[o];
+          dh1 += d * w1[o];
+        }
+      }
+      const float2 gt = gate_pair<H, kGate>(gate, r, col);
+      const float z0 = bf16_round(bf16_round(dh0) * gt.x);
+      const float z1 = bf16_round(bf16_round(dh1) * gt.y);
+      *reinterpret_cast<uint32_t*>(act + hp::core_offset(r, col, kRowGroups)) = pack_bf16(z0, z1);
+      s0 += z0;
+      s1 += z1;
+    }
+    sum_rows(s0, s1);
+    if (g == 0) {
+      db[col] = s0;
+      db[col + 1] = s1;
+    }
+  }
+}
+
+// db[c] = the sum of the buffer's column c over the 64 rows (dz_j, exact
+// bf16 values), in the order of first_dz
+template <int H>
+__device__ __forceinline__ void column_sums(const __nv_bfloat16* act, float* db) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  for (int cg = warp; cg < H / 8; cg += kConsumerWarps) {
+    const int col = 8 * cg + 2 * q;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          act + hp::core_offset(g + 8 * k, col, kRowGroups)));
+      s0 += v.x;
+      s1 += v.y;
+    }
+    sum_rows(s0, s1);
     if (g == 0) {
       db[col] = s0;
       db[col + 1] = s1;
@@ -186,17 +366,14 @@ __device__ __forceinline__ void dz_epilogue(const float (&acc)[4][H / 64][4],
 }
 
 // denc_grid[r, j] = sum_c dz_0[r, c] bf16(W_in[grid row j, c]) for the
-// block's rows into p.dgrid, and each level's max |denc_grid| into p.gmax:
-// max over the block, then one atomicMax on the bits (non-negative floats
+// tile's rows into p.dgrid, and each level's max |denc_grid| into p.gmax:
+// max over the tile, then one atomicMax on the bits (non-negative floats
 // order as their bits do, NaN above infinity; any order gives the same
 // max). Thread t takes row t / 4 and the columns t % 4 + 4 q, four
-// independent sums over c at a time, 8 bf16 per 16-byte load, so the loads
-// and products overlap (a warp per row with a shuffle tree per column left
-// K2 latency-bound at one block per SM: about 1.1 ms per 8x512 field at
-// N = 196,608 on an H100 80GB HBM3 at 700 W, chip_smoke.py).
+// independent sums over c at a time, 8 bf16 per 16-byte load (8 columns of
+// a row are contiguous in the buffer's core matrices).
 template <int H>
-__device__ __forceinline__ void grid_cotangent(const BwdParams& p,
-                                               const __nv_bfloat16* dz0, int stride,
+__device__ __forceinline__ void grid_cotangent(const BwdParams& p, const __nv_bfloat16* dz0,
                                                int row0, unsigned int (*block_max)[kMaxLevels]) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -204,7 +381,6 @@ __device__ __forceinline__ void grid_cotangent(const BwdParams& p,
   const int gr = row0 + r;
   const int F = p.grid.features;
   const int n_grid = p.grid.n_levels * F;
-  const __nv_bfloat16* a = dz0 + r * stride;
   unsigned int mx[kMaxLevels] = {0u, 0u, 0u, 0u};
   for (int j0 = threadIdx.x & 3; j0 < n_grid; j0 += 16) {
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -214,7 +390,7 @@ __device__ __forceinline__ void grid_cotangent(const BwdParams& p,
       w[q] = p.w_grid + static_cast<size_t>(min(j0 + 4 * q, n_grid - 1)) * H;
 #pragma unroll 2
     for (int c = 0; c < H; c += 8) {
-      const uint4 av = *reinterpret_cast<const uint4*>(a + c);
+      const uint4 av = *reinterpret_cast<const uint4*>(dz0 + hp::core_offset(r, c, kRowGroups));
       const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&av);
       float af[8];
 #pragma unroll
@@ -253,187 +429,479 @@ __device__ __forceinline__ void grid_cotangent(const BwdParams& p,
       mx[l] = max(mx[l], __shfl_xor_sync(0xffffffffu, mx[l], off));
     if (lane == 0) block_max[warp][l] = mx[l];
   }
-  __syncthreads();
+  hp::named_sync(1, kConsumers);
   if (threadIdx.x < p.grid.n_levels) {
     unsigned int m = 0u;
-    for (int w = 0; w < kWarps; ++w) m = max(m, block_max[w][threadIdx.x]);
+    for (int w = 0; w < kConsumerWarps; ++w) m = max(m, block_max[w][threadIdx.x]);
     atomicMax(p.gmax + threadIdx.x, m);
   }
 }
 
-// K3, the point cotangent of the block's rows (the compute_dpts=True branch
+// K3, the point cotangent of the tile's rows (the compute_dpts=True branch
 // of _bwd_stash_kernel, and the tail of _bwd_kernel):
-//   denc = dz_0 bf16(W_in[:n_enc])^T on the tensor cores (block_matmul, 128
-//          encoding columns at a time, into f32 staging in shared memory),
-//   dpts[r, d] = denc[r, d] + sum over the phase columns j of dimension d,
-//                in order, of freq_j (cos u_j dsin_j - sin u_j dcos_j),
+//   denc = dz_0 bf16(W_in[:n_enc])^T, one more wgmma over the buffer per
+//          CW-column chunk of pack_wgmma_dpts's ring chunks (two warpgroups,
+//          CW / 2 columns each),
+//   dpts[r, d] = denc[r, d] + sum over the phase columns j of dimension d
+//                of freq_j (cos u_j dsin_j - sin u_j dcos_j),
 // u_j = x[dim_j] freq_j in f32 and its sine and cosine by the kernels'
 // range-reduced polynomial (cos u = sin(u + pi/2), as in the encoding).
-// Thread t takes row t / 4 and the input dimensions t % 4 + 4 k.
-template <int H>
-__device__ __forceinline__ void point_cotangent(const BwdParams& p, const __nv_bfloat16* dz0,
-                                                int stride, int row0, float* stage) {
-  const int cols = (p.n_enc + kDptsCols - 1) / kDptsCols * kDptsCols;
-  const int ss = cols + 4;
-  for (int c0 = 0; c0 < cols; c0 += kDptsCols) {
-    float acc[4][kDptsCols / 64][4];
-    block_matmul<kDptsCols>(dz0, stride, H,
-                            p.w_enc_t + static_cast<size_t>(c0 / 8) * (H / 16) * 32, acc);
-    for_each_pair<kDptsCols>(acc, [&](int row, int col, float v0, float v1) {
-      *reinterpret_cast<float2*>(stage + row * ss + c0 + col) = make_float2(v0, v1);
-    });
-  }
-  __syncthreads();
-  const int r = threadIdx.x >> 2;
-  const int gr = row0 + r;
-  if (gr >= p.n) return;
-  const int D = p.d_in;
-  const float* x = p.pts + static_cast<size_t>(gr) * D;
-  const float* denc = stage + r * ss;
-  for (int d = threadIdx.x & 3; d < D; d += 4) {
-    float s = 0.f;
-    for (int j = 0; j < p.n_cols; ++j) {
-      if (p.col_dim[j] != d) continue;
-      const float f = p.col_freq[j];
-      const float u = __fmul_rn(x[d], f);
-      const float du = __fsub_rn(__fmul_rn(fast_sin(__fadd_rn(u, kHalfPi)), denc[D + j]),
-                                 __fmul_rn(fast_sin(u), denc[D + p.n_cols + j]));
-      s = __fadd_rn(s, __fmul_rn(du, f));
+// Each thread sums the terms of its accumulators per (row, dimension);
+// the lanes of a row meet by shuffles, the two warpgroups in `sdpts`
+// [64][kMaxDpts], warpgroup 0's sum first.
+template <int H, typename Take>
+__device__ __forceinline__ void point_cotangent(const BwdParams& p, uint32_t a0, int row0,
+                                                Take&& take, uint64_t* empty, uint32_t ring0,
+                                                int stage_bytes, float* sdpts) {
+  constexpr int CW = H < 128 ? H : 128;   // encoding columns a chunk
+  constexpr int NW = CW / 2;              // of them, each warpgroup's
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+  const int D = p.d_in, nc = p.n_cols;
+  const int n_cc = (p.n_enc + CW - 1) / CW;
+  float dp[2][kMaxDpts] = {};
+  for (int cc = 0; cc < n_cc; ++cc) {
+    float acc[NW / 2] = {};
+    for (int kc = 0; kc < H / kKC; ++kc) {
+      const int st = take();
+      const uint32_t b0 = ring0 + st * stage_bytes + wg * (NW / 8) * 128;
+      hp::wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        hp::wgmma_ss(acc, hp::make_desc(a0 + (4 * kc + 2 * s) * kRowGroups * 128,
+                                        kRowGroups * 128, 128),
+                     hp::make_desc(b0 + 2 * s * (CW / 8) * 128, (CW / 8) * 128, 128),
+                     kc > 0 || s > 0);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
+      release(&empty[st], lane);
     }
-    p.dpts[static_cast<size_t>(gr) * D + d] = __fadd_rn(denc[d], s);
+#pragma unroll
+    for (int jj = 0; jj < NW / 8; ++jj) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = cc * CW + wg * NW + 8 * jj + 2 * q + (i & 1);
+        const int gr = row0 + w4 * 16 + g + 8 * (i >> 1);
+        if (col >= p.n_enc || gr >= p.n) continue;
+        const float v = acc[4 * jj + i];
+        int d;
+        float t;
+        if (col < D) {
+          d = col;
+          t = v;
+        } else {
+          const int j = col < D + nc ? col - D : col - D - nc;
+          d = __ldg(p.col_dim + j);
+          const float f = __ldg(p.col_freq + j);
+          const float u = __fmul_rn(__ldg(p.pts + static_cast<size_t>(gr) * D + d), f);
+          t = col < D + nc ? __fmul_rn(__fmul_rn(fast_sin(__fadd_rn(u, kHalfPi)), v), f)
+                           : -__fmul_rn(__fmul_rn(fast_sin(u), v), f);
+        }
+#pragma unroll
+        for (int e = 0; e < kMaxDpts; ++e)
+          if (e == d) dp[i >> 1][e] += t;
+      }
+    }
   }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int e = 0; e < kMaxDpts; ++e) {
+      dp[r][e] += __shfl_xor_sync(0xffffffffu, dp[r][e], 1);
+      dp[r][e] += __shfl_xor_sync(0xffffffffu, dp[r][e], 2);
+    }
+  if (wg == 1 && q == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      for (int e = 0; e < D; ++e) sdpts[(w4 * 16 + g + 8 * r) * kMaxDpts + e] = dp[r][e];
+  hp::named_sync(1, kConsumers);
+  if (wg == 0 && q == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = w4 * 16 + g + 8 * r;
+      if (row0 + row < p.n)
+        for (int e = 0; e < D; ++e)
+          p.dpts[static_cast<size_t>(row0 + row) * D + e] = dp[r][e] + sdpts[row * kMaxDpts + e];
+    }
 }
 
 template <int H, int kGate, bool kDpts>
-__global__ void __launch_bounds__(kThreads, 1) chain_kernel(BwdParams p) {
-  constexpr bool kStaged = kGate == kGateInt8;
-  constexpr int kCosStride = H + kCosPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ unsigned int block_max[kWarps][kMaxLevels];  // grid levels only
-  const int stride = act_stride<H>(p.e_pad);
-  __nv_bfloat16* cur = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* nxt = cur + kRows * stride;
-  // two int8 gate staging tiles: gate j lands in tile j % 2
-  int8_t* cq_tiles = reinterpret_cast<int8_t*>(nxt + kRows * stride);
-  auto cq = [&](int j) { return cq_tiles + (j & 1) * kRows * kCosStride; };
-  float* sdy = reinterpret_cast<float*>(cq_tiles + 2 * kRows * kCosStride);
+__global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_constant__ BwdParams p) {
+  constexpr int N = H / 2;                 // columns of each warpgroup
+  constexpr int nk = H / kKC;              // ring chunks of a layer's weights
+  constexpr int kGateBoxes = H < kGateBox ? 1 : H / kGateBox;
+  constexpr int kGateCols = H < kGateBox ? H : kGateBox;
+  constexpr int CW = H < 128 ? H : 128;    // K3's columns a chunk
+  constexpr uint32_t kChunkBytes = kKC * H * 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  auto* block_max = reinterpret_cast<unsigned int (*)[kMaxLevels]>(smem + 512);
+  float* scratch = reinterpret_cast<float*>(smem + 1024);
+  auto* act = reinterpret_cast<__nv_bfloat16*>(smem + kChainHead);
+  unsigned char* ring = smem + kChainHead + kRows * H * 2;
+  const int S = p.stages, SB = p.stage_bytes;
   const int L = p.n_hidden + 1;
-  const int row0 = blockIdx.x * kRows;
-  const size_t ld = static_cast<size_t>(L) * H;
-  const int d_out = p.d_out;
-  float* part = p.part_chain + blockIdx.x * p.q;
-  float* part_db = part + d_out * H + d_out;
-  const int8_t* gate8 = static_cast<const int8_t*>(p.gate);
-  auto load_gate_async = [&](int j) {
-    load_rows_async(gate8 + static_cast<size_t>(j) * p.gate_layer, p.gate_ld, cq(j),
-                    kCosStride, H, row0, p.n);
-  };
-  auto gate = [&](int j) -> GateRef {
-    if constexpr (kStaged) {
-      return {cq(j), static_cast<size_t>(kCosStride), kRows - 1};
-    } else {
-      return {static_cast<const __nv_bfloat16*>(p.gate) + static_cast<size_t>(row0) * p.gate_ld
-                  + static_cast<size_t>(j) * p.gate_layer,
-              p.gate_ld, min(kRows, p.n - row0) - 1};
-    }
-  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = (p.n + kRows - 1) / kRows;
+  const int n_cc = kDpts ? (p.n_enc + CW - 1) / CW : 0;
 
-  encode_tile(p.pts, p.col_dim, p.col_freq, p.grid, p.n, p.d_in, p.n_cols, p.e_pad,
-              row0, cur, stride);
-  for (int idx = threadIdx.x; idx < kRows * d_out; idx += kThreads) {
-    const int gr = row0 + idx / d_out;
-    sdy[idx] = gr < p.n ? p.dy[static_cast<size_t>(row0) * d_out + idx] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hp::fence_barrier_init();
   }
-  if constexpr (kStaged)
-    load_rows(gate8 + static_cast<size_t>(L - 1) * p.gate_layer, p.gate_ld, cq(L - 1),
-              kCosStride, H, row0, p.n);
-  if (p.hs8 != nullptr) {
-    // 'i8pair': hs_{L-1} is bf16(bf16(q) * bf16(1/127)) of the int8 sin
-    const int8_t* src = p.hs8 + static_cast<size_t>(L - 1) * 2 * H;
-    for (int idx = threadIdx.x; idx < kRows * H; idx += kThreads) {
-      const int r = idx / H;
-      const int c = idx - r * H;
-      const float v = row0 + r < p.n
-          ? cos_dequant(src[static_cast<size_t>(row0 + r) * 2 * ld + c]) : 0.f;
-      nxt[r * stride + c] = __float2bfloat16_rn(v);
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // producer: the weight chunks (and the int8 gates) in the order the
+    // consumers take them, across layers and tiles
+    const uint64_t keep = hp::evict_last_policy(), stream = hp::evict_first_policy();
+    const auto* wb = reinterpret_cast<const unsigned char*>(p.w_bwd);
+    const auto* we = reinterpret_cast<const unsigned char*>(p.w_dpts);
+    int stage = 0, phase = 0;
+    auto next = [&]() {
+      const int st = stage;
+      if (lane == 0) hp::mbar_wait(&empty[st], phase ^ 1);
+      __syncwarp();
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+      return st;
+    };
+    auto put_chunk = [&](const unsigned char* src, uint32_t bytes) {
+      const int st = next();
+      if (lane == 0) {
+        hp::mbar_expect_tx(&full[st], bytes);
+        hp::bulk_load(ring + st * SB, src, bytes, &full[st], keep);
+      }
+    };
+    auto put_gate = [&](int row0, int j) {
+      const int st = next();
+      if (lane == 0) {
+        hp::mbar_expect_tx(&full[st], kRows * H);
+        for (int b = 0; b < kGateBoxes; ++b)
+          hp::tensor_load_2d(ring + st * SB + b * kBox * kGateCols, &p.gate_map,
+                             j * p.gate_layer + b * kGateCols, row0, &full[st], stream);
+      }
+    };
+    auto prefetch_gate = [&](int row0, int j) {
+      if (lane == 0)
+        for (int b = 0; b < kGateBoxes; ++b)
+          hp::tensor_prefetch_2d(&p.gate_map, j * p.gate_layer + b * kGateCols, row0);
+    };
+    for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
+      const int row0 = w * kRows;
+      if constexpr (kGate == kGateInt8) put_gate(row0, L - 1);
+      for (int j = L - 1; j > 0; --j) {
+        if constexpr (kGate == kGateInt8) prefetch_gate(row0, j - 1);
+        for (int kc = 0; kc < nk; ++kc)
+          put_chunk(wb + (static_cast<size_t>(j - 1) * nk + kc) * kChunkBytes, kChunkBytes);
+        if constexpr (kGate == kGateInt8) put_gate(row0, j - 1);
+      }
+      for (int cc = 0; cc < n_cc; ++cc)
+        for (int kc = 0; kc < nk; ++kc)
+          put_chunk(we + (static_cast<size_t>(cc) * nk + kc) * (kKC * CW * 2), kKC * CW * 2);
+      // the next tile's first gate into L2
+      if constexpr (kGate == kGateInt8)
+        if (w + gridDim.x < tiles) prefetch_gate((w + gridDim.x) * kRows, L - 1);
     }
   } else {
-    load_rows(p.hs + (L - 1) * H, ld * 2, nxt, stride * 2, H * 2, row0, p.n);
+    const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+    const uint32_t a0 = hp::smem_u32(act);
+    const uint64_t stream = hp::evict_first_policy();
+    const uint32_t ring0 = hp::smem_u32(ring);
+    // the ring's stage and phase: take() waits for the next stage to fill
+    int stage = 0, phase = 0;
+    auto take = [&]() {
+      const int st = stage;
+      hp::mbar_wait(&full[st], phase);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+      return st;
+    };
+    const int d_out = p.d_out;
+    for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
+      const int row0 = w * kRows;
+      const int rows = min(kRows, p.n - row0);
+      float* part = p.part_chain + static_cast<size_t>(w) * p.q;
+      float* part_db = part + d_out * H + d_out;
+      __nv_bfloat16* dz_tile = p.dz + static_cast<size_t>(w) * L * kRows * H;
+      auto gate = [&](int j, int st) -> GateRef {
+        if constexpr (kGate == kGateInt8) {
+          return {ring + st * SB, nullptr, 0, kRows - 1};
+        } else {
+          return {nullptr, static_cast<const __nv_bfloat16*>(p.gate)
+                               + static_cast<size_t>(row0) * p.gate_ld
+                               + static_cast<size_t>(j) * p.gate_layer,
+                  p.gate_ld, rows - 1};
+        }
+      };
+
+      // dy of the tile's rows (zeros past n)
+      load_dy(p, row0, rows, scratch);
+      hp::named_sync(1, kConsumers);
+
+      // dz_{L-1} into the buffer; the copy engine stores it
+      {
+        const int st = kGate == kGateInt8 ? take() : 0;
+        first_dz<H, kGate>(p, scratch, gate(L - 1, st), act, part_db + (L - 1) * H);
+        if constexpr (kGate == kGateInt8) release(&empty[st], lane);
+      }
+      hp::fence_async_smem();
+      hp::named_sync(1, kConsumers);
+      if (threadIdx.x == 0)
+        hp::bulk_store(dz_tile + static_cast<size_t>(L - 1) * kRows * H, act, kRows * H * 2,
+                       stream);
+
+      for (int j = L - 1; j > 0; --j) {
+        // dh = dz_j W_h[j-1]^T, this warpgroup's N columns, two chunks'
+        // products in flight
+        float acc[N / 2] = {};
+        int prev1 = 0, prev2 = 0;
+        for (int kc = 0; kc < nk; ++kc) {
+          const int st = take();
+          const uint32_t b0 = ring0 + st * SB + wg * (N / 8) * 128;
+          hp::wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            hp::wgmma_ss(acc, hp::make_desc(a0 + (4 * kc + 2 * s) * kRowGroups * 128,
+                                            kRowGroups * 128, 128),
+                         hp::make_desc(b0 + 2 * s * (H / 8) * 128, (H / 8) * 128, 128),
+                         kc > 0 || s > 0);
+          hp::wgmma_commit();
+          // db_j, the column sums of dz_j, while its first products run
+          // (db_{L-1} came with dz_{L-1})
+          if (kc == 0 && j < L - 1) column_sums<H>(act, part_db + j * H);
+          hp::wgmma_wait<2>();
+          if (kc > 1) release(&empty[prev2], lane);
+          prev2 = prev1;
+          prev1 = st;
+        }
+        hp::wgmma_wait<0>();
+        hp::fence_regs(acc);
+        release(&empty[prev2], lane);
+        release(&empty[prev1], lane);
+        // both warpgroups and the copy engine have read dz_j: the epilogue
+        // overwrites it with dz_{j-1} = bf16(bf16(dh) * gate_{j-1})
+        if (threadIdx.x == 0) hp::bulk_wait_read();
+        hp::named_sync(1, kConsumers);
+        const int st = kGate == kGateInt8 ? take() : 0;
+        const GateRef gr = gate(j - 1, st);
+#pragma unroll
+        for (int jj = 0; jj < N / 8; ++jj) {
+          const int col = wg * N + 8 * jj + 2 * q;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = w4 * 16 + g + 8 * r;
+            const float2 gt = gate_pair<H, kGate>(gr, row, col);
+            const float z0 = bf16_round(bf16_round(acc[4 * jj + 2 * r]) * gt.x);
+            const float z1 = bf16_round(bf16_round(acc[4 * jj + 2 * r + 1]) * gt.y);
+            *reinterpret_cast<uint32_t*>(act + hp::core_offset(row, col, kRowGroups)) =
+                pack_bf16(z0, z1);
+          }
+        }
+        if constexpr (kGate == kGateInt8) release(&empty[st], lane);
+        hp::fence_async_smem();
+        hp::named_sync(1, kConsumers);
+        if (threadIdx.x == 0)
+          hp::bulk_store(dz_tile + static_cast<size_t>(j - 1) * kRows * H, act, kRows * H * 2,
+                         stream);
+      }
+      // the buffer holds dz_0: db_0, and the tails read it beside the copy
+      // engine
+      if (L > 1) column_sums<H>(act, part_db);
+      if (p.grid.n_levels > 0) grid_cotangent<H>(p, act, row0, block_max);
+      if constexpr (kDpts) point_cotangent<H>(p, a0, row0, take, empty, ring0, SB, scratch);
+      if (threadIdx.x == 0) hp::bulk_wait_read();
+      hp::named_sync(1, kConsumers);
+    }
+    if (threadIdx.x == 0) hp::bulk_wait();
+  }
+}
+
+// The dW kernel's work items: per split, job 0 (dW_in: mt0 row tiles of
+// e_pad rows) and, for jobs 1 .. n_jobs-1 (dW_h[j-1]), mt row tiles of H,
+// each with nt column tiles of TN; item i is split i / per_split, then in
+// that order (ops/fused_mlp.py dw_splits counts per_split to size the
+// splits).
+struct DwPlan {
+  int mt0, mt, nt, per_split, items;
+};
+
+__host__ __device__ inline int dw_tn(int H) { return H % 256 == 0 ? 256 : H % 128 == 0 ? 128 : 64; }
+
+__host__ __device__ inline DwPlan dw_plan(int H, int e_pad, int n_jobs, int splits) {
+  DwPlan d;
+  d.mt0 = (e_pad + kDwTM - 1) / kDwTM;
+  d.mt = (H + kDwTM - 1) / kDwTM;
+  d.nt = H / dw_tn(H);
+  d.per_split = d.mt0 * d.nt + (n_jobs - 1) * d.mt * d.nt;
+  d.items = splits * d.per_split;
+  return d;
+}
+
+__device__ __forceinline__ void dw_item(const DwPlan& d, int it, int& split, int& job,
+                                        int& mtile, int& ntile) {
+  split = it / d.per_split;
+  int r = it - split * d.per_split;
+  if (r < d.mt0 * d.nt) {
+    job = 0;
+  } else {
+    r -= d.mt0 * d.nt;
+    job = 1 + r / (d.mt * d.nt);
+    r -= (job - 1) * d.mt * d.nt;
+  }
+  mtile = r / d.nt;
+  ntile = r - mtile * d.nt;
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// part_dw[split][job] = A_job^T B_job over the split's points, per work
+// item (see DwPlan): job 0 is dW_in (A = enc, B = dz_0), job j >= 1 is
+// dW_h[j-1] (A = hs_{j-1}, B = dz_j). A stage holds a 64-point chunk of A,
+// two 128-byte swizzled TMA boxes [64 points][64 columns] bf16 (zeros past
+// n and past the encoding's columns), and of B, the dz scratch's [64 x TN]
+// columns of one tile (one bulk copy: TN / 8 core-matrix columns of 8
+// k-groups, 128 bytes each).
+template <int TN>
+__global__ void __launch_bounds__(kThreads, 1) dw_wgmma_kernel(const __grid_constant__ BwdParams p,
+                                                               int n_jobs) {
+  constexpr int kABytes = 2 * kBox * kBox * 2;
+  constexpr int kBBytes = TN * kRows * 2;
+  constexpr int kStage = kABytes + kBBytes;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  unsigned char* stages = smem + kDwBar;
+  const int S = p.stages;
+  const int H = p.h, L = p.n_hidden + 1;
+  const DwPlan d = dw_plan(H, p.e_pad, n_jobs, p.splits);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hp::fence_barrier_init();
   }
   __syncthreads();
-  store_rows(cur, stride * 2, p.enc, static_cast<size_t>(p.e_pad) * 2, p.e_pad * 2,
-             row0, p.n);
 
-  // dW_out = hs_{L-1}^T bf16(dy) and db_out = sum(dy) over this block's rows
-  // (rows past n load as zeros)
-  for (int m = threadIdx.x; m < H; m += kThreads) {
-    float acc[kMaxOut] = {0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < kRows; ++r) {
-      const float hv = __bfloat162float(nxt[r * stride + m]);
-#pragma unroll
-      for (int o = 0; o < kMaxOut; ++o)
-        if (o < d_out) acc[o] += hv * bf16_round(sdy[r * d_out + o]);
+  if (warp == kConsumerWarps) {
+    // evict-normal, not evict-first: each chunk of A is read by H / TN work
+    // items and each of B by m_rows / 128, running side by side, through L2
+    const uint64_t shared = hp::evict_normal_policy();
+    int stage = 0, phase = 0;
+    for (int it = blockIdx.x; it < d.items; it += gridDim.x) {
+      int split, job, mtile, ntile;
+      dw_item(d, it, split, job, mtile, ntile);
+      const int p0 = split * p.pps, p1 = min(p.n, p0 + p.pps);
+      // A's first column: the encoding's m0, or the stash's layer j-1 block
+      const CUtensorMap* amap = job == 0 ? &p.enc_map : &p.hs_map;
+      const int x0 = (job == 0 ? 0 : (job - 1) * H) + mtile * kDwTM;
+      if (lane == 0) {
+        for (int c = p0; c < p1; c += kRows) {
+          const int st = stage;
+          hp::mbar_wait(&empty[st], phase ^ 1);
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+          unsigned char* sa = stages + st * kStage;
+          hp::mbar_expect_tx(&full[st], kABytes + kBBytes);
+          hp::tensor_load_2d(sa, amap, x0, c, &full[st], shared);
+          hp::tensor_load_2d(sa + kABytes / 2, amap, x0 + kBox, c, &full[st], shared);
+          hp::bulk_load(sa + kABytes,
+                        p.dz + (static_cast<size_t>(c / kRows) * L + job) * kRows * H
+                            + static_cast<size_t>(ntile) * TN * kRows,
+                        kBBytes, &full[st], shared);
+        }
+      }
     }
-    for (int o = 0; o < d_out; ++o) part[m * d_out + o] = acc[o];
-  }
-  if (threadIdx.x < d_out) {
-    float s = 0.f;
-    for (int r = 0; r < kRows; ++r) s += sdy[r * d_out + threadIdx.x];
-    part[d_out * H + threadIdx.x] = s;
-  }
-  __syncthreads();  // the encoding is stored out of cur, hs_{L-1} read out of nxt
-
-  // the next int8 gate in flight while dz_{L-1} is computed
-  if (kStaged && L > 1) load_gate_async(L - 2);
-  // dz_{L-1} = bf16(bf16(dh) * gate), dh = bf16(dy) bf16(W_out)^T (d_out
-  // terms): a column per thread, summed for db_{L-1}
-  const GateRef last = gate(L - 1);
-  for (int c = threadIdx.x; c < H; c += kThreads) {
-    float w[kMaxOut];
+  } else {
+    const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+    const uint32_t s0 = hp::smem_u32(stages);
+    int stage = 0, phase = 0;
+    // A = this warp's 16 of the stash's columns, transposed: a chunk's k16
+    // steps' fragments, by ldmatrix.trans from warpgroup wg's box (columns
+    // 64 wg ..), 8 points' 16 bytes a matrix row; then its 4 products.
+    // Two chunks' products in flight: the A fragments alternate between
+    // two register sets (af[c & 1]), and a stage is released once the
+    // products after it were issued.
+    auto chunk = [&](uint32_t (&af)[4][4], float (&acc)[TN / 2], int& st) {
+      st = stage;
+      hp::mbar_wait(&full[st], phase);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+      const uint32_t sa = s0 + st * kStage, sb = sa + kABytes;
 #pragma unroll
-    for (int o = 0; o < kMaxOut; ++o)
-      w[o] = o < d_out ? __bfloat162float(p.w_out[o * H + c]) : 0.f;
-    float s = 0.f;
-    for (int r = 0; r < kRows; ++r) {
-      float dh = 0.f;
-      for (int o = 0; o < d_out; ++o) dh += bf16_round(sdy[r * d_out + o]) * w[o];
-      const float dz = bf16_round(bf16_round(dh) * gate_at<H, kGate>(last, r, c));
-      cur[r * stride + c] = __float2bfloat16_rn(dz);
-      s += dz;
+      for (int ks = 0; ks < 4; ++ks) {
+        const int k = ks * 16 + (lane & 7) + (lane >> 4) * 8;
+        const int m = w4 * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4_trans(af[ks], sa + wg * (kABytes / 2) + hp::swizzle128(k, m * 2));
+      }
+      hp::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        // B: k-groups 2 ks, 2 ks + 1 (128 bytes apart), N-groups 1 KB apart
+        hp::wgmma_rs_t(acc, af[ks], hp::make_desc(sb + ks * 256, 128, kRowGroups * 128), 1);
+      hp::wgmma_commit();
+    };
+    for (int it = blockIdx.x; it < d.items; it += gridDim.x) {
+      int split, job, mtile, ntile;
+      dw_item(d, it, split, job, mtile, ntile);
+      const int p0 = split * p.pps, p1 = min(p.n, p0 + p.pps);
+      float acc[TN / 2] = {};
+      uint32_t af0[4][4], af1[4][4];
+      int st0 = -1, st1 = -1;
+      for (int c = p0; c < p1; c += 2 * kRows) {
+        chunk(af0, acc, st0);
+        hp::wgmma_wait<1>();
+        if (st1 >= 0) release(&empty[st1], lane);
+        st1 = -1;
+        if (c + kRows < p1) {
+          chunk(af1, acc, st1);
+          hp::wgmma_wait<1>();
+          release(&empty[st0], lane);
+          st0 = -1;
+        }
+      }
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
+      if (st0 >= 0) release(&empty[st0], lane);
+      if (st1 >= 0) release(&empty[st1], lane);
+      const int m_rows = job == 0 ? p.e_pad : H;
+      float* out = p.part_dw + static_cast<size_t>(split) * p.dw_ld
+                   + (job == 0 ? 0 : static_cast<size_t>(p.e_pad) * H
+                                     + static_cast<size_t>(job - 1) * H * H);
+#pragma unroll
+      for (int jj = 0; jj < TN / 8; ++jj) {
+        const int col = ntile * TN + 8 * jj + 2 * q;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = mtile * kDwTM + wg * 64 + w4 * 16 + g + 8 * r;
+          if (row < m_rows)
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * H + col) =
+                make_float2(acc[4 * jj + 2 * r], acc[4 * jj + 2 * r + 1]);
+        }
+      }
     }
-    part_db[(L - 1) * H + c] = s;
   }
-  cp_async_wait_all();
-  fence_proxy_async();
-  __syncthreads();
-
-  // One barrier an iteration. Before it: this thread's gate copies for the
-  // next iteration have landed, and its bulk copy of dz_j has read cur,
-  // which the next iteration's epilogue overwrites.
-  for (int j = L - 1; j > 0; --j) {
-    // cur holds dz_j: the copy engine stores it for the dW products while
-    // the warps carry the chain on, with the int8 gate after next in flight
-    store_rows_bulk(cur, stride * 2, p.dz + j * H, ld * 2, H * 2, row0, p.n);
-    if (kStaged && j >= 2) load_gate_async(j - 2);
-    float acc[4][H / 64][4];
-    block_matmul<H>(cur, stride, H,
-                    p.w_h_t + static_cast<size_t>(j - 1) * (H / 8) * (H / 16) * 32, acc);
-    dz_epilogue<H, kGate>(acc, gate(j - 1), nxt, stride, part_db + (j - 1) * H);
-    cp_async_wait_all();
-    bulk_wait_read();
-    fence_proxy_async();
-    __syncthreads();
-    __nv_bfloat16* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  store_rows_bulk(cur, stride * 2, p.dz, ld * 2, H * 2, row0, p.n);  // dz_0
-  if (p.grid.n_levels > 0) grid_cotangent<H>(p, cur, stride, row0, block_max);
-  // K3 reads dz_0 out of cur beside the copy engine and stages after both
-  // activation buffers
-  if constexpr (kDpts)
-    point_cotangent<H>(p, cur, stride, row0, reinterpret_cast<float*>(cq_tiles));
-  bulk_wait();
 }
 
 // The fixed-point scale exponent k of a level whose terms are at most m in
@@ -511,157 +979,13 @@ __global__ void grid_convert_kernel(BwdParams p, size_t total, int e_n) {
   p.grad_grid[t] = v;
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// One 32-point chunk of an operand, [kChunk, kTile] bf16 starting at column
-// col0 of a row-major [n, *] matrix: two 16-byte vectors per thread, zero
-// past row end and past column width.
-__device__ __forceinline__ void load_chunk(uint4 (&v)[2], const __nv_bfloat16* src,
-                                           size_t ld, int p0, int end, int col0,
-                                           int width) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx >> 4;
-    const int col = col0 + (idx & 15) * 8;
-    v[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (p0 + r < end && col < width)
-      v[i] = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(p0 + r) * ld + col);
-  }
-}
-
-__device__ __forceinline__ void stage_chunk(const uint4 (&v)[2],
-                                            __nv_bfloat16 (*dst)[kTileStride]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    *reinterpret_cast<uint4*>(&dst[idx >> 4][(idx & 15) * 8]) = v[i];
-  }
-}
-
-// part_dw[split][job] = A_job^T B_job over the split's points, per 128x128
-// tile: job 0 is dW_in (A = enc, B = dz_0), job j >= 1 is dW_h[j-1]
-// (A = hs_{j-1}, B = dz_j).
-__global__ void __launch_bounds__(kThreads) dw_kernel(BwdParams p, int pts_per_split) {
-  __shared__ __align__(16) __nv_bfloat16 sa[2][kChunk][kTileStride];
-  __shared__ __align__(16) __nv_bfloat16 sb[2][kChunk][kTileStride];
-  const int H = p.h;
-  const int job = blockIdx.z;
-  const size_t ld = static_cast<size_t>(p.n_hidden + 1) * H;
-  const __nv_bfloat16* a;
-  size_t lda;
-  int m_rows;
-  float* out = p.part_dw + blockIdx.y * p.p;
-  if (job == 0) {
-    a = p.enc;
-    lda = p.e_pad;
-    m_rows = p.e_pad;
-  } else {
-    a = p.hs + (job - 1) * H;
-    lda = ld;
-    m_rows = H;
-    out += static_cast<size_t>(p.e_pad) * H + static_cast<size_t>(job - 1) * H * H;
-  }
-  const __nv_bfloat16* b = p.dz + job * H;
-  const int n_ct = (H + kTile - 1) / kTile;
-  const int m0 = (blockIdx.x / n_ct) * kTile;
-  const int c0 = (blockIdx.x % n_ct) * kTile;
-  if (m0 >= m_rows) return;
-  const int begin = blockIdx.y * pts_per_split;
-  const int end = min(p.n, begin + pts_per_split);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp & 3;   // 32 output rows each
-  const int wc = warp >> 2;  // 64 output columns each
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-  uint4 va[2], vb[2];
-  int buf = 0;
-  if (begin < end) {
-    load_chunk(va, a, lda, begin, end, m0, m_rows);
-    load_chunk(vb, b, ld, begin, end, c0, H);
-    stage_chunk(va, sa[0]);
-    stage_chunk(vb, sb[0]);
-  }
-  __syncthreads();
-  for (int p0 = begin; p0 < end; p0 += kChunk) {
-    const bool more = p0 + kChunk < end;
-    if (more) {
-      load_chunk(va, a, lda, p0 + kChunk, end, m0, m_rows);
-      load_chunk(vb, b, ld, p0 + kChunk, end, c0, H);
-    }
-#pragma unroll
-    for (int ks = 0; ks < kChunk / 16; ++ks) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int k = ks * 16 + (lane & 7) + (lane >> 4) * 8;
-        const int m = wm * 32 + mt * 16 + ((lane >> 3) & 1) * 8;
-        ldsm_x4_trans(af[mt], &sa[buf][k][m]);
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int k = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = wc * 64 + np * 16 + (lane >> 4) * 8;
-        uint32_t r[4];
-        ldsm_x4_trans(r, &sb[buf][k][c]);
-        const uint2 b0 = make_uint2(r[0], r[1]);
-        const uint2 b1 = make_uint2(r[2], r[3]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], af[mt], b0);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], b1);
-        }
-      }
-    }
-    if (more) {
-      stage_chunk(va, sa[buf ^ 1]);
-      stage_chunk(vb, sb[buf ^ 1]);
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int row = m0 + wm * 32 + mt * 16 + g;
-      const int col = c0 + wc * 64 + nt * 8 + t * 2;
-      if (col >= H) continue;
-      if (row < m_rows)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * H + col) =
-            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (row + 8 < m_rows)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(row + 8) * H + col) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
-}
-
 // 'i8pair': dz_max[g][j-1] = max |dz_j| over the rows of group g (points
 // [g G, (g+1) G) below n), j = 1..L-1; bf16 magnitudes order as their bits.
 __global__ void dz_absmax_kernel(BwdParams p) {
   __shared__ unsigned int warp_max[32];
   const int g = blockIdx.x;
   const int j = blockIdx.y + 1;
-  const int H = p.h;
-  const size_t ld = static_cast<size_t>(p.n_hidden + 1) * H;
+  const int H = p.h, L = p.n_hidden + 1;
   const int begin = g * p.group;
   const int rows = min(p.n, begin + p.group) - begin;
   const int vecs = H / 8;
@@ -669,8 +993,7 @@ __global__ void dz_absmax_kernel(BwdParams p) {
   for (int idx = threadIdx.x; idx < rows * vecs; idx += blockDim.x) {
     const int r = begin + idx / vecs;
     const int v = idx % vecs;
-    const uint4 w = *reinterpret_cast<const uint4*>(p.dz + static_cast<size_t>(r) * ld
-                                                    + j * H + v * 8);
+    const uint4 w = *reinterpret_cast<const uint4*>(p.dz + dz_index(r, j, v * 8, L, H));
     const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e)
@@ -704,31 +1027,30 @@ __device__ __forceinline__ uint32_t gather_bytes(const uint32_t (&w)[4], int b) 
 }
 
 // 'i8pair' dW_h (the i8pair branch of _bwd_stash_kernel, _mm_i8): per group
-// g of G points (any G >= 1 with G 127^2 < 2^31; splits a multiple of G), with
+// g of G points (any G >= 1 with G 127^2 < 2^31; the splits8 point ranges
+// whole groups), into part_i8, with
 // m = dz_max[g][j-1], scale = 127 / m (0 when m = 0) and
 // dz8 = round_half_even(dz_j scale),
 //   dW_h[j-1] += f32(sum over g's points of sin8_{j-1} (x) dz8, int32)
 //                * (m * f32((1/127)^2))
-// with the groups of a split in order. 128x128 output tiles as dw_kernel;
-// each 32-point chunk is staged transposed (points contiguous, 4 to a
-// 32-bit word) for mma.sync m16n8k32 s8.s8.s32; the int32 sums are exact
-// (G 127^2 < 2^31), so kernel and plain version differ only in the f32
-// order across groups and splits.
-__global__ void __launch_bounds__(kThreads) dw_i8_kernel(BwdParams p, int pts_per_split) {
-  __shared__ uint32_t sa[kTile][kQuadStride];   // [m][point quad]: sin8
-  __shared__ uint32_t sb[kTile][kQuadStride];   // [n][point quad]: dz8
-  const int H = p.h;
+// with the groups of a split in order. 128x128 output tiles; each 32-point
+// chunk is staged transposed (points contiguous, 4 to a 32-bit word) for
+// mma.sync m16n8k32 s8.s8.s32; the int32 sums are exact (G 127^2 < 2^31),
+// so kernel and plain version differ only in the f32 order across groups
+// and splits.
+__global__ void __launch_bounds__(kI8Threads) dw_i8_kernel(BwdParams p, int pts_per_split) {
+  __shared__ uint32_t sa[kI8Tile][kQuadStride];   // [m][point quad]: sin8
+  __shared__ uint32_t sb[kI8Tile][kQuadStride];   // [n][point quad]: dz8
+  const int H = p.h, L = p.n_hidden + 1;
   const int j = blockIdx.z + 1;
-  const size_t ld = static_cast<size_t>(p.n_hidden + 1) * H;
-  const int n_ct = (H + kTile - 1) / kTile;
-  const int m0 = (blockIdx.x / n_ct) * kTile;
-  const int c0 = (blockIdx.x % n_ct) * kTile;
-  float* out = p.part_dw + blockIdx.y * p.p + static_cast<size_t>(p.e_pad) * H
-               + static_cast<size_t>(j - 1) * H * H;
+  const size_t ld = static_cast<size_t>(L) * H;
+  const int n_ct = (H + kI8Tile - 1) / kI8Tile;
+  const int m0 = (blockIdx.x / n_ct) * kI8Tile;
+  const int c0 = (blockIdx.x % n_ct) * kI8Tile;
+  float* out = p.part_i8 + (static_cast<size_t>(blockIdx.y) * p.n_hidden + j - 1) * H * H;
   const int begin = blockIdx.y * pts_per_split;
   const int end = min(p.n, begin + pts_per_split);
   const int8_t* a = p.hs8 + static_cast<size_t>(j - 1) * 2 * H;
-  const __nv_bfloat16* b = p.dz + static_cast<size_t>(j) * H;
   const float inv_sq = static_cast<float>((1.0 / 127.0) * (1.0 / 127.0));
 
   const int warp = threadIdx.x >> 5;
@@ -755,8 +1077,8 @@ __global__ void __launch_bounds__(kThreads) dw_i8_kernel(BwdParams p, int pts_pe
   // segment at a time, its other points' dz8 zero, each segment's int32 sum
   // under its own group's scale; with G a multiple of 32 every chunk is one
   // segment.
-  for (int p0 = begin; p0 < end; p0 += kChunk) {
-    const int c_end = min(p0 + kChunk, end);
+  for (int p0 = begin; p0 < end; p0 += kI8Chunk) {
+    const int c_end = min(p0 + kI8Chunk, end);
     uint32_t wa[4];
     uint2 raw[4];
 #pragma unroll
@@ -767,9 +1089,9 @@ __global__ void __launch_bounds__(kThreads) dw_i8_kernel(BwdParams p, int pts_pe
       if (pt < c_end && m0 + 4 * lane < H)
         wa[i] = *reinterpret_cast<const uint32_t*>(a + static_cast<size_t>(pt) * 2 * ld
                                                    + m0 + 4 * lane);
+      // 4 neighbouring columns of a row are contiguous in the dz scratch
       if (pt < c_end && c0 + 4 * lane < H)
-        raw[i] = *reinterpret_cast<const uint2*>(b + static_cast<size_t>(pt) * ld
-                                                 + c0 + 4 * lane);
+        raw[i] = *reinterpret_cast<const uint2*>(p.dz + dz_index(pt, j, c0 + 4 * lane, L, H));
     }
     for (int s0 = p0; s0 < c_end;) {
       const int grp = s0 / p.group;
@@ -877,16 +1199,44 @@ cudaError_t launch_reduce(const float* part, int S, size_t P, float* out, bool a
   return cudaGetLastError();
 }
 
-template <int H, int kGate, bool kDpts>
-cudaError_t launch_chain(const BwdParams& p, cudaStream_t stream) {
-  const size_t smem = kDpts ? chain_dpts_smem_bytes<H>(p.e_pad, p.d_out, p.n_enc)
-                            : chain_smem_bytes<H>(p.e_pad, p.d_out);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_kernel<H, kGate, kDpts>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// Raises `kernel`'s shared memory limit to the card's and returns how many
+// blocks of kThreads fit on the card at once, once per kernel (so no
+// attribute or occupancy call in a graph capture).
+template <typename K>
+cudaError_t persistent_blocks(K kernel, int& max_blocks) {
+  if (max_blocks > 0) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemLimit));
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmemLimit);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + kRows - 1) / kRows);
-  chain_kernel<H, kGate, kDpts><<<grid, kThreads, smem, stream>>>(p);
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  max_blocks = sms * per_sm;
+  return cudaSuccess;
+}
+
+template <int H, int kGate, bool kDpts>
+cudaError_t launch_chain(BwdParams p, cudaStream_t stream) {
+  static int max_blocks = 0;
+  cudaError_t err = persistent_blocks(chain_wgmma_kernel<H, kGate, kDpts>, max_blocks);
+  if (err != cudaSuccess) return err;
+  // a stage holds a weight chunk [32 x H] bf16, a K3 chunk [32 x CW] bf16,
+  // or an int8 gate tile [64, H]
+  p.stage_bytes = kKC * H * 2;
+  const size_t fixed = kChainHead + static_cast<size_t>(kRows) * H * 2;
+  p.stages = static_cast<int>((kSmemLimit - fixed) / p.stage_bytes);
+  if (p.stages > kMaxStages) p.stages = kMaxStages;
+  if (p.stages < 3) return cudaErrorInvalidConfiguration;
+  const int tiles = (p.n + kRows - 1) / kRows;
+  prep_kernel<<<tiles, kConsumers, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  chain_wgmma_kernel<H, kGate, kDpts><<<tiles < max_blocks ? tiles : max_blocks, kThreads,
+                                        fixed + static_cast<size_t>(p.stages) * p.stage_bytes,
+                                        stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -902,11 +1252,63 @@ cudaError_t launch_chain_width(const BwdParams& p, cudaStream_t s) {
   }
 }
 
-// p.q, p.p from the shapes
+template <int TN>
+cudaError_t launch_dw_tn(BwdParams p, int n_jobs, cudaStream_t stream) {
+  static int max_blocks = 0;
+  cudaError_t err = persistent_blocks(dw_wgmma_kernel<TN>, max_blocks);
+  if (err != cudaSuccess) return err;
+  const int stage = 2 * kBox * kBox * 2 + TN * kRows * 2;
+  p.stages = static_cast<int>((kSmemLimit - kDwBar) / stage);
+  if (p.stages > kMaxStages) p.stages = kMaxStages;
+  const int items = dw_plan(p.h, p.e_pad, n_jobs, p.splits).items;
+  dw_wgmma_kernel<TN><<<items < max_blocks ? items : max_blocks, kThreads,
+                        kDwBar + static_cast<size_t>(p.stages) * stage, stream>>>(p, n_jobs);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_dw(const BwdParams& p, int n_jobs, cudaStream_t s) {
+  switch (dw_tn(p.h)) {
+    case 64: return launch_dw_tn<64>(p, n_jobs, s);
+    case 128: return launch_dw_tn<128>(p, n_jobs, s);
+    default: return launch_dw_tn<256>(p, n_jobs, s);
+  }
+}
+
+// The tensor maps of one backward launch over p.n points: the int8 gates
+// (if `int8_gate`; 'i8pair' rows start H into the pairs), the encoding
+// scratch and the bf16 sin stash (if any) as the dW kernel's A.
+inline cudaError_t set_maps(BwdParams& p, bool int8_gate) {
+  const int L = p.n_hidden + 1, H = p.h;
+  cudaError_t err = cudaSuccess;
+  if (int8_gate) {
+    const uint64_t cols = p.hs8 != nullptr ? p.gate_ld - H : p.gate_ld;
+    err = hp::encode_2d(&p.gate_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.gate, cols, p.n, p.gate_ld,
+                    H < kGateBox ? H : kGateBox, kBox, H >= kGateBox);
+  }
+  if (err == cudaSuccess)
+    err = hp::encode_2d(&p.enc_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.enc, p.e_pad, p.n,
+                    static_cast<uint64_t>(p.e_pad) * 2, kBox, kBox, true);
+  if (err == cudaSuccess && p.hs != nullptr)
+    err = hp::encode_2d(&p.hs_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.hs,
+                    static_cast<uint64_t>(L) * H, p.n, static_cast<uint64_t>(L) * H * 2, kBox,
+                    kBox, true);
+  return err;
+}
+
+// p.q, p.p, p.dw_ld from the shapes
 inline void set_sizes(BwdParams& p) {
   const int L = p.n_hidden + 1;
   p.q = static_cast<size_t>(p.d_out) * p.h + p.d_out + static_cast<size_t>(L) * p.h;
   p.p = static_cast<size_t>(p.e_pad) * p.h + static_cast<size_t>(p.n_hidden) * p.h * p.h;
+  p.dw_ld = p.hs8 != nullptr ? static_cast<size_t>(p.e_pad) * p.h : p.p;
+}
+
+// What every backward entry checks: the shapes the kernels take.
+inline bool bwd_ok(const BwdParams& p) {
+  return p.n > 0 && p.e_pad % 16 == 0 && p.d_out >= 1 && p.d_out <= kMaxOut &&
+         p.n_hidden >= 0 && p.splits >= 1 && p.pps > 0 && p.pps % kRows == 0 &&
+         static_cast<long long>(p.splits) * p.pps >= p.n &&
+         (p.dpts == nullptr || (p.w_dpts != nullptr && p.d_in <= kMaxDpts));
 }
 
 // The launches after the chain kernel (see the top of this file): K5's
@@ -933,38 +1335,39 @@ inline cudaError_t launch_after_chain(const BwdParams& p, bool accumulate, cudaS
     if (err != cudaSuccess) return err;
   }
 
-  const int m_tiles = ((p.h > p.e_pad ? p.h : p.e_pad) + kTile - 1) / kTile;
-  const int c_tiles = (p.h + kTile - 1) / kTile;
-  const int chunk = (n + p.splits - 1) / p.splits;
-  int pts_per_split = (chunk + kChunk - 1) / kChunk * kChunk;
   if (p.hs8 != nullptr) {
-    // 'i8pair': each group's scale, then splits of whole groups
+    // 'i8pair': each group's scale, dW_in on wgmma, then the hidden layers'
+    // dW on the int8 cores over splits of whole groups
     const int n_groups = (n + p.group - 1) / p.group;
     if (L > 1) {
       dz_absmax_kernel<<<dim3(n_groups, L - 1), 256, 0, s>>>(p);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
-    pts_per_split = (pts_per_split + p.group - 1) / p.group * p.group;
-    dw_kernel<<<dim3(m_tiles * c_tiles, p.splits, 1), kThreads, 0, s>>>(p, pts_per_split);
-    err = cudaGetLastError();
+    err = launch_dw(p, 1, s);
     if (err != cudaSuccess) return err;
     if (L > 1) {
-      dw_i8_kernel<<<dim3(c_tiles * c_tiles, p.splits, L - 1), kThreads, 0, s>>>(
+      const int chunk = (n + p.splits8 - 1) / p.splits8;
+      int pts_per_split = (chunk + kI8Chunk - 1) / kI8Chunk * kI8Chunk;
+      pts_per_split = (pts_per_split + p.group - 1) / p.group * p.group;
+      const int c_tiles = (p.h + kI8Tile - 1) / kI8Tile;
+      dw_i8_kernel<<<dim3(c_tiles * c_tiles, p.splits8, L - 1), kI8Threads, 0, s>>>(
           p, pts_per_split);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
+      err = launch_reduce(p.part_i8, p.splits8, p.p - p.dw_ld, p.grad_dw + p.dw_ld, accumulate,
+                          s);
+      if (err != cudaSuccess) return err;
     }
   } else {
-    dw_kernel<<<dim3(m_tiles * c_tiles, p.splits, L), kThreads, 0, s>>>(p, pts_per_split);
-    err = cudaGetLastError();
+    err = launch_dw(p, L, s);
     if (err != cudaSuccess) return err;
   }
 
   const int n_tiles = (n + kRows - 1) / kRows;
   err = launch_reduce(p.part_chain, n_tiles, p.q, p.grad_chain, accumulate, s);
   if (err != cudaSuccess) return err;
-  return launch_reduce(p.part_dw, p.splits, p.p, p.grad_dw, accumulate, s);
+  return launch_reduce(p.part_dw, p.splits, p.dw_ld, p.grad_dw, accumulate, s);
 }
 
 }  // namespace

@@ -19,54 +19,49 @@
 // Design. On the TPU each tile recomputes its activations into VMEM and
 // backpropagates them at once; a 64-point block's sin and cos at 8x512
 // (1 MB) do not fit in shared memory here. So the points are walked in
-// chunks of `chunk` (32,768 from the wrapper): for each chunk the stashing
-// forward (fused_mlp_fwd_kernel<H, kStashBf16Cos>, K1's kernel with the cos
-// written as bf16 from the registers) fills chunk-sized scratch, then K2's
-// launches run over the chunk with the bf16 gate read in the epilogue
-// (chain_kernel<H, kGateBf16, true>, fused_mlp_backward.cuh),
-// and the two reductions add the chunk's partials to the running gradients,
-// chunk after chunk in order, so a run gives the same bits as the last.
-// The scratch (hs, cs and dz: 3 * 8 KB a point at 8x512, 768 MB per chunk of
-// 32,768, plus the encoding and the partials) does not grow with N; the
-// stashing path's stashes and dz scratch are 20 KB a point. The forward of
-// the autograd Function is K0 itself, so the output under grad is the
-// no-grad render's, bit for bit.
+// chunks of `chunk` (32,768 from the wrapper): for each chunk the wgmma
+// forward (fused_mlp_fwd_wgmma.cuh with kStashBf16Cos: K0's kernel writing
+// the bf16 sin and cos from its epilogue) fills chunk-sized scratch, then
+// K2's launches run over the chunk with the bf16 gate read in the epilogue
+// (chain_wgmma_kernel<H, kGateBf16, true> and the wgmma dW kernel,
+// fused_mlp_backward.cuh), and the two reductions add the chunk's partials
+// to the running gradients, chunk after chunk in order, so a run gives the
+// same bits as the last. The scratch (hs, cs and dz: 3 * 8 KB a point at
+// 8x512, 768 MB per chunk of 32,768, plus the encoding and the partials)
+// does not grow with N; the stashing path's stashes and dz scratch are 20 KB
+// a point. The forward of the autograd Function is K0 itself, so the output
+// under grad is the no-grad render's, bit for bit.
 
 #include "fused_mlp_backward.cuh"
+#include "fused_mlp_fwd_wgmma.cuh"
 
 // C entry, bound with ctypes: the chunks' launches of one backward on
 // `stream` (per chunk: the recompute forward, the chain kernel, the dW
-// products and the two accumulating reductions). Returns a cudaError_t
+// products and the two accumulating reductions). w_fwd is pack_wgmma's
+// chunks, w_bwd pack_wgmma_bwd's, w_dpts pack_wgmma_dpts's; the dW work of
+// a chunk is `splits` ranges of `pps` points. Returns a cudaError_t
 // (0 = launched).
 extern "C" int sunerf_fused_mlp_recompute_bwd(
-    const void* pts, const void* col_dim, const void* col_freq, const void* w_in,
-    const void* b_in, const void* w_h, const void* b_h, const void* w_out,
-    const void* b_out, const void* dy, const void* w_h_t, const void* w_enc_t,
-    void* hs, void* cs, void* out, void* dz, void* enc, void* part_chain,
-    void* part_dw, void* grad_chain, void* grad_dw, void* dpts, int n, int d_in,
-    int n_cols, int e_pad, int d_filter, int n_hidden, int d_out, int splits,
-    int chunk, void* stream) {
+    const void* pts, const void* col_dim, const void* col_freq, const void* w_fwd,
+    const void* b_in, const void* b_h, const void* b_out, const void* dy, const void* w_bwd,
+    const void* w_dpts, const void* w_out, void* hs, void* cs, void* out, void* dz,
+    void* enc, void* part_chain, void* part_dw, void* grad_chain, void* grad_dw,
+    void* dpts, int n, int d_in, int n_cols, int e_pad, int d_filter, int n_hidden,
+    int d_out, int pps, int splits, int chunk, void* stream) {
   using namespace sunerf;
-  if (n <= 0 || chunk <= 0 || chunk % kRows != 0 || e_pad % 16 != 0 ||
-      e_pad < d_in + 2 * n_cols || d_out < 1 || d_out > kMaxOut || splits < 1 ||
-      n_hidden < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   const size_t ld = static_cast<size_t>(n_hidden + 1) * d_filter;
-  FwdParams f{};
+  fwd::Params f{};
   f.col_dim = static_cast<const int*>(col_dim);
   f.col_freq = static_cast<const float*>(col_freq);
-  f.w_in = static_cast<const uint2*>(w_in);
+  f.w = static_cast<const __nv_bfloat16*>(w_fwd);
   f.b_in = static_cast<const float*>(b_in);
-  f.w_h = static_cast<const uint2*>(w_h);
   f.b_h = static_cast<const float*>(b_h);
-  f.w_out = static_cast<const __nv_bfloat16*>(w_out);
   f.b_out = static_cast<const float*>(b_out);
   f.out = static_cast<float*>(out);
   f.hs = hs;
   f.cs = cs;
   f.d_in = d_in;
   f.n_cols = n_cols;
-  f.e_pad = e_pad;
   f.n_hidden = n_hidden;
   f.d_out = d_out;
 
@@ -77,15 +72,15 @@ extern "C" int sunerf_fused_mlp_recompute_bwd(
   p.gate = cs;
   p.gate_ld = ld;
   p.gate_layer = d_filter;
-  p.w_h_t = static_cast<const uint2*>(w_h_t);
-  p.w_out = f.w_out;
+  p.w_bwd = static_cast<const __nv_bfloat16*>(w_bwd);
+  p.w_dpts = static_cast<const __nv_bfloat16*>(w_dpts);
+  p.w_out = static_cast<const __nv_bfloat16*>(w_out);
   p.dz = static_cast<__nv_bfloat16*>(dz);
   p.enc = static_cast<__nv_bfloat16*>(enc);
   p.part_chain = static_cast<float*>(part_chain);
   p.part_dw = static_cast<float*>(part_dw);
   p.grad_chain = static_cast<float*>(grad_chain);
   p.grad_dw = static_cast<float*>(grad_dw);
-  p.w_enc_t = static_cast<const uint2*>(w_enc_t);
   p.n_enc = d_in + 2 * n_cols;
   p.d_in = d_in;
   p.n_cols = n_cols;
@@ -93,21 +88,29 @@ extern "C" int sunerf_fused_mlp_recompute_bwd(
   p.h = d_filter;
   p.n_hidden = n_hidden;
   p.d_out = d_out;
+  p.pps = pps;
   p.splits = splits;
+  p.n = n < chunk ? n : chunk;
+  p.dpts = static_cast<float*>(dpts);
   set_sizes(p);
+  if (chunk <= 0 || chunk % kRows != 0 || !bwd_ok(p) || e_pad < d_in + 2 * n_cols ||
+      w_bwd == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   for (int c0 = 0; c0 < n; c0 += chunk) {
     const int m = n - c0 < chunk ? n - c0 : chunk;
     f.pts = static_cast<const float*>(pts) + static_cast<size_t>(c0) * d_in;
     f.n = m;
-    const int err_f = fused_mlp_fwd_entry<kStashBf16Cos>(f, d_filter, stream);
-    if (err_f != 0) return err_f;
+    cudaError_t err = fwd::launch<kStashBf16Cos>(f, e_pad, d_filter, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
     p.pts = f.pts;
     p.dy = static_cast<const float*>(dy) + static_cast<size_t>(c0) * d_out;
     p.dpts = static_cast<float*>(dpts) + static_cast<size_t>(c0) * d_in;
     p.n = m;
-    cudaError_t err = launch_chain_width<kGateBf16, true>(p, s);
+    err = set_maps(p, false);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = launch_chain_width<kGateBf16, true>(p, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = launch_after_chain(p, c0 > 0, s);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -40,21 +40,25 @@
 // Design. On the TPU the grid runs in order and every dW accumulates in VMEM
 // across it (7.3 MB of f32 for dW_h alone at 8x512), flushed once. On Hopper
 // blocks run in parallel and no block can hold the dW, so the backward is
-// a chain kernel, dW products split over the points and fixed-order
-// reductions (fused_mlp_backward.cuh). The chain kernel stages each layer's
-// int8 gate in shared memory by cp.async (the lsb gate, twice the bytes, is
-// read from the stash in the epilogue); dz_j goes to a scratch [N, L*H] (1.6 GB
-// at the fine shapes) by the bulk-copy (TMA) engine, so neither stalls the
-// warps (one block fills an SM); both streams carry an L2 evict-first
-// policy, so W_h^T, re-read by every block, stays in L2 (9.12 -> 8.06 ms
-// for the whole backward at the fine N on an H100, chip_smoke.py). K3 is
-// the chain kernel's tail: denc on the tensor cores (block_matmul against
-// W_in[:84]^T packed in fragment order, 128 columns), staged in f32 over
-// the dead gate tiles, then a thread per (point, input dimension)
-// sums its phase columns. 'i8pair' adds dz_absmax_kernel (each group's
-// scale) and dw_i8_kernel (mma.sync m16n8k32 s8.s8.s32 on chunks staged
-// transposed, an exact int32 sum per group). wgmma, TMA loads and a fused
-// dW epilogue are left for later work.
+// two passes over the points (fused_mlp_backward.cuh): the chain kernel,
+// which carries dz down the layers on wgmma in K0's design (64-point tiles,
+// two warpgroups, dz in place in shared memory, W_h's chunks through a
+// bulk-copy ring with the layer's int8 gate tile in the stage after them)
+// and stores every dz_j to a scratch [tiles][L][64 x H] (1.6 GB at the fine
+// shape) tile by tile in its core-matrix order, by one bulk copy a tile and
+// layer; then the dW kernel, wgmma products over the points (A the stash
+// rows by ldmatrix.trans, B the dz tiles MN-major) in work items of a split,
+// a job and a 128 x TN output tile, and fixed-order reductions. Bytes of
+// this two-pass design at the fine shape: the chain reads the gates (0.81
+// GB) and hs_{L-1} and writes dz (1.61 GB), 0.79 ms; the dW kernel reads hs
+// (1.41 GB) and dz, 0.90 ms: a floor of about 1.69 ms, above the operations
+// bound. The gate and dz streams carry an L2 evict-first policy, the
+// weights evict-last. K3 is the chain kernel's tail: denc = dz_0 W_in^T as
+// one more wgmma against pack_wgmma_dpts's chunks through the same ring,
+// its terms summed per point and dimension from the accumulators.
+// 'i8pair' adds dz_absmax_kernel (each group's scale) and dw_i8_kernel
+// (mma.sync m16n8k32 s8.s8.s32 on chunks staged transposed, an exact int32
+// sum per group); its dW_in goes through the wgmma dW kernel.
 //
 // K5, the dense feature-grid branch (fused_mlp.py:564-576, :634-644): the
 // recomputed encoding carries the grid features (so dW_in covers their
@@ -79,30 +83,26 @@
 
 // C entry, bound with ctypes: the launches of one backward on `stream`.
 // fmt: 0 'int8' (hs bf16 sin, cs int8 cos), 1 'lsb' (hs packed bf16, cs
-// unused), 2 'i8pair' (hs the int8 pairs, cs unused). dpts null: no point
-// cotangent. Returns a cudaError_t (0 = launched).
+// unused), 2 'i8pair' (hs the int8 pairs, cs unused). w_bwd is
+// pack_wgmma_bwd's chunks, w_dpts pack_wgmma_dpts's (K3) or null; dz the
+// scratch [tiles][L][64 x H]; the dW work is `splits` point ranges of
+// `pps` points, with part_dw [splits][e_pad H + (L-1) H^2]; for 'i8pair'
+// part_dw is dW_in's [splits][e_pad H], then the int8 dW_h's
+// [splits8][(L-1) H^2] (splits8 is ignored for the other formats). dpts
+// null: no point cotangent. Returns a cudaError_t (0 = launched).
 extern "C" int sunerf_fused_mlp_stash_bwd(
     const void* pts, const void* col_dim, const void* col_freq, const void* dy,
-    const void* hs, const void* cs, const void* w_h_t, const void* w_out,
+    const void* hs, const void* cs, const void* w_bwd, const void* w_out,
     void* dz, void* enc, void* part_chain, void* part_dw, void* grad_chain,
     void* grad_dw, const void* grid, const void* w_grid, void* dgrid, void* gmax,
-    void* gacc, void* grad_grid, void* dpts, const void* w_enc_t, void* dz_max,
+    void* gacc, void* grad_grid, void* dpts, const void* w_dpts, void* dz_max,
     int n, int d_in, int n_cols, int e_pad, int d_filter, int n_hidden, int d_out,
-    int splits, int fmt, int group, void* stream) {
+    int pps, int splits, int splits8, int fmt, int group, void* stream) {
   using namespace sunerf;
   BwdParams p{};
   p.grid = grid_params(grid);
   const int L = n_hidden + 1;
   const size_t ld = static_cast<size_t>(L) * d_filter;
-  const bool grid_bad = p.grid.n_levels > 0 &&
-      (w_grid == nullptr || dgrid == nullptr || gmax == nullptr || gacc == nullptr ||
-       grad_grid == nullptr || fmt != 0 || dpts != nullptr);
-  if (n <= 0 || e_pad % 16 != 0 || !grid_ok(p.grid) ||
-      e_pad < d_in + 2 * n_cols + p.grid.n_levels * p.grid.features || d_out < 1 ||
-      d_out > kMaxOut || splits < 1 || n_hidden < 0 || grid_bad || fmt < 0 || fmt > 2 ||
-      (dpts != nullptr && w_enc_t == nullptr) ||
-      (fmt == 2 && (group < 1 || group > 133144 || dz_max == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
   p.pts = static_cast<const float*>(pts);
   p.col_dim = static_cast<const int*>(col_dim);
   p.col_freq = static_cast<const float*>(col_freq);
@@ -118,7 +118,8 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
     p.gate_ld = ld;
     p.gate_layer = d_filter;
   }
-  p.w_h_t = static_cast<const uint2*>(w_h_t);
+  p.w_bwd = static_cast<const __nv_bfloat16*>(w_bwd);
+  p.w_dpts = static_cast<const __nv_bfloat16*>(w_dpts);
   p.w_out = static_cast<const __nv_bfloat16*>(w_out);
   p.dz = static_cast<__nv_bfloat16*>(dz);
   p.enc = static_cast<__nv_bfloat16*>(enc);
@@ -132,7 +133,6 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
   p.gacc = static_cast<unsigned long long*>(gacc);
   p.grad_grid = static_cast<float*>(grad_grid);
   p.dpts = static_cast<float*>(dpts);
-  p.w_enc_t = static_cast<const uint2*>(w_enc_t);
   p.n_enc = d_in + 2 * n_cols;
   p.dz_max = static_cast<float*>(dz_max);
   p.group = group;
@@ -143,12 +143,23 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
   p.h = d_filter;
   p.n_hidden = n_hidden;
   p.d_out = d_out;
+  p.pps = pps;
   p.splits = splits;
+  p.splits8 = splits8;
   set_sizes(p);
+  if (fmt == 2) p.part_i8 = p.part_dw + static_cast<size_t>(splits) * p.dw_ld;
+  const bool grid_bad = p.grid.n_levels > 0 &&
+      (w_grid == nullptr || dgrid == nullptr || gmax == nullptr || gacc == nullptr ||
+       grad_grid == nullptr || fmt != 0 || dpts != nullptr);
+  if (!bwd_ok(p) || !grid_ok(p.grid) || grid_bad || fmt < 0 || fmt > 2 ||
+      e_pad < d_in + 2 * n_cols + p.grid.n_levels * p.grid.features || w_bwd == nullptr ||
+      (fmt == 2 && (group < 1 || group > 133144 || dz_max == nullptr || splits8 < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = set_maps(p, fmt != 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   const bool with_dpts = dpts != nullptr;
-  cudaError_t err;
   if (fmt == 1)
     err = with_dpts ? launch_chain_width<kGateLsb, true>(p, s)
                     : launch_chain_width<kGateLsb, false>(p, s);

@@ -2,10 +2,14 @@
 sunerf_tpu/ops/pallas/fused_mlp.py.
 
   K0 _fwd_kernel        -> csrc/fused_mlp_fwd_wgmma.cu  forward, no gradient
-                           (wgmma from a bulk-copy weight ring)
+                           (wgmma from a bulk-copy weight ring,
+                           csrc/fused_mlp_fwd_wgmma.cuh)
   K1 _fwd_stash_kernel  -> csrc/fused_mlp_stash_fwd.cu  training forward,
-                           sin stash bf16 + cos stash int8 ('int8')
-  K2 _bwd_stash_kernel  -> csrc/fused_mlp_stash_bwd.cu  training backward
+                           sin stash bf16 + cos stash int8 ('int8'): K0's
+                           wgmma kernel with the stashes in its epilogue
+  K2 _bwd_stash_kernel  -> csrc/fused_mlp_stash_bwd.cu  training backward:
+                           the wgmma chain kernel and the wgmma dW kernel
+                           (csrc/fused_mlp_backward.cuh)
   K3 its compute_dpts=True branch -> the same file: the point cotangent
   K4 _bwd_kernel        -> csrc/fused_mlp_recompute_bwd.cu  the recompute
                            backward of stash=False (no activation memory)
@@ -37,13 +41,16 @@ the kernel's plain PyTorch version (`fused_mlp_reference`,
 matmul operands, f32 accumulation, f32 bias and the kernels' range-reduced
 sine. Raw outputs exclude the DT base offsets (nerf_apply_fused adds them).
 
-The kernels read bf16 copies of the weights packed in mma.sync fragment
-order (W_h transposed as well; the posenc rows of W_in transposed for the
-point cotangent, only when a backward computes it; for K0's wgmma kernel,
-its ring chunks, `pack_wgmma`, only when it runs), prepared once per
+The kernels read bf16 copies of the weights laid out as wgmma's ring
+chunks: the forwards' `pack_wgmma`, the backwards' `pack_wgmma_bwd` (W_h as
+stored) and, only when a backward computes the point cotangent,
+`pack_wgmma_dpts` (the posenc rows of W_in), each prepared once per
 parameter set and cached on the identity and version of its tensors: a
 training step packs once per field, and the optimizer's in-place update
-invalidates the pack. The grid tables
+invalidates the pack. The backward's dz scratch is laid out tile by tile
+in the chain kernel's own order (`dz_index`), and its dW products are
+split over the point ranges of `dw_splits` ('i8pair''s int8 dW_h over
+those of `dw_i8_splits`). The grid tables
 are not cached: the kernels read the float32 parameters themselves, so an
 in-place update is seen by the next launch.
 """
@@ -87,8 +94,9 @@ _NO_GRID_RECOMPUTE = ('grid-encoding configs differentiate through the stashing 
                       'backward only (stash=True); the recompute backward has no '
                       'd_table path')
 _prepared: WeakIdKeyDictionary = WeakIdKeyDictionary()
-_prepared_enc: WeakIdKeyDictionary = WeakIdKeyDictionary()
+_prepared_dpts: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _prepared_wgmma: WeakIdKeyDictionary = WeakIdKeyDictionary()
+_prepared_bwd: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _TWO_PI = 6.283185307179586
 _INV_TWO_PI = 0.15915494309189535
 _HALF_PI = 1.5707963267948966
@@ -108,8 +116,10 @@ _INV_COS_SCALE_BF16 = 0.00787353515625
 # f32((1/127)^2), the i8pair dW scale factor (exact in f32, so every
 # rounding path gives the same value)
 _INV_COS_SQ = float(np.float32((1.0 / 127.0) * (1.0 / 127.0)))
-_DW_TILE = 128          # K2's dW output tile (csrc/fused_mlp_backward.cuh)
-_DPTS_COLS = 128        # K3's encoding-column chunk (the packed W_in^T's padding)
+_TILE = 64              # points a chain tile and a dW chunk (csrc/fused_mlp_backward.cuh)
+_DW_ROWS = 128          # dW output rows a work item
+_DPTS_COLS = 128        # K3's encoding columns a ring chunk (fewer at H = 64)
+MAX_DPTS_INPUTS = 8     # d_input values the point cotangent (K3) takes
 STASH_FORMATS = ('int8', 'lsb', 'i8pair')
 _FMT_CODE = {'int8': 0, 'lsb': 1, 'i8pair': 2}
 STASH_BWD_TILE = 768    # the i8pair dz scale group: fused_nerf_raw's stash_bwd_tile
@@ -333,21 +343,29 @@ def _point_cotangent(config: NeRFConfig, params: dict, points: torch.Tensor,
 
 
 def _chain_grads(config: NeRFConfig, params: dict, points: torch.Tensor,
-                 dy: torch.Tensor, sin_, cos_, dw_h, compute_dpts: bool) -> dict:
+                 dy: torch.Tensor, sin_, cos_, dw_h, compute_dpts: bool,
+                 dzs: list = None) -> dict:
     """The backward of every format given the layers' stashed sin (the dW
     operand), their gate cos and the hidden layers' dW product; with
-    compute_dpts the point cotangent under 'dpts'."""
+    compute_dpts the point cotangent under 'dpts'. Given a list `dzs`, each
+    layer's dz_j is put at its index j."""
     H, L = config.d_filter, config.n_layers
     dyb = _bf(dy)
     grads = {'w_out': sin_(L - 1).t() @ dyb, 'b_out': dy.sum(0)}
     dh = dyb @ _bf(params['w_out']).t()
     dws, dbs = [None] * (L - 1), [None] * (L - 1)
+    if dzs is not None:
+        dzs[:] = [None] * L
     for i in range(L - 2, -1, -1):
         dz = _bf(_bf(dh) * cos_(i + 1))
+        if dzs is not None:
+            dzs[i + 1] = dz
         dws[i] = dw_h(i, dz)
         dbs[i] = dz.sum(0)
         dh = dz @ _bf(params['w_h'][i]).t()
     dz = _bf(_bf(dh) * cos_(0))
+    if dzs is not None:
+        dzs[0] = dz
     grads['w_in'] = _bf(_encode(config, params, points)).t() @ dz
     grads['b_in'] = dz.sum(0)
     empty = torch.zeros((0, H), dtype=torch.float32, device=points.device)
@@ -369,7 +387,7 @@ def fused_mlp_stash_bwd_reference(config: NeRFConfig, params: dict,
                                   points: torch.Tensor, dy: torch.Tensor,
                                   hs: torch.Tensor, cs: torch.Tensor,
                                   fmt: str = 'int8', compute_dpts: bool = False,
-                                  group: int = STASH_BWD_TILE) -> dict:
+                                  group: int = STASH_BWD_TILE, dzs: list = None) -> dict:
     """Plain PyTorch version of the stashing backward -> parameter gradients
     in the JAX layout (w_in [E, H], b_in [H], w_h [L-1, H, H], b_h [L-1, H],
     w_out [H, O], b_out [O], grid_i [G, G, G, F]), f32, and with
@@ -384,7 +402,9 @@ def fused_mlp_stash_bwd_reference(config: NeRFConfig, params: dict,
     and sin, and dW_h from the int8 sin and dz quantized per group of
     `group` points (_dw_i8). A grid level's cotangent is dz_0
     bf16(w_in[its rows])^T, spread over its table by grid_encode_table_grad
-    (float32 index_add)."""
+    (float32 index_add). Given a list `dzs`, it receives each layer's dz_j
+    [N, H] (bf16 values in f32), the chain's intermediates that the kernel
+    stores to its dz scratch."""
     H = config.d_filter
     if fmt == 'i8pair':
         def sin8(i):
@@ -413,7 +433,7 @@ def fused_mlp_stash_bwd_reference(config: NeRFConfig, params: dict,
 
         def dw_h(i, dz):
             return sin_(i).t() @ dz
-    return _chain_grads(config, params, points, dy, sin_, cos_, dw_h, compute_dpts)
+    return _chain_grads(config, params, points, dy, sin_, cos_, dw_h, compute_dpts, dzs)
 
 
 def fused_mlp_recompute_bwd_reference(config: NeRFConfig, params: dict,
@@ -429,33 +449,26 @@ def fused_mlp_recompute_bwd_reference(config: NeRFConfig, params: dict,
                         lambda i: cs[i], lambda i, dz: hs[i].float().t() @ dz, True)
 
 
-def pack_fragments(w: torch.Tensor) -> torch.Tensor:
-    """[..., K, N] float weights -> bf16 [..., N/8, K/16, 32, 4] in the B
-    fragment order of mma.sync m16n8k16: for lane l = 4g + t of n-tile nt and
-    k-step ks, the 4 values are W[16ks + {2t, 2t+1, 2t+8, 2t+9}, 8nt + g], so
-    one warp's fragment load is 256 contiguous bytes."""
-    *lead, k, n = w.shape
-    nl = len(lead)
-    wb = w.to(torch.bfloat16).reshape(*lead, k // 16, 2, 4, 2, n // 8, 8)
-    # (ks, k-half, t, k-pair, nt, g) -> (nt, ks, g, t, k-half, k-pair)
-    perm = [*range(nl), nl + 4, nl, nl + 5, nl + 2, nl + 1, nl + 3]
-    return wb.permute(perm).contiguous().reshape(*lead, n // 8, k // 16, 32, 4)
+def _core_chunks(rows: torch.Tensor) -> torch.Tensor:
+    """B [K, N] float (K a multiple of 32) -> bf16 [K/32, 32 N]: 32-row
+    k-chunks, each in wgmma's no-swizzle K-major B layout, element (k, n)
+    at ((k // 8) * (N // 8) + n // 8) * 64 + (n % 8) * 8 + k % 8."""
+    n = rows.shape[1]
+    # (chunk, k group, k, n group, n) -> (chunk, k group, n group, n, k)
+    t = rows.to(torch.bfloat16).reshape(-1, _WGMMA_KC // 8, 8, n // 8, 8)
+    return t.permute(0, 1, 3, 4, 2).reshape(-1, _WGMMA_KC * n)
 
 
 def pack_wgmma(w_in: torch.Tensor, w_h: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
     """w_in [E, H], w_h [L-1, H, H] and w_out [H, O] float -> bf16
-    [chunks, 32 H], the K0 wgmma kernel's ring chunks in the order it reads
+    [chunks, 32 H], the wgmma forward's ring chunks in the order it reads
     them: the rows of w_in (zero-padded to a multiple of 32), then of each
-    w_h[i], 32 rows a chunk, each chunk in wgmma's no-swizzle K-major B
-    layout, element (k, n) at ((k // 8) * (H // 8) + n // 8) * 64 + (n % 8) * 8
-    + k % 8; then the head, w_out^T with its O columns zero-padded to 8,
-    element (k, n) at (k // 8) * 64 + n * 8 + k % 8, the chunk zero-padded."""
+    w_h[i], 32 rows a chunk (_core_chunks); then the head, w_out^T with its
+    O columns zero-padded to 8, element (k, n) at (k // 8) * 64 + n * 8 +
+    k % 8, the chunk zero-padded."""
     e, h = w_in.shape
     k_in = -(-e // _WGMMA_KC) * _WGMMA_KC
-    rows = torch.cat([F.pad(w_in, (0, 0, 0, k_in - e)), w_h.reshape(-1, h)])
-    # (chunk, k group, k, n group, n) -> (chunk, k group, n group, n, k)
-    t = rows.to(torch.bfloat16).reshape(-1, _WGMMA_KC // 8, 8, h // 8, 8)
-    layers = t.permute(0, 1, 3, 4, 2).reshape(-1, _WGMMA_KC * h)
+    layers = _core_chunks(torch.cat([F.pad(w_in, (0, 0, 0, k_in - e)), w_h.reshape(-1, h)]))
     # (k group, k, n) -> (k group, n, k)
     head = F.pad(w_out.to(torch.bfloat16), (0, MAX_K0_OUTPUTS - w_out.shape[1]))
     head = head.reshape(h // 8, 8, MAX_K0_OUTPUTS).permute(0, 2, 1).reshape(-1)
@@ -463,15 +476,99 @@ def pack_wgmma(w_in: torch.Tensor, w_h: torch.Tensor, w_out: torch.Tensor) -> to
     return torch.cat([layers, head]).contiguous()
 
 
+def pack_wgmma_bwd(w_h: torch.Tensor) -> torch.Tensor:
+    """w_h [L-1, H, H] float -> bf16 [(L-1) H/32, 32 H], the chain kernel's
+    ring chunks: dh = dz_j w_h[j-1]^T contracts over w_h's output axis, so
+    its B operand is w_h[j-1]^T [k = out, n = in], which w_h as stored
+    (row-major [in, out]) already holds K-major: layer i's H/32 chunks of
+    w_h[i]^T (_core_chunks), in layer order."""
+    h = w_h.shape[-1]
+    return _core_chunks(w_h.transpose(-1, -2).reshape(-1, h)).contiguous()
+
+
+def dpts_chunk_cols(d_filter: int) -> int:
+    """K3's encoding columns a ring chunk: 128, or H where H is smaller (a
+    chunk [32, cols] fits a stage of the chain kernel's ring)."""
+    return min(_DPTS_COLS, d_filter)
+
+
+def pack_wgmma_dpts(w_in: torch.Tensor, n_enc: int) -> torch.Tensor:
+    """w_in [E, H] float -> bf16 [n_cc H/32, 32 cw] with cw =
+    dpts_chunk_cols(H): the point cotangent's B operand w_in[:n_enc]^T
+    [k = H, n = encoding column], its columns zero-padded to n_cc cw, as
+    H/32 ring chunks (_core_chunks) for each cw-column block in turn."""
+    h = w_in.shape[1]
+    cw = dpts_chunk_cols(h)
+    n_cc = -(-n_enc // cw)
+    b = F.pad(w_in[:n_enc].float(), (0, 0, 0, n_cc * cw - n_enc)).t()
+    return torch.cat([_core_chunks(b[:, c * cw:(c + 1) * cw].contiguous())
+                      for c in range(n_cc)]).contiguous()
+
+
+def dz_index(pt, j, c, n_layers: int, d_filter: int):
+    """Element (point pt, layer j, column c) of the backward's dz scratch
+    [tiles][L][64 x H]: tile pt // 64, then layer j's block in wgmma's
+    K-major core-matrix order (8 x 8 blocks of 64 contiguous elements, row
+    r % 8 at 8 (r % 8), the 8 row groups of a column group in turn), as the
+    chain kernel writes it from its shared-memory buffer. Works on ints and
+    integer arrays alike."""
+    r = pt % _TILE
+    core = ((c // 8) * (_TILE // 8) + r // 8) * 64 + (r % 8) * 8 + c % 8
+    return ((pt // _TILE) * n_layers + j) * (_TILE * d_filter) + core
+
+
+def dz_scratch_size(n: int, n_layers: int, d_filter: int) -> int:
+    """Elements of the dz scratch for n points (whole tiles)."""
+    return -(-n // _TILE) * n_layers * _TILE * d_filter
+
+
+def unpack_dz_scratch(dz: torch.Tensor, n: int, n_layers: int, d_filter: int) -> torch.Tensor:
+    """The dz scratch (flat, dz_index order) -> [n, L*H] row-major, layer
+    j's dz_j in columns [j H, (j+1) H)."""
+    pt = torch.arange(n, device=dz.device).view(n, 1, 1)
+    j = torch.arange(n_layers, device=dz.device).view(1, n_layers, 1)
+    c = torch.arange(d_filter, device=dz.device).view(1, 1, d_filter)
+    return dz[dz_index(pt, j, c, n_layers, d_filter)].reshape(n, n_layers * d_filter)
+
+
+def dw_splits(config: NeRFConfig, n: int, e_pad: int, sm_count: int,
+              fmt: str = 'int8') -> tuple:
+    """(pps, splits): the wgmma dW products' point ranges, `splits` ranges
+    of `pps` points (a multiple of 64, the dz scratch's tiles), each with
+    its own f32 partials, summed in a fixed order: enough work items for
+    about four per SM, and at least 1024 points a range. A range is
+    nt (mt0 + (jobs - 1) mt) work items (csrc/fused_mlp_backward.cuh
+    dw_plan): 128-row tiles of dW_in's e_pad rows (mt0) and of each dW_h's
+    H (mt) by TN-column tiles of H (nt, TN = 256, 128 or 64, the largest
+    that divides H), over jobs = L (dW_in and the L - 1 dW_h), or 1 for
+    'i8pair', whose dW_h the int8 kernel takes (dw_i8_splits)."""
+    H = config.d_filter
+    jobs = 1 if fmt == 'i8pair' else config.n_layers
+    nt = H // (256 if H % 256 == 0 else 128 if H % 128 == 0 else 64)
+    per_split = nt * (-(-e_pad // _DW_ROWS) + (jobs - 1) * -(-H // _DW_ROWS))
+    splits = max(1, min(-(-4 * sm_count // per_split), -(-n // 1024)))
+    pps = -(-(-(-n // splits)) // _TILE) * _TILE
+    return pps, -(-n // pps)
+
+
+def dw_i8_splits(config: NeRFConfig, n: int, sm_count: int) -> int:
+    """'i8pair': the point ranges of the int8 dW_h kernel, each with its own
+    f32 partials of the L - 1 dW_h: a block for each 128 x 128 output tile
+    and layer, so enough ranges for about four blocks per SM, and at least
+    1024 points a range (5 at 8x512 on 132 SMs)."""
+    H, L = config.d_filter, config.n_layers
+    tiles = -(-H // 128)
+    blocks = tiles * tiles * max(L - 1, 1)
+    return max(1, min(-(-4 * sm_count // blocks), -(-n // 1024)))
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class _KernelWeights:
-    """One parameter set as the kernels read it (device tensors)."""
+    """One parameter set as the kernels read it (device tensors), beside the
+    wgmma packs (_wgmma_weights, _bwd_weights, _dpts_weights)."""
     col_dim: torch.Tensor     # [n_cols] int32
     col_freq: torch.Tensor    # [n_cols] f32
-    w_in: torch.Tensor        # packed fragments, rows padded to e_pad
     b_in: torch.Tensor        # [H] f32
-    w_h: torch.Tensor         # [L-1, ...] packed fragments
-    w_h_t: torch.Tensor       # [L-1, ...] packed fragments of w_h^T (K2)
     b_h: torch.Tensor         # [L-1, H] f32
     w_out: torch.Tensor       # [d_out, H] bf16
     b_out: torch.Tensor       # [d_out] f32
@@ -487,15 +584,10 @@ def _prepare(config: NeRFConfig, params: dict) -> _KernelWeights:
     f32 = dict(dtype=torch.float32, device=device)
     off = _grid_offset(config)
     with torch.no_grad():
-        w_in = F.pad(params['w_in'].float(), (0, 0, 0, e_pad - config.d_encoded))
-        w_h = params['w_h'].float()
         return _KernelWeights(
             col_dim=torch.tensor(dims, dtype=torch.int32, device=device),
             col_freq=torch.tensor(freqs, **f32),
-            w_in=pack_fragments(w_in),
             b_in=params['b_in'].float().contiguous(),
-            w_h=pack_fragments(w_h),
-            w_h_t=pack_fragments(w_h.transpose(-1, -2)),
             b_h=params['b_h'].float().contiguous(),
             w_out=params['w_out'].t().to(torch.bfloat16).contiguous(),
             b_out=params['b_out'].float().contiguous(),
@@ -518,27 +610,39 @@ def _kernel_weights(config: NeRFConfig, params: dict) -> _KernelWeights:
     return hit[1]
 
 
-def _enc_weights(config: NeRFConfig, w_in: torch.Tensor) -> torch.Tensor:
-    """Packed fragments of w_in[:n_enc]^T, the x, sin and cos rows, columns
-    padded to a multiple of 128: the point cotangent's (K3, K4) operand,
-    prepared only for the backwards that compute it and cached like
-    _kernel_weights."""
+def _n_enc(config: NeRFConfig) -> int:
+    """The encoding's x, sin and cos columns (the point cotangent's)."""
+    return config.d_input + 2 * len(encoding_columns(
+        config.d_input, config.n_freqs, config.scale_factor, config.n_freqs_time)[0])
+
+
+def _dpts_weights(config: NeRFConfig, w_in: torch.Tensor) -> torch.Tensor:
+    """pack_wgmma_dpts of w_in, prepared only for the backwards that compute
+    the point cotangent (K3, K4) and cached like _kernel_weights."""
     stamp = (config, id(w_in), _version(w_in))
-    hit = _prepared_enc.get(w_in)
+    hit = _prepared_dpts.get(w_in)
     if hit is None or hit[0] != stamp:
-        n_enc = config.d_input + 2 * len(encoding_columns(
-            config.d_input, config.n_freqs, config.scale_factor, config.n_freqs_time)[0])
         with torch.no_grad():
-            w_t = F.pad(w_in[:n_enc].float().t(), (0, -(-n_enc // _DPTS_COLS) * _DPTS_COLS
-                                                    - n_enc))
-            hit = (stamp, pack_fragments(w_t))
-        _prepared_enc[w_in] = hit
+            hit = (stamp, pack_wgmma_dpts(w_in.float(), _n_enc(config)))
+        _prepared_dpts[w_in] = hit
+    return hit[1]
+
+
+def _bwd_weights(w_h: torch.Tensor) -> torch.Tensor:
+    """pack_wgmma_bwd of w_h, prepared only for the backwards and cached
+    like _kernel_weights."""
+    stamp = (id(w_h), _version(w_h))
+    hit = _prepared_bwd.get(w_h)
+    if hit is None or hit[0] != stamp:
+        with torch.no_grad():
+            hit = (stamp, pack_wgmma_bwd(w_h.float()))
+        _prepared_bwd[w_h] = hit
     return hit[1]
 
 
 def _wgmma_weights(params: dict) -> torch.Tensor:
-    """pack_wgmma of this parameter set, prepared only for the K0 wgmma
-    kernel and cached like _kernel_weights."""
+    """pack_wgmma of this parameter set, the forwards' weights, cached like
+    _kernel_weights."""
     stamp = tuple((id(params[k]), _version(params[k])) for k in ('w_in', 'w_h', 'w_out'))
     hit = _prepared_wgmma.get(params['w_in'])
     if hit is None or hit[0] != stamp:
@@ -603,11 +707,10 @@ def _launch(name: str, n_ptrs: int, n_ints: int, device, *args):
     build.launch(name, build.signature(n_ptrs, n_ints), device, *args)
 
 
-def _fwd_args(w: _KernelWeights, points, grid: _GridArgs, out):
+def _fwd_args(w: _KernelWeights, params: dict, points, grid: _GridArgs, out):
     return (points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
-            w.w_in.data_ptr(), w.b_in.data_ptr(), w.w_h.data_ptr(),
-            w.b_h.data_ptr(), w.w_out.data_ptr(), w.b_out.data_ptr(),
-            ctypes.addressof(grid), out.data_ptr())
+            _wgmma_weights(params).data_ptr(), w.b_in.data_ptr(), w.b_h.data_ptr(),
+            w.b_out.data_ptr(), ctypes.addressof(grid), out.data_ptr())
 
 
 def _fwd_ints(config, w: _KernelWeights, n: int):
@@ -639,10 +742,7 @@ def _forward_k0(config: NeRFConfig, params: dict,
         return out
     w = _kernel_weights(config, params)
     grid = _grid_args(config, params)
-    _launch('fused_mlp_fwd_wgmma', 9, 7, points.device,
-            points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
-            _wgmma_weights(params).data_ptr(), w.b_in.data_ptr(), w.b_h.data_ptr(),
-            w.b_out.data_ptr(), ctypes.addressof(grid), out.data_ptr(),
+    _launch('fused_mlp_fwd_wgmma', 9, 7, points.device, *_fwd_args(w, params, points, grid, out),
             *_fwd_ints(config, w, n))
     LAUNCHES += 1
     _count_grid(config)
@@ -693,22 +793,13 @@ def fused_mlp_stash_forward(config: NeRFConfig, params: dict,
         return out, hs, cs
     w = _kernel_weights(config, params)
     grid = _grid_args(config, params)
-    _launch('fused_mlp_stash_fwd', 13, 8, dev, *_fwd_args(w, points, grid, out),
+    _launch('fused_mlp_stash_fwd', 11, 8, dev, *_fwd_args(w, params, points, grid, out),
             hs.data_ptr(), None if cs is None else cs.data_ptr(),
             *_fwd_ints(config, w, n), _FMT_CODE[fmt])
     STASH_FWD_LAUNCHES += 1
     _count_grid(config)
     _count_format(fmt)
     return out, hs, cs
-
-
-def _dw_splits(config: NeRFConfig, n: int, e_pad: int, sm_count: int) -> int:
-    """How many point ranges K2's dW products are split into (each with its
-    own f32 partials, summed in a fixed order): enough blocks for about four
-    per SM, and at least 1024 points per range."""
-    tiles = (-(-max(config.d_filter, e_pad) // _DW_TILE)
-             * -(-config.d_filter // _DW_TILE) * config.n_layers)
-    return max(1, min(-(-4 * sm_count // tiles), -(-n // 1024)))
 
 
 def _grads_from_flat(config: NeRFConfig, grad_chain: torch.Tensor,
@@ -731,11 +822,19 @@ def _grads_from_flat(config: NeRFConfig, grad_chain: torch.Tensor,
     return grads
 
 
-def _check_backward(config: NeRFConfig, dy: torch.Tensor, n: int, dev):
+def _check_backward(config: NeRFConfig, dy: torch.Tensor, n: int, dev,
+                    compute_dpts: bool):
     if not 1 <= config.d_output <= MAX_BWD_OUTPUTS:
         raise ValueError(f'the backward kernels take d_output in 1..'
                          f'{MAX_BWD_OUTPUTS}, got {config.d_output}')
+    if compute_dpts and config.d_input > MAX_DPTS_INPUTS:
+        raise ValueError(f'the point cotangent takes d_input up to {MAX_DPTS_INPUTS}, '
+                         f'got {config.d_input}')
     build.check_tensor('dy', dy, (n, config.d_output), torch.float32, dev)
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check_group(group: int):
@@ -755,7 +854,9 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
     'lsb', K6b 'i8pair' with its dz scale group of `group` points) ->
     parameter gradients in the JAX layout and, with compute_dpts, 'dpts'
     (see fused_mlp_stash_bwd_reference). CUDA tensors launch the kernels
-    (or raise), CPU tensors run their plain version."""
+    (or raise), CPU tensors run their plain version. On the card the point
+    cotangent takes d_input up to MAX_DPTS_INPUTS (8): compute_dpts with a
+    larger d_input raises ValueError."""
     global STASH_BWD_LAUNCHES, DPTS_LAUNCHES
     _check_format(config, fmt)
     if compute_dpts and config.grid_sizes:
@@ -763,10 +864,25 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
     if points.device.type == 'cpu':
         return fused_mlp_stash_bwd_reference(config, params, points, dy, hs, cs, fmt,
                                              compute_dpts, group)
+    grads, _ = _stash_backward_launch(config, params, points, dy, hs, cs, fmt, compute_dpts,
+                                      group)
+    STASH_BWD_LAUNCHES += 1
+    _count_grid(config)
+    _count_format(fmt)
+    if compute_dpts:
+        DPTS_LAUNCHES += 1
+    return grads
+
+
+def _stash_backward_launch(config: NeRFConfig, params: dict, points: torch.Tensor,
+                           dy: torch.Tensor, hs: torch.Tensor, cs, fmt: str,
+                           compute_dpts: bool, group: int):
+    """Launches the stashing backward on CUDA tensors -> (gradients, the dz
+    scratch), the scratch flat in dz_index order (None for n = 0)."""
     _check(config, params, points)
     dev = points.device
     n, H, L, O = points.shape[0], config.d_filter, config.n_layers, config.d_output
-    _check_backward(config, dy, n, dev)
+    _check_backward(config, dy, n, dev, compute_dpts)
     hs_shape, hs_dtype, cs_shape, cs_dtype = _stash_shapes(config, n, fmt)
     build.check_tensor('hs', hs, hs_shape, hs_dtype, dev)
     if cs_shape is not None:
@@ -785,13 +901,19 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
         for t in (grad_chain, grad_dw, grad_grid):
             t.zero_()
         grads = _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
-        return dict(grads, dpts=dpts) if compute_dpts else grads
-    splits = _dw_splits(config, n, e_pad,
-                        torch.cuda.get_device_properties(dev).multi_processor_count)
-    dz = torch.empty((n, L * H), dtype=torch.bfloat16, device=dev)
+        return (dict(grads, dpts=dpts) if compute_dpts else grads), None
+    pps, splits = dw_splits(config, n, e_pad, _sm_count(dev), fmt)
+    dz = torch.empty(dz_scratch_size(n, L, H), dtype=torch.bfloat16, device=dev)
     enc = torch.empty((n, e_pad), dtype=torch.bfloat16, device=dev)
-    part_chain = torch.empty((-(-n // 64), grad_chain.numel()), **f32)
-    part_dw = torch.empty((splits, grad_dw.numel()), **f32)
+    part_chain = torch.empty((-(-n // _TILE), grad_chain.numel()), **f32)
+    if fmt == 'i8pair':
+        # dW_in's partials [splits][e_pad H], then the int8 kernel's dW_h
+        # partials [splits8][(L-1) H^2]
+        splits8 = dw_i8_splits(config, n, _sm_count(dev))
+        part_dw = torch.empty(splits * e_pad * H + splits8 * (L - 1) * H * H, **f32)
+    else:
+        splits8 = 0
+        part_dw = torch.empty((splits, grad_dw.numel()), **f32)
     grid = _grid_args(config, params)
     # K5 scratch: the grid cotangent, each level's max |.| (as float bits)
     # and the fixed-point sums, the last two zeroed
@@ -802,25 +924,21 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
     dz_max = (torch.empty((-(-n // group), max(L - 1, 1)), **f32) if fmt == 'i8pair'
               else None)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    _launch('fused_mlp_stash_bwd', 23, 10, dev,
+    w_dpts = _dpts_weights(config, params['w_in']) if compute_dpts else None
+    _launch('fused_mlp_stash_bwd', 23, 12, dev,
             points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
-            dy.data_ptr(), hs.data_ptr(), ptr(cs), w.w_h_t.data_ptr(),
+            dy.data_ptr(), hs.data_ptr(), ptr(cs), _bwd_weights(params['w_h']).data_ptr(),
             w.w_out.data_ptr(), dz.data_ptr(), enc.data_ptr(),
             part_chain.data_ptr(), part_dw.data_ptr(), grad_chain.data_ptr(),
             grad_dw.data_ptr(), ctypes.addressof(grid), w.w_grid.data_ptr(),
             dgrid.data_ptr(), gmax.data_ptr(), gacc.data_ptr(), grad_grid.data_ptr(),
-            ptr(dpts), ptr(_enc_weights(config, params['w_in']) if compute_dpts else None),
-            ptr(dz_max),
-            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, splits,
-            _FMT_CODE[fmt], group)
-    STASH_BWD_LAUNCHES += 1
-    _count_grid(config)
-    _count_format(fmt)
+            ptr(dpts), ptr(w_dpts), ptr(dz_max),
+            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, pps, splits,
+            splits8, _FMT_CODE[fmt], group)
     grads = _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
     if compute_dpts:
-        DPTS_LAUNCHES += 1
         grads['dpts'] = dpts
-    return grads
+    return grads, dz
 
 
 def fused_mlp_recompute_backward(config: NeRFConfig, params: dict,
@@ -828,7 +946,9 @@ def fused_mlp_recompute_backward(config: NeRFConfig, params: dict,
     """The K4 wrapper -> parameter gradients and 'dpts' (see
     fused_mlp_recompute_bwd_reference). Its scratch is sized by
     RECOMPUTE_CHUNK points, not N. CUDA tensors launch the kernels (or
-    raise), CPU tensors run the plain version."""
+    raise), CPU tensors run the plain version. It always computes the
+    point cotangent, so on the card it takes d_input up to MAX_DPTS_INPUTS
+    (8) and raises ValueError beyond."""
     global RECOMPUTE_BWD_LAUNCHES
     if config.grid_sizes:
         raise NotImplementedError(_NO_GRID_RECOMPUTE)
@@ -837,7 +957,7 @@ def fused_mlp_recompute_backward(config: NeRFConfig, params: dict,
     _check(config, params, points)
     dev = points.device
     n, H, L, O = points.shape[0], config.d_filter, config.n_layers, config.d_output
-    _check_backward(config, dy, n, dev)
+    _check_backward(config, dy, n, dev, True)
     w = _kernel_weights(config, params)
     e_pad = w.e_pad
     f32 = dict(dtype=torch.float32, device=dev)
@@ -849,24 +969,24 @@ def fused_mlp_recompute_backward(config: NeRFConfig, params: dict,
         grad_dw.zero_()
         return dict(_grads_from_flat(config, grad_chain, grad_dw, grad_chain[:0], e_pad),
                     dpts=dpts)
-    c = min(RECOMPUTE_CHUNK, -(-n // 64) * 64)
-    splits = _dw_splits(config, c, e_pad,
-                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    c = min(RECOMPUTE_CHUNK, -(-n // _TILE) * _TILE)
+    pps, splits = dw_splits(config, c, e_pad, _sm_count(dev))
     bf16 = dict(dtype=torch.bfloat16, device=dev)
-    hs, cs, dz = (torch.empty((c, L * H), **bf16) for _ in range(3))
+    hs, cs = (torch.empty((c, L * H), **bf16) for _ in range(2))
+    dz = torch.empty(dz_scratch_size(c, L, H), **bf16)
     out = torch.empty((c, O), **f32)
     enc = torch.empty((c, e_pad), **bf16)
-    part_chain = torch.empty((c // 64, grad_chain.numel()), **f32)
+    part_chain = torch.empty((c // _TILE, grad_chain.numel()), **f32)
     part_dw = torch.empty((splits, grad_dw.numel()), **f32)
-    _launch('fused_mlp_recompute_bwd', 22, 9, dev,
+    _launch('fused_mlp_recompute_bwd', 21, 10, dev,
             points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
-            w.w_in.data_ptr(), w.b_in.data_ptr(), w.w_h.data_ptr(), w.b_h.data_ptr(),
-            w.w_out.data_ptr(), w.b_out.data_ptr(), dy.data_ptr(), w.w_h_t.data_ptr(),
-            _enc_weights(config, params['w_in']).data_ptr(), hs.data_ptr(), cs.data_ptr(),
-            out.data_ptr(),
-            dz.data_ptr(), enc.data_ptr(), part_chain.data_ptr(), part_dw.data_ptr(),
-            grad_chain.data_ptr(), grad_dw.data_ptr(), dpts.data_ptr(),
-            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, splits, c)
+            _wgmma_weights(params).data_ptr(), w.b_in.data_ptr(), w.b_h.data_ptr(),
+            w.b_out.data_ptr(), dy.data_ptr(), _bwd_weights(params['w_h']).data_ptr(),
+            _dpts_weights(config, params['w_in']).data_ptr(), w.w_out.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), out.data_ptr(), dz.data_ptr(), enc.data_ptr(),
+            part_chain.data_ptr(), part_dw.data_ptr(), grad_chain.data_ptr(),
+            grad_dw.data_ptr(), dpts.data_ptr(),
+            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, pps, splits, c)
     RECOMPUTE_BWD_LAUNCHES += 1
     return dict(_grads_from_flat(config, grad_chain, grad_dw, grad_chain[:0], e_pad),
                 dpts=dpts)

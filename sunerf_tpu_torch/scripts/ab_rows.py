@@ -17,15 +17,36 @@ file measures the parent and the change. One JSON line:
     {}), CUDA events around whole steps;
   * k1_ms, k2_ms: the stashing forward and backward at 8x512, N = 196,608
     (the training step's fine field), weights and points from seed 2;
+  * k2_same_bits: two runs of that backward give the same gradients, bit
+    for bit;
+  * dw_h_bmm_ms: the library yardstick for K2's dW part, one torch.bmm of
+    the hidden layers' dW_h = hs_{j-1}^T dz_j in bf16 at that shape, hs
+    K1's stash and dz normal from seed 2 (the time does not depend on the
+    values), both copied contiguous outside the timed region;
+  * k2_coarse_ms: the stashing backward at 8x512, N = 65,536 (the step's
+    coarse field);
+  * k3_fine_ms, k3_4x128_ms: K3, the point cotangent, as the time of the
+    stashing backward with compute_dpts less the time without it (turns
+    A B B A B A, the median of each), at the fine shape and at 4x128, N =
+    20,480 (weights and points from seed 2), with k2_k3_fine_ms and
+    k2_k3_4x128_ms the backwards with it;
   * p2_<variant>_ms and grid_sample_ms: P2 at N = 262,144, G = 32, F = 8;
   * i8pair_768_sha256: the i8pair backward's gradients at the default
     group, 8x512, N = 65,536, to hold the bits of the two trees equal;
   * k6b_bwd_ms: the i8pair backward with the point cotangent (K6b with K3)
-    at 8x512, N = 262,144, the default group, weights from seed 2.
+    at 8x512, N = 262,144, the default group, weights from seed 2;
+    k6b_bwd_kernels its device ms by kernel name in one call under
+    torch.profiler, and k6b_bwd_peak_gib the memory the call allocates
+    beyond what was allocated before it (its outputs included);
+  * k6a_bwd_ms: the lsb backward with the point cotangent (K6a with K3) at
+    the same shape;
+  * k4_ms: the recompute backward (K4, chunks of 32,768 points) at the
+    same shape.
 P2 and grid_sample times are CUDA graphs of 10 back-to-back calls (the
 device's time, not the host's dispatch), the median of 5 replays; K0, K1,
 K2 and the step are CUDA events around one call, the median of 10; the
-render the host clock, the median of 5; K6b CUDA events, the median of 5.
+render the host clock, the median of 5; K4, K6a and K6b CUDA events, the
+median of 5.
 """
 from __future__ import annotations
 
@@ -76,6 +97,55 @@ def _events_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _by_kernel(fn) -> dict:
+    """Device ms and launches by kernel name (namespaces, template
+    arguments and parameters dropped) of one fn() under torch.profiler;
+    the throwaway add_ before it may appear as an elementwise kernel of a
+    few microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the session's first kernel record is lost: a throwaway kernel takes it
+        torch.zeros(1, device='cuda').add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    ms, launches = {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or '#' in evt.name:
+            continue
+        name = evt.name.replace('(anonymous namespace)::', '').removeprefix('void ')
+        name = name.split('<')[0].split('(')[0].rsplit('::', 1)[-1]
+        ms[name] = ms.get(name, 0.0) + evt.device_time / 1e3
+        launches[name] = launches.get(name, 0) + 1
+    return {k: {'ms': ms[k], 'launches': launches[k]} for k in sorted(ms, key=lambda k: -ms[k])}
+
+
+def _peak_gib(fn) -> float:
+    """GiB that one fn() allocates beyond what was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del out
+    return peak
+
+
+def _k3_ms(fn) -> tuple:
+    """(K2 + K3 ms, K3 ms): fn(compute_dpts) timed in turns A B B A B A,
+    the median with it less the median without it."""
+    runs = {False: [], True: []}
+    for with_k3 in (False, True, True, False, False, True):
+        runs[with_k3].append(_events_ms(lambda: fn(with_k3), reps=5))
+    with_ms = statistics.median(runs[True])
+    return with_ms, with_ms - statistics.median(runs[False])
 
 
 def main(argv=None) -> dict:
@@ -160,7 +230,34 @@ def main(argv=None) -> dict:
         row['k1_ms'] = _events_ms(lambda: fused_mlp.fused_mlp_stash_forward(config, p8, pts))
         row['k2_ms'] = _events_ms(lambda: fused_mlp.fused_mlp_stash_backward(
             config, p8, pts, dy, hs, cs))
+        first = fused_mlp.fused_mlp_stash_backward(config, p8, pts, dy, hs, cs)
+        again = fused_mlp.fused_mlp_stash_backward(config, p8, pts, dy, hs, cs)
+        row['k2_same_bits'] = all(torch.equal(first[k], again[k]) for k in first)
+        del first, again
+        L, H = config.n_layers, config.d_filter
+        hs_t = hs.view(n, L, H)[:, :L - 1].permute(1, 2, 0).contiguous()
+        dz = torch.randn((L - 1, n, H), generator=g2, device=dev).to(torch.bfloat16)
+        row['dw_h_bmm_ms'] = _events_ms(lambda: torch.bmm(hs_t, dz))
+        del hs, cs, hs_t, dz
+        m = 65536
+        _, hs, cs = fused_mlp.fused_mlp_stash_forward(config, p8, pts[:m])
+        row['k2_coarse_ms'] = _events_ms(lambda: fused_mlp.fused_mlp_stash_backward(
+            config, p8, pts[:m], dy[:m], hs, cs))
         del hs, cs
+        # K3 at the fine shape and at 4x128
+        _, hs, cs = fused_mlp.fused_mlp_stash_forward(config, p8, pts)
+        row['k2_k3_fine_ms'], row['k3_fine_ms'] = _k3_ms(
+            lambda k3: fused_mlp.fused_mlp_stash_backward(config, p8, pts, dy, hs, cs,
+                                                          compute_dpts=k3))
+        del hs, cs
+        small = emission_config(n_layers=4, d_filter=128)
+        p4 = init_nerf(g2, small, dev)
+        m = 20480
+        _, hs, cs = fused_mlp.fused_mlp_stash_forward(small, p4, pts[:m])
+        row['k2_k3_4x128_ms'], row['k3_4x128_ms'] = _k3_ms(
+            lambda k3: fused_mlp.fused_mlp_stash_backward(small, p4, pts[:m], dy[:m], hs, cs,
+                                                          compute_dpts=k3))
+        del hs, cs, p4
         # the i8pair backward's bits at the default group
         m = 65536
         _, hs8, _ = fused_mlp.fused_mlp_stash_forward(config, p8, pts[:m], 'i8pair')
@@ -175,9 +272,19 @@ def main(argv=None) -> dict:
         pts6 = torch.rand(m, 4, generator=g2, device=dev) * 2.6 - 1.3
         dy6 = torch.randn(m, config.d_output, generator=g2, device=dev)
         _, hs8, _ = fused_mlp.fused_mlp_stash_forward(config, p8, pts6, 'i8pair')
-        row['k6b_bwd_ms'] = _events_ms(lambda: fused_mlp.fused_mlp_stash_backward(
-            config, p8, pts6, dy6, hs8, None, 'i8pair', True), reps=5)
-        del hs8, pts6, dy6
+        k6b = (lambda: fused_mlp.fused_mlp_stash_backward(
+            config, p8, pts6, dy6, hs8, None, 'i8pair', True))
+        row['k6b_bwd_ms'] = _events_ms(k6b, reps=5)
+        row['k6b_bwd_kernels'] = _by_kernel(k6b)
+        row['k6b_bwd_peak_gib'] = _peak_gib(k6b)
+        del hs8, k6b
+        _, hsl, _ = fused_mlp.fused_mlp_stash_forward(config, p8, pts6, 'lsb')
+        row['k6a_bwd_ms'] = _events_ms(lambda: fused_mlp.fused_mlp_stash_backward(
+            config, p8, pts6, dy6, hsl, None, 'lsb', True), reps=5)
+        del hsl
+        row['k4_ms'] = _events_ms(lambda: fused_mlp.fused_mlp_recompute_backward(
+            config, p8, pts6, dy6), reps=5)
+        del pts6, dy6
 
     # P2 and its library call
     n, G, F = 262144, 32, 8

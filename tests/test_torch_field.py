@@ -29,7 +29,7 @@ from sunerf_tpu_torch.core.encoding import encoded_dim, positional_encoding
 from sunerf_tpu_torch.models.fields import (NeRFConfig, density_temperature_config,
                                             emission_config, init_nerf, nerf_apply,
                                             nerf_apply_fused, params_from_numpy)
-from sunerf_tpu_torch.ops.fused_mlp import fused_mlp_reference, pack_fragments, pack_wgmma
+from sunerf_tpu_torch.ops.fused_mlp import fused_mlp_reference, pack_wgmma
 
 torch.set_num_threads(1)
 
@@ -163,26 +163,6 @@ def test_init_nerf_bounds_and_seed():
     dt = init_nerf(torch.Generator().manual_seed(0),
                    density_temperature_config(**TINY), 'cpu')
     assert dt['log_abs'].shape == (7,)
-
-
-@pytest.mark.parametrize('lead', [(), (3,)])
-def test_pack_fragments_follows_the_mma_fragment_layout(lead):
-    """The kernel reads weight fragment (nt, ks) of lane l = 4g + t as the 4
-    bf16 values W[16ks + {2t, 2t+1, 2t+8, 2t+9}, 8nt + g] (PTX m16n8k16 B
-    operand); rebuild W from that rule and compare."""
-    k, n = 96, 64
-    w = torch.from_numpy(np.random.default_rng(0).normal(
-        size=(*lead, k, n)).astype(np.float32))
-    packed = pack_fragments(w)
-    assert packed.shape == (*lead, n // 8, k // 16, 32, 4)
-    rebuilt = torch.zeros(*lead, k, n, dtype=torch.bfloat16)
-    lane = np.arange(32)
-    g, t = lane // 4, lane % 4
-    for j, kofs in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
-        for nt in range(n // 8):
-            for ks in range(k // 16):
-                rebuilt[..., 16 * ks + kofs, 8 * nt + g] = packed[..., nt, ks, :, j]
-    torch.testing.assert_close(rebuilt, w.to(torch.bfloat16), rtol=0, atol=0)
 
 
 # ------------------------------------------------------------ the K0 wgmma kernel's weights

@@ -12,8 +12,8 @@ one; run them on the card with
 Tolerances, as fractions of max|plain|:
   * 2e-2 for the forward outputs: both round matmul operands to bf16, and
     single rounding flips compound over the layers;
-  * 1e-5 for K1's output against K0's: the same bf16 operands, f32 sums
-    in another order (mma.sync against wgmma);
+  * 1e-5 for K1's output against K0's: the same kernel (K1 is K0's wgmma
+    kernel with the stashes in its epilogue), so the same bits;
   * 3e-2 for the parameter gradients (tests/test_fused_mlp.py holds the
     JAX kernel's to 3%): bf16 dz flips compound down the chain;
   * the grid tables' gradients (K5) within 3e-2 of max too, and
@@ -127,6 +127,31 @@ def test_stash_kernels_match_plain_versions(cuda, n_layers, d_filter, n):
         assert _rel(ref[k], grads[k]) <= 3e-2, (k, _rel(ref[k], grads[k]))
         # fixed-order reductions: a second run gives the same bits
         assert torch.equal(grads[k], again[k]), k
+
+
+@pytest.mark.gpu
+def test_dz_scratch_matches_plain_chain(cuda):
+    """The chain kernel's dz scratch (tile by tile in its core-matrix order,
+    unpacked by unpack_dz_scratch) against the plain backward's dz of every
+    layer, for each gate (int8, lsb, i8pair) at ragged N: within 3e-2 of
+    max per layer (bf16 flips compound down the chain, as in the
+    gradients); the rows of the last tile past N are zeros."""
+    for fmt, n_layers, d_filter, n in (('int8', 4, 128, 20481), ('int8', 8, 512, 4097),
+                                       ('lsb', 6, 384, 777), ('i8pair', 3, 64, 1000)):
+        cfg, params, pts, dy = _setup(cuda, n_layers, d_filter, n)
+        with torch.no_grad():
+            _, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, params, pts, fmt)
+            _, dz = fused_mlp._stash_backward_launch(cfg, params, pts, dy, hs, cs, fmt, False,
+                                                     fused_mlp.STASH_BWD_TILE)
+            dzs = []
+            fused_mlp.fused_mlp_stash_bwd_reference(cfg, params, pts, dy, hs, cs, fmt, dzs=dzs)
+        torch.cuda.synchronize()
+        tiles = -(-n // 64) * 64
+        got = fused_mlp.unpack_dz_scratch(dz, tiles, n_layers, d_filter).float()
+        assert not got[n:].any(), fmt
+        for j, ref in enumerate(dzs):
+            layer = got[:n, j * d_filter:(j + 1) * d_filter]
+            assert _rel(ref, layer) <= 3e-2, (fmt, n_layers, d_filter, j, _rel(ref, layer))
 
 
 @pytest.mark.gpu
