@@ -12,9 +12,11 @@ Phases (the first failure ends the run with a non-zero exit):
   1. build   nvcc builds csrc/fused_mlp_fwd_wgmma.cu (K0),
              fused_mlp_stash_fwd.cu (K1, K6a, K6b: K0's wgmma kernel with
              the stashes), fused_mlp_stash_bwd.cu (K2, K3: the wgmma chain
-             and dW kernels), fused_mlp_recompute_bwd.cu (K4),
-             grid_tap_encode.cu (P1) and grid_hat_encode.cu (P2) for sm_90a,
-             in parallel, and prints -Xptxas -v's registers and spills.
+             and dW kernels; K6b's int8 dW_h), fused_mlp_recompute_bwd.cu
+             (K4), grid_tap_encode.cu (P1) and grid_hat_encode.cu (P2) for
+             sm_90a, and the two measurement-only 'lsb' ablation variants of
+             fused_mlp_stash_bwd.cu, in parallel, and prints -Xptxas -v's
+             registers and spills.
   2. kernel  K0 against fused_mlp_reference on the card, for the
              bundle's two fields at one render chunk's shapes (4096 rays x 60
              fine samples, x 20 coarse samples): per-point |kernel - plain| /
@@ -102,7 +104,11 @@ Phases (the first failure ends the run with a non-zero exit):
              of the plain version at the same group (768; the gradients'
              sha256 printed); i8pair also at groups 8, 16 and 24 (N = 4,097);
              times and bounds; each backward's kernels by name under
-             torch.profiler.
+             torch.profiler; lsb's gate taken apart (as built, loaded but
+             not decoded, decoded but not loaded:
+             scripts/backward_ablation.py); i8pair's dW_h beside one bf16
+             torch.bmm and seven torch._int_mm of the same product (timing
+             rows, never on the path).
  15. bench_kernel  sunerf_tpu_torch/scripts/bench_kernel.py at N = 262,144, the
              launch counts set to 0 just before: its rows (K0, the three
              formats' fwd+bwd with K3 and fwd only, recompute fwd+bwd).
@@ -158,7 +164,8 @@ KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
 # K2's launches, by kernel name (the grid ones only with grid levels, the
 # i8pair ones only for that format)
 K2_KERNELS = ('prep_kernel', 'chain_wgmma_kernel', 'dw_wgmma_kernel', 'reduce_kernel',
-              'grid_scatter_kernel', 'grid_convert_kernel', 'dw_i8_kernel', 'dz_absmax_kernel')
+              'grid_scatter_kernel', 'grid_convert_kernel', 'dz_group_max_kernel',
+              'dw_i8_wgmma_kernel')
 DPTS_TOL = 5e-2
 MEM_TOL = 5e-2                # K4's backward growth at 2N against N, relative
 # the knob sets of the probe_step phase and the launches of one step
@@ -1242,6 +1249,7 @@ def _format_phase(fmt: str, n: int, device) -> dict:
     print(f'{tag}: sha256 of the gradients at group {group}: {digest}', flush=True)
     del grads, ref
     small = _i8pair_small_groups(device) if fmt == 'i8pair' else None
+    extra = _lsb_ablations(n) if fmt == 'lsb' else _dw_h_yardsticks(cfg, hs, device)
     fwd_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_forward(cfg, p, pts, fmt))
     bwd_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, None,
                                                                  fmt, True, group))
@@ -1273,12 +1281,48 @@ def _format_phase(fmt: str, n: int, device) -> dict:
                 max_abs_err=max(e['max_abs_err'] for e in gerr.values()),
                 max_rel_err=max(e['max_rel_err'] for e in gerr.values()), grads=gerr,
                 out_equals_k1=same, stash=stash, bwd_kernels_ms=bwd_kernels,
-                grads_sha256=digest, small_groups=small)
+                grads_sha256=digest, small_groups=small, **extra)
+
+
+def _lsb_ablations(n: int) -> dict:
+    """K6a's gate path taken apart (scripts/backward_ablation.py): the 'lsb'
+    backward with K3 as built, with the gate loaded but not decoded, and
+    decoded but not loaded (variants built with -D; their gradients are
+    wrong and only timed)."""
+    from sunerf_tpu_torch.scripts import backward_ablation
+    rows = backward_ablation.measure('lsb', n)
+    for tag, r in rows.items():
+        print(f"[lsb] ablation, {tag}: backward {r['ms']:.3f} ms; " + '; '.join(
+            f"{k} x{v['launches']} {v['ms']:.3f}" for k, v in r['kernels'].items()), flush=True)
+    return dict(ablations=rows)
+
+
+def _dw_h_yardsticks(cfg, hs8, device) -> dict:
+    """Library yardsticks of K6b's dW_h at its shape, timed here and never
+    on the path: one bf16 torch.bmm of the L-1 products hs_{j-1}^T dz_j (the
+    stash's sin8 as bf16, dz normal), and torch._int_mm of the same int8
+    products, one call a layer, summed (dz8 uniform in [-127, 127])."""
+    n, L, H = hs8.shape[0], cfg.n_layers, cfg.d_filter
+    gen = torch.Generator(device=device).manual_seed(9)
+    s8 = hs8.view(n, L, 2, H)[:, :L - 1, 0].permute(1, 2, 0).contiguous()
+    dz8 = torch.randint(-127, 128, (L - 1, n, H), generator=gen, device=device,
+                        dtype=torch.int8)
+    int_mm_ms = _cuda_ms(lambda: [torch._int_mm(s8[j], dz8[j]) for j in range(L - 1)], reps=5)
+    del dz8
+    s16 = s8.to(torch.bfloat16)
+    del s8
+    dzb = torch.randn((L - 1, n, H), generator=gen, device=device).to(torch.bfloat16)
+    bmm_ms = _cuda_ms(lambda: torch.bmm(s16, dzb), reps=5)
+    del s16, dzb
+    print(f'[i8pair] dW_h yardsticks (never on the path), 8x512 N={n}: one bf16 torch.bmm '
+          f'{bmm_ms:.3f} ms; torch._int_mm x{L - 1} {int_mm_ms:.3f} ms', flush=True)
+    return dict(dw_h_bmm_ms=bmm_ms, dw_h_int_mm_ms=int_mm_ms)
 
 
 def _i8pair_small_groups(device, n: int = 4097) -> dict:
-    """K6b's backward at scale groups that are not multiples of 32 (8, 16,
-    24: dw_i8_kernel splits each 32-point chunk at their boundaries) against
+    """K6b's backward at scale groups that are not multiples of 64 (8, 16,
+    24: dw_i8_wgmma_kernel takes each 64-point chunk a group segment at a
+    time) against
     the plain version at the same group, 8x512 with a ragged N: every
     gradient within GRAD_TOL, dpts within DPTS_TOL, two runs bit-identical."""
     from sunerf_tpu_torch.ops import fused_mlp
@@ -1533,12 +1577,17 @@ def main() -> int:
 
     # 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(build.build, KERNELS))
-    print(f'[build] {", ".join(KERNELS)}: {time.perf_counter() - t0:.1f} s '
-          f'(parallel nvcc)', flush=True)
-    for name, (path, log) in zip(KERNELS, built):
-        print(f'[build] {name}: {path}')
+    # the kernels, and the [lsb] phase's two measurement-only ablation
+    # variants of the stashing backward, one nvcc each, all at once
+    from sunerf_tpu_torch.scripts.backward_ablation import VARIANTS
+    builds = [(k, ()) for k in KERNELS] + [('fused_mlp_stash_bwd', d)
+                                           for _, d in VARIANTS['lsb'] if d]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(lambda b: build.build(*b), builds))
+    print(f'[build] {", ".join(KERNELS)} and {len(builds) - len(KERNELS)} ablation variants: '
+          f'{time.perf_counter() - t0:.1f} s (parallel nvcc)', flush=True)
+    for (name, defines), (path, log) in zip(builds, built):
+        print(f'[build] {" ".join((name,) + defines)}: {path}')
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
                 print('[build]', line.strip())
@@ -1838,6 +1887,13 @@ def main() -> int:
         'bound_ms': recompute['bound_ms'], 'bound_by': recompute['bound_by'],
         'library_ms': None, 'detail': recompute,
     })
+    backward_design = {
+        'lsb': 'the packed-sin gate through the chain kernel\'s weight ring (TMA boxes, two '
+               'stages), decoded in place by a 1 KB shared-memory table under the layer\'s '
+               'last products',
+        'i8pair': 'dW_h on int8 wgmma (dw_i8_wgmma_kernel: operands transposed and dz '
+                  'quantized in shared memory), group maxima from the chain\'s row maxima '
+                  '(dz_group_max_kernel)'}
     for fmt, kname, line, counter in (('lsb', 'K6a', 481, 'LSB_LAUNCHES'),
                                       ('i8pair', 'K6b', 503, 'I8PAIR_LAUNCHES')):
         r = formats[fmt]
@@ -1846,7 +1902,9 @@ def main() -> int:
             'source': 'sunerf_tpu_torch/csrc/fused_mlp_stash_fwd.cu',
             'sources': ['sunerf_tpu_torch/csrc/fused_mlp_stash_fwd.cu',
                         'sunerf_tpu_torch/csrc/fused_mlp_stash_bwd.cu',
-                        'sunerf_tpu_torch/csrc/fused_mlp_backward.cuh'],
+                        'sunerf_tpu_torch/csrc/fused_mlp_backward.cuh',
+                        'sunerf_tpu_torch/csrc/hopper.cuh'],
+            'backward_design': backward_design[fmt],
             'replaces': f'sunerf_tpu/ops/pallas/fused_mlp.py:{line}',
             'launches': probe_launches[str({'stash_format': fmt})][counter],
             'bench_kernel_launches': bench['launches'][counter],

@@ -25,9 +25,10 @@
 //      a fixed order, into per tile f32 partials. With kDpts it ends with
 //      the point cotangent (K3, one more
 //      wgmma against W_in[:n_enc]^T from the ring); with grid levels with
-//      the grid cotangent (K5).
+//      the grid cotangent (K5). 'i8pair': each point's max |dz_j| too.
 //   2. K5 only: grid_scatter_kernel and grid_convert_kernel.
-//   3. 'i8pair' only: dz_absmax_kernel, each group's max |dz_j|.
+//   3. 'i8pair' only: dz_group_max_kernel, each group's max |dz_j| from the
+//      points'.
 //   4. dw_wgmma_kernel: dW_in = enc^T dz_0 and dW_h[j-1] = hs_{j-1}^T dz_j,
 //      products contracting over the points, as work items (split, job,
 //      128-row by TN-column output tile) walked by persistent blocks: a
@@ -43,8 +44,10 @@
 //      alone take 1.2 ms (H100 80GB HBM3, 700 W): the copy engine's rate in
 //      small copies, not the bytes, bound it. f32 partials per split.
 //      'i8pair' runs it for dW_in alone and sends the hidden layers' dW to
-//      dw_i8_kernel, over ranges of its own (splits8) into partials of its
-//      own, so neither kernel's split count sizes the other's partials.
+//      dw_i8_wgmma_kernel (int8 wgmma on operands its consumers transpose
+//      and quantize in shared memory), over ranges of its own (splits8) into
+//      partials of its own, so neither kernel's split count sizes the
+//      other's partials.
 //   5. reduce_kernel: the partials summed over tiles and splits in a fixed
 //      order (added to the running sums with `accumulate`, for K4's
 //      chunks), so a run gives the same bits as the last; no atomics.
@@ -53,17 +56,20 @@
 //
 // The gate of layer j, the value dz_j = bf16(bf16(dh) * gate) multiplies by:
 //   kGateInt8: bf16(bf16(q) * bf16(1/127)) of an int8 cos x127 stash (K1's
-//              cs, or the cos half of K6b's pairs);
+//              cs; kGateI8pair the cos half of K6b's pairs, whose chain also
+//              writes each point's max |dz_j|);
 //   kGateBf16: a bf16 cos (K4's recomputed fast_sincos cos);
 //   kGateLsb:  bf16(sign * sqrt(max(1 - s^2, 0))) in f32 from K6a's packed
 //              bf16 sin s, its last bit the sign (_unpack_sin_cos).
-// The int8 gate tile [64, H] of a layer comes through the weight ring
-// itself, in the stage after the layer's weight chunks (64 H bytes, a
-// weight chunk's size): H / 128 TMA boxes [64 rows x 128 bytes] of a 2-D
-// tensor map of the stash, 128-byte swizzled so the epilogue's reads of 8
-// rows' same columns fall in 8 bank groups, prefetched into L2 one layer
-// ahead. The bf16 and lsb gates, twice the bytes, are read in the epilogue
-// straight from device memory (through L1 and L2).
+// The gate tile [64, H] of a layer comes through the weight ring itself,
+// after the layer's weight chunks, as TMA boxes of a 2-D tensor map of the
+// stash, 128-byte swizzled so the epilogue's reads of 8 rows' same columns
+// fall in 8 bank groups, prefetched into L2 one layer ahead: an int8 gate
+// in one stage (64 H bytes, a weight chunk's size: H / 128 boxes [64 rows x
+// 128 bytes]), a 16-bit gate in two (rows 0-31 and 32-63: H / 64 boxes [32
+// rows x 64 columns] each), taken under the layer's last products. There
+// the consumers decode the 'lsb' sines in place (decode_lsb_gate), so the
+// epilogue reads a bf16 gate, as K4's.
 #pragma once
 
 #include "fused_mlp_common.cuh"
@@ -85,19 +91,31 @@ constexpr int kMaxStages = 32;
 constexpr int kRowGroups = kRows / 8;
 constexpr size_t kSmemLimit = 232448;   // a block's shared memory on sm_90
 // the chain kernel's head: barriers [0, 512), block maxima [512, 640),
-// then dy [64][d_out] f32, later K3's [64][kMaxDpts] f32, at 1024
+// then dy [64][d_out] f32 at 1024 and the 'lsb' decode table at 2048, both
+// later K3's [64][kMaxDpts] f32 at 1024
 constexpr int kChainHead = 3072;
+constexpr int kLsbTableAt = 2048;
 constexpr int kDwBar = 1024;      // the dW kernel's barriers, before its stages
 constexpr int kDwTM = 128;        // dW output rows a work item (two warpgroups)
 constexpr int kBox = 64;          // rows of a TMA box; bf16 columns of a dW A box
 constexpr int kGateBox = 128;     // int8 columns of a gate box (a 128-byte swizzled row)
-// dw_i8_kernel: mma.sync int8, 128x128 output tiles, 32-point chunks
-constexpr int kI8Threads = 256;
-constexpr int kI8Tile = 128;
-constexpr int kI8Chunk = 32;
-constexpr int kQuadStride = kI8Chunk / 4 + 4;   // staging row, 32-bit words
+// dw_i8_wgmma_kernel ('i8pair' dW_h): 128 output rows a work item (64 each
+// warpgroup), TN = 128 columns (64 at H = 64), 64-point chunks; three
+// operand buffers (see the kernel)
+constexpr int kI8TM = 128;
+constexpr int kI8Bufs = 3;
 
-enum Gate : int { kGateInt8 = 0, kGateBf16 = 1, kGateLsb = 2 };
+enum Gate : int { kGateInt8 = 0, kGateBf16 = 1, kGateLsb = 2, kGateI8pair = 3 };
+
+// Measurement only (scripts/backward_ablation.py builds variants with -D;
+// their gradients are wrong; 0, the default, is the kernel): the 'lsb' gate
+// 1 = loaded but not decoded (its bits taken as a bf16 gate), 2 = decoded
+// but not loaded (no gate boxes copied; bits made from each element's row
+// and column); 'i8pair' 3 = dw_i8_wgmma_kernel without its operand builds,
+// 4 = without its products, 5 = the chain kernel without its row maxima.
+#ifndef SUNERF_ABLATION
+#define SUNERF_ABLATION 0
+#endif
 
 struct BwdParams {
   CUtensorMap gate_map;         // int8 gates: [n, gate columns] with gate_ld-byte rows
@@ -119,7 +137,7 @@ struct BwdParams {
   __nv_bfloat16* enc;           // [n, e_pad] scratch
   float* part_chain;            // [tiles][q] per-tile partials
   float* part_dw;               // [splits][dw_ld] the dW kernel's per-split partials
-  float* part_i8;               // 'i8pair': [splits8][(L-1) H^2] dw_i8_kernel's partials
+  float* part_i8;               // 'i8pair': [splits8][(L-1) H^2] dw_i8_wgmma_kernel's partials
   float* grad_chain;            // [q]: dW_out [H][d_out], db_out, db_j [L][H]
   float* grad_dw;               // [p]: dW_in [e_pad][H], dW_h [L-1][H][H]
   GridParams grid;              // dense grid levels (K5), or none
@@ -130,11 +148,14 @@ struct BwdParams {
   float* grad_grid;             // [sum G^3 F]: d_table of each level
   float* dpts;                  // K3: [n, d_in], or null
   int n_enc;                    // K3: encoding columns x, sin, cos (d_in + 2 n_cols)
-  float* dz_max;                // 'i8pair': [n_groups][L-1] max |dz_j|, j >= 1
+  CUtensorMap hs8_map;          // 'i8pair': the int8 pairs [n, 2 L H], dw_i8_wgmma_kernel's A
+  float* dz_rowmax;             // 'i8pair': [L-1][n][2] max |dz_j| of each point, j >= 1
+  float* dz_max;                // 'i8pair': [n_groups][L-1] max |dz_j| of each group
   int group;                    // 'i8pair': points per dz scale group
+  int pps8;                     // 'i8pair': points a dW_h range (whole groups and tiles)
   int n, d_in, n_cols, e_pad, h, n_hidden, d_out;
   int splits, pps;              // dW: point ranges of pps points (a multiple of 64)
-  int splits8;                  // 'i8pair': dw_i8_kernel's point ranges
+  int splits8;                  // 'i8pair': dw_i8_wgmma_kernel's point ranges
   int stages, stage_bytes;      // the launched kernel's ring
   size_t q, p;
   size_t dw_ld;                 // a split's partials in part_dw: p, or e_pad H for 'i8pair'
@@ -153,43 +174,114 @@ __device__ __forceinline__ float cos_dequant(int8_t q) {
   return bf16_round(static_cast<float>(q) * inv);
 }
 
-// bf16(sign * sqrt(max(1 - s^2, 0))) of a packed bf16 sin (its 16 bits),
-// in f32 with every operation rounded on its own (_unpack_sin_cos)
-__device__ __forceinline__ float lsb_cos(uint32_t bits) {
+// The bf16 bits of bf16(sign * sqrt(max(1 - s^2, 0))) of a packed bf16 sin
+// s (its 16 bits; finite), in f32 with every operation rounded on its own
+// (_unpack_sin_cos): the 'lsb' gate, from which its table is built.
+__device__ __forceinline__ uint32_t lsb_cos_bits(uint32_t bits) {
   const float s = __uint_as_float(bits << 16);
   const float c = __fsqrt_rn(fmaxf(__fsub_rn(1.0f, __fmul_rn(s, s)), 0.0f));
-  return bf16_round((bits & 1u) ? -c : c);
+  return __bfloat16_as_ushort(__float2bfloat16_rn((bits & 1u) ? -c : c));
 }
 
-// Where a layer's gate is read: an int8 ring stage (H / 128 swizzled boxes
-// [64][128], or one plain box [64][64] at H = 64), or the tile's rows
-// [0, last] of a bf16 gate in device memory, `ld` elements apart.
+// The 'lsb' gate by table: lsb_cos_bits of the packed bits h depends on
+// a = h & 0x7FFF (s's magnitude, its last bit included) for its magnitude
+// and on h & 1 for its sign. |s| < 2^-4 (a < 0x3D80) rounds to 1, |s| >= 1
+// (a in [0x3F80, 0x7F80]) gives 0 and a NaN s NaN (as JAX's max(NaN, 0)
+// does); the 512 a in between are a 1 KB table of lsb_cos_bits' magnitudes
+// in shared memory, built by the block (every tile, as K3's scratch shares
+// its place). The same bits as _unpack_sin_cos on every pattern
+// (ops/fused_mlp.py lsb_cos_decode, held to the card's lsb_decode_kernel
+// on all 65,536).
+constexpr uint32_t kLsbLo = 0x3D80u;
+constexpr int kLsbTable = 0x3F80 - kLsbLo;
+
+__device__ __forceinline__ void build_lsb_table(uint16_t* table) {
+  for (int i = threadIdx.x; i < kLsbTable; i += kConsumers)
+    table[i] = static_cast<uint16_t>(lsb_cos_bits(kLsbLo + i) & 0x7FFFu);
+}
+
+__device__ __forceinline__ uint32_t lsb_cos_table(const uint16_t* table, uint32_t h) {
+  const uint32_t a = h & 0x7FFFu;
+  uint32_t mag = a < kLsbLo ? 0x3F80u : a > 0x7F80u ? 0x7FC0u : 0u;
+  if (a - kLsbLo < static_cast<uint32_t>(kLsbTable)) mag = table[a - kLsbLo];
+  return mag | ((h & 1u) << 15);
+}
+
+// Measurement only: the bits an element of an 'lsb' gate that was not
+// loaded stands on (SUNERF_ABLATION == 2), packed sines in [0.5, 1)
+__device__ __forceinline__ uint32_t ablation_bits(int row, int col) {
+  const uint32_t h = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u);
+  return (h & 0x007F007Fu) | 0x3F003F00u;
+}
+
+// The 'lsb' gates of a packed pair (two bf16 sines in one word): two bf16
+// cosines in one word
+__device__ __forceinline__ uint32_t lsb_cos_pair(const uint16_t* table, uint32_t bits) {
+  if (SUNERF_ABLATION == 1) return bits;
+  return lsb_cos_table(table, bits & 0xFFFFu) | (lsb_cos_table(table, bits >> 16) << 16);
+}
+
+// Where a layer's gate tile [64, H] lies in the weight ring: an int8 gate
+// in one stage (H / 128 swizzled boxes [64][128], or one plain box [64][64]
+// at H = 64), a 16-bit gate (bf16 or 'lsb') in two, rows 0-31 in `a` and
+// 32-63 in `b`, each H / 64 swizzled boxes [32 rows][64 columns]; and the
+// 'lsb' decode table.
 struct GateRef {
-  const unsigned char* tile;
-  const void* base;
-  size_t ld;
-  int last;
+  const unsigned char* a;
+  const unsigned char* b;
+  const uint16_t* table;
 };
 
+// Byte offset of (row, col) of a 16-bit gate in its half-tile stage
+__device__ __forceinline__ int gate16_offset(int row, int col) {
+  return (col >> 6) * (32 * 128) + hp::swizzle128(row & 31, (col & 63) * 2);
+}
+
 // The gates at (row, col) and (row, col + 1) of the tile, col even, from one
-// load. bf16 rows past n read the tile's last row, and int8 rows past n are
-// zeros: their dh is zero, so any finite gate gives dz = 0.
-template <int H, int kGate>
+// shared-memory load (a 16-bit stage holds bf16 cosines: K4's, or the 'lsb'
+// sines decoded in place, see decode_lsb_gate; `kRaw` decodes the packed
+// sines here instead). Rows past n are zeros (TMA's fill): their dh is
+// zero, so dz = 0 whatever the gate.
+template <int H, int kGate, bool kRaw = false>
 __device__ __forceinline__ float2 gate_pair(const GateRef& g, int row, int col) {
-  if constexpr (kGate == kGateInt8) {
+  if constexpr (kGate == kGateInt8 || kGate == kGateI8pair) {
     const int at = H < kGateBox ? row * H + col
         : (col / kGateBox) * (kBox * kGateBox) + hp::swizzle128(row, col % kGateBox);
-    const char2 q = *reinterpret_cast<const char2*>(g.tile + at);
+    const char2 q = *reinterpret_cast<const char2*>(g.a + at);
     return make_float2(cos_dequant(q.x), cos_dequant(q.y));
   } else {
-    const uint32_t bits = __ldg(reinterpret_cast<const unsigned int*>(
-        static_cast<const unsigned short*>(g.base)
-        + static_cast<size_t>(min(row, g.last)) * g.ld + col));
-    if constexpr (kGate == kGateBf16)
-      return make_float2(__uint_as_float(bits << 16), __uint_as_float(bits & 0xFFFF0000u));
-    else
-      return make_float2(lsb_cos(bits & 0xFFFFu), lsb_cos(bits >> 16));
+    uint32_t bits = *reinterpret_cast<const uint32_t*>((row < 32 ? g.a : g.b)
+                                                       + gate16_offset(row, col));
+    if constexpr (kGate == kGateLsb && kRaw) {
+      if (SUNERF_ABLATION == 2) bits = ablation_bits(row, col);
+      bits = lsb_cos_pair(g.table, bits);
+    }
+    return make_float2(__uint_as_float(bits << 16), __uint_as_float(bits & 0xFFFF0000u));
   }
+}
+
+// 'lsb': the packed sines of the gate stages that this thread's epilogue
+// reads (rows 16 w4 + g + 8 r, columns wg N + 8 jj + 2 q, as the
+// accumulators) decoded in place into bf16 cosines, while the layer's last
+// products run on the tensor cores; then visible to the copy engine, which
+// refills the stages after their release.
+template <int H>
+__device__ __forceinline__ void decode_lsb_gate(const GateRef& g) {
+  constexpr int N = H / 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, w4 = warp & 3, gi = lane >> 2, q = lane & 3;
+  unsigned char* half = const_cast<unsigned char*>(w4 < 2 ? g.a : g.b);
+#pragma unroll 4
+  for (int jj = 0; jj < N / 8; ++jj) {
+    const int col = wg * N + 8 * jj + 2 * q;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = w4 * 16 + gi + 8 * r;
+      uint32_t* at = reinterpret_cast<uint32_t*>(half + gate16_offset(row, col));
+      *at = lsb_cos_pair(g.table, SUNERF_ABLATION == 2 ? ablation_bits(row, col) : *at);
+    }
+  }
+  hp::fence_async_smem();
 }
 
 __device__ __forceinline__ void release(uint64_t* empty, int lane) {
@@ -327,7 +419,7 @@ __device__ __forceinline__ void first_dz(const BwdParams& p, const float* sdy, c
           dh1 += d * w1[o];
         }
       }
-      const float2 gt = gate_pair<H, kGate>(gate, r, col);
+      const float2 gt = gate_pair<H, kGate, true>(gate, r, col);
       const float z0 = bf16_round(bf16_round(dh0) * gt.x);
       const float z1 = bf16_round(bf16_round(dh1) * gt.y);
       *reinterpret_cast<uint32_t*>(act + hp::core_offset(r, col, kRowGroups)) = pack_bf16(z0, z1);
@@ -363,6 +455,34 @@ __device__ __forceinline__ void column_sums(const __nv_bfloat16* act, float* db)
       db[col + 1] = s1;
     }
   }
+}
+
+// 'i8pair': each point's max |dz_j| in dz_rowmax [L-1][n][2], two partial
+// maxima a point (the columns of the chain's two warpgroups), as floats
+// whose magnitudes compare as their bits (NaN above infinity, as jnp.max
+// propagates it); each group's maximum is then a reduction of its points'
+// (dz_group_max_kernel). The layers' epilogues take them from the
+// accumulators they gate; dz_{L-1}, which first_dz writes, here from the
+// buffer: out[2 (row0 + r)] = the max over the tile's row r (its bf16 values
+// as f32; rows past n not stored), out[2 (row0 + r) + 1] = 0. Thread t takes
+// row t / 4 and the 8-column groups t % 4 + 4 i, 16 bytes a load, and the
+// four threads of a row meet by shuffles.
+template <int H>
+__device__ __forceinline__ void row_maxima(const __nv_bfloat16* act, float* out, int row0, int n) {
+  const int r = threadIdx.x >> 2;
+  uint32_t m = 0u;
+#pragma unroll 4
+  for (int cg = threadIdx.x & 3; cg < H / 8; cg += 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(act + hp::core_offset(r, 8 * cg, kRowGroups));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) m = max(m, max(w[e] & 0x7FFFu, (w[e] >> 16) & 0x7FFFu));
+  }
+  m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  if ((threadIdx.x & 3) == 0 && row0 + r < n)
+    *reinterpret_cast<float2*>(out + 2 * static_cast<size_t>(row0 + r)) =
+        make_float2(__uint_as_float(m << 16), 0.f);
 }
 
 // denc_grid[r, j] = sum_c dz_0[r, c] bf16(W_in[grid row j, c]) for the
@@ -530,8 +650,14 @@ template <int H, int kGate, bool kDpts>
 __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_constant__ BwdParams p) {
   constexpr int N = H / 2;                 // columns of each warpgroup
   constexpr int nk = H / kKC;              // ring chunks of a layer's weights
-  constexpr int kGateBoxes = H < kGateBox ? 1 : H / kGateBox;
-  constexpr int kGateCols = H < kGateBox ? H : kGateBox;
+  // an int8 gate: kGateBoxes boxes [64 rows][kGateCols] in one stage; a
+  // 16-bit gate: H / 64 boxes [32 rows][64 columns] in each of two
+  constexpr bool k16 = kGate == kGateBf16 || kGate == kGateLsb;
+  constexpr bool kRowMax = kGate == kGateI8pair;
+  constexpr int kGateBoxes = k16 ? H / 64 : H < kGateBox ? 1 : H / kGateBox;
+  constexpr int kGateCols = k16 ? 64 : H < kGateBox ? H : kGateBox;
+  constexpr int kGateRows = k16 ? kRows / 2 : kRows;
+  constexpr int kGateStages = k16 ? 2 : 1;
   constexpr int CW = H < 128 ? H : 128;    // K3's columns a chunk
   constexpr uint32_t kChunkBytes = kKC * H * 2;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -539,6 +665,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
   uint64_t* empty = full + kMaxStages;
   auto* block_max = reinterpret_cast<unsigned int (*)[kMaxLevels]>(smem + 512);
   float* scratch = reinterpret_cast<float*>(smem + 1024);
+  auto* lsb_table = reinterpret_cast<uint16_t*>(smem + kLsbTableAt);
   auto* act = reinterpret_cast<__nv_bfloat16*>(smem + kChainHead);
   unsigned char* ring = smem + kChainHead + kRows * H * 2;
   const int S = p.stages, SB = p.stage_bytes;
@@ -557,8 +684,8 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
   __syncthreads();
 
   if (warp == kConsumerWarps) {
-    // producer: the weight chunks (and the int8 gates) in the order the
-    // consumers take them, across layers and tiles
+    // producer: the weight chunks and the gates in the order the consumers
+    // take them, across layers and tiles
     const uint64_t keep = hp::evict_last_policy(), stream = hp::evict_first_policy();
     const auto* wb = reinterpret_cast<const unsigned char*>(p.w_bwd);
     const auto* we = reinterpret_cast<const unsigned char*>(p.w_dpts);
@@ -580,35 +707,44 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
         hp::bulk_load(ring + st * SB, src, bytes, &full[st], keep);
       }
     };
+    constexpr uint32_t kBoxBytes = kGateRows * kGateCols * (k16 ? 2 : 1);
     auto put_gate = [&](int row0, int j) {
-      const int st = next();
-      if (lane == 0) {
-        hp::mbar_expect_tx(&full[st], kRows * H);
-        for (int b = 0; b < kGateBoxes; ++b)
-          hp::tensor_load_2d(ring + st * SB + b * kBox * kGateCols, &p.gate_map,
-                             j * p.gate_layer + b * kGateCols, row0, &full[st], stream);
+      for (int h = 0; h < kGateStages; ++h) {
+        const int st = next();
+        if (lane == 0) {
+          if (kGate == kGateLsb && SUNERF_ABLATION == 2) {
+            hp::mbar_arrive(&full[st]);
+            continue;
+          }
+          hp::mbar_expect_tx(&full[st], kGateBoxes * kBoxBytes);
+          for (int b = 0; b < kGateBoxes; ++b)
+            hp::tensor_load_2d(ring + st * SB + b * kBoxBytes, &p.gate_map,
+                               j * p.gate_layer + b * kGateCols, row0 + h * kGateRows,
+                               &full[st], stream);
+        }
       }
     };
     auto prefetch_gate = [&](int row0, int j) {
       if (lane == 0)
-        for (int b = 0; b < kGateBoxes; ++b)
-          hp::tensor_prefetch_2d(&p.gate_map, j * p.gate_layer + b * kGateCols, row0);
+        for (int h = 0; h < kGateStages; ++h)
+          for (int b = 0; b < kGateBoxes; ++b)
+            hp::tensor_prefetch_2d(&p.gate_map, j * p.gate_layer + b * kGateCols,
+                                   row0 + h * kGateRows);
     };
     for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
       const int row0 = w * kRows;
-      if constexpr (kGate == kGateInt8) put_gate(row0, L - 1);
+      put_gate(row0, L - 1);
       for (int j = L - 1; j > 0; --j) {
-        if constexpr (kGate == kGateInt8) prefetch_gate(row0, j - 1);
+        prefetch_gate(row0, j - 1);
         for (int kc = 0; kc < nk; ++kc)
           put_chunk(wb + (static_cast<size_t>(j - 1) * nk + kc) * kChunkBytes, kChunkBytes);
-        if constexpr (kGate == kGateInt8) put_gate(row0, j - 1);
+        put_gate(row0, j - 1);
       }
       for (int cc = 0; cc < n_cc; ++cc)
         for (int kc = 0; kc < nk; ++kc)
           put_chunk(we + (static_cast<size_t>(cc) * nk + kc) * (kKC * CW * 2), kKC * CW * 2);
       // the next tile's first gate into L2
-      if constexpr (kGate == kGateInt8)
-        if (w + gridDim.x < tiles) prefetch_gate((w + gridDim.x) * kRows, L - 1);
+      if (w + gridDim.x < tiles) prefetch_gate((w + gridDim.x) * kRows, L - 1);
     }
   } else {
     const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
@@ -633,26 +769,27 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
       float* part = p.part_chain + static_cast<size_t>(w) * p.q;
       float* part_db = part + d_out * H + d_out;
       __nv_bfloat16* dz_tile = p.dz + static_cast<size_t>(w) * L * kRows * H;
-      auto gate = [&](int j, int st) -> GateRef {
-        if constexpr (kGate == kGateInt8) {
-          return {ring + st * SB, nullptr, 0, kRows - 1};
-        } else {
-          return {nullptr, static_cast<const __nv_bfloat16*>(p.gate)
-                               + static_cast<size_t>(row0) * p.gate_ld
-                               + static_cast<size_t>(j) * p.gate_layer,
-                  p.gate_ld, rows - 1};
-        }
+      // the next gate's stages from the ring, and their release
+      auto take_gate = [&]() -> GateRef {
+        const int a = take();
+        const int b = k16 ? take() : a;
+        return {ring + a * SB, ring + b * SB, lsb_table};
+      };
+      auto release_gate = [&](const GateRef& g) {
+        release(&empty[(g.a - ring) / SB], lane);
+        if constexpr (k16) release(&empty[(g.b - ring) / SB], lane);
       };
 
-      // dy of the tile's rows (zeros past n)
+      // dy of the tile's rows (zeros past n); 'lsb': the decode table
       load_dy(p, row0, rows, scratch);
+      if constexpr (kGate == kGateLsb) build_lsb_table(lsb_table);
       hp::named_sync(1, kConsumers);
 
       // dz_{L-1} into the buffer; the copy engine stores it
       {
-        const int st = kGate == kGateInt8 ? take() : 0;
-        first_dz<H, kGate>(p, scratch, gate(L - 1, st), act, part_db + (L - 1) * H);
-        if constexpr (kGate == kGateInt8) release(&empty[st], lane);
+        const GateRef g = take_gate();
+        first_dz<H, kGate>(p, scratch, g, act, part_db + (L - 1) * H);
+        release_gate(g);
       }
       hp::fence_async_smem();
       hp::named_sync(1, kConsumers);
@@ -665,6 +802,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
         // products in flight
         float acc[N / 2] = {};
         int prev1 = 0, prev2 = 0;
+        GateRef gr{};
         for (int kc = 0; kc < nk; ++kc) {
           const int st = take();
           const uint32_t b0 = ring0 + st * SB + wg * (N / 8) * 128;
@@ -677,12 +815,23 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
                          kc > 0 || s > 0);
           hp::wgmma_commit();
           // db_j, the column sums of dz_j, while its first products run
-          // (db_{L-1} came with dz_{L-1})
+          // (db_{L-1} came with dz_{L-1}); 'i8pair': each row's max |dz_j|
           if (kc == 0 && j < L - 1) column_sums<H>(act, part_db + j * H);
+          if (kRowMax && kc == 0 && j == L - 1 && SUNERF_ABLATION != 5)
+            row_maxima<H>(act, p.dz_rowmax + static_cast<size_t>(j - 1) * 2 * p.n, row0, p.n);
           hp::wgmma_wait<2>();
           if (kc > 1) release(&empty[prev2], lane);
           prev2 = prev1;
           prev1 = st;
+          // a 16-bit gate is taken under the last products ('lsb': and
+          // decoded there); the ring holds the two chunks in flight and its
+          // two stages (stages >= 4)
+          if constexpr (k16) {
+            if (kc == nk - 1) {
+              gr = take_gate();
+              if constexpr (kGate == kGateLsb) decode_lsb_gate<H>(gr);
+            }
+          }
         }
         hp::wgmma_wait<0>();
         hp::fence_regs(acc);
@@ -692,8 +841,8 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
         // overwrites it with dz_{j-1} = bf16(bf16(dh) * gate_{j-1})
         if (threadIdx.x == 0) hp::bulk_wait_read();
         hp::named_sync(1, kConsumers);
-        const int st = kGate == kGateInt8 ? take() : 0;
-        const GateRef gr = gate(j - 1, st);
+        if constexpr (!k16) gr = take_gate();
+        uint32_t zmax[2] = {0u, 0u};   // 'i8pair': the rows' |dz_{j-1}|, two bf16 a word
 #pragma unroll
         for (int jj = 0; jj < N / 8; ++jj) {
           const int col = wg * N + 8 * jj + 2 * q;
@@ -703,11 +852,23 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
             const float2 gt = gate_pair<H, kGate>(gr, row, col);
             const float z0 = bf16_round(bf16_round(acc[4 * jj + 2 * r]) * gt.x);
             const float z1 = bf16_round(bf16_round(acc[4 * jj + 2 * r + 1]) * gt.y);
-            *reinterpret_cast<uint32_t*>(act + hp::core_offset(row, col, kRowGroups)) =
-                pack_bf16(z0, z1);
+            const uint32_t zw = pack_bf16(z0, z1);
+            *reinterpret_cast<uint32_t*>(act + hp::core_offset(row, col, kRowGroups)) = zw;
+            if constexpr (kRowMax) zmax[r] = __vmaxu2(zmax[r], zw & 0x7FFF7FFFu);
           }
         }
-        if constexpr (kGate == kGateInt8) release(&empty[st], lane);
+        if (kRowMax && j > 1 && SUNERF_ABLATION != 5) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            zmax[r] = __vmaxu2(zmax[r], __shfl_xor_sync(0xffffffffu, zmax[r], 1));
+            zmax[r] = __vmaxu2(zmax[r], __shfl_xor_sync(0xffffffffu, zmax[r], 2));
+            const int gr_row = row0 + w4 * 16 + g + 8 * r;
+            if (q == 0 && gr_row < p.n)
+              p.dz_rowmax[(static_cast<size_t>(j - 2) * p.n + gr_row) * 2 + wg] =
+                  __uint_as_float(max(zmax[r] & 0xFFFFu, zmax[r] >> 16) << 16);
+          }
+        }
+        release_gate(gr);
         hp::fence_async_smem();
         hp::named_sync(1, kConsumers);
         if (threadIdx.x == 0)
@@ -979,197 +1140,282 @@ __global__ void grid_convert_kernel(BwdParams p, size_t total, int e_n) {
   p.grad_grid[t] = v;
 }
 
-// 'i8pair': dz_max[g][j-1] = max |dz_j| over the rows of group g (points
-// [g G, (g+1) G) below n), j = 1..L-1; bf16 magnitudes order as their bits.
-__global__ void dz_absmax_kernel(BwdParams p) {
-  __shared__ unsigned int warp_max[32];
-  const int g = blockIdx.x;
+// 'i8pair': dz_max[g][j-1] = the max over group g's rows (points [g G,
+// (g+1) G) below n) of the chain kernel's row maxima of dz_j (two a point),
+// j = 1..L-1, compared as bits (non-negative floats order as their bits): a
+// warp a group, 8 groups a block.
+__global__ void dz_group_max_kernel(BwdParams p, int n_groups) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = blockIdx.x * 8 + warp;
   const int j = blockIdx.y + 1;
-  const int H = p.h, L = p.n_hidden + 1;
-  const int begin = g * p.group;
-  const int rows = min(p.n, begin + p.group) - begin;
-  const int vecs = H / 8;
+  if (g >= n_groups) return;
+  const unsigned int* rows =
+      reinterpret_cast<const unsigned int*>(p.dz_rowmax) + static_cast<size_t>(j - 1) * 2 * p.n;
+  const int end = 2 * min(p.n, (g + 1) * p.group);
   unsigned int m = 0u;
-  for (int idx = threadIdx.x; idx < rows * vecs; idx += blockDim.x) {
-    const int r = begin + idx / vecs;
-    const int v = idx % vecs;
-    const uint4 w = *reinterpret_cast<const uint4*>(p.dz + dz_index(r, j, v * 8, L, H));
-    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      m = max(m, max(words[e] & 0x7FFFu, (words[e] >> 16) & 0x7FFFu));
-  }
+  for (int r = 2 * g * p.group + lane; r < end; r += 32) m = max(m, rows[r]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) m = max(m, warp_max[w]);
-    p.dz_max[static_cast<size_t>(g) * p.n_hidden + j - 1] = __uint_as_float(m << 16);
+  if (lane == 0) p.dz_max[static_cast<size_t>(g) * p.n_hidden + j - 1] = __uint_as_float(m);
+}
+
+// The int8 operands of dw_i8_wgmma_kernel, both K-major (8-bit wgmma takes
+// no transpose) with the chunk's 64 points as K, in the no-swizzle layout:
+// core matrices of 8 rows x 16 k (16 bytes), element (row, k) at
+// ((k / 16) (rows / 8) + row / 8) 128 + (row % 8) 16 + k % 16. K runs over
+// the points in the order k = 16 kg + 8 h + j <-> point 8 j + 2 kg + h (the
+// sum over k does not care, as long as A and B agree): a thread with the
+// points 8 j + q (q = l / 4, j = 0..7) then writes 8 contiguous bytes of a
+// core-matrix row (kg = q / 2, h = q % 2), and its loads, q's 8 rows of the
+// tiles at the same columns, are immediate offsets that the 8 q of a warp
+// spread over 32 banks. ops/fused_mlp.py i8_build_operands mirrors it.
+__device__ __forceinline__ int i8_offset(int rows, int row, int q) {
+  return ((q >> 1) * (rows / 8) + row / 8) * 128 + (row % 8) * 16 + 8 * (q & 1);
+}
+
+// Bytes e of four words, in order (e may differ from lane to lane)
+__device__ __forceinline__ uint32_t gather_bytes(uint32_t w0, uint32_t w1, uint32_t w2,
+                                                 uint32_t w3, int e) {
+  const int sel = e | ((e + 4) << 4);
+  return __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel), 0x5410);
+}
+
+// A = sin8_{j-1}^T [128 rows m][64 points] from the stash box [64 points]
+// [128 bytes m] (TMA, 128-byte swizzled): thread t (warp w, lane l) the
+// columns m = 16 w + 4 (l % 4) + e, e = 0..3, of the points 8 j + l / 4
+// (one 32-bit load a point, a byte transpose); the row order rotated by
+// 2 kg + (l % 4) / 2 so a half warp's 8-byte stores cover 16 slots.
+__device__ __forceinline__ void build_a8(const unsigned char* box, unsigned char* a8) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, c3 = lane & 3;
+  const unsigned char* src = box + q * 128 + ((warp ^ q) << 4) + 4 * c3;
+  uint32_t w[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) w[j] = *reinterpret_cast<const uint32_t*>(src + 1024 * j);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int er = (e + 2 * (q >> 1) + (c3 >> 1)) & 3;
+    *reinterpret_cast<uint2*>(a8 + i8_offset(kI8TM, 16 * warp + 4 * c3 + er, q)) =
+        make_uint2(gather_bytes(w[0], w[1], w[2], w[3], er),
+                   gather_bytes(w[4], w[5], w[6], w[7], er));
   }
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four bytes, one from each of four words (byte `b` of each), into one word
-// in order
-__device__ __forceinline__ uint32_t gather_bytes(const uint32_t (&w)[4], int b) {
-  const uint32_t lo = __byte_perm(w[0], w[1], b | ((b + 4) << 4));
-  const uint32_t hi = __byte_perm(w[2], w[3], b | ((b + 4) << 4));
-  return __byte_perm(lo, hi, 0x5410);
-}
-
-// 'i8pair' dW_h (the i8pair branch of _bwd_stash_kernel, _mm_i8): per group
-// g of G points (any G >= 1 with G 127^2 < 2^31; the splits8 point ranges
-// whole groups), into part_i8, with
-// m = dz_max[g][j-1], scale = 127 / m (0 when m = 0) and
-// dz8 = round_half_even(dz_j scale),
-//   dW_h[j-1] += f32(sum over g's points of sin8_{j-1} (x) dz8, int32)
-//                * (m * f32((1/127)^2))
-// with the groups of a split in order. 128x128 output tiles; each 32-point
-// chunk is staged transposed (points contiguous, 4 to a 32-bit word) for
-// mma.sync m16n8k32 s8.s8.s32; the int32 sums are exact (G 127^2 < 2^31),
-// so kernel and plain version differ only in the f32 order across groups
-// and splits.
-__global__ void __launch_bounds__(kI8Threads) dw_i8_kernel(BwdParams p, int pts_per_split) {
-  __shared__ uint32_t sa[kI8Tile][kQuadStride];   // [m][point quad]: sin8
-  __shared__ uint32_t sb[kI8Tile][kQuadStride];   // [n][point quad]: dz8
-  const int H = p.h, L = p.n_hidden + 1;
-  const int j = blockIdx.z + 1;
-  const size_t ld = static_cast<size_t>(L) * H;
-  const int n_ct = (H + kI8Tile - 1) / kI8Tile;
-  const int m0 = (blockIdx.x / n_ct) * kI8Tile;
-  const int c0 = (blockIdx.x % n_ct) * kI8Tile;
-  float* out = p.part_i8 + (static_cast<size_t>(blockIdx.y) * p.n_hidden + j - 1) * H * H;
-  const int begin = blockIdx.y * pts_per_split;
-  const int end = min(p.n, begin + pts_per_split);
-  const int8_t* a = p.hs8 + static_cast<size_t>(j - 1) * 2 * H;
-  const float inv_sq = static_cast<float>((1.0 / 127.0) * (1.0 / 127.0));
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp & 3;   // 32 output rows each
-  const int wc = warp >> 2;  // 64 output columns each
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  float acc[2][8][4];
-  int iacc[2][8][4];
+// B = dz8_j [TN rows n][64 points] of a group segment: round_half_even(dz
+// scale) for the chunk's points [s0, s1), 0 for its others, from the dz
+// tile's TN columns (bf16 in the chain's core-matrix order, (pt, n) at
+// ((n / 8) 8 + pt / 8) 64 + (pt % 8) 8 + n % 8): thread t the columns
+// n = 8 ng + 2 (l % 4) and n + 1 of the points 8 j + l / 4, for
+// ng = (TN / 64) w .. + TN / 64 - 1 (one 32-bit load a point); odd kg store
+// column n + 1 first. The product is rounded to f32, then to an integer by
+// adding 1.5 2^23 (round half to even, the integer in the low bits: its low
+// byte is the int8).
+template <int TN>
+__device__ __forceinline__ void build_b8(const unsigned char* tile, unsigned char* b8, int s0,
+                                         int s1, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, cp = lane & 3, kg = q >> 1;
+  constexpr float kRound = 12582912.0f;
+  float sc[8];
 #pragma unroll
-  for (int x = 0; x < 2; ++x)
+  for (int j = 0; j < 8; ++j) sc[j] = (8 * j + q >= s0 && 8 * j + q < s1) ? scale : 0.0f;
 #pragma unroll
-    for (int y = 0; y < 8; ++y)
+  for (int u = 0; u < TN / 64; ++u) {
+    const int ng = (TN / 64) * warp + u;
+    const int n = 8 * ng + 2 * cp;
+    const unsigned char* src = tile + ng * 1024 + q * 16 + 4 * cp;
+    uint32_t lo[8], hi[8];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        acc[x][y][k] = 0.f;
-        iacc[x][y][k] = 0;
-      }
-
-  // staging: warp w takes the chunk's points 4w..4w+3, lane l the columns
-  // 4l..4l+3 of the tile (coalesced rows), transposed into one word per
-  // column. A chunk that crosses a group boundary is taken one group
-  // segment at a time, its other points' dz8 zero, each segment's int32 sum
-  // under its own group's scale; with G a multiple of 32 every chunk is one
-  // segment.
-  for (int p0 = begin; p0 < end; p0 += kI8Chunk) {
-    const int c_end = min(p0 + kI8Chunk, end);
-    uint32_t wa[4];
-    uint2 raw[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int pt = p0 + 4 * warp + i;
-      wa[i] = 0u;
-      raw[i] = make_uint2(0u, 0u);
-      if (pt < c_end && m0 + 4 * lane < H)
-        wa[i] = *reinterpret_cast<const uint32_t*>(a + static_cast<size_t>(pt) * 2 * ld
-                                                   + m0 + 4 * lane);
-      // 4 neighbouring columns of a row are contiguous in the dz scratch
-      if (pt < c_end && c0 + 4 * lane < H)
-        raw[i] = *reinterpret_cast<const uint2*>(p.dz + dz_index(pt, j, c0 + 4 * lane, L, H));
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(src + 128 * j);
+      lo[j] = __float_as_uint(__fadd_rn(__fmul_rn(__uint_as_float(x << 16), sc[j]), kRound));
+      hi[j] = __float_as_uint(__fadd_rn(__fmul_rn(__uint_as_float(x & 0xFFFF0000u), sc[j]),
+                                        kRound));
     }
-    for (int s0 = p0; s0 < c_end;) {
-      const int grp = s0 / p.group;
-      const int s1 = min(c_end, (grp + 1) * p.group);
+    const uint2 vlo = make_uint2(gather_bytes(lo[0], lo[1], lo[2], lo[3], 0),
+                                 gather_bytes(lo[4], lo[5], lo[6], lo[7], 0));
+    const uint2 vhi = make_uint2(gather_bytes(hi[0], hi[1], hi[2], hi[3], 0),
+                                 gather_bytes(hi[4], hi[5], hi[6], hi[7], 0));
+    *reinterpret_cast<uint2*>(b8 + i8_offset(TN, n + (kg & 1), q)) = (kg & 1) ? vhi : vlo;
+    *reinterpret_cast<uint2*>(b8 + i8_offset(TN, n + 1 - (kg & 1), q)) = (kg & 1) ? vlo : vhi;
+  }
+}
+
+__host__ __device__ inline int i8_tn(int H) { return H % 128 == 0 ? 128 : 64; }
+
+// 'i8pair' dW_h on the int8 tensor cores (the i8pair branch of
+// _bwd_stash_kernel, _mm_i8): per group g of G points (any G >= 1 with
+// G 127^2 < 2^31, so the int32 sums cannot overflow), with m = dz_max[g]
+// [j-1], scale = 127 / m (0 when m = 0), dz8 = round_half_even(dz_j scale),
+//   part_i8[split][j-1] += f32(sum over g's points of sin8_{j-1} (x) dz8)
+//                          * (m * f32((1/127)^2))
+// with the groups of a split (pps8 points, whole groups and whole 64-point
+// tiles) in order. Work items (split, layer j, 128-row tile of m, TN-column
+// tile of n), walked by persistent blocks of two warpgroups and no
+// producer warp (a 168-register cap comes with a ninth warp; the two int32
+// and f32 accumulator sets take 128): thread 0 keeps a ring of 64-point
+// chunks S ahead, each the stash box [64 points][128 bytes of sin8_{j-1}]
+// (TMA, 128-byte swizzled) and the dz tile's TN columns (one bulk copy),
+// refilling a stage as soon as the block is past its last read. Both
+// warpgroups transpose each chunk into K-major int8 operands (build_a8,
+// and build_b8 with dz quantized: once a chunk for both warpgroups' rows),
+// meet at one barrier, and run wgmma m64nTNk32 s32.s8.s8 twice, each
+// warpgroup its 64 rows, the next chunk's transposes under them: exact
+// int32 sums, scaled into the f32 sums in registers when a group ends. A
+// chunk that crosses a group boundary (G = 8, 16, 24, ...) is taken one
+// segment at a time, its other points' dz8 zero. Three operand buffers: a
+// warpgroup waits for its products of the segment before last before the
+// barrier, so the buffer rewritten after it is no longer read by either.
+template <int TN>
+__global__ void __launch_bounds__(kConsumers, 1) dw_i8_wgmma_kernel(const __grid_constant__ BwdParams p) {
+  constexpr int kARaw = kRows * kI8TM;
+  constexpr int kBRaw = kRows * TN * 2;
+  constexpr int kStage = kARaw + kBRaw;
+  constexpr int kA8 = kI8TM * kRows;
+  constexpr int kOps = kA8 + TN * kRows;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* ops = smem + kDwBar;
+  unsigned char* stages = ops + kI8Bufs * kOps;
+  const int S = p.stages;
+  const int H = p.h, L = p.n_hidden + 1;
+  const int mts = (H + kI8TM - 1) / kI8TM, nts = H / TN;
+  const int per_split = (L - 1) * mts * nts;
+  const int items = p.splits8 * per_split;
+  auto item = [&](int it, int& split, int& j, int& mtile, int& ntile) {
+    split = it / per_split;
+    int r = it - split * per_split;
+    j = 1 + r / (mts * nts);
+    r -= (j - 1) * mts * nts;
+    mtile = r / nts;
+    ntile = r - mtile * nts;
+  };
+
+  // thread 0's loader: the block's chunks in the order they are read
+  int ld_it = blockIdx.x, ld_c = ld_it < items ? (ld_it / per_split) * p.pps8 : 0, ld_st = 0;
+  const uint64_t shared = hp::evict_normal_policy();
+  auto load_next = [&]() {
+    if (ld_it >= items) return;
+    int split, j, mtile, ntile;
+    item(ld_it, split, j, mtile, ntile);
+    unsigned char* sa = stages + ld_st * kStage;
+    hp::mbar_expect_tx(&full[ld_st], kStage);
+    // evict-normal: each chunk of A is read by H / TN work items and each
+    // of B by H / 128, running side by side, through L2
+    hp::tensor_load_2d(sa, &p.hs8_map, (j - 1) * 2 * H + mtile * kI8TM, ld_c, &full[ld_st],
+                       shared);
+    hp::bulk_load(sa + kARaw,
+                  p.dz + (static_cast<size_t>(ld_c / kRows) * L + j) * kRows * H
+                      + static_cast<size_t>(ntile) * TN * kRows,
+                  kBRaw, &full[ld_st], shared);
+    if (++ld_st == S) ld_st = 0;
+    ld_c += kRows;
+    if (ld_c >= min(p.n, (split + 1) * p.pps8)) {
+      ld_it += gridDim.x;
+      ld_c = ld_it < items ? (ld_it / per_split) * p.pps8 : 0;
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) hp::mbar_init(&full[s], 1);
+    hp::fence_barrier_init();
+    for (int s = 0; s < S; ++s) load_next();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+  const float inv_sq = static_cast<float>((1.0 / 127.0) * (1.0 / 127.0));
+  const uint32_t ops0 = hp::smem_u32(ops);
+  int stage = 0, phase = 0, buf = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int split, j, mtile, ntile;
+    item(it, split, j, mtile, ntile);
+    const int p0 = split * p.pps8, p1 = min(p.n, p0 + p.pps8);
+    int acc_i[TN / 2];
+    float acc_f[TN / 2];
+#pragma unroll
+    for (int e = 0; e < TN / 2; ++e) {
+      acc_i[e] = 0;
+      acc_f[e] = 0.f;
+    }
+    int have = -1;                        // the chunk in the stage being read
+    const unsigned char* sa = stages;
+    for (int g0 = p0; g0 < p1;) {
+      const int grp = g0 / p.group;
+      const int g1 = min(p1, (grp + 1) * p.group);
       const float m = p.dz_max[static_cast<size_t>(grp) * p.n_hidden + j - 1];
       const float scale = m > 0.f ? __fdiv_rn(kCosScale, m) : 0.f;
-      uint32_t wb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int pt = p0 + 4 * warp + i;
-        const uint32_t dw[2] = {raw[i].x, raw[i].y};
-        uint32_t q = 0u;
-        if (pt >= s0 && pt < s1) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const uint32_t bits = (dw[e >> 1] >> (16 * (e & 1))) & 0xFFFFu;
-            const int v = __float2int_rn(__fmul_rn(__uint_as_float(bits << 16), scale));
-            q |= (static_cast<uint32_t>(v) & 0xFFu) << (8 * e);
+      for (int s0 = g0; s0 < g1;) {
+        const int c = s0 & ~(kRows - 1);
+        if (c != have) {
+          hp::mbar_wait(&full[stage], phase);
+          sa = stages + stage * kStage;
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
           }
+          have = c;
         }
-        wb[i] = q;
-      }
-      __syncthreads();   // the previous segment's fragments are read
+        const int c_end = min(c + kRows, p1);
+        const int s1 = min(g1, c_end);
+        unsigned char* op = ops + buf * kOps;
+        if (SUNERF_ABLATION != 3) {
+          build_a8(sa, op);
+          build_b8<TN>(sa + kARaw, op + kA8, s0 - c, s1 - c, scale);
+        }
+        hp::fence_async_smem();
+        hp::named_sync(1, kConsumers);
+        // the block is past its reads of the chunk: refill its stage
+        if (s1 == c_end && threadIdx.x == 0) load_next();
+        const uint32_t a8 = ops0 + buf * kOps, b8 = a8 + kA8;
+        hp::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sa[4 * lane + e][warp] = gather_bytes(wa, e);
-        sb[4 * lane + e][warp] = gather_bytes(wb, e);
-      }
-      __syncthreads();
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        af[mt][0] = sa[r][t];
-        af[mt][1] = sa[r + 8][t];
-        af[mt][2] = sa[r][4 + t];
-        af[mt][3] = sa[r + 8][4 + t];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = wc * 64 + nt * 8 + g;
-        const uint32_t b0 = sb[c][t];
-        const uint32_t b1 = sb[c][4 + t];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_s8(iacc[mt][nt], af[mt], b0, b1);
+        for (int s = 0; s < 2; ++s)
+          if (SUNERF_ABLATION != 4)
+            hp::wgmma_s8(acc_i,
+                         hp::make_desc(a8 + wg * (64 / 8) * 128 + 2 * s * (kI8TM / 8) * 128,
+                                       (kI8TM / 8) * 128, 128),
+                         hp::make_desc(b8 + 2 * s * (TN / 8) * 128, (TN / 8) * 128, 128),
+                         s0 > g0 || s > 0);
+        hp::wgmma_commit();
+        if (++buf == kI8Bufs) buf = 0;
+        hp::wgmma_wait<1>();
+        s0 = s1;
       }
       // the group ends: its exact int32 sum, scaled, into the f32 sum
-      if (s1 == (grp + 1) * p.group || s1 >= end) {
-        const float sc = __fmul_rn(m, inv_sq);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc_i);
+      const float sc = __fmul_rn(m, inv_sq);
 #pragma unroll
-        for (int x = 0; x < 2; ++x)
+      for (int e = 0; e < TN / 2; ++e)
+        acc_f[e] = __fadd_rn(acc_f[e], __fmul_rn(__int2float_rn(acc_i[e]), sc));
+      g0 = g1;
+    }
+    float* out = p.part_i8 + (static_cast<size_t>(split) * (L - 1) + j - 1) * H * H;
 #pragma unroll
-          for (int y = 0; y < 8; ++y)
+    for (int jj = 0; jj < TN / 8; ++jj) {
+      const int col = ntile * TN + 8 * jj + 2 * q;
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              acc[x][y][k] = __fadd_rn(acc[x][y][k],
-                                       __fmul_rn(static_cast<float>(iacc[x][y][k]), sc));
-              iacc[x][y][k] = 0;
-            }
+      for (int r = 0; r < 2; ++r) {
+        const int row = mtile * kI8TM + wg * 64 + w4 * 16 + g + 8 * r;
+        if (row < H)   // H = 64: the tile's other 64 rows are the cos half
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * H + col) =
+              make_float2(acc_f[4 * jj + 2 * r], acc_f[4 * jj + 2 * r + 1]);
       }
-      s0 = s1;
     }
   }
+}
 
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int row = m0 + wm * 32 + mt * 16 + g;
-      const int col = c0 + wc * 64 + nt * 8 + t * 2;
-      if (col >= H || row >= H) continue;   // H = 64: half a tile
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * H + col) =
-          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (row + 8 < H)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(row + 8) * H + col) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
+// The chain kernel's 'lsb' gate decode (lsb_cos_table, with the table built
+// by the block) on n packed sines: out[i] = the bf16 bits of the gate of
+// in[i]. Checked against ops/fused_mlp.py's plain decode on every pattern.
+__global__ void __launch_bounds__(kConsumers) lsb_decode_kernel(const uint16_t* in, uint16_t* out,
+                                                                 int n) {
+  __shared__ uint16_t table[kLsbTable];
+  build_lsb_table(table);
+  __syncthreads();
+  const int i = blockIdx.x * kConsumers + threadIdx.x;
+  if (i < n) out[i] = static_cast<uint16_t>(lsb_cos_table(table, in[i]));
 }
 
 // out[e] (+)= sum over s < S of part[s][e], in a fixed order: 8 interleaved
@@ -1200,10 +1446,10 @@ cudaError_t launch_reduce(const float* part, int S, size_t P, float* out, bool a
 }
 
 // Raises `kernel`'s shared memory limit to the card's and returns how many
-// blocks of kThreads fit on the card at once, once per kernel (so no
+// blocks of `threads` fit on the card at once, once per kernel (so no
 // attribute or occupancy call in a graph capture).
 template <typename K>
-cudaError_t persistent_blocks(K kernel, int& max_blocks) {
+cudaError_t persistent_blocks(K kernel, int& max_blocks, int threads = kThreads) {
   if (max_blocks > 0) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemLimit));
@@ -1211,7 +1457,7 @@ cudaError_t persistent_blocks(K kernel, int& max_blocks) {
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kSmemLimit);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, kSmemLimit);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   max_blocks = sms * per_sm;
@@ -1224,12 +1470,14 @@ cudaError_t launch_chain(BwdParams p, cudaStream_t stream) {
   cudaError_t err = persistent_blocks(chain_wgmma_kernel<H, kGate, kDpts>, max_blocks);
   if (err != cudaSuccess) return err;
   // a stage holds a weight chunk [32 x H] bf16, a K3 chunk [32 x CW] bf16,
-  // or an int8 gate tile [64, H]
+  // an int8 gate tile [64, H] or half a 16-bit one [32, H]; a 16-bit gate is
+  // taken while two chunks are in flight (4 stages)
   p.stage_bytes = kKC * H * 2;
   const size_t fixed = kChainHead + static_cast<size_t>(kRows) * H * 2;
   p.stages = static_cast<int>((kSmemLimit - fixed) / p.stage_bytes);
   if (p.stages > kMaxStages) p.stages = kMaxStages;
-  if (p.stages < 3) return cudaErrorInvalidConfiguration;
+  if (p.stages < (kGate == kGateBf16 || kGate == kGateLsb ? 4 : 3))
+    return cudaErrorInvalidConfiguration;
   const int tiles = (p.n + kRows - 1) / kRows;
   prep_kernel<<<tiles, kConsumers, 0, stream>>>(p);
   err = cudaGetLastError();
@@ -1274,17 +1522,41 @@ inline cudaError_t launch_dw(const BwdParams& p, int n_jobs, cudaStream_t s) {
   }
 }
 
-// The tensor maps of one backward launch over p.n points: the int8 gates
-// (if `int8_gate`; 'i8pair' rows start H into the pairs), the encoding
+template <int TN>
+cudaError_t launch_dw_i8_tn(BwdParams p, cudaStream_t stream) {
+  static int max_blocks = 0;
+  cudaError_t err = persistent_blocks(dw_i8_wgmma_kernel<TN>, max_blocks, kConsumers);
+  if (err != cudaSuccess) return err;
+  const int ops = kI8Bufs * (kI8TM * kRows + TN * kRows);
+  const int stage = kRows * kI8TM + kRows * TN * 2;
+  p.stages = static_cast<int>((kSmemLimit - kDwBar - ops) / stage);
+  if (p.stages > kMaxStages) p.stages = kMaxStages;
+  const int L = p.n_hidden + 1;
+  const int items = p.splits8 * (L - 1) * ((p.h + kI8TM - 1) / kI8TM) * (p.h / TN);
+  dw_i8_wgmma_kernel<TN><<<items < max_blocks ? items : max_blocks, kConsumers,
+                           kDwBar + ops + static_cast<size_t>(p.stages) * stage, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The tensor maps of one backward launch over p.n points: the gates (an
+// int8 gate [64 rows][128 columns] boxes, 'i8pair' rows starting H into the
+// pairs; a 16-bit gate, bf16 or 'lsb', [32 rows][64 columns]; none for
+// 'i8pair''s dW_h A, the pairs [64 points][128 bytes]), the encoding
 // scratch and the bf16 sin stash (if any) as the dW kernel's A.
 inline cudaError_t set_maps(BwdParams& p, bool int8_gate) {
   const int L = p.n_hidden + 1, H = p.h;
-  cudaError_t err = cudaSuccess;
+  cudaError_t err;
   if (int8_gate) {
     const uint64_t cols = p.hs8 != nullptr ? p.gate_ld - H : p.gate_ld;
     err = hp::encode_2d(&p.gate_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.gate, cols, p.n, p.gate_ld,
-                    H < kGateBox ? H : kGateBox, kBox, H >= kGateBox);
+                        H < kGateBox ? H : kGateBox, kBox, H >= kGateBox);
+  } else {
+    err = hp::encode_2d(&p.gate_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.gate, p.gate_ld, p.n,
+                        p.gate_ld * 2, 64, kRows / 2, true);
   }
+  if (err == cudaSuccess && p.hs8 != nullptr)
+    err = hp::encode_2d(&p.hs8_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.hs8, p.gate_ld, p.n,
+                        p.gate_ld, kI8TM, kRows, true);
   if (err == cudaSuccess)
     err = hp::encode_2d(&p.enc_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.enc, p.e_pad, p.n,
                     static_cast<uint64_t>(p.e_pad) * 2, kBox, kBox, true);
@@ -1336,24 +1608,19 @@ inline cudaError_t launch_after_chain(const BwdParams& p, bool accumulate, cudaS
   }
 
   if (p.hs8 != nullptr) {
-    // 'i8pair': each group's scale, dW_in on wgmma, then the hidden layers'
-    // dW on the int8 cores over splits of whole groups
+    // 'i8pair': each group's scale from the chain's row maxima, dW_in on
+    // wgmma, then the hidden layers' dW on the int8 cores over ranges of
+    // whole groups
     const int n_groups = (n + p.group - 1) / p.group;
     if (L > 1) {
-      dz_absmax_kernel<<<dim3(n_groups, L - 1), 256, 0, s>>>(p);
+      dz_group_max_kernel<<<dim3((n_groups + 7) / 8, L - 1), 256, 0, s>>>(p, n_groups);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
     err = launch_dw(p, 1, s);
     if (err != cudaSuccess) return err;
     if (L > 1) {
-      const int chunk = (n + p.splits8 - 1) / p.splits8;
-      int pts_per_split = (chunk + kI8Chunk - 1) / kI8Chunk * kI8Chunk;
-      pts_per_split = (pts_per_split + p.group - 1) / p.group * p.group;
-      const int c_tiles = (p.h + kI8Tile - 1) / kI8Tile;
-      dw_i8_kernel<<<dim3(c_tiles * c_tiles, p.splits8, L - 1), kI8Threads, 0, s>>>(
-          p, pts_per_split);
-      err = cudaGetLastError();
+      err = i8_tn(p.h) == 128 ? launch_dw_i8_tn<128>(p, s) : launch_dw_i8_tn<64>(p, s);
       if (err != cudaSuccess) return err;
       err = launch_reduce(p.part_i8, p.splits8, p.p - p.dw_ld, p.grad_dw + p.dw_ld, accumulate,
                           s);

@@ -56,9 +56,32 @@
 // weights evict-last. K3 is the chain kernel's tail: denc = dz_0 W_in^T as
 // one more wgmma against pack_wgmma_dpts's chunks through the same ring,
 // its terms summed per point and dimension from the accumulators.
-// 'i8pair' adds dz_absmax_kernel (each group's scale) and dw_i8_kernel
-// (mma.sync m16n8k32 s8.s8.s32 on chunks staged transposed, an exact int32
-// sum per group); its dW_in goes through the wgmma dW kernel.
+// 'i8pair' (K6b): the chain kernel also writes each point's max |dz_j| (two
+// partial maxima a point from its epilogue's accumulators, 15 MB at 8x512,
+// N = 262,144, read back in place of dz's 1.9 GB), a small
+// kernel reduces them to each group's, and dw_i8_wgmma_kernel takes dW_h
+// on wgmma m64nTNk32 s32.s8.s8: 8-bit operands must be K-major (the
+// points), and both the stash (a point's H columns contiguous) and the dz
+// scratch hold the output columns contiguous, so its two consumer
+// warpgroups transpose each 64-point chunk in shared memory, quantizing dz
+// on the way, before the products (byte permutes, one barrier a chunk,
+// three operand buffers). The dW_h floor at the int8 rate is 0.49 ms at
+// N = 262,144; reading sin8 (0.94 GB) and dz (1.88 GB) once is 0.84 ms, and
+// the 128 x 128 output tiles read them 4 times each through L2. dW_in goes
+// through the wgmma dW kernel.
+//
+// 'lsb' (K6a) and K4's bf16 gate come through the weight ring as K2's int8
+// gate does: two stages of [32 rows][64 columns] 128-byte swizzled TMA
+// boxes, prefetched into L2 a layer ahead. The 'lsb' sines are decoded in
+// place in those stages while the layer's last two chunks' products run,
+// by a 1 KB table of the 512 values where the decode is neither 1 nor 0
+// (lsb_cos_table, built from lsb_cos_bits by the block); the epilogue then
+// reads a bf16 gate. The earlier design read both gates from device memory in
+// the epilogue: at 8x512, N = 262,144 its 'lsb' chain took 8.99 ms, 4.51
+// with the gate loaded but not decoded and 4.90 decoded but not loaded
+// (scripts/backward_ablation.py, H100 80GB HBM3, 700 W), against 3.57 for
+// the int8 gate through the ring; through the ring with a square root a
+// gate element, 6.47, 3.43 and 5.62.
 //
 // K5, the dense feature-grid branch (fused_mlp.py:564-576, :634-644): the
 // recomputed encoding carries the grid features (so dW_in covers their
@@ -88,16 +111,18 @@
 // scratch [tiles][L][64 x H]; the dW work is `splits` point ranges of
 // `pps` points, with part_dw [splits][e_pad H + (L-1) H^2]; for 'i8pair'
 // part_dw is dW_in's [splits][e_pad H], then the int8 dW_h's
-// [splits8][(L-1) H^2] (splits8 is ignored for the other formats). dpts
-// null: no point cotangent. Returns a cudaError_t (0 = launched).
+// [splits8][(L-1) H^2] over `splits8` ranges of `pps8` points (whole groups
+// and tiles), with dz_rowmax [L-1][n][2] and dz_max [groups][L-1] scratch
+// (pps8, splits8, dz_rowmax and dz_max are ignored for the other formats).
+// dpts null: no point cotangent. Returns a cudaError_t (0 = launched).
 extern "C" int sunerf_fused_mlp_stash_bwd(
     const void* pts, const void* col_dim, const void* col_freq, const void* dy,
     const void* hs, const void* cs, const void* w_bwd, const void* w_out,
     void* dz, void* enc, void* part_chain, void* part_dw, void* grad_chain,
     void* grad_dw, const void* grid, const void* w_grid, void* dgrid, void* gmax,
-    void* gacc, void* grad_grid, void* dpts, const void* w_dpts, void* dz_max,
-    int n, int d_in, int n_cols, int e_pad, int d_filter, int n_hidden, int d_out,
-    int pps, int splits, int splits8, int fmt, int group, void* stream) {
+    void* gacc, void* grad_grid, void* dpts, const void* w_dpts, void* dz_rowmax,
+    void* dz_max, int n, int d_in, int n_cols, int e_pad, int d_filter, int n_hidden,
+    int d_out, int pps, int splits, int pps8, int splits8, int fmt, int group, void* stream) {
   using namespace sunerf;
   BwdParams p{};
   p.grid = grid_params(grid);
@@ -134,6 +159,7 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
   p.grad_grid = static_cast<float*>(grad_grid);
   p.dpts = static_cast<float*>(dpts);
   p.n_enc = d_in + 2 * n_cols;
+  p.dz_rowmax = static_cast<float*>(dz_rowmax);
   p.dz_max = static_cast<float*>(dz_max);
   p.group = group;
   p.n = n;
@@ -145,6 +171,7 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
   p.d_out = d_out;
   p.pps = pps;
   p.splits = splits;
+  p.pps8 = pps8;
   p.splits8 = splits8;
   set_sizes(p);
   if (fmt == 2) p.part_i8 = p.part_dw + static_cast<size_t>(splits) * p.dw_ld;
@@ -153,7 +180,9 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
        grad_grid == nullptr || fmt != 0 || dpts != nullptr);
   if (!bwd_ok(p) || !grid_ok(p.grid) || grid_bad || fmt < 0 || fmt > 2 ||
       e_pad < d_in + 2 * n_cols + p.grid.n_levels * p.grid.features || w_bwd == nullptr ||
-      (fmt == 2 && (group < 1 || group > 133144 || dz_max == nullptr || splits8 < 1)))
+      (fmt == 2 && (group < 1 || group > 133144 || dz_rowmax == nullptr || dz_max == nullptr ||
+                    splits8 < 1 || pps8 < 1 || pps8 % kRows != 0 || pps8 % group != 0 ||
+                    static_cast<long long>(splits8) * pps8 < n)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = set_maps(p, fmt != 1);
@@ -163,9 +192,24 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
   if (fmt == 1)
     err = with_dpts ? launch_chain_width<kGateLsb, true>(p, s)
                     : launch_chain_width<kGateLsb, false>(p, s);
+  else if (fmt == 2)
+    err = with_dpts ? launch_chain_width<kGateI8pair, true>(p, s)
+                    : launch_chain_width<kGateI8pair, false>(p, s);
   else
     err = with_dpts ? launch_chain_width<kGateInt8, true>(p, s)
                     : launch_chain_width<kGateInt8, false>(p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_after_chain(p, false, s));
+}
+
+// C entry: the 'lsb' gate decode of the chain kernel on n packed sines
+// (int16 bits in, bf16 bits out) on `stream`, for the card's check of it on
+// every pattern. Returns a cudaError_t (0 = launched).
+extern "C" int sunerf_lsb_decode(const void* in, void* out, int n, void* stream) {
+  using namespace sunerf;
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  lsb_decode_kernel<<<(n + kConsumers - 1) / kConsumers, kConsumers, 0,
+                      static_cast<cudaStream_t>(stream)>>>(static_cast<const uint16_t*>(in),
+                                                            static_cast<uint16_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds), at
 `build/sunerf_tpu_torch/<name>-<hash>.so` beside the package; the hash covers
 the source, every shared header `csrc/*.cuh` and the flags, so an edited
-source or header builds anew. A failed build raises. `launch` calls a
+source or header builds anew. A failed build raises. `defines` builds a
+variant of a source with extra preprocessor macros (a measurement's
+ablation; the hash covers them too). `launch` calls a
 library's C entry on the current stream and raises on the CUDA error code it
 returns; `check_tensor` is the wrappers' check of what they pass it.
 """
@@ -37,24 +39,28 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple) -> tuple:
+    return NVCC_FLAGS + tuple(f'-D{d}' for d in defines)
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
     h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
     for header in sorted(CSRC.glob('*.cuh')):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(' '.join(NVCC_FLAGS).encode())
+    h.update(' '.join(_flags(defines)).encode())
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile csrc/<name>.cu unless its library is already built. Returns
-    (library path, nvcc's report: registers, shared memory, spills; empty
-    when the library was already there)."""
-    out = library_path(name)
+def build(name: str, defines: tuple = ()) -> tuple[Path, str]:
+    """Compile csrc/<name>.cu (with -D`defines`) unless its library is
+    already built. Returns (library path, nvcc's report: registers, shared
+    memory, spills; empty when the library was already there)."""
+    out = library_path(name, defines)
     if out.exists():
         return out, ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+    proc = subprocess.run([nvcc(), *_flags(defines), '-o', str(tmp),
                            str(CSRC / f'{name}.cu')],
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -63,13 +69,13 @@ def build(name: str) -> tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """The built library of csrc/<name>.cu, built on first use."""
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get((name, defines))
         if lib is None:
-            path, _ = build(name)
-            lib = _loaded[name] = ctypes.CDLL(str(path))
+            path, _ = build(name, defines)
+            lib = _loaded[(name, defines)] = ctypes.CDLL(str(path))
         return lib
 
 
@@ -80,11 +86,12 @@ def signature(n_ptrs: int, n_ints: int, n_floats: int = 0) -> tuple:
             + (ctypes.c_float,) * n_floats)
 
 
-def launch(name: str, argtypes: tuple, device, *args):
-    """Calls the C entry sunerf_<name> of csrc/<name>.cu (built on first use)
-    with `args`, typed by `argtypes` (see `signature`), and the current
-    stream of `device`. Raises on the CUDA error code it returns."""
-    fn = getattr(load(name), f'sunerf_{name}')
+def launch(name: str, argtypes: tuple, device, *args, defines: tuple = (), entry: str = None):
+    """Calls the C entry sunerf_<entry> (by default sunerf_<name>) of
+    csrc/<name>.cu (built on first use, with -D`defines`) with `args`, typed
+    by `argtypes` (see `signature`), and the current stream of `device`.
+    Raises on the CUDA error code it returns."""
+    fn = getattr(load(name, defines), f'sunerf_{entry or name}')
     fn.argtypes = [*argtypes, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):

@@ -19,9 +19,12 @@ sunerf_tpu/ops/pallas/fused_mlp.py.
      K2 the tables' gradients, summed in fixed point so a run gives the
      same bits as the last
   K6a _fwd_stash_lsb_kernel and the lsb branch of K2 ('lsb': one bf16
-      stream, sign(cos) in the sin's last bit)
+      stream, sign(cos) in the sin's last bit; the backward brings it
+      through the chain kernel's weight ring and decodes it there,
+      lsb_cos_decode)
   K6b _fwd_stash_i8pair_kernel, _mm_i8 and the i8pair branch of K2
-      ('i8pair': one int8 stream of sin/cos pairs, dW_h on the int8 cores)
+      ('i8pair': one int8 stream of sin/cos pairs, dW_h on the int8
+      tensor cores: dw_i8_wgmma_kernel, i8_build_operands)
 
 `fused_mlp_forward` is the entry, with fused_nerf_raw's knobs. With no
 gradient needed it runs K0. When a parameter (or, with compute_dpts, the
@@ -50,7 +53,8 @@ training step packs once per field, and the optimizer's in-place update
 invalidates the pack. The backward's dz scratch is laid out tile by tile
 in the chain kernel's own order (`dz_index`), and its dW products are
 split over the point ranges of `dw_splits` ('i8pair''s int8 dW_h over
-those of `dw_i8_splits`). The grid tables
+those of `dw_i8_splits`, whole scale groups, whose maxima come from each
+point's, i8pair_group_maxima). The grid tables
 are not cached: the kernels read the float32 parameters themselves, so an
 in-place update is seen by the next launch.
 """
@@ -58,6 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -203,6 +208,111 @@ def unpack_sin_cos(raw: torch.Tensor):
     return raw, torch.where(neg, -c, c).to(torch.bfloat16)
 
 
+LSB_TABLE_LO = 0x3D80    # |s| >= 2^-4: the first magnitude whose 'lsb' gate is not 1
+LSB_TABLE = 0x3F80 - LSB_TABLE_LO   # 512 entries, up to |s| < 1
+
+
+def lsb_cos_decode(raw: torch.Tensor) -> torch.Tensor:
+    """The kernels' 'lsb' gate decode on int16 bits -> int16 bits of the
+    bf16 cos. CUDA tensors run the chain kernel's own decode
+    (csrc/fused_mlp_backward.cuh lsb_decode_kernel: lsb_cos_table with the
+    block's table); CPU tensors its plain version, the same rule: a =
+    bits & 0x7FFF below LSB_TABLE_LO gives 1.0, from 0x3F80 to 0x7F80
+    (|s| >= 1) 0, above it (NaN) NaN, and the LSB_TABLE values between
+    unpack_sin_cos's magnitudes; the sign from the last bit."""
+    if raw.device.type == 'cuda':
+        build.check_tensor('raw', raw, (raw.numel(),), torch.int16, raw.device)
+        out = torch.empty_like(raw)
+        if raw.numel():
+            build.launch('fused_mlp_stash_bwd', build.signature(2, 1), raw.device,
+                         raw.data_ptr(), out.data_ptr(), raw.numel(), entry='lsb_decode')
+        return out
+    h = raw.to(torch.int32) & 0xFFFF
+    a = h & 0x7FFF
+    lo = (LSB_TABLE_LO + torch.arange(LSB_TABLE)).to(torch.int16)
+    table = unpack_sin_cos(lo.view(torch.bfloat16))[1].view(torch.int16).to(torch.int32) & 0x7FFF
+    mag = torch.where(a < LSB_TABLE_LO, 0x3F80, torch.where(a > 0x7F80, 0x7FC0, 0))
+    inside = (a >= LSB_TABLE_LO) & (a < LSB_TABLE_LO + LSB_TABLE)
+    mag = torch.where(inside, table[(a - LSB_TABLE_LO).clamp(0, LSB_TABLE - 1)], mag)
+    return (mag | ((h & 1) << 15)).to(torch.int16)
+
+
+def i8pair_group_maxima(dz: torch.Tensor, group: int) -> torch.Tensor:
+    """The i8pair dz scale groups' maxima as the kernels find them: each
+    point's max |dz_j| (the chain kernel's row maxima), then each group's
+    max over its points (dz_group_max_kernel; past n nothing) -> [groups]
+    f32, NaN propagating as in jnp.max. dz [n, H] holds bf16 values."""
+    n = dz.shape[0]
+    rows = dz.abs().amax(1)
+    pad = -(-n // group) * group - n
+    return F.pad(rows, (0, pad)).view(-1, group).amax(1)
+
+
+I8_ROUND = 12582912.0   # 1.5 2^23: x + it, rounded, holds round_half_even(x) in its low bits
+
+
+def i8_operand_index(rows: int, row, k):
+    """Byte of element (row, k) in dw_i8_wgmma_kernel's int8 operands: K-major
+    no-swizzle core matrices of 8 rows x 16 k, ((k // 16) (rows // 8) +
+    row // 8) 128 + (row % 8) 16 + k % 16 for `rows` rows (128 for A, TN for
+    B). Works on ints and integer arrays alike."""
+    return ((k // 16) * (rows // 8) + row // 8) * 128 + (row % 8) * 16 + k % 16
+
+
+def i8_point(k):
+    """The chunk point (0..63) behind K index k of dw_i8_wgmma_kernel's
+    products: k = 16 kg + 8 h + j <-> point 8 j + 2 kg + h, so that a
+    thread's points 8 j + q fill 8 contiguous bytes of a core-matrix row."""
+    return 8 * (k % 8) + 2 * (k // 16) + (k // 8) % 2
+
+
+def i8_build_operands(box: torch.Tensor, dz_tile: torch.Tensor, s0: int, s1: int,
+                      scale: float, tn: int):
+    """A mirror of build_a8 and build_b8 (csrc/fused_mlp_backward.cuh) for
+    one segment of a 64-point chunk: box [64 points, 128] int8 (the stash
+    box, stored 128-byte swizzled as TMA writes it), dz_tile [64, tn] bf16
+    (stored in the chain's core-matrix order) -> the int8 operand buffers
+    A [128 * 64] and B [tn * 64] as the 256 threads write them: thread t
+    (warp w, lane l, q = l // 4) loads the points 8 j + q (j = 0..7) from
+    the stored layouts at the columns m = 16 w + 4 (l % 4) + e (A, 4 bytes a
+    load) and n = 8 ng + 2 (l % 4) + e (B, 2 bf16 a load, ng = (tn // 64) w
+    + u) and stores their 8 bytes at i8_operand_index's row (m or n), k =
+    16 (q // 2) + 8 (q % 2); B's bytes are the low bytes of dz * scale +
+    I8_ROUND in f32 for points [s0, s1), 0 for the others."""
+    t = torch.arange(256)
+    w, lane = t // 32, t % 32
+    q = (lane // 4).view(256, 1, 1)
+    j = torch.arange(8).view(1, 1, 8)
+    pt = 8 * j + q                                            # [256, 1, 8]
+    k = 16 * (q // 2) + 8 * (q % 2) + j
+    e = torch.arange(4).view(1, 4, 1)
+    # A: stored box bytes at the 128-byte swizzle
+    pr = torch.arange(64).view(64, 1)
+    byte = torch.arange(128).view(1, 128)
+    stored_a = torch.zeros(64 * 128, dtype=torch.uint8)
+    stored_a[(pr * 128 + (((byte // 16) ^ (pr % 8)) % 8) * 16 + byte % 16).reshape(-1)] = \
+        box.view(torch.uint8).reshape(-1)
+    m = (16 * w + 4 * (lane % 4)).view(256, 1, 1) + e        # [256, 4, 1]
+    at = pt * 128 + (((m // 16) ^ (pt % 8)) % 8) * 16 + m % 16
+    a8 = torch.zeros(128 * 64, dtype=torch.uint8)
+    a8[i8_operand_index(128, m, k)] = stored_a[at]
+    # B: stored dz bits in the chain's core-matrix order
+    col = torch.arange(tn).view(1, tn)
+    stored_b = torch.zeros(64 * tn, dtype=torch.int16)
+    stored_b[(((col // 8) * 8 + pr // 8) * 64 + (pr % 8) * 8 + col % 8).reshape(-1)] = \
+        dz_tile.view(torch.int16).reshape(-1)
+    b8 = torch.zeros(tn * 64, dtype=torch.uint8)
+    sc = torch.where((pt >= s0) & (pt < s1), torch.tensor(scale, dtype=torch.float32),
+                     torch.tensor(0.0))
+    for u in range(tn // 64):
+        n = (8 * ((tn // 64) * w + u) + 2 * (lane % 4)).view(256, 1, 1) + e[:, :2]
+        bits = stored_b[((n // 8) * 8 + pt // 8) * 64 + (pt % 8) * 8 + n % 8]
+        x = (bits.to(torch.int32) << 16).view(torch.float32)
+        y = x * sc + torch.tensor(I8_ROUND, dtype=torch.float32)
+        b8[i8_operand_index(tn, n, k)] = (y.view(torch.int32) & 0xFF).to(torch.uint8)
+    return a8.view(torch.int8), b8.view(torch.int8)
+
+
 def grid_keys(config: NeRFConfig) -> tuple:
     """The dense grid tables' parameter keys, in level order."""
     return tuple(f'grid_{i}' for i in range(len(config.grid_sizes)))
@@ -308,16 +418,17 @@ def fused_mlp_stash_layerwise(config: NeRFConfig, params: dict,
 
 def _dw_i8(s8: torch.Tensor, dz: torch.Tensor, group: int) -> torch.Tensor:
     """The i8pair dW_h: per group of `group` points, m = max|dz| (f32),
-    scale = 127 / m (0 when m = 0), dz8 = round_half_even(dz scale); the
-    group's exact integer sum s8^T dz8 (float64 products of integers below
-    2^53) to f32, times f32(m * (1/127)^2), summed over the groups in
-    order in f32."""
+    scale = 127 / m (0 when m = 0; a rounded division, as JAX's and the
+    kernel's, not 127 times a rounded 1 / m), dz8 = round_half_even(dz
+    scale); the group's exact integer sum s8^T dz8 (float64 products of
+    integers below 2^53) to f32, times f32(m * (1/127)^2), summed over the
+    groups in order in f32."""
     n, H = dz.shape
     acc = torch.zeros((s8.shape[1], H), dtype=torch.float32, device=dz.device)
     for g0 in range(0, n, group):
         d = dz[g0:g0 + group]
         m = d.abs().max()
-        scale = torch.where(m > 0, _COS_SCALE / m, torch.zeros_like(m))
+        scale = torch.where(m > 0, torch.full_like(m, _COS_SCALE) / m, torch.zeros_like(m))
         dz8 = torch.round(d * scale)
         prod = (s8[g0:g0 + group].double().t() @ dz8.double()).float()
         acc = acc + prod * (m * _INV_COS_SQ)
@@ -551,15 +662,31 @@ def dw_splits(config: NeRFConfig, n: int, e_pad: int, sm_count: int,
     return pps, -(-n // pps)
 
 
-def dw_i8_splits(config: NeRFConfig, n: int, sm_count: int) -> int:
-    """'i8pair': the point ranges of the int8 dW_h kernel, each with its own
-    f32 partials of the L - 1 dW_h: a block for each 128 x 128 output tile
-    and layer, so enough ranges for about four blocks per SM, and at least
-    1024 points a range (5 at 8x512 on 132 SMs)."""
+I8_MAX_SPLITS = 8       # 'i8pair' dW_h ranges at most (7.3 MB of partials each at 8x512)
+
+
+def dw_i8_splits(config: NeRFConfig, n: int, group: int, sm_count: int) -> tuple:
+    """'i8pair': (pps8, splits8), the int8 dW_h kernel's point ranges:
+    `splits8` ranges of `pps8` points, each whole scale groups and whole
+    64-point tiles (pps8 a multiple of lcm(64, group)), each with its own
+    f32 partials of the L - 1 dW_h. A range is (L - 1) ceil(H / 128) (H /
+    TN) work items (TN = 128, or 64 at H = 64; csrc/fused_mlp_backward.cuh
+    dw_i8_wgmma_kernel) walked by one block an SM: the count, up to
+    I8_MAX_SPLITS, whose items fill the SMs' last wave best, the fewer on a
+    tie (7 at 8x512, N = 262,144 on 132 SMs: 784 items, 5.94 waves)."""
     H, L = config.d_filter, config.n_layers
-    tiles = -(-H // 128)
-    blocks = tiles * tiles * max(L - 1, 1)
-    return max(1, min(-(-4 * sm_count // blocks), -(-n // 1024)))
+    tn = 128 if H % 128 == 0 else 64
+    per_split = max(L - 1, 1) * -(-H // 128) * (H // tn)
+    unit = _TILE * group // math.gcd(_TILE, group)
+    best = None
+    for want in range(1, I8_MAX_SPLITS + 1):
+        pps = -(-(-(-n // want)) // unit) * unit
+        splits = -(-n // pps)
+        items = splits * per_split
+        fill = items / (-(-items // sm_count) * sm_count)
+        if best is None or fill > best[0]:
+            best = (fill, pps, splits)
+    return best[1], best[2]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -703,8 +830,8 @@ def _grid_args(config: NeRFConfig, params: dict) -> _GridArgs:
     return args
 
 
-def _launch(name: str, n_ptrs: int, n_ints: int, device, *args):
-    build.launch(name, build.signature(n_ptrs, n_ints), device, *args)
+def _launch(name: str, n_ptrs: int, n_ints: int, device, *args, defines: tuple = ()):
+    build.launch(name, build.signature(n_ptrs, n_ints), device, *args, defines=defines)
 
 
 def _fwd_args(w: _KernelWeights, params: dict, points, grid: _GridArgs, out):
@@ -876,9 +1003,11 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
 
 def _stash_backward_launch(config: NeRFConfig, params: dict, points: torch.Tensor,
                            dy: torch.Tensor, hs: torch.Tensor, cs, fmt: str,
-                           compute_dpts: bool, group: int):
+                           compute_dpts: bool, group: int, defines: tuple = ()):
     """Launches the stashing backward on CUDA tensors -> (gradients, the dz
-    scratch), the scratch flat in dz_index order (None for n = 0)."""
+    scratch), the scratch flat in dz_index order (None for n = 0).
+    `defines` launches a variant of the kernels built with those macros
+    (scripts/backward_ablation.py's measurement-only ablations)."""
     _check(config, params, points)
     dev = points.device
     n, H, L, O = points.shape[0], config.d_filter, config.n_layers, config.d_output
@@ -909,10 +1038,10 @@ def _stash_backward_launch(config: NeRFConfig, params: dict, points: torch.Tenso
     if fmt == 'i8pair':
         # dW_in's partials [splits][e_pad H], then the int8 kernel's dW_h
         # partials [splits8][(L-1) H^2]
-        splits8 = dw_i8_splits(config, n, _sm_count(dev))
+        pps8, splits8 = dw_i8_splits(config, n, group, _sm_count(dev))
         part_dw = torch.empty(splits * e_pad * H + splits8 * (L - 1) * H * H, **f32)
     else:
-        splits8 = 0
+        pps8 = splits8 = 0
         part_dw = torch.empty((splits, grad_dw.numel()), **f32)
     grid = _grid_args(config, params)
     # K5 scratch: the grid cotangent, each level's max |.| (as float bits)
@@ -920,21 +1049,22 @@ def _stash_backward_launch(config: NeRFConfig, params: dict, points: torch.Tenso
     dgrid = torch.empty((n, config.d_grid), **f32)
     gmax = torch.zeros(len(config.grid_sizes), dtype=torch.int32, device=dev)
     gacc = torch.zeros(n_table, dtype=torch.int64, device=dev)
-    # i8pair: each group's max |dz_j| of the hidden layers
-    dz_max = (torch.empty((-(-n // group), max(L - 1, 1)), **f32) if fmt == 'i8pair'
-              else None)
+    # i8pair: each point's and each group's max |dz_j| of the hidden layers
+    dz_rowmax, dz_max = ((torch.empty((max(L - 1, 1), n, 2), **f32),
+                          torch.empty((-(-n // group), max(L - 1, 1)), **f32))
+                         if fmt == 'i8pair' else (None, None))
     ptr = (lambda t: None if t is None else t.data_ptr())
     w_dpts = _dpts_weights(config, params['w_in']) if compute_dpts else None
-    _launch('fused_mlp_stash_bwd', 23, 12, dev,
+    _launch('fused_mlp_stash_bwd', 24, 13, dev,
             points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
             dy.data_ptr(), hs.data_ptr(), ptr(cs), _bwd_weights(params['w_h']).data_ptr(),
             w.w_out.data_ptr(), dz.data_ptr(), enc.data_ptr(),
             part_chain.data_ptr(), part_dw.data_ptr(), grad_chain.data_ptr(),
             grad_dw.data_ptr(), ctypes.addressof(grid), w.w_grid.data_ptr(),
             dgrid.data_ptr(), gmax.data_ptr(), gacc.data_ptr(), grad_grid.data_ptr(),
-            ptr(dpts), ptr(w_dpts), ptr(dz_max),
+            ptr(dpts), ptr(w_dpts), ptr(dz_rowmax), ptr(dz_max),
             n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, pps, splits,
-            splits8, _FMT_CODE[fmt], group)
+            pps8, splits8, _FMT_CODE[fmt], group, defines=defines)
     grads = _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
     if compute_dpts:
         grads['dpts'] = dpts

@@ -38,10 +38,16 @@ file measures the parent and the change. One JSON line:
     k6b_bwd_kernels its device ms by kernel name in one call under
     torch.profiler, and k6b_bwd_peak_gib the memory the call allocates
     beyond what was allocated before it (its outputs included);
+  * dw_h_bmm_262k_ms and dw_h_int_mm_ms: library yardsticks of K6b's dW_h
+    at that shape, timing rows only (the port calls neither): one bf16
+    torch.bmm of the seven hs_{j-1}^T dz_j products (the stash's sin8 as
+    bf16, dz normal), and torch._int_mm of the same int8 products, one call
+    a layer (7), summed (sin8^T from the stash, dz8 uniform in
+    [-127, 127]);
   * k6a_bwd_ms: the lsb backward with the point cotangent (K6a with K3) at
-    the same shape;
+    the same shape, k6a_bwd_kernels by kernel name;
   * k4_ms: the recompute backward (K4, chunks of 32,768 points) at the
-    same shape.
+    same shape, k4_kernels by kernel name.
 P2 and grid_sample times are CUDA graphs of 10 back-to-back calls (the
 device's time, not the host's dispatch), the median of 5 replays; K0, K1,
 K2 and the step are CUDA events around one call, the median of 10; the
@@ -277,13 +283,30 @@ def main(argv=None) -> dict:
         row['k6b_bwd_ms'] = _events_ms(k6b, reps=5)
         row['k6b_bwd_kernels'] = _by_kernel(k6b)
         row['k6b_bwd_peak_gib'] = _peak_gib(k6b)
-        del hs8, k6b
+        del k6b
+        # the library yardsticks of its dW_h (never on the path)
+        L, H = config.n_layers, config.d_filter
+        s8 = hs8.view(m, L, 2, H)[:, :L - 1, 0].permute(1, 2, 0).contiguous()
+        dz8 = torch.randint(-127, 128, (L - 1, m, H), generator=g2, device=dev,
+                            dtype=torch.int8)
+        row['dw_h_int_mm_ms'] = _events_ms(
+            lambda: [torch._int_mm(s8[j], dz8[j]) for j in range(L - 1)], reps=5)
+        del dz8
+        s16 = s8.to(torch.bfloat16)
+        del s8, hs8
+        dzb = torch.randn((L - 1, m, H), generator=g2, device=dev).to(torch.bfloat16)
+        row['dw_h_bmm_262k_ms'] = _events_ms(lambda: torch.bmm(s16, dzb), reps=5)
+        del s16, dzb
         _, hsl, _ = fused_mlp.fused_mlp_stash_forward(config, p8, pts6, 'lsb')
-        row['k6a_bwd_ms'] = _events_ms(lambda: fused_mlp.fused_mlp_stash_backward(
-            config, p8, pts6, dy6, hsl, None, 'lsb', True), reps=5)
-        del hsl
-        row['k4_ms'] = _events_ms(lambda: fused_mlp.fused_mlp_recompute_backward(
-            config, p8, pts6, dy6), reps=5)
+        k6a = (lambda: fused_mlp.fused_mlp_stash_backward(
+            config, p8, pts6, dy6, hsl, None, 'lsb', True))
+        row['k6a_bwd_ms'] = _events_ms(k6a, reps=5)
+        row['k6a_bwd_kernels'] = _by_kernel(k6a)
+        del hsl, k6a
+        k4 = (lambda: fused_mlp.fused_mlp_recompute_backward(config, p8, pts6, dy6))
+        row['k4_ms'] = _events_ms(k4, reps=5)
+        row['k4_kernels'] = _by_kernel(k4)
+        del k4
         del pts6, dy6
 
     # P2 and its library call

@@ -12,7 +12,7 @@ read and write, checked on the CPU against their sources:
     here, with the ranges of dw_splits) cover every (job, output element,
     point) exactly once, for ragged n too, and give every split a partial
     of every job's tile; the i8pair int8 dW_h kernel's ranges
-    (dw_i8_splits) cover every point once.
+    (dw_i8_splits) cover every point once, in whole groups and tiles.
 
 All exact: layouts move values, they do not round them.
 """
@@ -164,20 +164,21 @@ def test_dw_plan_covers_every_point_once(d_filter, n_layers, n, fmt):
         assert (cover == 1).all()
 
 
-@pytest.mark.parametrize('n,group,want', [(262144, 768, 5), (196608, 768, 5), (1000, 768, 1),
-                                          (65541, 100, 5)])
+@pytest.mark.parametrize('n,group,want', [(262144, 768, 7), (196608, 768, 7), (1000, 768, 1),
+                                          (65541, 100, 7)])
 def test_i8pair_int8_dw_ranges_cover_every_point_once(n, group, want):
-    """'i8pair''s int8 dW_h kernel takes dw_i8_splits ranges, each of whole
-    scale groups (csrc/fused_mlp_backward.cuh launch_after_chain: ceil(n /
-    splits) points, rounded up to 32, then to the group): they partition
-    [0, n), and at 8x512 there are as many as its 16 x 7 blocks a range
-    call for on 132 SMs, so its partials [splits][7 H^2] f32 stay at
-    splits x 7.3 MB whatever the wgmma dW_in's split count."""
+    """'i8pair''s int8 dW_h kernel (csrc/fused_mlp_backward.cuh
+    dw_i8_wgmma_kernel) takes dw_i8_splits's ranges of pps8 points: each
+    starts at a multiple of pps8, itself a multiple of the scale group and
+    of the 64-point dz tile (every range whole groups and tiles), and they
+    partition [0, n); at 8x512 there are as many as fill the last wave of
+    its 7 x 4 x 4 work items a range best on 132 SMs, so its partials
+    [splits][7 H^2] f32 stay at splits x 7.3 MB whatever the wgmma dW_in's
+    split count."""
     cfg = emission_config(n_layers=8, d_filter=512)
-    splits = fused_mlp.dw_i8_splits(cfg, n, 132)
-    assert splits == want
-    pps = -(-(-(-n // splits)) // 32) * 32
-    pps = -(-pps // group) * group
+    pps, splits = fused_mlp.dw_i8_splits(cfg, n, group, 132)
+    assert splits == want and pps % 64 == 0 and pps % group == 0
+    assert splits * pps >= n > (splits - 1) * pps
     points = np.zeros(n, int)
     for s in range(splits):
         points[s * pps:min(n, (s + 1) * pps)] += 1

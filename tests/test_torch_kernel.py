@@ -1,6 +1,7 @@
 """The fused kernels (csrc/fused_mlp_fwd_wgmma.cu K0, fused_mlp_stash_fwd.cu K1,
 fused_mlp_stash_bwd.cu K2 with the point cotangent K3, their dense
-feature-grid branch K5, the 'lsb' and 'i8pair' stashes K6a and K6b, and
+feature-grid branch K5, the 'lsb' and 'i8pair' stashes K6a and K6b, K6b's
+int8 dW_h and the 16-bit gates through the weight ring on their own, and
 fused_mlp_recompute_bwd.cu K4), and the grid-encode probes P1
 (grid_tap_encode.cu) and P2 (grid_hat_encode.cu), against their plain
 PyTorch versions on the card.
@@ -27,6 +28,9 @@ Tolerances, as fractions of max|plain|:
     |cos| < 1e-3) and the 'i8pair' pairs;
   * 5e-2 for the point cotangent (tests/test_fused_mlp.py:85); the
     parameter gradients bit-identical with and without it;
+  * 1e-4 for K6b's int8 dW_h against the plain _dw_i8 fed the kernel's own
+    dz: each group's int32 sum is exact, and only the f32 sums over groups
+    and ranges are taken in another order;
   * P1 within 1e-5 abs (the same float32 operations in the same order), P2
     within 1e-2 of max + 1e-4 with RMS within 1e-4 of max (the same bf16
     weights, float32 sums in another order).
@@ -384,8 +388,9 @@ def test_k0_kernel_matches_plain_version(cuda, n_layers, d_filter, n, grid_sizes
 
 @pytest.mark.gpu
 def test_i8pair_backward_takes_any_group(cuda):
-    """K6b's backward at scale groups that are not multiples of 32 (each
-    32-point dW chunk split at their boundaries) and at the default 768:
+    """K6b's backward at scale groups that are not multiples of 64 (each
+    64-point dW_h chunk taken a group segment at a time) and at the default
+    768:
     every gradient within the i8pair tolerance of the plain version at the
     same group, the same bits run to run."""
     cfg, params, pts, dy = _setup(cuda, 4, 128, 4097)
@@ -422,3 +427,88 @@ def test_hat_encode_kernel_at_every_build(cuda, G, n):
         m = ref.abs().max()
         assert (got - ref).abs().max() <= 1e-2 * m + 1e-4, (variant, G)
         assert (got - ref).pow(2).mean().sqrt() <= 1e-4 * m, (variant, G)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_layers,d_filter,n,group', [
+    (3, 64, 1000, 8), (4, 128, 4097, 16), (8, 512, 4097, 24), (8, 512, 20481, 768),
+    (6, 384, 3001, 768), (4, 128, 4097, 768),
+])
+def test_i8pair_dw_h_matches_int8_plain_version(cuda, n_layers, d_filter, n, group):
+    """K6b's dW_h on the int8 tensor cores (dw_i8_wgmma_kernel, with the
+    chain kernel's row maxima and dz_group_max_kernel) against the plain
+    _dw_i8 fed the kernel's own dz (its scratch, unpacked): within 1e-4 of
+    max per layer, the f32 sums over groups and ranges taken in another
+    order (each group's int32 sum is exact); the same bits over two runs."""
+    cfg, params, pts, dy = _setup(cuda, n_layers, d_filter, n)
+    L, H = n_layers, d_filter
+    with torch.no_grad():
+        _, hs, _ = fused_mlp.fused_mlp_stash_forward(cfg, params, pts, 'i8pair')
+        grads, dz = fused_mlp._stash_backward_launch(cfg, params, pts, dy, hs, None, 'i8pair',
+                                                     False, group)
+        again, _ = fused_mlp._stash_backward_launch(cfg, params, pts, dy, hs, None, 'i8pair',
+                                                    False, group)
+        dzs = fused_mlp.unpack_dz_scratch(dz, n, L, H).float()
+        for j in range(1, L):
+            ref = fused_mlp._dw_i8(hs[:, 2 * (j - 1) * H:2 * (j - 1) * H + H],
+                                   dzs[:, j * H:(j + 1) * H], group)
+            got = grads['w_h'][j - 1]
+            assert bool(torch.isfinite(got).all()) and float(ref.abs().max()) > 0
+            assert _rel(ref, got) <= 1e-4, (j, _rel(ref, got))
+    torch.cuda.synchronize()
+    for k in KEYS:
+        assert torch.equal(grads[k], again[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('gate,n_layers,d_filter,n', [
+    ('lsb', 3, 64, 1000), ('lsb', 8, 512, 4097), ('bf16', 3, 64, 1000), ('bf16', 8, 512, 4097),
+])
+def test_16bit_gates_through_the_ring_match_plain_versions(cuda, monkeypatch, gate, n_layers,
+                                                           d_filter, n):
+    """The 16-bit gates through the chain kernel's weight ring (two stages of
+    [32 x 64] boxes a layer, at H = 64 their own box path): 'lsb' (K6a, the
+    packed sines decoded in place under the last products) with its dz
+    scratch per layer and every gradient against the plain backward, and
+    K4's bf16 cos (over two recompute chunks) against its plain version:
+    within 3e-2 of max (dpts 5e-2), the same bits over two runs."""
+    cfg, params, pts, dy = _setup(cuda, n_layers, d_filter, n)
+    with torch.no_grad():
+        if gate == 'lsb':
+            _, hs, _ = fused_mlp.fused_mlp_stash_forward(cfg, params, pts, 'lsb')
+            grads, dz = fused_mlp._stash_backward_launch(cfg, params, pts, dy, hs, None, 'lsb',
+                                                         True, fused_mlp.STASH_BWD_TILE)
+            again, _ = fused_mlp._stash_backward_launch(cfg, params, pts, dy, hs, None, 'lsb',
+                                                        True, fused_mlp.STASH_BWD_TILE)
+            dzs = []
+            ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, params, pts, dy, hs, None, 'lsb',
+                                                          True, dzs=dzs)
+            got = fused_mlp.unpack_dz_scratch(dz, n, n_layers, d_filter).float()
+            for j, want in enumerate(dzs):
+                layer = got[:, j * d_filter:(j + 1) * d_filter]
+                assert _rel(want, layer) <= 3e-2, (j, _rel(want, layer))
+        else:
+            monkeypatch.setattr(fused_mlp, 'RECOMPUTE_CHUNK', 64 * (-(-n // 128)))
+            grads = fused_mlp.fused_mlp_recompute_backward(cfg, params, pts, dy)
+            again = fused_mlp.fused_mlp_recompute_backward(cfg, params, pts, dy)
+            ref = fused_mlp.fused_mlp_recompute_bwd_reference(cfg, params, pts, dy)
+    torch.cuda.synchronize()
+    for k in KEYS:
+        assert bool(torch.isfinite(grads[k]).all()), k
+        assert _rel(ref[k], grads[k]) <= 3e-2, (k, _rel(ref[k], grads[k]))
+        assert torch.equal(grads[k], again[k]), k
+    assert _rel(ref['dpts'], grads['dpts']) <= 5e-2
+
+
+@pytest.mark.gpu
+def test_lsb_gate_decode_on_the_card_matches_plain_on_every_pattern(cuda):
+    """The chain kernel's 'lsb' gate decode (lsb_cos_table: 1 and 0 outside
+    the 512 values of the table the block builds with rounded square roots)
+    on all 65,536 16-bit patterns against its plain version (held to JAX's
+    _unpack_sin_cos on the CPU): the same bits, NaN where NaN."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    got = fused_mlp.lsb_cos_decode(bits.to(cuda)).cpu()
+    want = fused_mlp.lsb_cos_decode(bits)
+    nan = torch.isnan(want.view(torch.bfloat16).float())
+    assert torch.equal(torch.isnan(got.view(torch.bfloat16).float()), nan)
+    assert torch.equal(got[~nan], want[~nan])
