@@ -87,16 +87,19 @@ Phases (the first failure ends the run with a non-zero exit):
              at 256x256 by SuNeRFLoader(device='cuda'): 32 K0 launches, 16
              through the grid branch; the image within 3e-2 of max of the
              render through the plain version; render time.
- 12. dpts    K1 + K2 with the point cotangent K3 at 8x512, N = 196,608, and
-             4x128, N = 20,480: dpts within 5e-2 of max of the plain version;
-             the parameter gradients bit-identical to K2's without K3; K3's
-             cost as K2-with-dpts minus K2.
+ 12. dpts    K1 + K2 with the point cotangent K3 at 8x512, N = 196,608
+             (d_input 4 and 12), and 4x128, N = 20,480: dpts within 5e-2 of
+             max of the plain version; the parameter gradients bit-identical
+             to K2's without K3; K3's cost as K2-with-dpts minus K2; K2 + K3's
+             kernels by name.
  13. recompute  K0 + K4 (stash=False) at 8x512, N = 262,144 through the
              autograd Function: out bit-identical to the no-grad K0; every
              gradient within 3e-2 and dpts within 5e-2 of max of the plain
-             version; the growth of max_memory_allocated during the backward
-             at N and 2N, the same within 5% and under a quarter of the int8
-             stash path's forward + backward growth at N.
+             version; the same bits over two runs; K4 at d_input = 12 over
+             two chunks (N = 65,536) held the same way; the growth of
+             max_memory_allocated during the backward at N and 2N, the same
+             within 5% and under a quarter of the int8 stash path's forward
+             + backward growth at N; K4's kernels by name.
  14. lsb, i8pair  K6a / K6b at 8x512, N = 262,144: out bit-identical to K1's;
              the stash layer by layer (lsb within 1 bf16 ulp of the sine for
              99.9% with the sign bit off only where |cos| < 1e-3; i8pair
@@ -987,15 +990,18 @@ def _grid_serve_phase(train: dict, device) -> dict:
     return dict(launches=launches, render_ms=render_ms, err=err)
 
 
-def _setup_field(n_layers: int, width: int, n: int, device, seed: int):
-    """An emission field of the given widths, random weights, points in the
-    sampling shell and a dy, all from a seed."""
+def _setup_field(n_layers: int, width: int, n: int, device, seed: int, d_input: int = 4):
+    """An emission field of the given widths (and d_input: 4 is x, y, z,
+    t), random weights, points in the sampling shell and a dy, all from a
+    seed."""
     from sunerf_tpu_torch.models.fields import emission_config, init_nerf
-    cfg = emission_config(n_layers=n_layers, d_filter=width)
+    cfg = dataclasses.replace(emission_config(n_layers=n_layers, d_filter=width),
+                              d_input=d_input)
     gen = torch.Generator(device=device).manual_seed(seed)
     p = init_nerf(gen, cfg, device)
-    pts = torch.rand(n, 4, generator=gen, device=device) * 2.6 - 1.3
-    pts[:, 3] = torch.rand(n, generator=gen, device=device)
+    pts = torch.rand(n, d_input, generator=gen, device=device) * 2.6 - 1.3
+    if d_input == 4:
+        pts[:, 3] = torch.rand(n, generator=gen, device=device)
     dy = torch.randn(n, cfg.d_output, generator=gen, device=device)
     return cfg, p, pts, dy
 
@@ -1007,12 +1013,13 @@ def _dpts_flops(cfg, n: int) -> float:
     return float(n) * (2 * n_enc * cfg.d_filter + 8 * (n_enc - cfg.d_input))
 
 
-def _dpts_phase(name: str, n_layers: int, width: int, n: int, device) -> dict:
+def _dpts_phase(name: str, n_layers: int, width: int, n: int, device, d_input: int = 4) -> dict:
     """K1 + K2/K3 against the plain version: dpts, and the parameter
-    gradients bit-identical with and without K3; K3's cost."""
+    gradients bit-identical with and without K3; K3's cost; K2 + K3's
+    kernels by name."""
     from sunerf_tpu_torch.ops import fused_mlp
-    cfg, p, pts, dy = _setup_field(n_layers, width, n, device, seed=n + 11)
-    tag = f'[dpts] {name} {n_layers}x{width} N={n}'
+    cfg, p, pts, dy = _setup_field(n_layers, width, n, device, seed=n + 11, d_input=d_input)
+    tag = f'[dpts] {name} {n_layers}x{width} N={n} d_input={d_input}'
     _, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, p, pts)
     with_dpts = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs, compute_dpts=True)
     without = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs)
@@ -1038,6 +1045,8 @@ def _dpts_phase(name: str, n_layers: int, width: int, n: int, device) -> dict:
         cfg, p, pts, dy, hs, cs, compute_dpts=True), warmup=1, reps=3)
     plain_k2_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_stash_bwd_reference(
         cfg, p, pts, dy, hs, cs), warmup=1, reps=3)
+    kernels = _kernel_breakdown(lambda: fused_mlp.fused_mlp_stash_backward(
+        cfg, p, pts, dy, hs, cs, compute_dpts=True), f'{tag} K2 + K3')
     # K3's own work: read the points, write dpts
     bound = _bound(_dpts_flops(cfg, n), n * 4 * 2 * cfg.d_input)
     print(f'{tag}: K2 {k2_ms:.3f} ms ({" ".join(f"{v:.3f}" for v in k2_runs)}), K2 + K3 '
@@ -1045,7 +1054,8 @@ def _dpts_phase(name: str, n_layers: int, width: int, n: int, device) -> dict:
           f'{k23_ms - k2_ms:.3f} ms '
           f'(bound {bound[0]:.4f} by {bound[1]}); plain K2 + K3 {plain_ms:.1f} ms, plain '
           f'K3 {plain_ms - plain_k2_ms:.1f} ms', flush=True)
-    return dict(n=n, layers=n_layers, width=width, k2_ms=k2_ms, k2_k3_ms=k23_ms,
+    return dict(n=n, layers=n_layers, width=width, d_input=d_input, k2_ms=k2_ms,
+                k2_k3_ms=k23_ms, kernels_ms=kernels,
                 k2_runs=k2_runs, k2_k3_runs=k23_runs,
                 ms=k23_ms - k2_ms, plain_ms=plain_ms - plain_k2_ms, plain_k2_k3_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1], max_abs_err=derr['max_abs_err'],
@@ -1147,6 +1157,15 @@ def _recompute_phase(n: int, device) -> dict:
         _check(e['max_rel_err'] <= tol, f"{tag}: {k} vs plain {e['max_rel_err']:.3e} (tol {tol})")
     del got, ref, out, leaves, x
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        first = fused_mlp.fused_mlp_recompute_backward(cfg, p, pts, dy)
+        again = fused_mlp.fused_mlp_recompute_backward(cfg, p, pts, dy)
+        torch.cuda.synchronize()
+        twice = {k: bool(torch.equal(first[k], again[k])) for k in first}
+    print(f'{tag}: K4 the same bits over two runs: {twice}', flush=True)
+    _check(all(twice.values()), f'{tag}: K4 gave other bits the second time: {twice}')
+    del first, again
+    d12 = _recompute_any_d(65536, device)
 
     # memory: K4's backward at N and 2N, the int8 stash path's forward +
     # backward at N
@@ -1193,7 +1212,38 @@ def _recompute_phase(n: int, device) -> dict:
                 max_abs_err=max(e['max_abs_err'] for e in gerr.values()),
                 max_rel_err=max(e['max_rel_err'] for e in gerr.values()), grads=gerr,
                 out_equals_k0=same, memory_bytes=grow, memory_2n_vs_n=rel,
-                kernels_ms=k4_kernels)
+                kernels_ms=k4_kernels, same_bits_twice=twice, d_input_12=d12)
+
+
+def _recompute_any_d(n: int, device, d_input: int = 12) -> dict:
+    """K4 at 8x512 with d_input = 12 over two chunks: every gradient
+    within 3e-2 and dpts [N, 12] within 5e-2 of max of the plain version,
+    the same bits over two runs; its kernels by name."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    cfg, p, pts, dy = _setup_field(8, 512, n, device, seed=12, d_input=d_input)
+    tag = f'[recompute] 8x512 N={n} d_input={d_input}'
+    with torch.no_grad():
+        got = fused_mlp.fused_mlp_recompute_backward(cfg, p, pts, dy)
+        again = fused_mlp.fused_mlp_recompute_backward(cfg, p, pts, dy)
+        ref = fused_mlp.fused_mlp_recompute_bwd_reference(cfg, p, pts, dy)
+        torch.cuda.synchronize()
+    gerr = _grad_err(ref, got)
+    twice = all(torch.equal(got[k], again[k]) for k in got)
+    print(f'{tag}: K4 vs plain, max / RMS: ' + '; '.join(
+        f"{k} {e['max_rel_err']:.2e} / {e['rms_rel_err']:.2e}" for k, e in gerr.items())
+        + f'; the same bits over two runs: {twice}', flush=True)
+    _check(tuple(got['dpts'].shape) == (n, d_input), f'{tag}: dpts shape {tuple(got["dpts"].shape)}')
+    for k, e in gerr.items():
+        _check(bool(torch.isfinite(got[k]).all()), f'{tag}: {k} not finite')
+        tol = DPTS_TOL if k == 'dpts' else GRAD_TOL
+        _check(e['max_rel_err'] <= tol, f"{tag}: {k} vs plain {e['max_rel_err']:.3e} (tol {tol})")
+    _check(twice, f'{tag}: K4 gave other bits the second time')
+    del got, again, ref
+    ms = _cuda_ms(lambda: fused_mlp.fused_mlp_recompute_backward(cfg, p, pts, dy), reps=5)
+    kernels = _kernel_breakdown(lambda: fused_mlp.fused_mlp_recompute_backward(cfg, p, pts, dy),
+                                f'{tag} K4')
+    return dict(n=n, d_input=d_input, ms=ms, grads=gerr, same_bits_twice=twice,
+                kernels_ms=kernels)
 
 
 def _format_phase(fmt: str, n: int, device) -> dict:
@@ -1581,7 +1631,7 @@ def main() -> int:
     # variants of the stashing backward, one nvcc each, all at once
     from sunerf_tpu_torch.scripts.backward_ablation import VARIANTS
     builds = [(k, ()) for k in KERNELS] + [('fused_mlp_stash_bwd', d)
-                                           for _, d in VARIANTS['lsb'] if d]
+                                           for _, d, _ in VARIANTS['lsb'] if d]
     with ThreadPoolExecutor(len(builds)) as pool:
         built = list(pool.map(lambda b: build.build(*b), builds))
     print(f'[build] {", ".join(KERNELS)} and {len(builds) - len(KERNELS)} ablation variants: '
@@ -1784,7 +1834,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with torch.no_grad():
         dpts_rows = {'fine': _dpts_phase('fine', 8, 512, 1024 * 192, device),
-                     'proposal': _dpts_phase('proposal', 4, 128, 1024 * 20, device)}
+                     'proposal': _dpts_phase('proposal', 4, 128, 1024 * 20, device),
+                     'fine_d12': _dpts_phase('fine', 8, 512, 1024 * 192, device, d_input=12)}
     torch.cuda.empty_cache()
     recompute = _recompute_phase(262144, device)
     torch.cuda.empty_cache()

@@ -23,9 +23,10 @@
 //      to a scratch [tiles][L][64 x H] (one 64 KB bulk copy a tile and layer
 //      at 8x512) for the dW products; db_j are column sums of the buffer in
 //      a fixed order, into per tile f32 partials. With kDpts it ends with
-//      the point cotangent (K3, one more
-//      wgmma against W_in[:n_enc]^T from the ring); with grid levels with
-//      the grid cotangent (K5). 'i8pair': each point's max |dz_j| too.
+//      the point cotangent (K3: one more product against W_in^T, its
+//      columns by dimension, from whole ring stages, for any d_input); with
+//      grid levels with the grid cotangent (K5). 'i8pair': each point's
+//      max |dz_j| too.
 //   2. K5 only: grid_scatter_kernel and grid_convert_kernel.
 //   3. 'i8pair' only: dz_group_max_kernel, each group's max |dz_j| from the
 //      points'.
@@ -49,8 +50,10 @@
 //      partials of its own, so neither kernel's split count sizes the
 //      other's partials.
 //   5. reduce_kernel: the partials summed over tiles and splits in a fixed
-//      order (added to the running sums with `accumulate`, for K4's
-//      chunks), so a run gives the same bits as the last; no atomics.
+//      order, so a run gives the same bits as the last. K4 runs 0-4 once a
+//      chunk with each partial slot adding the chunk's sum to what it
+//      holds (acc_parts; an L2 reduction with one writer a slot a launch,
+//      so the same order every run) and reduces once after the last.
 // Rows past n are masked in every kernel: they load as zeros (dz) or are
 // multiplied by zero rows of dz, and are never stored.
 //
@@ -81,7 +84,6 @@ namespace {
 namespace hp = sunerf::hopper;
 
 constexpr int kMaxOut = 4;        // d_out the chain kernel takes
-constexpr int kMaxDpts = 8;       // d_in the point cotangent takes
 constexpr int kRows = 64;         // points a chain tile and a dW chunk
 constexpr int kKC = 32;           // weight rows (k) per ring chunk
 constexpr int kConsumerWarps = 8; // two warpgroups
@@ -91,8 +93,7 @@ constexpr int kMaxStages = 32;
 constexpr int kRowGroups = kRows / 8;
 constexpr size_t kSmemLimit = 232448;   // a block's shared memory on sm_90
 // the chain kernel's head: barriers [0, 512), block maxima [512, 640),
-// then dy [64][d_out] f32 at 1024 and the 'lsb' decode table at 2048, both
-// later K3's [64][kMaxDpts] f32 at 1024
+// then dy [64][d_out] f32 at 1024 and the 'lsb' decode table at 2048
 constexpr int kChainHead = 3072;
 constexpr int kLsbTableAt = 2048;
 constexpr int kDwBar = 1024;      // the dW kernel's barriers, before its stages
@@ -112,7 +113,10 @@ enum Gate : int { kGateInt8 = 0, kGateBf16 = 1, kGateLsb = 2, kGateI8pair = 3 };
 // 1 = loaded but not decoded (its bits taken as a bf16 gate), 2 = decoded
 // but not loaded (no gate boxes copied; bits made from each element's row
 // and column); 'i8pair' 3 = dw_i8_wgmma_kernel without its operand builds,
-// 4 = without its products, 5 = the chain kernel without its row maxima.
+// 4 = without its products, 5 = the chain kernel without its row maxima;
+// K4 6 = its forward without the hs / cs stores (fused_mlp_fwd_wgmma.cuh),
+// 7 = without its reductions; K3 8 = the tail's products without its
+// epilogue, 9 = the epilogue without the products.
 #ifndef SUNERF_ABLATION
 #define SUNERF_ABLATION 0
 #endif
@@ -131,7 +135,9 @@ struct BwdParams {
   size_t gate_ld;               // its row stride, elements
   int gate_layer;               // elements from one layer's gate to the next
   const __nv_bfloat16* w_bwd;   // [L-1][H/32][32 x H] pack_wgmma_bwd: w_h[j]^T chunks
-  const __nv_bfloat16* w_dpts;  // K3: pack_wgmma_dpts: w_in[:n_enc]^T chunks, or null
+  const __nv_bfloat16* w_dpts;  // K3: pack_wgmma_dpts: w_in's columns by dimension, or null
+  const int* dpts_pairs;        // K3: [dpts_cols / 2] what each column pair of the pack holds
+  const int* dpts_gdim;         // K3: [dpts_cols / 8] the dimension of each 8-column group
   const __nv_bfloat16* w_out;   // [d_out][H]
   __nv_bfloat16* dz;            // [tiles][L][64 x H] scratch, core-matrix order
   __nv_bfloat16* enc;           // [n, e_pad] scratch
@@ -147,7 +153,8 @@ struct BwdParams {
   unsigned long long* gacc;     // [sum G^3 F] fixed-point sums, zeroed
   float* grad_grid;             // [sum G^3 F]: d_table of each level
   float* dpts;                  // K3: [n, d_in], or null
-  int n_enc;                    // K3: encoding columns x, sin, cos (d_in + 2 n_cols)
+  int dpts_cols;                // K3: the pack's columns, a multiple of its chunk's
+  int acc_parts;                // 1: add to the partials (K4's chunks after the first)
   CUtensorMap hs8_map;          // 'i8pair': the int8 pairs [n, 2 L H], dw_i8_wgmma_kernel's A
   float* dz_rowmax;             // 'i8pair': [L-1][n][2] max |dz_j| of each point, j >= 1
   float* dz_max;                // 'i8pair': [n_groups][L-1] max |dz_j| of each group
@@ -188,8 +195,7 @@ __device__ __forceinline__ uint32_t lsb_cos_bits(uint32_t bits) {
 // and on h & 1 for its sign. |s| < 2^-4 (a < 0x3D80) rounds to 1, |s| >= 1
 // (a in [0x3F80, 0x7F80]) gives 0 and a NaN s NaN (as JAX's max(NaN, 0)
 // does); the 512 a in between are a 1 KB table of lsb_cos_bits' magnitudes
-// in shared memory, built by the block (every tile, as K3's scratch shares
-// its place). The same bits as _unpack_sin_cos on every pattern
+// in shared memory, built by the block every tile. The same bits as _unpack_sin_cos on every pattern
 // (ops/fused_mlp.py lsb_cos_decode, held to the card's lsb_decode_kernel
 // on all 65,536).
 constexpr uint32_t kLsbLo = 0x3D80u;
@@ -289,6 +295,20 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
   if (lane == 0) hp::mbar_arrive(empty);
 }
 
+// A partial sum into its slot: written, or with `acc` (K4's chunks after
+// the first) added to what the slot holds by a reduction in L2 (red.add,
+// round to nearest; the thread does not wait for it, where a load of the
+// slot stalled the chain kernel's consumers once per column pair): each
+// slot has one writer a launch and the launches run in order, so each slot
+// sums its chunks in order, the same bits every run, and one reduction at
+// the end takes the slots.
+__device__ __forceinline__ void put_part(float* at, float v, bool acc) {
+  if (acc)
+    atomicAdd(at, v);
+  else
+    *at = v;
+}
+
 // The tile's recomputed encoding [x, sin u, cos u, grid features, zeros]
 // as bf16 rows of the scratch [n, e_pad], as the forward computes it: cos
 // u = sin(u + pi/2), as the TPU kernel's fast_cos.
@@ -349,15 +369,15 @@ __device__ __forceinline__ void dw_out_partial(const BwdParams& p, int row0, int
 #pragma unroll
     for (int o = 0; o < kMaxOut; ++o) {
       if (o < d_out) {
-        part[m * d_out + o] = acc[o][0];
-        part[(m + 1) * d_out + o] = acc[o][1];
+        put_part(part + m * d_out + o, acc[o][0], p.acc_parts);
+        put_part(part + (m + 1) * d_out + o, acc[o][1], p.acc_parts);
       }
     }
   }
   if (threadIdx.x < d_out) {
     float s = 0.f;
     for (int r = 0; r < kRows; ++r) s += sdy[r * d_out + threadIdx.x];
-    part[d_out * H + threadIdx.x] = s;
+    put_part(part + d_out * H + threadIdx.x, s, p.acc_parts);
   }
 }
 
@@ -428,16 +448,16 @@ __device__ __forceinline__ void first_dz(const BwdParams& p, const float* sdy, c
     }
     sum_rows(s0, s1);
     if (g == 0) {
-      db[col] = s0;
-      db[col + 1] = s1;
+      put_part(db + col, s0, kGate == kGateBf16 && p.acc_parts);
+      put_part(db + col + 1, s1, kGate == kGateBf16 && p.acc_parts);
     }
   }
 }
 
-// db[c] = the sum of the buffer's column c over the 64 rows (dz_j, exact
+// db[c] (+)= the sum of the buffer's column c over the 64 rows (dz_j, exact
 // bf16 values), in the order of first_dz
 template <int H>
-__device__ __forceinline__ void column_sums(const __nv_bfloat16* act, float* db) {
+__device__ __forceinline__ void column_sums(const __nv_bfloat16* act, float* db, bool acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   for (int cg = warp; cg < H / 8; cg += kConsumerWarps) {
     const int col = 8 * cg + 2 * q;
@@ -451,8 +471,8 @@ __device__ __forceinline__ void column_sums(const __nv_bfloat16* act, float* db)
     }
     sum_rows(s0, s1);
     if (g == 0) {
-      db[col] = s0;
-      db[col + 1] = s1;
+      put_part(db + col, s0, acc);
+      put_part(db + col + 1, s1, acc);
     }
   }
 }
@@ -559,91 +579,147 @@ __device__ __forceinline__ void grid_cotangent(const BwdParams& p, const __nv_bf
 
 // K3, the point cotangent of the tile's rows (the compute_dpts=True branch
 // of _bwd_stash_kernel, and the tail of _bwd_kernel):
-//   denc = dz_0 bf16(W_in[:n_enc])^T, one more wgmma over the buffer per
-//          CW-column chunk of pack_wgmma_dpts's ring chunks (two warpgroups,
-//          CW / 2 columns each),
+//   denc = dz_0 bf16(W_in[:n_enc])^T,
 //   dpts[r, d] = denc[r, d] + sum over the phase columns j of dimension d
 //                of freq_j (cos u_j dsin_j - sin u_j dcos_j),
 // u_j = x[dim_j] freq_j in f32 and its sine and cosine by the kernels'
 // range-reduced polynomial (cos u = sin(u + pi/2), as in the encoding).
-// Each thread sums the terms of its accumulators per (row, dimension);
-// the lanes of a row meet by shuffles, the two warpgroups in `sdpts`
-// [64][kMaxDpts], warpgroup 0's sum first.
-template <int H, typename Take>
+// pack_wgmma_dpts orders W_in's columns by dimension (dpts_layout), each
+// dimension's segment [x_d, 0, (sin_j, cos_j) for its phases] in whole
+// 8-column groups, so a thread's column pair is one phase's (dsin, dcos)
+// and every group one dimension's (dpts_pairs, dpts_gdim); a segment does
+// not run across the halves of a chunk that the two warpgroups take where
+// it fits in one. Per chunk of CW columns the products are issued at once,
+// CW / 32 ring stages of H / CW k-chunks each, and waited for once; under
+// them run `during` (the caller's db_0 column sums) and the loads of each
+// pair's phase, frequency and coordinates. Then each thread sums its
+// pairs' terms per row and group, the 4 lanes of a group meet by shuffles,
+// and lane q = 0 writes each run of groups of one dimension to dpts: the
+// whole of that dimension's sum, or, where a segment runs across halves
+// (a dimension of more than CW / 2 columns), added in turn, warpgroup 0's
+// half, a barrier, warpgroup 1's. Either way each (point, dimension) sums
+// its groups in column order, the same bits every run, for any d_input.
+template <int H, typename Take, typename During>
 __device__ __forceinline__ void point_cotangent(const BwdParams& p, uint32_t a0, int row0,
                                                 Take&& take, uint64_t* empty, uint32_t ring0,
-                                                int stage_bytes, float* sdpts) {
-  constexpr int CW = H < 128 ? H : 128;   // encoding columns a chunk
+                                                int stage_bytes, During&& during) {
+  constexpr int CW = H < 128 ? H : 128;   // pack columns a chunk
   constexpr int NW = CW / 2;              // of them, each warpgroup's
+  constexpr int kStages = CW / 32;        // ring stages a chunk
+  constexpr int kPer = H / CW;            // k-chunks [32 x CW] a stage
+  constexpr int G = NW / 8;               // groups a warpgroup's half
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
-  const int D = p.d_in, nc = p.n_cols;
-  const int n_cc = (p.n_enc + CW - 1) / CW;
-  float dp[2][kMaxDpts] = {};
+  const int D = p.d_in;
+  const int n_cc = p.dpts_cols / CW;
+  // does a dimension's run of groups cross from one half to the next?
+  bool split = false;
+  for (int b = G; b < p.dpts_cols / 8; b += G) {
+    const int d = __ldg(p.dpts_gdim + b);
+    split |= d < D && __ldg(p.dpts_gdim + b - 1) == d;
+  }
+  int rows[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rows[r] = row0 + w4 * 16 + g + 8 * r;
   for (int cc = 0; cc < n_cc; ++cc) {
     float acc[NW / 2] = {};
-    for (int kc = 0; kc < H / kKC; ++kc) {
-      const int st = take();
-      const uint32_t b0 = ring0 + st * stage_bytes + wg * (NW / 8) * 128;
+    int st[kStages];
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      st[s] = take();
       hp::wgmma_fence();
 #pragma unroll
-      for (int s = 0; s < 2; ++s)
-        hp::wgmma_ss(acc, hp::make_desc(a0 + (4 * kc + 2 * s) * kRowGroups * 128,
-                                        kRowGroups * 128, 128),
-                     hp::make_desc(b0 + 2 * s * (CW / 8) * 128, (CW / 8) * 128, 128),
-                     kc > 0 || s > 0);
-      hp::wgmma_commit();
-      hp::wgmma_wait<0>();
-      hp::fence_regs(acc);
-      release(&empty[st], lane);
-    }
+      for (int c = 0; c < kPer; ++c) {
+        const int kc = s * kPer + c;   // rows 32 kc.. of W_in^T
+        const uint32_t b0 = ring0 + st[s] * stage_bytes + c * (kKC * CW * 2) + wg * (NW / 8) * 128;
 #pragma unroll
-    for (int jj = 0; jj < NW / 8; ++jj) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = cc * CW + wg * NW + 8 * jj + 2 * q + (i & 1);
-        const int gr = row0 + w4 * 16 + g + 8 * (i >> 1);
-        if (col >= p.n_enc || gr >= p.n) continue;
-        const float v = acc[4 * jj + i];
-        int d;
-        float t;
-        if (col < D) {
-          d = col;
-          t = v;
-        } else {
-          const int j = col < D + nc ? col - D : col - D - nc;
-          d = __ldg(p.col_dim + j);
-          const float f = __ldg(p.col_freq + j);
-          const float u = __fmul_rn(__ldg(p.pts + static_cast<size_t>(gr) * D + d), f);
-          t = col < D + nc ? __fmul_rn(__fmul_rn(fast_sin(__fadd_rn(u, kHalfPi)), v), f)
-                           : -__fmul_rn(__fmul_rn(fast_sin(u), v), f);
-        }
-#pragma unroll
-        for (int e = 0; e < kMaxDpts; ++e)
-          if (e == d) dp[i >> 1][e] += t;
+        for (int h = 0; h < 2; ++h)
+          if (SUNERF_ABLATION != 9)
+            hp::wgmma_ss(acc, hp::make_desc(a0 + (4 * kc + 2 * h) * kRowGroups * 128,
+                                            kRowGroups * 128, 128),
+                         hp::make_desc(b0 + 2 * h * (CW / 8) * 128, (CW / 8) * 128, 128),
+                         kc > 0 || h > 0);
       }
     }
+    hp::wgmma_commit();
+    // under the products: each pair's phase (or what else it holds), its
+    // frequency and the rows' coordinates of its dimension
+    const int grp0 = cc * (CW / 8) + wg * G;
+    int pr[G];
+    float fq[G], xv[G][2];
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) {
+      pr[jj] = __ldg(p.dpts_pairs + (grp0 + jj) * 4 + q);
+      const int j = max(pr[jj], 0);
+      fq[jj] = __ldg(p.col_freq + j);
+      const int d = __ldg(p.col_dim + j);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        xv[jj][r] = __ldg(p.pts + static_cast<size_t>(min(rows[r], p.n - 1)) * D + d);
+    }
+    if (cc == 0) during();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) release(&empty[st[s]], lane);
+    if (SUNERF_ABLATION == 8) continue;
+    // each group's sum over its 8 columns for the thread's two rows
+    float gs[G][2];
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float v0 = acc[4 * jj + 2 * r], v1 = acc[4 * jj + 2 * r + 1];
+        float t = 0.f;
+        if (pr[jj] >= 0) {
+          // v0 = dsin, v1 = dcos of the phase
+          const float u = __fmul_rn(xv[jj][r], fq[jj]);
+          t = __fsub_rn(__fmul_rn(__fmul_rn(fast_sin(__fadd_rn(u, kHalfPi)), v0), fq[jj]),
+                        __fmul_rn(__fmul_rn(fast_sin(u), v1), fq[jj]));
+        } else if (pr[jj] < -1) {
+          t = v0;   // x_d, its partner column zero
+        }
+        t += __shfl_xor_sync(0xffffffffu, t, 1);
+        t += __shfl_xor_sync(0xffffffffu, t, 2);
+        gs[jj][r] = t;
+      }
+    }
+    // the runs of groups of one dimension into dpts (split: warpgroup 0's
+    // half first)
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      if ((!split || wg == half) && q == 0) {
+        float run[2] = {0.f, 0.f};
+        int cur = __ldg(p.dpts_gdim + grp0), start = grp0;
+        auto flush = [&]() {
+          if (cur >= D) return;   // the zero groups after the last dimension
+          const bool first = start == 0 || __ldg(p.dpts_gdim + start - 1) != cur;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (rows[r] < p.n) {
+              float* at = p.dpts + static_cast<size_t>(rows[r]) * D + cur;
+              *at = first ? run[r] : __fadd_rn(*at, run[r]);
+            }
+          }
+        };
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) {
+          const int d = __ldg(p.dpts_gdim + grp0 + jj);
+          if (d != cur) {
+            flush();
+            cur = d;
+            start = grp0 + jj;
+            run[0] = run[1] = 0.f;
+          }
+          run[0] += gs[jj][0];
+          run[1] += gs[jj][1];
+        }
+        flush();
+      }
+      if (!split) break;
+      hp::named_sync(1, kConsumers);
+    }
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int e = 0; e < kMaxDpts; ++e) {
-      dp[r][e] += __shfl_xor_sync(0xffffffffu, dp[r][e], 1);
-      dp[r][e] += __shfl_xor_sync(0xffffffffu, dp[r][e], 2);
-    }
-  if (wg == 1 && q == 0)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      for (int e = 0; e < D; ++e) sdpts[(w4 * 16 + g + 8 * r) * kMaxDpts + e] = dp[r][e];
-  hp::named_sync(1, kConsumers);
-  if (wg == 0 && q == 0)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = w4 * 16 + g + 8 * r;
-      if (row0 + row < p.n)
-        for (int e = 0; e < D; ++e)
-          p.dpts[static_cast<size_t>(row0 + row) * D + e] = dp[r][e] + sdpts[row * kMaxDpts + e];
-    }
 }
 
 template <int H, int kGate, bool kDpts>
@@ -654,6 +730,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
   // 16-bit gate: H / 64 boxes [32 rows][64 columns] in each of two
   constexpr bool k16 = kGate == kGateBf16 || kGate == kGateLsb;
   constexpr bool kRowMax = kGate == kGateI8pair;
+  constexpr bool kAcc = kGate == kGateBf16;   // K4: partials added chunk to chunk
   constexpr int kGateBoxes = k16 ? H / 64 : H < kGateBox ? 1 : H / kGateBox;
   constexpr int kGateCols = k16 ? 64 : H < kGateBox ? H : kGateBox;
   constexpr int kGateRows = k16 ? kRows / 2 : kRows;
@@ -672,7 +749,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
   const int L = p.n_hidden + 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tiles = (p.n + kRows - 1) / kRows;
-  const int n_cc = kDpts ? (p.n_enc + CW - 1) / CW : 0;
+  const int n_cc = kDpts ? p.dpts_cols / CW : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -740,9 +817,10 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
           put_chunk(wb + (static_cast<size_t>(j - 1) * nk + kc) * kChunkBytes, kChunkBytes);
         put_gate(row0, j - 1);
       }
+      // K3: a chunk of CW columns of W_in^T is CW / 32 whole stages
       for (int cc = 0; cc < n_cc; ++cc)
-        for (int kc = 0; kc < nk; ++kc)
-          put_chunk(we + (static_cast<size_t>(cc) * nk + kc) * (kKC * CW * 2), kKC * CW * 2);
+        for (int s = 0; s < CW / 32; ++s)
+          put_chunk(we + (static_cast<size_t>(cc) * (CW / 32) + s) * SB, SB);
       // the next tile's first gate into L2
       if (w + gridDim.x < tiles) prefetch_gate((w + gridDim.x) * kRows, L - 1);
     }
@@ -816,7 +894,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
           hp::wgmma_commit();
           // db_j, the column sums of dz_j, while its first products run
           // (db_{L-1} came with dz_{L-1}); 'i8pair': each row's max |dz_j|
-          if (kc == 0 && j < L - 1) column_sums<H>(act, part_db + j * H);
+          if (kc == 0 && j < L - 1) column_sums<H>(act, part_db + j * H, kAcc && p.acc_parts);
           if (kRowMax && kc == 0 && j == L - 1 && SUNERF_ABLATION != 5)
             row_maxima<H>(act, p.dz_rowmax + static_cast<size_t>(j - 1) * 2 * p.n, row0, p.n);
           hp::wgmma_wait<2>();
@@ -877,9 +955,12 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
       }
       // the buffer holds dz_0: db_0, and the tails read it beside the copy
       // engine
-      if (L > 1) column_sums<H>(act, part_db);
+      auto db0 = [&]() {
+        if (L > 1) column_sums<H>(act, part_db, kAcc && p.acc_parts);
+      };
+      if constexpr (kDpts) point_cotangent<H>(p, a0, row0, take, empty, ring0, SB, db0);
+      else db0();
       if (p.grid.n_levels > 0) grid_cotangent<H>(p, act, row0, block_max);
-      if constexpr (kDpts) point_cotangent<H>(p, a0, row0, take, empty, ring0, SB, scratch);
       if (threadIdx.x == 0) hp::bulk_wait_read();
       hp::named_sync(1, kConsumers);
     }
@@ -1056,9 +1137,16 @@ __global__ void __launch_bounds__(kThreads, 1) dw_wgmma_kernel(const __grid_cons
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = mtile * kDwTM + wg * 64 + w4 * 16 + g + 8 * r;
-          if (row < m_rows)
-            *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * H + col) =
-                make_float2(acc[4 * jj + 2 * r], acc[4 * jj + 2 * r + 1]);
+          if (row < m_rows) {
+            // K4's chunks after the first add to the split's partials (see
+            // put_part)
+            float2* at = reinterpret_cast<float2*>(out + static_cast<size_t>(row) * H + col);
+            const float2 v = make_float2(acc[4 * jj + 2 * r], acc[4 * jj + 2 * r + 1]);
+            if (p.acc_parts)
+              atomicAdd(at, v);
+            else
+              *at = v;
+          }
         }
       }
     }
@@ -1418,11 +1506,9 @@ __global__ void __launch_bounds__(kConsumers) lsb_decode_kernel(const uint16_t* 
   if (i < n) out[i] = static_cast<uint16_t>(lsb_cos_table(table, in[i]));
 }
 
-// out[e] (+)= sum over s < S of part[s][e], in a fixed order: 8 interleaved
-// sequential sums per element, then those 8 in order; with `accumulate`
-// the total is added to out[e].
-__global__ void reduce_kernel(const float* part, int S, size_t P, float* out,
-                              int accumulate) {
+// out[e] = sum over s < S of part[s][e], in a fixed order: 8 interleaved
+// sequential sums per element, then those 8 in order.
+__global__ void reduce_kernel(const float* part, int S, size_t P, float* out) {
   __shared__ float red[8][33];
   const size_t e = static_cast<size_t>(blockIdx.x) * 32 + threadIdx.x;
   float s = 0.f;
@@ -1434,14 +1520,13 @@ __global__ void reduce_kernel(const float* part, int S, size_t P, float* out,
     float total = 0.f;
 #pragma unroll
     for (int y = 0; y < 8; ++y) total += red[y][threadIdx.x];
-    out[e] = accumulate ? out[e] + total : total;
+    out[e] = total;
   }
 }
 
-cudaError_t launch_reduce(const float* part, int S, size_t P, float* out, bool accumulate,
-                          cudaStream_t stream) {
+cudaError_t launch_reduce(const float* part, int S, size_t P, float* out, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((P + 31) / 32));
-  reduce_kernel<<<grid, dim3(32, 8), 0, stream>>>(part, S, P, out, accumulate ? 1 : 0);
+  reduce_kernel<<<grid, dim3(32, 8), 0, stream>>>(part, S, P, out);
   return cudaGetLastError();
 }
 
@@ -1469,14 +1554,16 @@ cudaError_t launch_chain(BwdParams p, cudaStream_t stream) {
   static int max_blocks = 0;
   cudaError_t err = persistent_blocks(chain_wgmma_kernel<H, kGate, kDpts>, max_blocks);
   if (err != cudaSuccess) return err;
-  // a stage holds a weight chunk [32 x H] bf16, a K3 chunk [32 x CW] bf16,
+  // a stage holds a weight chunk [32 x H] bf16, H / CW of K3's [32 x CW],
   // an int8 gate tile [64, H] or half a 16-bit one [32, H]; a 16-bit gate is
   // taken while two chunks are in flight (4 stages)
   p.stage_bytes = kKC * H * 2;
   const size_t fixed = kChainHead + static_cast<size_t>(kRows) * H * 2;
   p.stages = static_cast<int>((kSmemLimit - fixed) / p.stage_bytes);
   if (p.stages > kMaxStages) p.stages = kMaxStages;
-  if (p.stages < (kGate == kGateBf16 || kGate == kGateLsb ? 4 : 3))
+  // K3 takes a chunk's CW / 32 stages at once
+  if (p.stages < (kGate == kGateBf16 || kGate == kGateLsb ? 4 : 3) ||
+      (kDpts && p.stages < (H < 128 ? H : 128) / 32))
     return cudaErrorInvalidConfiguration;
   const int tiles = (p.n + kRows - 1) / kRows;
   prep_kernel<<<tiles, kConsumers, 0, stream>>>(p);
@@ -1580,13 +1667,23 @@ inline bool bwd_ok(const BwdParams& p) {
   return p.n > 0 && p.e_pad % 16 == 0 && p.d_out >= 1 && p.d_out <= kMaxOut &&
          p.n_hidden >= 0 && p.splits >= 1 && p.pps > 0 && p.pps % kRows == 0 &&
          static_cast<long long>(p.splits) * p.pps >= p.n &&
-         (p.dpts == nullptr || (p.w_dpts != nullptr && p.d_in <= kMaxDpts));
+         (p.dpts == nullptr ||
+          (p.w_dpts != nullptr && p.dpts_pairs != nullptr && p.dpts_gdim != nullptr &&
+           p.dpts_cols > 0 && p.dpts_cols % (p.h < 128 ? p.h : 128) == 0));
 }
 
-// The launches after the chain kernel (see the top of this file): K5's
-// scatter and conversion, the i8pair maxima, the dW products and the two
-// reductions, added to the gradients already there with `accumulate`.
-inline cudaError_t launch_after_chain(const BwdParams& p, bool accumulate, cudaStream_t s) {
+// The per-tile partials over `n_tiles` tile slots and the per-split dW
+// partials reduced into the gradients.
+inline cudaError_t launch_reductions(const BwdParams& p, int n_tiles, cudaStream_t s) {
+  const cudaError_t err = launch_reduce(p.part_chain, n_tiles, p.q, p.grad_chain, s);
+  if (err != cudaSuccess) return err;
+  return launch_reduce(p.part_dw, p.splits, p.dw_ld, p.grad_dw, s);
+}
+
+// The launches after the chain kernel of a stashing backward (see the top
+// of this file): K5's scatter and conversion, the i8pair maxima, the dW
+// products and the reductions.
+inline cudaError_t launch_after_chain(const BwdParams& p, cudaStream_t s) {
   cudaError_t err;
   const int n = p.n;
   const int L = p.n_hidden + 1;
@@ -1622,8 +1719,7 @@ inline cudaError_t launch_after_chain(const BwdParams& p, bool accumulate, cudaS
     if (L > 1) {
       err = i8_tn(p.h) == 128 ? launch_dw_i8_tn<128>(p, s) : launch_dw_i8_tn<64>(p, s);
       if (err != cudaSuccess) return err;
-      err = launch_reduce(p.part_i8, p.splits8, p.p - p.dw_ld, p.grad_dw + p.dw_ld, accumulate,
-                          s);
+      err = launch_reduce(p.part_i8, p.splits8, p.p - p.dw_ld, p.grad_dw + p.dw_ld, s);
       if (err != cudaSuccess) return err;
     }
   } else {
@@ -1631,10 +1727,7 @@ inline cudaError_t launch_after_chain(const BwdParams& p, bool accumulate, cudaS
     if (err != cudaSuccess) return err;
   }
 
-  const int n_tiles = (n + kRows - 1) / kRows;
-  err = launch_reduce(p.part_chain, n_tiles, p.q, p.grad_chain, accumulate, s);
-  if (err != cudaSuccess) return err;
-  return launch_reduce(p.part_dw, p.splits, p.dw_ld, p.grad_dw, accumulate, s);
+  return launch_reductions(p, (n + kRows - 1) / kRows, s);
 }
 
 }  // namespace

@@ -57,8 +57,8 @@
 //     the buffer itself; what differs from it goes to a staging tile beside
 //     it, in the same columns of 16-byte pieces [bytes / 16][64 rows][16]:
 //     K1's int8 cos (64 H bytes, 32 KB at H = 512, so the ring has 4
-//     stages), K6a's packed sin, K6b's int8 sin and cos and K4's bf16 cos
-//     (128 H bytes, 3 stages). After the epilogue's barrier every consumer
+//     stages), K6a's packed sin, K6b's int8 sin and cos (128 H bytes, 3
+//     stages); K4's bf16 cos below. After the epilogue's barrier every consumer
 //     thread copies 16-byte pieces, a warp 4 core matrices: 8 rows by 64
 //     contiguous bytes a store (whole sectors), under an L2 evict-first
 //     policy while the weights load under evict-last (the 2.4 GB stash
@@ -87,7 +87,19 @@
 //   * the head is one more ring chunk, w_out^T [H, 8] (d_out padded): 16
 //     wgmma m64n8k16 over the last activations, f32 sums;
 //   * persistent blocks, one an SM, walk the tiles; rows past n encode as
-//     zeros and are never stored.
+//     zeros and are never stored;
+//   * K4 (kStashBf16Cos, tma_stash): the buffer and the bf16 cos staging
+//     tile lie in the 128-byte swizzle, blocks of 64 columns [64 rows][128
+//     bytes], so after each epilogue one thread hands both to the copy
+//     engine as 2 H / 64 TMA tensor stores, boxes [64 rows][64 columns] of
+//     the stash's tensor maps (rows past n not written), which run under
+//     the next layer's products; its wait for their reads comes just before
+//     the next epilogue (or encode) writes the tiles, and A's descriptors
+//     take the swizzle. With the two 64 KB tiles its weights come in 16-row
+//     chunks, 6 stages at H = 512. The consumers' own 16-byte copies took
+//     1.39 ms of the 5.41 that K4's 8 forwards took at 8x512, N = 262,144,
+//     and 3 stages of 32-row chunks left 1.8 ms above K0's work
+//     (scripts/backward_ablation.py --fmt recompute, H100 80GB HBM3, 700 W).
 // What holds it above the bound: between a layer's products and the next
 // layer's, the epilogue's 128 range-reduced sines a thread run on the CUDA
 // cores while the tensor cores wait (at 8x512, N = 245,760: 1.0e9 sines of
@@ -99,7 +111,18 @@
 #include "fused_mlp_common.cuh"
 #include "hopper.cuh"
 
+// Measurement only (see fused_mlp_backward.cuh): 6 = K4's recompute
+// forward without its hs / cs stores
+#ifndef SUNERF_ABLATION
+#define SUNERF_ABLATION 0
+#endif
+
+// Internal linkage (the anonymous namespace): each library that includes
+// this header keeps its own launch state (launch_width's block count and
+// shared-memory attribute), also two variants of one source loaded in one
+// process (a weak template's static local would be one object for both).
 namespace sunerf {
+namespace {
 namespace fwd {
 
 namespace hp = sunerf::hopper;
@@ -115,6 +138,8 @@ constexpr size_t kSmemLimit = 232448; // a block's shared memory on sm_90
 constexpr int kHeadN = 8;             // the head's wgmma width: d_out up to 8, padded
 
 struct Params {
+  CUtensorMap hs_map;        // K4: the bf16 sin stash [n, L*H], boxes [64 rows][64 columns]
+  CUtensorMap cs_map;        // K4: the bf16 cos stash, the same
   const float* pts;          // [n, d_in]
   const int* col_dim;        // [n_cols]
   const float* col_freq;     // [n_cols]
@@ -128,16 +153,28 @@ struct Params {
   GridParams grid;
   int n, d_in, n_cols, n_hidden, d_out;
   int k_in;                  // the input layer's rows: e_pad rounded up to 32
-  int act_k;                 // activation buffer width: max(H, k_in)
+  int act_k;                 // activation buffer width: max(H, k_in) (K4: to 64)
   int stages;                // ring stages
   int resident;              // 1: every chunk of the weights has its own stage
 };
 
 constexpr int kColumn = kRows * 16;   // bytes of a column of core matrices
 
-// Byte offset of (row, col) in the activation buffer: wgmma's no-swizzle
-// K-major core matrices, a column of them (8 columns) 1 KB
+// K4's format keeps its activations and its cos staging tile in the
+// 128-byte swizzle, so that the copy engine stores them as whole boxes,
+// and, with those two tiles filling 128 KB at H = 512, streams its weights
+// in 16-row ring chunks (6 stages where 32-row chunks left 3)
+__host__ __device__ constexpr bool tma_stash(int fmt) { return fmt == kStashBf16Cos; }
+__host__ __device__ constexpr int ring_rows(int fmt) { return fmt == kStashBf16Cos ? 16 : kKC; }
+
+// Byte offset of (row, col) in the activation buffer (and K4's staging
+// tile): wgmma's no-swizzle K-major core matrices, a column of them (8
+// columns) 1 KB; with kSw (K4) blocks of 64 columns [64 rows][128 bytes] in
+// the 128-byte swizzle, 8 KB each, as a TMA box [64 x 64] of a bf16 stash
+// lies in shared memory
+template <bool kSw = false>
 __device__ __forceinline__ int act_at(int row, int col) {
+  if constexpr (kSw) return (col >> 6) * (kRows * 128) + hp::swizzle128(row, (col & 63) * 2);
   return hp::core_offset(row, col, kRows / 8) * 2;
 }
 
@@ -158,6 +195,7 @@ __host__ __device__ constexpr int staging_bytes(int H, int fmt) {
 // it: consumer thread t takes row t % 64 and a quarter of each kind of
 // column (t / 64 + 4 i), reading its point's coordinates through L1; each
 // phase u gives its sin and its cos column.
+template <bool kSw>
 __device__ __forceinline__ void encode(const Params& p, int row0, unsigned char* dst) {
   const int r = threadIdx.x & (kRows - 1);
   const int part = threadIdx.x / kRows;
@@ -166,7 +204,7 @@ __device__ __forceinline__ void encode(const Params& p, int row0, unsigned char*
   const bool valid = gr < p.n;
   const float* xp = p.pts + static_cast<size_t>(valid ? gr : 0) * p.d_in;
   auto put = [&](int c, float v) {
-    *reinterpret_cast<__nv_bfloat16*>(dst + act_at(r, c)) = __float2bfloat16_rn(v);
+    *reinterpret_cast<__nv_bfloat16*>(dst + act_at<kSw>(r, c)) = __float2bfloat16_rn(v);
   };
   if (part == 0)
     for (int a = 0; a < p.d_in; ++a) put(a, valid ? __ldg(xp + a) : 0.f);
@@ -219,9 +257,11 @@ __device__ __forceinline__ void copy_stash(const unsigned char* src, int pieces,
 }
 
 template <int H, int kFmt>
-__global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(const __grid_constant__ Params p) {
   constexpr int N = H / 2;                   // columns of each warpgroup
-  constexpr int kChunkBytes = kKC * H * 2;
+  constexpr bool kSw = tma_stash(kFmt);
+  constexpr int KC = ring_rows(kFmt);        // weight rows a ring chunk
+  constexpr int kChunkBytes = KC * H * 2;
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
@@ -233,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(Params p) {
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tiles = (p.n + kRows - 1) / kRows;
-  const int chunks = p.k_in / kKC + p.n_hidden * (H / kKC) + 1;   // + the head
+  const int chunks = p.k_in / KC + p.n_hidden * (H / KC) + 1;   // + the head
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -280,17 +320,18 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(Params p) {
     int stage = 0, phase = 0, prev1 = 0, prev2 = 0;
     for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
       const int row0 = w * kRows;
-      encode(p, row0, act);
+      encode<kSw>(p, row0, act);
       hp::fence_async_smem();
       hp::named_sync(1, kConsumers);
       const uint32_t a0 = hp::smem_u32(act);
       // A of the k16 step at column k: its two columns of core matrices
       auto a_desc = [&](int k) {
+        if constexpr (kSw) return hp::make_desc_sw128(a0 + (k >> 6) * (kRows * 128) + (k & 63) * 2);
         return hp::make_desc(a0 + (k >> 3) * kColumn, kColumn, 128);
       };
       int i = 0;   // the chunk's index in the tile's sequence
       for (int layer = 0; layer <= p.n_hidden; ++layer) {
-        const int nk = (layer == 0 ? p.k_in : H) / kKC;
+        const int nk = (layer == 0 ? p.k_in : H) / KC;
         const float* bias = layer == 0 ? p.b_in : p.b_h + static_cast<size_t>(layer - 1) * H;
         float acc[N / 2] = {};
         for (int kc = 0; kc < nk; ++kc, ++i) {
@@ -299,10 +340,10 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(Params p) {
           const uint32_t b0 = ring0 + st * kChunkBytes + wg * (N / 8) * 128;
           hp::wgmma_fence();
 #pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            // A: k = 32 kc + 16 s, the k-group 4 kc + 2 s of the buffer;
-            // B: k-groups 2 s and 2 s + 1 of the chunk, this warpgroup's N
-            hp::wgmma_ss(acc, a_desc(32 * kc + 16 * s),
+          for (int s = 0; s < KC / 16; ++s) {
+            // A: k = KC kc + 16 s of the buffer; B: k-groups 2 s and 2 s + 1
+            // of the chunk, this warpgroup's N
+            hp::wgmma_ss(acc, a_desc(KC * kc + 16 * s),
                          hp::make_desc(b0 + 2 * s * (H / 8) * 128, (H / 8) * 128, 128),
                          kc > 0 || s > 0);
           }
@@ -325,38 +366,62 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(Params p) {
           if (nk > 1) release(&empty[prev2], lane);
           release(&empty[prev1], lane);
         }
-        // both warpgroups, and the copy engine's stash stores, have read the
-        // layer's input: the epilogue (bias, fast_sin, bf16, the stashes)
-        // overwrites it with the layer's output
+        // both warpgroups, and the copy engine's stash stores (K4: of the
+        // layer before, issued after its epilogue), have read the layer's
+        // input: the epilogue (bias, fast_sin, bf16, the stashes) overwrites
+        // it with the layer's output
+        if (kSw && threadIdx.x == 0) hp::bulk_wait_read();
         hp::named_sync(1, kConsumers);
+        if constexpr (kSw) {
+          // K4: (row, col) of the swizzled tiles lies at t ^ ((j % 8) << 4)
+          // + (j / 8) 8 KB + r 1 KB, t this thread's byte of (row 16 w4 + g,
+          // column wg N + 2 q), its 16-byte piece permuted by g: one
+          // logic op an address, where swizzle128 per element held 8 more
+          // addresses live and spilled 712 bytes a thread at H = 512
+          // (forward x8 5.33 ms against 3.53, 8x512, N = 262,144, H100
+          // 80GB HBM3, 700 W)
+          const uint32_t t = ((wg * N) / 64) * (kRows * 128) + (w4 * 16 + g) * 128 + 4 * q
+                             + (((((wg * N) % 64) / 8) ^ g) << 4);   // H = 64: wg 1 at byte 64
 #pragma unroll
-        for (int j = 0; j < N / 8; ++j) {
-          const int col = wg * N + 8 * j + 2 * q;
-          const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+          for (int j = 0; j < N / 8; ++j) {
+            const float2 bb =
+                __ldg(reinterpret_cast<const float2*>(bias + wg * N + 8 * j + 2 * q));
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = w4 * 16 + g + 8 * r;
-            const float y0 = reduce_2pi(acc[4 * j + 2 * r] + bb.x);
-            const float y1 = reduce_2pi(acc[4 * j + 2 * r + 1] + bb.y);
-            const float s0 = sin_poly(y0), s1 = sin_poly(y1);
-            *reinterpret_cast<uint32_t*>(act + act_at(row, col)) = pack_bf16(s0, s1);
-            if constexpr (kFmt == kStashInt8) {
-              *reinterpret_cast<uint16_t*>(staging + byte_at(row, col)) =
-                  static_cast<uint16_t>(pack_i8(cos8_q(y0), cos8_q(y1)));
-            } else if constexpr (kFmt == kStashLsb) {
-              *reinterpret_cast<uint32_t*>(staging + act_at(row, col)) =
-                  pack_sin_csign(s0, __fmul_rn(y0, y0) > kHalfPiSq)
-                  | (pack_sin_csign(s1, __fmul_rn(y1, y1) > kHalfPiSq) << 16);
-            } else if constexpr (kFmt == kStashI8pair) {
-              // the sin rounded from f32, not from its bf16
-              *reinterpret_cast<uint16_t*>(staging + byte_at(row, col)) =
-                  static_cast<uint16_t>(pack_i8(__float2int_rn(__fmul_rn(s0, kCosScale)),
-                                                __float2int_rn(__fmul_rn(s1, kCosScale))));
-              *reinterpret_cast<uint16_t*>(staging + byte_at(row, H + col)) =
-                  static_cast<uint16_t>(pack_i8(cos8_q(y0), cos8_q(y1)));
-            } else if constexpr (kFmt == kStashBf16Cos) {
-              *reinterpret_cast<uint32_t*>(staging + act_at(row, col)) =
-                  pack_bf16(cos10(y0), cos10(y1));
+            for (int r = 0; r < 2; ++r) {
+              const uint32_t at = (t ^ ((j & 7) << 4)) + (j >> 3) * (kRows * 128) + r * 1024;
+              const float y0 = reduce_2pi(acc[4 * j + 2 * r] + bb.x);
+              const float y1 = reduce_2pi(acc[4 * j + 2 * r + 1] + bb.y);
+              *reinterpret_cast<uint32_t*>(act + at) = pack_bf16(sin_poly(y0), sin_poly(y1));
+              *reinterpret_cast<uint32_t*>(staging + at) = pack_bf16(cos10(y0), cos10(y1));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            const int col = wg * N + 8 * j + 2 * q;
+            const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int row = w4 * 16 + g + 8 * r;
+              const float y0 = reduce_2pi(acc[4 * j + 2 * r] + bb.x);
+              const float y1 = reduce_2pi(acc[4 * j + 2 * r + 1] + bb.y);
+              const float s0 = sin_poly(y0), s1 = sin_poly(y1);
+              *reinterpret_cast<uint32_t*>(act + act_at(row, col)) = pack_bf16(s0, s1);
+              if constexpr (kFmt == kStashInt8) {
+                *reinterpret_cast<uint16_t*>(staging + byte_at(row, col)) =
+                    static_cast<uint16_t>(pack_i8(cos8_q(y0), cos8_q(y1)));
+              } else if constexpr (kFmt == kStashLsb) {
+                *reinterpret_cast<uint32_t*>(staging + act_at(row, col)) =
+                    pack_sin_csign(s0, __fmul_rn(y0, y0) > kHalfPiSq)
+                    | (pack_sin_csign(s1, __fmul_rn(y1, y1) > kHalfPiSq) << 16);
+              } else if constexpr (kFmt == kStashI8pair) {
+                // the sin rounded from f32, not from its bf16
+                *reinterpret_cast<uint16_t*>(staging + byte_at(row, col)) =
+                    static_cast<uint16_t>(pack_i8(__float2int_rn(__fmul_rn(s0, kCosScale)),
+                                                  __float2int_rn(__fmul_rn(s1, kCosScale))));
+                *reinterpret_cast<uint16_t*>(staging + byte_at(row, H + col)) =
+                    static_cast<uint16_t>(pack_i8(cos8_q(y0), cos8_q(y1)));
+              }
             }
           }
         }
@@ -370,12 +435,24 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(Params p) {
         const size_t at = static_cast<size_t>(layer) * H;
         char* hs = static_cast<char*>(p.hs);
         char* cs = static_cast<char*>(p.cs);
-        if constexpr (kFmt == kStashInt8 || kFmt == kStashBf16Cos)
+        if constexpr (kSw) {
+          // K4: one thread hands both stashes to the copy engine, a box [64
+          // rows][64 columns] a block, and the next layer's products run
+          // while it stores them (rows past n are not stored)
+          if (SUNERF_ABLATION != 6 && threadIdx.x == 0) {
+            for (int b = 0; b < H / 64; ++b) {
+              hp::tensor_store_2d(&p.hs_map, static_cast<int>(at) + 64 * b, row0,
+                                  act + b * (kRows * 128), stream);
+              hp::tensor_store_2d(&p.cs_map, static_cast<int>(at) + 64 * b, row0,
+                                  staging + b * (kRows * 128), stream);
+            }
+            hp::bulk_commit();
+          }
+        }
+        if constexpr (kFmt == kStashInt8)
           copy_stash(act, H / 8, hs, ld * 2, at * 2, row0, p.n, stream);
         if constexpr (kFmt == kStashInt8)
           copy_stash(staging, H / 16, cs, ld, at, row0, p.n, stream);
-        if constexpr (kFmt == kStashBf16Cos)
-          copy_stash(staging, H / 8, cs, ld * 2, at * 2, row0, p.n, stream);
         if constexpr (kFmt == kStashLsb || kFmt == kStashI8pair)
           copy_stash(staging, H / 8, hs, ld * 2, at * 2, row0, p.n, stream);
       }
@@ -413,15 +490,18 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(Params p) {
           phase ^= 1;
         }
       }
-      // the head has read the activations before the next tile's encode
+      // the head, and the copy engine's last stores, have read the
+      // activations before the next tile's encode
+      if (kSw && threadIdx.x == 0) hp::bulk_wait_read();
       hp::named_sync(1, kConsumers);
     }
+    if (kSw && threadIdx.x == 0) hp::bulk_wait();
   }
 }
 
 inline size_t smem_bytes(int H, int act_k, int stages, int fmt) {
   return kBarBytes + static_cast<size_t>(kRows) * act_k * 2 + staging_bytes(H, fmt)
-         + static_cast<size_t>(stages) * kKC * H * 2;
+         + static_cast<size_t>(stages) * ring_rows(fmt) * H * 2;
 }
 
 // Raises the shared memory limit and finds how many blocks fit at once,
@@ -459,11 +539,13 @@ template <int kFmt>
 cudaError_t launch(Params p, int e_pad, int d_filter, cudaStream_t stream) {
   p.k_in = (e_pad + kKC - 1) / kKC * kKC;
   p.act_k = d_filter > p.k_in ? d_filter : p.k_in;
-  const size_t chunk = static_cast<size_t>(kKC) * d_filter * 2;
+  if (tma_stash(kFmt)) p.act_k = (p.act_k + 63) / 64 * 64;
+  const size_t chunk = static_cast<size_t>(ring_rows(kFmt)) * d_filter * 2;
   const size_t fixed = smem_bytes(d_filter, p.act_k, 0, kFmt);
   p.stages = fixed < kSmemLimit ? static_cast<int>((kSmemLimit - fixed) / chunk) : 0;
   if (p.stages > kMaxStages) p.stages = kMaxStages;
-  const int chunks = p.k_in / kKC + p.n_hidden * (d_filter / kKC) + 1;
+  const int chunks =
+      p.k_in / ring_rows(kFmt) + p.n_hidden * (d_filter / ring_rows(kFmt)) + 1;
   p.resident = chunks <= p.stages;
   if (p.resident) p.stages = chunks;
   if (p.n <= 0 || e_pad % 16 != 0 || !grid_ok(p.grid) || (!p.resident && p.stages < 3) ||
@@ -482,4 +564,5 @@ cudaError_t launch(Params p, int e_pad, int d_filter, cudaStream_t stream) {
 }
 
 }  // namespace fwd
+}  // namespace
 }  // namespace sunerf

@@ -53,9 +53,17 @@
 // GB) and hs_{L-1} and writes dz (1.61 GB), 0.79 ms; the dW kernel reads hs
 // (1.41 GB) and dz, 0.90 ms: a floor of about 1.69 ms, above the operations
 // bound. The gate and dz streams carry an L2 evict-first policy, the
-// weights evict-last. K3 is the chain kernel's tail: denc = dz_0 W_in^T as
-// one more wgmma against pack_wgmma_dpts's chunks through the same ring,
-// its terms summed per point and dimension from the accumulators.
+// weights evict-last. K3 is the chain kernel's tail (point_cotangent):
+// denc = dz_0 W_in^T as one more product against pack_wgmma_dpts's chunks
+// through the same ring, all of a chunk's stages issued before one wait,
+// its columns ordered by dimension so each thread sums whole groups of one
+// dimension and the groups are added into dpts in column order: any
+// d_input, the same bits every run. Where each of its 16 k-chunks at 8x512
+// waited for its product, and each accumulator element summed its term
+// into one of 8 per-dimension registers by a predicated loop (d_input <= 8),
+// K3 cost 0.362 ms of the chain kernel at the fine step's N = 196,608, its
+// epilogue 0.238 of them (scripts/backward_ablation.py --fmt dpts, H100
+// 80GB HBM3, 700 W).
 // 'i8pair' (K6b): the chain kernel also writes each point's max |dz_j| (two
 // partial maxima a point from its epilogue's accumulators, 15 MB at 8x512,
 // N = 262,144, read back in place of dz's 1.9 GB), a small
@@ -114,15 +122,18 @@
 // [splits8][(L-1) H^2] over `splits8` ranges of `pps8` points (whole groups
 // and tiles), with dz_rowmax [L-1][n][2] and dz_max [groups][L-1] scratch
 // (pps8, splits8, dz_rowmax and dz_max are ignored for the other formats).
-// dpts null: no point cotangent. Returns a cudaError_t (0 = launched).
+// dpts null: no point cotangent; else w_dpts, dpts_pairs and dpts_gdim are
+// pack_wgmma_dpts's pack and tables over dpts_cols columns. Returns a
+// cudaError_t (0 = launched).
 extern "C" int sunerf_fused_mlp_stash_bwd(
     const void* pts, const void* col_dim, const void* col_freq, const void* dy,
     const void* hs, const void* cs, const void* w_bwd, const void* w_out,
     void* dz, void* enc, void* part_chain, void* part_dw, void* grad_chain,
     void* grad_dw, const void* grid, const void* w_grid, void* dgrid, void* gmax,
-    void* gacc, void* grad_grid, void* dpts, const void* w_dpts, void* dz_rowmax,
-    void* dz_max, int n, int d_in, int n_cols, int e_pad, int d_filter, int n_hidden,
-    int d_out, int pps, int splits, int pps8, int splits8, int fmt, int group, void* stream) {
+    void* gacc, void* grad_grid, void* dpts, const void* w_dpts, const void* dpts_pairs,
+    const void* dpts_gdim, void* dz_rowmax, void* dz_max, int n, int d_in, int n_cols,
+    int e_pad, int d_filter, int n_hidden, int d_out, int pps, int splits, int pps8,
+    int splits8, int fmt, int group, int dpts_cols, void* stream) {
   using namespace sunerf;
   BwdParams p{};
   p.grid = grid_params(grid);
@@ -158,7 +169,9 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
   p.gacc = static_cast<unsigned long long*>(gacc);
   p.grad_grid = static_cast<float*>(grad_grid);
   p.dpts = static_cast<float*>(dpts);
-  p.n_enc = d_in + 2 * n_cols;
+  p.dpts_pairs = static_cast<const int*>(dpts_pairs);
+  p.dpts_gdim = static_cast<const int*>(dpts_gdim);
+  p.dpts_cols = dpts_cols;
   p.dz_rowmax = static_cast<float*>(dz_rowmax);
   p.dz_max = static_cast<float*>(dz_max);
   p.group = group;
@@ -199,7 +212,7 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
     err = with_dpts ? launch_chain_width<kGateInt8, true>(p, s)
                     : launch_chain_width<kGateInt8, false>(p, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_after_chain(p, false, s));
+  return static_cast<int>(launch_after_chain(p, s));
 }
 
 // C entry: the 'lsb' gate decode of the chain kernel on n packed sines

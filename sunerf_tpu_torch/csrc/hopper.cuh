@@ -2,11 +2,13 @@
 // (grid_hat_encode.cu, P2; fused_mlp_fwd_wgmma.cuh, the forwards K0, K1,
 // K6a, K6b and K4's; fused_mlp_backward.cuh, the backwards' chain and dW
 // kernels): mbarriers, bulk copies (the TMA engine's one-dimensional form)
-// in both directions, 2-D tensor copies (TMA boxes by a tensor map), and
-// warpgroup matrix multiplies.
+// in both directions, 2-D tensor copies (TMA boxes by a tensor map) in both
+// directions, and warpgroup matrix multiplies.
 //
-// Operand layout. Every shared-memory operand of these kernels is in
-// wgmma's no-swizzle ("interleave") layout: 8 x 8 bf16 core matrices of
+// Operand layout. Every shared-memory operand of these kernels but one is
+// in wgmma's no-swizzle ("interleave") layout (K4's forward keeps its
+// activations in the 128-byte swizzle, make_desc_sw128, so that TMA tensor
+// stores take them as whole boxes): 8 x 8 bf16 core matrices of
 // 128 contiguous bytes (row r of a core matrix at 16 r), a matrix
 // descriptor giving the byte distance between core matrices that
 // neighbour along K (the leading byte offset) and along M or N (the stride
@@ -52,6 +54,15 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4)
          | (static_cast<uint64_t>(lbo >> 4) << 16)
          | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Matrix descriptor of a K-major operand in the 128-byte swizzle at shared
+// address `addr`: rows of 128 bytes (64 bf16 of K) whose 16-byte pieces are
+// permuted by the row's index mod 8 (swizzle128), 8-row groups 1024 bytes
+// apart, the block 1024-byte aligned; a k16 step inside the 64 columns
+// starts 32 bytes further, the permutation following the address.
+__device__ __forceinline__ uint64_t make_desc_sw128(uint32_t addr) {
+  return make_desc(addr, 16, 1024) | (1ull << 62);
 }
 
 // -------------------------------------------------------------- mbarriers
@@ -172,6 +183,23 @@ __device__ __forceinline__ void tensor_load_2d(void* dst, const void* map, int x
 __device__ __forceinline__ void tensor_prefetch_2d(const void* map, int x, int y) {
   asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global [%0, {%1, %2}];\n"
                :: "l"(map), "r"(x), "r"(y) : "memory");
+}
+
+// The 2-D box of the tensor map at `map` whose innermost coordinate is x and
+// row y, from shared `src` (laid out as tensor_load_2d writes it) to global
+// memory by the copy engine, committed as this thread's bulk group (rows and
+// columns past the tensor's edge are not written); before `src` is written
+// again, bulk_wait_read() by the same thread.
+__device__ __forceinline__ void tensor_store_2d(const void* map, int x, int y, const void* src,
+                                                uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%1, %2}], [%3], %4;\n"
+      :: "l"(map), "r"(x), "r"(y), "r"(smem_u32(src)), "l"(policy) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
 // Byte offset of (row, byte column) in a box of 128-byte rows loaded with
@@ -576,7 +604,11 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t desc_a, uint64_t
 // A 2-D tensor map of `rows` rows of `cols` elements (`row_bytes` apart,
 // a multiple of 16) at `base`, boxes of [box_rows][box_cols] elements,
 // 128-byte swizzled where `swizzle`, zero-filled past the edges;
-// cuTensorMapEncodeTiled is looked up once through the runtime API.
+// cuTensorMapEncodeTiled is looked up once through the runtime API. The
+// driver call needs a current context, which a thread that has made no
+// runtime call of this library lacks (PyTorch's autograd thread, its device
+// already its default, once another thread made the lookup: error 201), so
+// the calling thread's device is set first.
 inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                              uint64_t cols, uint64_t rows, uint64_t row_bytes,
                              uint32_t box_cols, uint32_t box_rows, bool swizzle) {
@@ -585,6 +617,10 @@ inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const v
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
   static Encode encode = nullptr;
+  int device = 0;
+  cudaError_t bound = cudaGetDevice(&device);
+  if (bound == cudaSuccess) bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return bound;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;

@@ -47,7 +47,8 @@ sine. Raw outputs exclude the DT base offsets (nerf_apply_fused adds them).
 The kernels read bf16 copies of the weights laid out as wgmma's ring
 chunks: the forwards' `pack_wgmma`, the backwards' `pack_wgmma_bwd` (W_h as
 stored) and, only when a backward computes the point cotangent,
-`pack_wgmma_dpts` (the posenc rows of W_in), each prepared once per
+`pack_wgmma_dpts` (W_in's x, sin and cos rows ordered by input dimension,
+`dpts_layout`, so the point cotangent takes any d_input), each prepared once per
 parameter set and cached on the identity and version of its tensors: a
 training step packs once per field, and the optimizer's in-place update
 invalidates the pack. The backward's dz scratch is laid out tile by tile
@@ -123,8 +124,7 @@ _INV_COS_SCALE_BF16 = 0.00787353515625
 _INV_COS_SQ = float(np.float32((1.0 / 127.0) * (1.0 / 127.0)))
 _TILE = 64              # points a chain tile and a dW chunk (csrc/fused_mlp_backward.cuh)
 _DW_ROWS = 128          # dW output rows a work item
-_DPTS_COLS = 128        # K3's encoding columns a ring chunk (fewer at H = 64)
-MAX_DPTS_INPUTS = 8     # d_input values the point cotangent (K3) takes
+_DPTS_COLS = 128        # K3's pack columns a ring chunk (fewer at H = 64)
 STASH_FORMATS = ('int8', 'lsb', 'i8pair')
 _FMT_CODE = {'int8': 0, 'lsb': 1, 'i8pair': 2}
 STASH_BWD_TILE = 768    # the i8pair dz scale group: fused_nerf_raw's stash_bwd_tile
@@ -598,22 +598,60 @@ def pack_wgmma_bwd(w_h: torch.Tensor) -> torch.Tensor:
 
 
 def dpts_chunk_cols(d_filter: int) -> int:
-    """K3's encoding columns a ring chunk: 128, or H where H is smaller (a
-    chunk [32, cols] fits a stage of the chain kernel's ring)."""
+    """K3's pack columns a chunk: 128, or H where H is smaller (CW / 32
+    whole stages of the chain kernel's ring, H / CW k-chunks [32, CW] each)."""
     return min(_DPTS_COLS, d_filter)
 
 
-def pack_wgmma_dpts(w_in: torch.Tensor, n_enc: int) -> torch.Tensor:
+def dpts_layout(d_input: int, dims, d_filter: int) -> tuple:
+    """K3's columns, ordered by dimension -> (cols, pairs, gdim). For each
+    dimension d in turn its segment [x_d, zero, then (sin_j, cos_j) for each
+    phase column j of d (dims[j] == d)], padded with zero columns to whole
+    8-column groups and moved to the next half of a chunk (the columns one
+    warpgroup of the chain kernel sums) where it would run across one and
+    fits in a half; then zero columns up to a multiple of
+    dpts_chunk_cols(d_filter). cols[c] is the encoding column (x_d at d,
+    sin_j at d_input + j, cos_j at d_input + n_cols + j) behind pack column
+    c, -1 for a zero column; pairs[c // 2] what the chain kernel's thread
+    holding columns (c, c + 1), c even, sums: j >= 0 the phase j's (dsin,
+    dcos), -2 - d the x_d column beside a zero one, -1 zeros; gdim[c // 8]
+    the dimension of each 8-column group: that of the segment it belongs
+    to, or (padding between segments) of the segment before it, d_input
+    for the zero groups after the last."""
+    nc = len(dims)
+    half = dpts_chunk_cols(d_filter) // 2
+    cols, gdim = [], []
+    for d in range(d_input):
+        seg = [d, -1]
+        for j in range(nc):
+            if dims[j] == d:
+                seg += [d_input + j, d_input + nc + j]
+        seg += [-1] * (-len(seg) % 8)
+        room = -len(cols) % half
+        if len(seg) <= half and len(seg) > room > 0:
+            cols += [-1] * room
+            gdim += [gdim[-1]] * (room // 8)
+        cols += seg
+        gdim += [d] * (len(seg) // 8)
+    tail = -len(cols) % dpts_chunk_cols(d_filter)
+    cols += [-1] * tail
+    gdim += [d_input] * (tail // 8)
+    pairs = [-1 if a < 0 else -2 - a if a < d_input else a - d_input for a in cols[0::2]]
+    return cols, pairs, gdim
+
+
+def pack_wgmma_dpts(w_in: torch.Tensor, d_input: int, dims) -> torch.Tensor:
     """w_in [E, H] float -> bf16 [n_cc H/32, 32 cw] with cw =
-    dpts_chunk_cols(H): the point cotangent's B operand w_in[:n_enc]^T
-    [k = H, n = encoding column], its columns zero-padded to n_cc cw, as
-    H/32 ring chunks (_core_chunks) for each cw-column block in turn."""
+    dpts_chunk_cols(H): the point cotangent's B operand W_in^T [k = H, n =
+    pack column], its columns W_in's rows in dpts_layout's order (zero
+    where it has -1), as H/32 ring chunks (_core_chunks) for each cw-column
+    block in turn."""
     h = w_in.shape[1]
     cw = dpts_chunk_cols(h)
-    n_cc = -(-n_enc // cw)
-    b = F.pad(w_in[:n_enc].float(), (0, 0, 0, n_cc * cw - n_enc)).t()
+    cols = torch.tensor(dpts_layout(d_input, dims, h)[0], device=w_in.device)
+    b = torch.where((cols >= 0)[:, None], w_in.float()[cols.clamp_min(0)], 0.0).t()
     return torch.cat([_core_chunks(b[:, c * cw:(c + 1) * cw].contiguous())
-                      for c in range(n_cc)]).contiguous()
+                      for c in range(b.shape[1] // cw)]).contiguous()
 
 
 def dz_index(pt, j, c, n_layers: int, d_filter: int):
@@ -737,20 +775,20 @@ def _kernel_weights(config: NeRFConfig, params: dict) -> _KernelWeights:
     return hit[1]
 
 
-def _n_enc(config: NeRFConfig) -> int:
-    """The encoding's x, sin and cos columns (the point cotangent's)."""
-    return config.d_input + 2 * len(encoding_columns(
-        config.d_input, config.n_freqs, config.scale_factor, config.n_freqs_time)[0])
-
-
-def _dpts_weights(config: NeRFConfig, w_in: torch.Tensor) -> torch.Tensor:
-    """pack_wgmma_dpts of w_in, prepared only for the backwards that compute
-    the point cotangent (K3, K4) and cached like _kernel_weights."""
+def _dpts_weights(config: NeRFConfig, w_in: torch.Tensor) -> tuple:
+    """(pack_wgmma_dpts of w_in, dpts_layout's pairs and gdim as int32), on
+    w_in's device, prepared only for the backwards that compute the point
+    cotangent (K3, K4) and cached like _kernel_weights."""
     stamp = (config, id(w_in), _version(w_in))
     hit = _prepared_dpts.get(w_in)
     if hit is None or hit[0] != stamp:
+        dims, _ = encoding_columns(config.d_input, config.n_freqs, config.scale_factor,
+                                   config.n_freqs_time)
+        _, pairs, gdim = dpts_layout(config.d_input, dims, config.d_filter)
+        i32 = dict(dtype=torch.int32, device=w_in.device)
         with torch.no_grad():
-            hit = (stamp, pack_wgmma_dpts(w_in.float(), _n_enc(config)))
+            hit = (stamp, (pack_wgmma_dpts(w_in.float(), config.d_input, dims),
+                           torch.tensor(pairs, **i32), torch.tensor(gdim, **i32)))
         _prepared_dpts[w_in] = hit
     return hit[1]
 
@@ -949,14 +987,10 @@ def _grads_from_flat(config: NeRFConfig, grad_chain: torch.Tensor,
     return grads
 
 
-def _check_backward(config: NeRFConfig, dy: torch.Tensor, n: int, dev,
-                    compute_dpts: bool):
+def _check_backward(config: NeRFConfig, dy: torch.Tensor, n: int, dev):
     if not 1 <= config.d_output <= MAX_BWD_OUTPUTS:
         raise ValueError(f'the backward kernels take d_output in 1..'
                          f'{MAX_BWD_OUTPUTS}, got {config.d_output}')
-    if compute_dpts and config.d_input > MAX_DPTS_INPUTS:
-        raise ValueError(f'the point cotangent takes d_input up to {MAX_DPTS_INPUTS}, '
-                         f'got {config.d_input}')
     build.check_tensor('dy', dy, (n, config.d_output), torch.float32, dev)
 
 
@@ -981,9 +1015,7 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
     'lsb', K6b 'i8pair' with its dz scale group of `group` points) ->
     parameter gradients in the JAX layout and, with compute_dpts, 'dpts'
     (see fused_mlp_stash_bwd_reference). CUDA tensors launch the kernels
-    (or raise), CPU tensors run their plain version. On the card the point
-    cotangent takes d_input up to MAX_DPTS_INPUTS (8): compute_dpts with a
-    larger d_input raises ValueError."""
+    (or raise), CPU tensors run their plain version."""
     global STASH_BWD_LAUNCHES, DPTS_LAUNCHES
     _check_format(config, fmt)
     if compute_dpts and config.grid_sizes:
@@ -1011,7 +1043,7 @@ def _stash_backward_launch(config: NeRFConfig, params: dict, points: torch.Tenso
     _check(config, params, points)
     dev = points.device
     n, H, L, O = points.shape[0], config.d_filter, config.n_layers, config.d_output
-    _check_backward(config, dy, n, dev, compute_dpts)
+    _check_backward(config, dy, n, dev)
     hs_shape, hs_dtype, cs_shape, cs_dtype = _stash_shapes(config, n, fmt)
     build.check_tensor('hs', hs, hs_shape, hs_dtype, dev)
     if cs_shape is not None:
@@ -1054,17 +1086,19 @@ def _stash_backward_launch(config: NeRFConfig, params: dict, points: torch.Tenso
                           torch.empty((-(-n // group), max(L - 1, 1)), **f32))
                          if fmt == 'i8pair' else (None, None))
     ptr = (lambda t: None if t is None else t.data_ptr())
-    w_dpts = _dpts_weights(config, params['w_in']) if compute_dpts else None
-    _launch('fused_mlp_stash_bwd', 24, 13, dev,
+    w_dpts, pairs, gdim = (_dpts_weights(config, params['w_in']) if compute_dpts
+                           else (None, None, None))
+    _launch('fused_mlp_stash_bwd', 26, 14, dev,
             points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
             dy.data_ptr(), hs.data_ptr(), ptr(cs), _bwd_weights(params['w_h']).data_ptr(),
             w.w_out.data_ptr(), dz.data_ptr(), enc.data_ptr(),
             part_chain.data_ptr(), part_dw.data_ptr(), grad_chain.data_ptr(),
             grad_dw.data_ptr(), ctypes.addressof(grid), w.w_grid.data_ptr(),
             dgrid.data_ptr(), gmax.data_ptr(), gacc.data_ptr(), grad_grid.data_ptr(),
-            ptr(dpts), ptr(w_dpts), ptr(dz_rowmax), ptr(dz_max),
+            ptr(dpts), ptr(w_dpts), ptr(pairs), ptr(gdim), ptr(dz_rowmax), ptr(dz_max),
             n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, pps, splits,
-            pps8, splits8, _FMT_CODE[fmt], group, defines=defines)
+            pps8, splits8, _FMT_CODE[fmt], group, 0 if gdim is None else 8 * gdim.numel(),
+            defines=defines)
     grads = _grads_from_flat(config, grad_chain, grad_dw, grad_grid, e_pad)
     if compute_dpts:
         grads['dpts'] = dpts
@@ -1076,18 +1110,27 @@ def fused_mlp_recompute_backward(config: NeRFConfig, params: dict,
     """The K4 wrapper -> parameter gradients and 'dpts' (see
     fused_mlp_recompute_bwd_reference). Its scratch is sized by
     RECOMPUTE_CHUNK points, not N. CUDA tensors launch the kernels (or
-    raise), CPU tensors run the plain version. It always computes the
-    point cotangent, so on the card it takes d_input up to MAX_DPTS_INPUTS
-    (8) and raises ValueError beyond."""
+    raise), CPU tensors run the plain version."""
     global RECOMPUTE_BWD_LAUNCHES
     if config.grid_sizes:
         raise NotImplementedError(_NO_GRID_RECOMPUTE)
     if points.device.type == 'cpu':
         return fused_mlp_recompute_bwd_reference(config, params, points, dy)
+    grads = _recompute_backward_launch(config, params, points, dy)
+    if points.shape[0]:
+        RECOMPUTE_BWD_LAUNCHES += 1
+    return grads
+
+
+def _recompute_backward_launch(config: NeRFConfig, params: dict, points: torch.Tensor,
+                               dy: torch.Tensor, defines: tuple = ()) -> dict:
+    """Launches the recompute backward on CUDA tensors -> the gradients and
+    'dpts'. `defines` launches a variant built with those macros
+    (scripts/backward_ablation.py's measurement-only ablations)."""
     _check(config, params, points)
     dev = points.device
     n, H, L, O = points.shape[0], config.d_filter, config.n_layers, config.d_output
-    _check_backward(config, dy, n, dev, True)
+    _check_backward(config, dy, n, dev)
     w = _kernel_weights(config, params)
     e_pad = w.e_pad
     f32 = dict(dtype=torch.float32, device=dev)
@@ -1108,16 +1151,17 @@ def fused_mlp_recompute_backward(config: NeRFConfig, params: dict,
     enc = torch.empty((c, e_pad), **bf16)
     part_chain = torch.empty((c // _TILE, grad_chain.numel()), **f32)
     part_dw = torch.empty((splits, grad_dw.numel()), **f32)
-    _launch('fused_mlp_recompute_bwd', 21, 10, dev,
+    w_dpts, pairs, gdim = _dpts_weights(config, params['w_in'])
+    _launch('fused_mlp_recompute_bwd', 23, 11, dev,
             points.data_ptr(), w.col_dim.data_ptr(), w.col_freq.data_ptr(),
             _wgmma_weights(params).data_ptr(), w.b_in.data_ptr(), w.b_h.data_ptr(),
             w.b_out.data_ptr(), dy.data_ptr(), _bwd_weights(params['w_h']).data_ptr(),
-            _dpts_weights(config, params['w_in']).data_ptr(), w.w_out.data_ptr(),
+            w_dpts.data_ptr(), pairs.data_ptr(), gdim.data_ptr(), w.w_out.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), out.data_ptr(), dz.data_ptr(), enc.data_ptr(),
             part_chain.data_ptr(), part_dw.data_ptr(), grad_chain.data_ptr(),
             grad_dw.data_ptr(), dpts.data_ptr(),
-            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, pps, splits, c)
-    RECOMPUTE_BWD_LAUNCHES += 1
+            n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, pps, splits, c,
+            8 * gdim.numel(), defines=defines)
     return dict(_grads_from_flat(config, grad_chain, grad_dw, grad_chain[:0], e_pad),
                 dpts=dpts)
 

@@ -2,8 +2,12 @@
 read and write, checked on the CPU against their sources:
 
   * pack_wgmma_bwd, the chain kernel's ring chunks of W_h^T, and
-    pack_wgmma_dpts, the point cotangent's of W_in[:n_enc]^T, unpacked, are
-    the JAX package's bf16 weights exactly, at every width the kernels take;
+    pack_wgmma_dpts, the point cotangent's of W_in^T with its columns
+    ordered by dimension (dpts_layout), unpacked, are the JAX package's
+    bf16 weights exactly, at every width the kernels take;
+  * the point cotangent's column tables (dpts_layout's pairs and groups),
+    read as the chain kernel's tail reads them (a mirror of its epilogue),
+    give the plain version's dpts, for any d_input;
   * the dz scratch, written tile by tile in the chain kernel's core-matrix
     order (the element rule of hopper.cuh core_offset, spelled out here
     apart from ops.fused_mlp.dz_index), unpacked, is the row-major dz of
@@ -23,7 +27,8 @@ import torch
 
 from sunerf_tpu.models.fields import NeRFConfig as JaxNeRFConfig
 from sunerf_tpu.models.fields import init_nerf as jax_init_nerf
-from sunerf_tpu_torch.models.fields import emission_config, init_nerf, params_from_numpy
+from sunerf_tpu_torch.core.encoding import encoding_columns
+from sunerf_tpu_torch.models.fields import NeRFConfig, emission_config, init_nerf, params_from_numpy
 from sunerf_tpu_torch.ops import fused_mlp
 
 torch.set_num_threads(1)
@@ -44,8 +49,10 @@ def _bf16_np(x) -> np.ndarray:
 def test_backward_packing_unpacks_to_the_jax_layout(d_filter):
     """pack_wgmma_bwd's chunks, unpacked, are each layer's bf16(w_h[i])^T
     (B [k = out, n = in] of dh = dz w_h^T, so w_h itself read K-major), and
-    pack_wgmma_dpts's are bf16(w_in[:n_enc])^T in column blocks of
-    dpts_chunk_cols, zero-padded, of JAX-initialised params (3 layers)."""
+    pack_wgmma_dpts's are bf16(w_in)^T's columns in dpts_layout's order
+    (zeros where it has -1), in column blocks of dpts_chunk_cols, of
+    JAX-initialised params (3 layers): x_d, a zero, then each phase's sin
+    and cos columns, dimension by dimension."""
     jc = JaxNeRFConfig(n_layers=3, d_filter=d_filter, n_freqs=4)
     jp = jax.tree.map(np.array, jax_init_nerf(jax.random.PRNGKey(0), jc))
     params = params_from_numpy(jp, 'cpu')
@@ -57,17 +64,28 @@ def test_backward_packing_unpacks_to_the_jax_layout(d_filter):
         rows = np.concatenate([_core_unpack(c, 32, h) for c in flat[i * h // 32:(i + 1) * h // 32]])
         np.testing.assert_array_equal(rows, _bf16_np(jp['w_h'][i]).T)
 
-    n_enc = jp['w_in'].shape[0]
+    d_in = jc.d_input
+    dims, _ = encoding_columns(d_in, jc.n_freqs, jc.scale_factor, jc.n_freqs_time)
+    order, _, _ = fused_mlp.dpts_layout(d_in, dims, h)
     cw = fused_mlp.dpts_chunk_cols(h)
-    n_cc = -(-n_enc // cw)
-    packed = fused_mlp.pack_wgmma_dpts(params['w_in'].float(), n_enc)
+    n_cc = len(order) // cw
+    assert len(order) == n_cc * cw and sorted(c for c in order if c >= 0) == list(
+        range(jp['w_in'].shape[0]))
+    packed = fused_mlp.pack_wgmma_dpts(params['w_in'].float(), d_in, dims)
     assert packed.dtype == torch.bfloat16 and packed.shape == (n_cc * h // 32, 32 * cw)
     flat = packed.float().numpy()
     cols = np.concatenate([
         np.concatenate([_core_unpack(c, 32, cw) for c in flat[b * h // 32:(b + 1) * h // 32]])
         for b in range(n_cc)], axis=1)
-    np.testing.assert_array_equal(cols[:, :n_enc], _bf16_np(jp['w_in']).T)
-    np.testing.assert_array_equal(cols[:, n_enc:], 0.0)
+    w_t = _bf16_np(jp['w_in']).T
+    for c, e in enumerate(order):
+        np.testing.assert_array_equal(cols[:, c], w_t[:, e] if e >= 0 else 0.0)
+    # x_d first in its dimension's segment, then (sin_j, cos_j) pairs of dims[j] == d
+    for c in range(0, len(order), 2):
+        e = order[c]
+        if e >= d_in:
+            j = e - d_in
+            assert order[c + 1] == d_in + len(dims) + j
 
 
 @pytest.mark.parametrize('n', [1, 100, 130])
@@ -183,3 +201,51 @@ def test_i8pair_int8_dw_ranges_cover_every_point_once(n, group, want):
     for s in range(splits):
         points[s * pps:min(n, (s + 1) * pps)] += 1
     assert (points == 1).all()
+
+
+@pytest.mark.parametrize('d_input,d_filter,n_freqs_time,n_freqs', [
+    (3, 64, None, 4), (4, 128, 3, 4), (4, 512, None, 4), (12, 64, None, 4),
+    (12, 384, None, 4), (3, 64, None, 16)])
+def test_dpts_tables_give_the_plain_point_cotangent(d_input, d_filter, n_freqs_time, n_freqs):
+    """A mirror of the chain kernel's K3 tail: denc over pack_wgmma_dpts's
+    column order (dz_0 times W_in^T's columns in dpts_layout's order), each
+    column pair's term from `pairs` (a phase's f (cos u dsin - sin u dcos),
+    x_d's denc, or zero), summed per 8-column group as the lanes' butterfly
+    does, and the groups added into their dimension (`gdim`) in column
+    order, equals the plain version's dpts within f32 rounding (1e-5 of
+    max), for any d_input and with the time axis's bands cut. A dimension's
+    groups lie in one half of a chunk (the columns one warpgroup sums)
+    unless its segment is longer than a half (16 bands at H = 64)."""
+    cfg = NeRFConfig(d_input=d_input, d_output=2, n_layers=2, d_filter=d_filter,
+                     n_freqs=n_freqs, n_freqs_time=n_freqs_time)
+    gen = torch.Generator().manual_seed(d_input + d_filter)
+    params = init_nerf(gen, cfg, 'cpu')
+    n = 37
+    pts = torch.rand(n, d_input, generator=gen) * 2.6 - 1.3
+    dz0 = torch.randn(n, d_filter, generator=gen).to(torch.bfloat16).float()
+    ref = fused_mlp._point_cotangent(cfg, params, pts, dz0)
+    dims, freqs = encoding_columns(d_input, cfg.n_freqs, cfg.scale_factor, n_freqs_time)
+    order, pairs, gdim = fused_mlp.dpts_layout(d_input, dims, d_filter)
+    cols = torch.tensor(order)
+    w = params['w_in'].to(torch.bfloat16).float()
+    acc = dz0 @ torch.where((cols >= 0)[:, None], w[cols.clamp_min(0)], 0.0).t()
+    v0, v1 = acc[:, 0::2], acc[:, 1::2]
+    pr = torch.tensor(pairs)
+    j = pr.clamp_min(0)
+    f = torch.tensor(freqs)[j]
+    u = pts[:, torch.tensor(dims)[j]] * f
+    t = (fused_mlp.reduced_sin(u + fused_mlp._HALF_PI) * v0) * f \
+        - (fused_mlp.reduced_sin(u) * v1) * f
+    t = torch.where(pr >= 0, t, torch.where(pr < -1, v0, torch.zeros_like(v0)))
+    q = t.view(n, -1, 4)
+    groups = (q[..., 0] + q[..., 1]) + (q[..., 2] + q[..., 3])
+    got = torch.zeros(n, d_input)
+    for g, d in enumerate(gdim):
+        if d < d_input:    # d_input marks the zero groups after the last
+            got[:, d] += groups[:, g]
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    half = fused_mlp.dpts_chunk_cols(d_filter) // 16
+    straddles = [b for b in range(half, len(gdim), half)
+                 if gdim[b] < d_input and gdim[b - 1] == gdim[b]]
+    fits = 2 + 2 * max(dims.count(d) for d in range(d_input)) <= 8 * half
+    assert (not straddles) if fits else straddles

@@ -26,8 +26,8 @@ Tolerances, as fractions of max|plain|:
     multiply-adds, move a value across a rounding boundary at most by one;
     the same for the 'lsb' stash (its sign bit may differ only where
     |cos| < 1e-3) and the 'i8pair' pairs;
-  * 5e-2 for the point cotangent (tests/test_fused_mlp.py:85); the
-    parameter gradients bit-identical with and without it;
+  * 5e-2 for the point cotangent (tests/test_fused_mlp.py:85), at any
+    d_input; the parameter gradients bit-identical with and without it;
   * 1e-4 for K6b's int8 dW_h against the plain _dw_i8 fed the kernel's own
     dz: each group's int32 sum is exact, and only the f32 sums over groups
     and ranges are taken in another order;
@@ -331,6 +331,44 @@ def test_recompute_backward_matches_plain_version(cuda, monkeypatch, n_layers, d
                                    rtol=0, atol=0)
     out.backward(dy)
     assert _rel(ref['dpts'], x.grad) <= 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('path,d_input,d_filter,n_freqs', [
+    ('dpts', 12, 128, 10), ('recompute', 12, 128, 10), ('dpts', 3, 64, 16)])
+def test_point_cotangent_takes_any_d_input(cuda, monkeypatch, path, d_input, d_filter,
+                                           n_freqs):
+    """K3 (with K2) and K4 at d_input = 12, and K3 at H = 64 with 16 bands
+    (a dimension's 34 columns run across the halves of a 64-column chunk,
+    which the tail then adds in turn), against their plain versions: dpts
+    [N, d_input] within 5e-2 and the parameter gradients within 3e-2 of max;
+    K4 over several chunks; every output the same bits over two runs."""
+    cfg = dataclasses.replace(emission_config(n_layers=4, d_filter=d_filter, n_freqs=n_freqs),
+                              d_input=d_input)
+    gen = torch.Generator(device=cuda).manual_seed(d_input)
+    params = init_nerf(gen, cfg, cuda)
+    n = 5000
+    pts = torch.rand(n, d_input, generator=gen, device=cuda) * 2.6 - 1.3
+    dy = torch.randn(n, 2, generator=gen, device=cuda)
+    with torch.no_grad():
+        if path == 'dpts':
+            _, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, params, pts)
+            run = (lambda: fused_mlp.fused_mlp_stash_backward(cfg, params, pts, dy, hs, cs,
+                                                              compute_dpts=True))
+            ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, params, pts, dy, hs, cs,
+                                                          compute_dpts=True)
+        else:
+            monkeypatch.setattr(fused_mlp, 'RECOMPUTE_CHUNK', 2048)
+            run = (lambda: fused_mlp.fused_mlp_recompute_backward(cfg, params, pts, dy))
+            ref = fused_mlp.fused_mlp_recompute_bwd_reference(cfg, params, pts, dy)
+        grads, again = run(), run()
+    torch.cuda.synchronize()
+    assert grads['dpts'].shape == (n, d_input) and bool(torch.isfinite(grads['dpts']).all())
+    assert _rel(ref['dpts'], grads['dpts']) <= 5e-2, _rel(ref['dpts'], grads['dpts'])
+    for k in KEYS:
+        assert _rel(ref[k], grads[k]) <= 3e-2, (k, _rel(ref[k], grads[k]))
+    for k in KEYS + ('dpts',):
+        assert torch.equal(grads[k], again[k]), k
 
 
 @pytest.mark.gpu
