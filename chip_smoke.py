@@ -67,11 +67,18 @@ Phases (the first failure ends the run with a non-zero exit):
              their plain versions, random weights and U(-1, 1) tables from a
              seed, at bench.py grid_quarter's fine field (4x128, G = 16,
              F = 8, bound 1.3, N = 1024 x 72) and at the NGP recipe's
-             (8x512, levels 16 + 32, N = 1024 x 192): K0/K1 out under
+             (8x512, levels 16 + 32, N = 1024 x 192), and with five levels
+             (4x128, levels 8, 12, 16, 24, 32, F = 8, N = 1024 x 72: any
+             number of levels): K0/K1 out under
              KERNEL_TOL and K1 within K1_VS_K0_TOL of K0, the stash layer by
              layer, every gradient (the tables' included) within 3e-2 of max
              and bit-identical over two runs. Times of the three kernels with the grid, of K1 + K2 of
-             the same widths without it, and of the plain versions.
+             the same widths without it, and of the plain versions; K2's
+             kernels by name (K5's parts: grid_scatter_kernel,
+             grid_convert_kernel, and the chain and prep kernels that carry
+             its cotangent and features) and the library yardstick, one
+             5-D torch.nn.functional.grid_sample a level, forward and
+             forward + backward to d_table (timing rows, never on the path).
   9. gridtrain  bench.py grid_quarter, uncut: 4x128 fine field with a 16^3 x 8
              table, 4x128 proposal coarse field, 24 + 48 samples, 1024 rays.
              One step with the counts set to 0 just before: 2 K1, 2 K2,
@@ -132,7 +139,11 @@ Phases (the first failure ends the run with a non-zero exit):
              for P2) per call from CUDA graphs of 20 or more calls over input
              sets that exceed L2 (P2's plain version: events, median of 5);
              the P1 script's own
-             time within 1.5x of the graph time at its shape.
+             time within 1.5x of the graph time at its shape. Beside P1's
+             byte bound its L2 gather floor: 8 ceil(4 F / 32) sectors of 32
+             bytes a point over the L2's rate for P1's gathers, measured at
+             each shape by grid_probes.sector_read (P1's loads of random
+             cells of the same table, without the arithmetic).
 Then it prints the card's name and power limit, one {"kernels": [...]} line
 (K0 with the widths it serves on the render path, K1, K2, K3,
 K4, K5, K6a, K6b, P1 and P2) and, last, {"ok": true, "device": {...}}.
@@ -166,7 +177,8 @@ KERNELS = ('fused_mlp_fwd_wgmma', 'fused_mlp_stash_fwd', 'fused_mlp_stash_bwd',
 KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
 # K2's launches, by kernel name (the grid ones only with grid levels, the
 # i8pair ones only for that format)
-K2_KERNELS = ('prep_kernel', 'chain_wgmma_kernel', 'dw_wgmma_kernel', 'reduce_kernel',
+K2_KERNELS = ('prep_kernel', 'prep_grid_kernel', 'chain_wgmma_kernel', 'dw_wgmma_kernel',
+              'reduce_kernel',
               'grid_scatter_kernel', 'grid_convert_kernel', 'dz_group_max_kernel',
               'dw_i8_wgmma_kernel')
 DPTS_TOL = 5e-2
@@ -185,7 +197,11 @@ PROBE_CURVE_TOL = 1e-2
 GRID_QUARTER = dict(n_layers=4, d_filter=128, grid_sizes=(16,), grid_features=8,
                     grid_bound=1.3)
 NGP = dict(grid_sizes=(16, 32), grid_features=8, grid_bound=1.3)
-GRID_SHAPES = (('grid_quarter', GRID_QUARTER, 1024 * 72), ('ngp', NGP, 1024 * 192))
+# five levels of other sizes at grid_quarter's widths: any number of levels
+GRID_FIVE = dict(n_layers=4, d_filter=128, grid_sizes=(8, 12, 16, 24, 32), grid_features=8,
+                 grid_bound=1.3)
+GRID_SHAPES = (('grid_quarter', GRID_QUARTER, 1024 * 72), ('ngp', NGP, 1024 * 192),
+               ('five_levels', GRID_FIVE, 1024 * 72))
 # the grid_quarter kernel path's last loss of 30 steps against the float32
 # field's, relative
 GRID_CURVE_TOL = 5e-2
@@ -794,6 +810,14 @@ def _grid_kernel_phase(name: str, kw: dict, n: int, device) -> dict:
         k2_plain=_cuda_ms(lambda: fused_mlp.fused_mlp_stash_bwd_reference(
             cfg, p, pts, dy, hs, cs), reps=5))
     del bhs, bcs
+    # K5's parts by kernel name, and the library yardstick (never on the path)
+    from sunerf_tpu_torch.scripts.backward_ablation import grid_sample_ms
+    kernels = _kernel_breakdown(
+        lambda: fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs), f'{tag} K2')
+    lib = grid_sample_ms(cfg, p, pts, device)
+    print(f"{tag}: grid_sample a level (5-D, trilinear, border), forward {lib['fwd_ms']:.3f} "
+          f"ms, forward + backward to d_table {lib['fwd_bwd_ms']:.3f} ms (timing rows, never "
+          f"on the path)", flush=True)
     io = n * 4 * (cfg.d_input + cfg.d_output)
     stash = n * cfg.n_layers * cfg.d_filter * 3
     par, tab = _param_bytes(cfg), _grid_bytes(cfg)
@@ -824,7 +848,9 @@ def _grid_kernel_phase(name: str, kw: dict, n: int, device) -> dict:
                         max_rel_err=max(e['max_rel_err'] for e in gerr.values()),
                         grads=gerr, bit_identical=identical),
                 k5=dict(grid_share_ms=marginal, own_bound_ms=b5[0], own_bound_by=b5[1],
-                        table_grads=table_err))
+                        table_grads=table_err, k2_kernels=kernels,
+                        grid_sample_fwd_ms=lib['fwd_ms'],
+                        grid_sample_fwd_bwd_ms=lib['fwd_bwd_ms']))
 
 
 def _grid_train_phase(device) -> dict:
@@ -1477,16 +1503,27 @@ def _tap_row(G: int, n: int, gen, device) -> dict:
     nbytes = n * (12 + 4 * F) + 4 * G ** 3 * F
     t_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
     t_ops = n * (2 * 8 * F + 16) / (F32_TFLOPS * 1e12) * 1e3
+    # the L2 gather floor: the taps' sectors over the L2's rate for them
+    # (sector_read: P1's loads of n random cells of this table, no
+    # arithmetic), so the floor is that microbenchmark's time
+    sectors = 8 * -(-4 * F // 32)
+    l2_floor = _graph_ms([lambda: gp.sector_read(packed, G, n)])
+    l2_rate = n * sectors * 32 / (l2_floor * 1e-3)
     row = dict(G=G, n=n, features=F, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+               l2_floor_ms=l2_floor, l2_rate_tbps=l2_rate / 1e12, l2_sectors_a_point=sectors,
+               floor_ms=max(t_bytes, t_ops, l2_floor),
+               floor_by='L2 gathers' if l2_floor > max(t_bytes, t_ops) else 'bytes',
                ns_per_tap=ms * 1e6 / (n * 8), event_ms=event_ms, input_sets=sets,
                max_abs_err=err,
                library_max_abs_err=lib_err, max_abs=float(ref.abs().max()))
     print(f"[grid_probes] P1 G={G} N={n}: kernel {ms:.4f} ms ({row['ns_per_tap']:.4f} ns a "
           f"tap; {event_ms:.4f} by events around one call), plain {plain_ms:.4f}, "
           f"grid_sample {library_ms:.4f}, bound "
-          f"{row['bound_ms']:.4f} ms by {row['bound_by']}; kernel vs plain max abs "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}, L2 gather floor {l2_floor:.4f} ms "
+          f"({sectors} sectors a point at {l2_rate / 1e12:.2f} TB/s, P1's gathers alone): "
+          f"held by {row['floor_by']}; kernel vs plain max abs "
           f"{err:.2e} (tol {TAP_TOL}), grid_sample vs plain {lib_err:.2e}", flush=True)
     _check(err <= TAP_TOL, f'P1 G={G} N={n}: kernel vs plain {err:.3e}')
     return row
@@ -1897,6 +1934,8 @@ def main() -> int:
         'name': 'fused_mlp_grid (K5, the grid branch of K0/K1/K2)', 'route': 'cuda',
         'source': 'sunerf_tpu_torch/csrc/fused_mlp_common.cuh',
         'sources': ['sunerf_tpu_torch/csrc/fused_mlp_common.cuh',
+                    'sunerf_tpu_torch/csrc/fused_mlp_fwd_wgmma.cuh',
+                    'sunerf_tpu_torch/csrc/fused_mlp_backward.cuh',
                     'sunerf_tpu_torch/csrc/fused_mlp_stash_bwd.cu'],
         'replaces': 'sunerf_tpu/ops/pallas/fused_mlp.py:313',
         'launches': grid_train['launches']['k5'],
@@ -1909,7 +1948,11 @@ def main() -> int:
         'ms': gq['k1']['ms'] + gq['k2']['ms'],
         'plain_ms': gq['k1']['plain_ms'] + gq['k2']['plain_ms'],
         'bound_ms': gq['k1']['bound_ms'] + gq['k2']['bound_ms'],
-        'bound_by': gq['k2']['bound_by'], 'library_ms': None,
+        'bound_by': gq['k2']['bound_by'],
+        'library_ms': gq['k5']['grid_sample_fwd_bwd_ms'],
+        'library': 'torch.nn.functional.grid_sample, 5-D, a call a level, forward + backward '
+                   'to d_table (forward alone: shapes[*].grid_sample_fwd_ms)',
+        'grid_share_ms': {name: r['k5']['grid_share_ms'] for name, r in grid_rows.items()},
         'shapes': {name: r['k5'] for name, r in grid_rows.items()},
         'train_step_ms': grid_train['step_ms'], 'train_rays_per_s': grid_train['rays_per_s'],
         'train_step_float32_ms': grid_train['f32_step_ms'], 'train': grid_train,
@@ -1975,6 +2018,7 @@ def main() -> int:
         'max_abs_err': max(r['max_abs_err'] for r in probes['tap_rows'].values()),
         'ms': tap['ms'], 'plain_ms': tap['plain_ms'], 'bound_ms': tap['bound_ms'],
         'bound_by': tap['bound_by'], 'library_ms': tap['library_ms'],
+        'l2_floor_ms': tap['l2_floor_ms'], 'l2_rate_tbps': tap['l2_rate_tbps'],
         'library': 'torch.nn.functional.grid_sample, 5-D, float32',
         'shapes': probes['tap_rows'], 'script': probes['taps'],
         'check': probes['checks']['taps'],

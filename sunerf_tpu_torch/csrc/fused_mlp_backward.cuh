@@ -25,9 +25,12 @@
 //      a fixed order, into per tile f32 partials. With kDpts it ends with
 //      the point cotangent (K3: one more product against W_in^T, its
 //      columns by dimension, from whole ring stages, for any d_input); with
-//      grid levels with the grid cotangent (K5). 'i8pair': each point's
-//      max |dz_j| too.
-//   2. K5 only: grid_scatter_kernel and grid_convert_kernel.
+//      grid levels with the grid cotangent (K5: one more product, dz_0
+//      against W_in's grid rows, from one ring stage a 32 columns, any
+//      number of levels). 'i8pair': each point's max |dz_j| too.
+//   2. K5 only: grid_scatter_kernel (a quad of lanes a (point, level),
+//      equal table rows of a warp's consecutive points summed before one
+//      64-bit red each) and grid_convert_kernel.
 //   3. 'i8pair' only: dz_group_max_kernel, each group's max |dz_j| from the
 //      points'.
 //   4. dw_wgmma_kernel: dW_in = enc^T dz_0 and dW_h[j-1] = hs_{j-1}^T dz_j,
@@ -92,10 +95,14 @@ constexpr int kThreads = kConsumers + 32;   // + the producer warp
 constexpr int kMaxStages = 32;
 constexpr int kRowGroups = kRows / 8;
 constexpr size_t kSmemLimit = 232448;   // a block's shared memory on sm_90
-// the chain kernel's head: barriers [0, 512), block maxima [512, 640),
-// then dy [64][d_out] f32 at 1024 and the 'lsb' decode table at 2048
+// the chain kernel's head: barriers [0, 512), the block's grid maxima at
+// [512, 1024) (up to 128 levels; more go after the ring), then dy [64][d_out]
+// f32 at 1024 and the 'lsb' decode table at 2048
 constexpr int kChainHead = 3072;
+constexpr int kGridMaxAt = 512;
+constexpr int kHeadLevels = (1024 - kGridMaxAt) / 4;
 constexpr int kLsbTableAt = 2048;
+constexpr int kGridCols = 32;     // K5's grid-cotangent columns a ring stage
 constexpr int kDwBar = 1024;      // the dW kernel's barriers, before its stages
 constexpr int kDwTM = 128;        // dW output rows a work item (two warpgroups)
 constexpr int kBox = 64;          // rows of a TMA box; bf16 columns of a dW A box
@@ -116,7 +123,10 @@ enum Gate : int { kGateInt8 = 0, kGateBf16 = 1, kGateLsb = 2, kGateI8pair = 3 };
 // 4 = without its products, 5 = the chain kernel without its row maxima;
 // K4 6 = its forward without the hs / cs stores (fused_mlp_fwd_wgmma.cuh),
 // 7 = without its reductions; K3 8 = the tail's products without its
-// epilogue, 9 = the epilogue without the products.
+// epilogue, 9 = the epilogue without the products; K5 10 = the grid
+// scatter's reds term by term, without the warp's merge of equal rows,
+// 11 = the grid cotangent without its products, 12 = its products without
+// its epilogue (no denc_grid, no maxima).
 #ifndef SUNERF_ABLATION
 #define SUNERF_ABLATION 0
 #endif
@@ -147,9 +157,10 @@ struct BwdParams {
   float* grad_chain;            // [q]: dW_out [H][d_out], db_out, db_j [L][H]
   float* grad_dw;               // [p]: dW_in [e_pad][H], dW_h [L-1][H][H]
   GridParams grid;              // dense grid levels (K5), or none
-  const __nv_bfloat16* w_grid;  // [levels * F][H] bf16 grid rows of w_in
+  const __nv_bfloat16* w_grid;  // pack_wgmma_grid: w_in's grid rows, 32 columns a ring stage
   float* dgrid;                 // [n, levels * F] scratch: denc_grid
   unsigned int* gmax;           // [levels] bits of max |denc_grid|, zeroed
+  int gmax_at;                  // the chain kernel's block maxima, a byte offset in its smem
   unsigned long long* gacc;     // [sum G^3 F] fixed-point sums, zeroed
   float* grad_grid;             // [sum G^3 F]: d_table of each level
   float* dpts;                  // K3: [n, d_in], or null
@@ -311,13 +322,18 @@ __device__ __forceinline__ void put_part(float* at, float v, bool acc) {
 
 // The tile's recomputed encoding [x, sin u, cos u, grid features, zeros]
 // as bf16 rows of the scratch [n, e_pad], as the forward computes it: cos
-// u = sin(u + pi/2), as the TPU kernel's fast_cos.
+// u = sin(u + pi/2), as the TPU kernel's fast_cos; then the grid features,
+// a (point, level) a thread (grid_level_features: the cell once, the
+// corners' rows as vectors).
+template <bool kGrid>
 __device__ __forceinline__ void encode_rows(const BwdParams& p, int row0, int rows) {
   const int grid0 = p.d_in + 2 * p.n_cols;
-  const int grid_end = grid0 + p.grid.n_levels * p.grid.features;
+  const int F = p.grid.features;
+  const int grid_end = grid0 + (kGrid ? p.grid.n_levels * F : 0);
   for (int idx = threadIdx.x; idx < rows * p.e_pad; idx += kConsumers) {
     const int r = idx / p.e_pad;
     const int c = idx - r * p.e_pad;
+    if (kGrid && c >= grid0 && c < grid_end) continue;
     const float* x = p.pts + static_cast<size_t>(row0 + r) * p.d_in;
     float v = 0.f;
     if (c < p.d_in) {
@@ -326,11 +342,15 @@ __device__ __forceinline__ void encode_rows(const BwdParams& p, int row0, int ro
       const int j = (c - p.d_in) % p.n_cols;
       const float u = __fmul_rn(x[p.col_dim[j]], p.col_freq[j]);
       v = fast_sin(c < p.d_in + p.n_cols ? u : __fadd_rn(u, kHalfPi));
-    } else if (c < grid_end) {
-      const int j = c - grid0;
-      v = grid_feature(p.grid, j / p.grid.features, x, j % p.grid.features);
     }
     p.enc[static_cast<size_t>(row0) * p.e_pad + idx] = __float2bfloat16_rn(v);
+  }
+  if constexpr (!kGrid) return;
+  for (int it = threadIdx.x; it < rows * p.grid.n_levels; it += kConsumers) {
+    const int level = it / rows, r = it - level * rows;
+    __nv_bfloat16* dst = p.enc + static_cast<size_t>(row0 + r) * p.e_pad + grid0 + level * F;
+    grid_level_features<4>(p.grid, level, p.pts + static_cast<size_t>(row0 + r) * p.d_in,
+                           [&](int f, float v) { dst[f] = __float2bfloat16_rn(v); });
   }
 }
 
@@ -388,15 +408,27 @@ __device__ __forceinline__ void load_dy(const BwdParams& p, int row0, int rows, 
 }
 
 // The tile's dW_out and db_out partials and its rows of the encoding
-// scratch: a block of kConsumers threads per 64-point tile.
-__global__ void __launch_bounds__(kConsumers) prep_kernel(BwdParams p) {
+// scratch: a block of kConsumers threads per 64-point tile (prep_kernel;
+// prep_grid_kernel with grid levels, at least 4 blocks an SM: the grid
+// features' loads at 110 registers a thread left 2, and prep took 0.29 ms
+// instead of 0.21 at 8x512, N = 196,608; H100 80GB HBM3, 700 W). Without a
+// grid the kernel holds no grid code, so its registers and occupancy are
+// its own.
+template <bool kGrid>
+__device__ __forceinline__ void prep_tile(const BwdParams& p) {
   __shared__ float sdy[kRows * kMaxOut];
   const int row0 = blockIdx.x * kRows;
   const int rows = min(kRows, p.n - row0);
   load_dy(p, row0, rows, sdy);
-  encode_rows(p, row0, rows);
+  encode_rows<kGrid>(p, row0, rows);
   __syncthreads();
   dw_out_partial(p, row0, rows, sdy, p.part_chain + static_cast<size_t>(blockIdx.x) * p.q);
+}
+
+__global__ void __launch_bounds__(kConsumers) prep_kernel(BwdParams p) { prep_tile<false>(p); }
+
+__global__ void __launch_bounds__(kConsumers, 4) prep_grid_kernel(BwdParams p) {
+  prep_tile<true>(p);
 }
 
 // Sums over the butterfly of the 8 lanes with the same lane % 4 (the rows
@@ -505,75 +537,89 @@ __device__ __forceinline__ void row_maxima(const __nv_bfloat16* act, float* out,
         make_float2(__uint_as_float(m << 16), 0.f);
 }
 
-// denc_grid[r, j] = sum_c dz_0[r, c] bf16(W_in[grid row j, c]) for the
-// tile's rows into p.dgrid, and each level's max |denc_grid| into p.gmax:
-// max over the tile, then one atomicMax on the bits (non-negative floats
-// order as their bits do, NaN above infinity; any order gives the same
-// max). Thread t takes row t / 4 and the columns t % 4 + 4 q, four
-// independent sums over c at a time, 8 bf16 per 16-byte load (8 columns of
-// a row are contiguous in the buffer's core matrices).
-template <int H>
-__device__ __forceinline__ void grid_cotangent(const BwdParams& p, const __nv_bfloat16* dz0,
-                                               int row0, unsigned int (*block_max)[kMaxLevels]) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r = threadIdx.x >> 2;
-  const int gr = row0 + r;
-  const int F = p.grid.features;
-  const int n_grid = p.grid.n_levels * F;
-  unsigned int mx[kMaxLevels] = {0u, 0u, 0u, 0u};
-  for (int j0 = threadIdx.x & 3; j0 < n_grid; j0 += 16) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const __nv_bfloat16* w[4];
+// K5's grid cotangent of the tile's rows, denc_grid = dz_0 bf16(W_in[grid
+// rows])^T, into p.dgrid [n, levels F], and each level's max |denc_grid|
+// into the block's maxima `smax` (bits: non-negative floats order as their
+// bits do, NaN above infinity; any order gives the same max). On wgmma, as
+// K3's point cotangent: per chunk of 32 columns one ring stage of
+// pack_wgmma_grid (H / 32 k-chunks [32 x 32]), each warpgroup m64n16k16
+// over its 16 columns from dz_0 in the buffer, issued at once and waited
+// for once, with `during` (db_0's column sums) under the first chunk's
+// products. Then each thread stores its 8 sums, and each column's max over
+// the warp's 16 rows, by shuffles, goes to its level's maximum (a shared
+// atomicMax by the 4 lanes of row 0). The first design summed these on
+// the CUDA cores in the chain kernel's tail: 0.41 ms of the chain at the
+// NGP recipe (H100 80GB HBM3, 700 W; PERF.md).
+template <int H, typename Take, typename During>
+__device__ __forceinline__ void grid_cotangent(const BwdParams& p, uint32_t a0, int row0,
+                                               Take&& take, uint64_t* empty, uint32_t ring0,
+                                               int stage_bytes, unsigned int* smax,
+                                               During&& during) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+  const int F = p.grid.features, n_grid = p.grid.n_levels * F;
+  const int n_gc = (n_grid + kGridCols - 1) / kGridCols;
+  for (int cc = 0; cc < n_gc; ++cc) {
+    float acc[8] = {};
+    const int st = take();
+    hp::wgmma_fence();
 #pragma unroll
-    for (int q = 0; q < 4; ++q)  // columns past n_grid read the last row, unused
-      w[q] = p.w_grid + static_cast<size_t>(min(j0 + 4 * q, n_grid - 1)) * H;
-#pragma unroll 2
-    for (int c = 0; c < H; c += 8) {
-      const uint4 av = *reinterpret_cast<const uint4*>(dz0 + hp::core_offset(r, c, kRowGroups));
-      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&av);
-      float af[8];
+    for (int kc = 0; kc < H / kKC; ++kc) {
+      // k-chunk kc [32 x 32] of the stage, this warpgroup's 16 columns
+      const uint32_t b0 =
+          ring0 + st * stage_bytes + kc * (kKC * kGridCols * 2) + wg * (kGridCols / 16) * 128;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 v = __bfloat1622float2(a2[e]);
-        af[2 * e] = v.x;
-        af[2 * e + 1] = v.y;
+      for (int h = 0; h < 2; ++h)
+        if (SUNERF_ABLATION != 11)
+          hp::wgmma_ss(acc, hp::make_desc(a0 + (4 * kc + 2 * h) * kRowGroups * 128,
+                                          kRowGroups * 128, 128),
+                       hp::make_desc(b0 + 2 * h * (kGridCols / 8) * 128, (kGridCols / 8) * 128,
+                                     128),
+                       kc > 0 || h > 0);
+    }
+    hp::wgmma_commit();
+    if (cc == 0) during();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+    release(&empty[st], lane);
+    if (SUNERF_ABLATION == 12) continue;
+    const int col0 = cc * kGridCols + wg * (kGridCols / 2);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int gr = row0 + w4 * 16 + g + 8 * r;
+        const int j = col0 + 8 * jj + 2 * q;
+        if (gr >= p.n) continue;
+        float* at = p.dgrid + static_cast<size_t>(gr) * n_grid + j;
+        if (SUNERF_ABLATION == 13) continue;
+        if (j < n_grid) at[0] = acc[4 * jj + 2 * r];
+        if (j + 1 < n_grid) at[1] = acc[4 * jj + 2 * r + 1];
       }
+    if (col0 >= n_grid) continue;
+    // each of the thread's 4 columns' max over its 2 rows, then over the 8
+    // lanes of its column pair (the rows g), and lanes 0-3 (g = 0) take
+    // them to the columns' levels: 16 shared atomicMax a warp and chunk
+    unsigned int cm[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint4 wv = __ldg(reinterpret_cast<const uint4*>(w[q] + c));
-        const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&wv);
+    for (int c = 0; c < 4; ++c) {
+      const int jj = c >> 1, e = c & 1;
+      unsigned int m = 0u;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 v = __bfloat1622float2(w2[e]);
-          acc[q] = fmaf(af[2 * e], v.x, acc[q]);
-          acc[q] = fmaf(af[2 * e + 1], v.y, acc[q]);
-        }
+      for (int r = 0; r < 2; ++r)
+        if (row0 + w4 * 16 + g + 8 * r < p.n)
+          m = max(m, __float_as_uint(fabsf(acc[4 * jj + 2 * r + e])));
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+      cm[c] = m;
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = col0 + 8 * (c >> 1) + 2 * q + (c & 1);
+        if (j < n_grid && cm[c] != 0u) atomicMax(smax + j / F, cm[c]);
       }
     }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = j0 + 4 * q;
-      if (j >= n_grid || gr >= p.n) continue;
-      p.dgrid[static_cast<size_t>(gr) * n_grid + j] = acc[q];
-      const unsigned int bits = __float_as_uint(fabsf(acc[q]));
-#pragma unroll
-      for (int l = 0; l < kMaxLevels; ++l)
-        if (l == j / F) mx[l] = max(mx[l], bits);
-    }
-  }
-#pragma unroll
-  for (int l = 0; l < kMaxLevels; ++l) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx[l] = max(mx[l], __shfl_xor_sync(0xffffffffu, mx[l], off));
-    if (lane == 0) block_max[warp][l] = mx[l];
-  }
-  hp::named_sync(1, kConsumers);
-  if (threadIdx.x < p.grid.n_levels) {
-    unsigned int m = 0u;
-    for (int w = 0; w < kConsumerWarps; ++w) m = max(m, block_max[w][threadIdx.x]);
-    atomicMax(p.gmax + threadIdx.x, m);
   }
 }
 
@@ -740,7 +786,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kMaxStages;
-  auto* block_max = reinterpret_cast<unsigned int (*)[kMaxLevels]>(smem + 512);
+  auto* smax = reinterpret_cast<unsigned int*>(smem + p.gmax_at);   // K5's level maxima
   float* scratch = reinterpret_cast<float*>(smem + 1024);
   auto* lsb_table = reinterpret_cast<uint16_t*>(smem + kLsbTableAt);
   auto* act = reinterpret_cast<__nv_bfloat16*>(smem + kChainHead);
@@ -750,7 +796,9 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tiles = (p.n + kRows - 1) / kRows;
   const int n_cc = kDpts ? p.dpts_cols / CW : 0;
+  const int n_gc = (p.grid.n_levels * p.grid.features + kGridCols - 1) / kGridCols;
 
+  for (int l = threadIdx.x; l < p.grid.n_levels; l += blockDim.x) smax[l] = 0u;
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       hp::mbar_init(&full[s], 1);
@@ -821,6 +869,10 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
       for (int cc = 0; cc < n_cc; ++cc)
         for (int s = 0; s < CW / 32; ++s)
           put_chunk(we + (static_cast<size_t>(cc) * (CW / 32) + s) * SB, SB);
+      // K5: a chunk of 32 columns of the grid rows is one stage
+      for (int cc = 0; cc < n_gc; ++cc)
+        put_chunk(reinterpret_cast<const unsigned char*>(p.w_grid) + static_cast<size_t>(cc) * SB,
+                  SB);
       // the next tile's first gate into L2
       if (w + gridDim.x < tiles) prefetch_gate((w + gridDim.x) * kRows, L - 1);
     }
@@ -958,13 +1010,21 @@ __global__ void __launch_bounds__(kThreads, 1) chain_wgmma_kernel(const __grid_c
       auto db0 = [&]() {
         if (L > 1) column_sums<H>(act, part_db, kAcc && p.acc_parts);
       };
-      if constexpr (kDpts) point_cotangent<H>(p, a0, row0, take, empty, ring0, SB, db0);
-      else db0();
-      if (p.grid.n_levels > 0) grid_cotangent<H>(p, act, row0, block_max);
+      if constexpr (kDpts) {
+        point_cotangent<H>(p, a0, row0, take, empty, ring0, SB, db0);
+        if (n_gc > 0) grid_cotangent<H>(p, a0, row0, take, empty, ring0, SB, smax, [] {});
+      } else if (n_gc > 0) {
+        grid_cotangent<H>(p, a0, row0, take, empty, ring0, SB, smax, db0);
+      } else {
+        db0();
+      }
       if (threadIdx.x == 0) hp::bulk_wait_read();
       hp::named_sync(1, kConsumers);
     }
     if (threadIdx.x == 0) hp::bulk_wait();
+    // K5: the block's level maxima, once
+    for (int l = threadIdx.x; l < p.grid.n_levels; l += kConsumers)
+      if (smax[l] != 0u) atomicMax(p.gmax + l, smax[l]);
   }
 }
 
@@ -1162,60 +1222,94 @@ __device__ __forceinline__ int grid_scale_exp(float m, int e_n) {
 }
 
 // The level of flat table element i (over the levels' G^3 F elements in
-// order) and its offset within that level.
-__device__ __forceinline__ int grid_level_of(const GridParams& g, size_t& i) {
+// order), from the descriptors' offsets.
+__device__ __forceinline__ int grid_level_of(const GridParams& g, long long i) {
   int l = 0;
-  for (; l < g.n_levels - 1; ++l) {
-    const size_t sz = static_cast<size_t>(g.size[l]) * g.size[l] * g.size[l] * g.features;
-    if (i < sz) break;
-    i -= sz;
-  }
+  while (l + 1 < g.n_levels && i >= grid_level(g, l + 1).offset) ++l;
   return l;
 }
 
-// One thread per (point, level, corner, feature): the term
-// w(corner) * denc_grid in f32, scaled by 2^k exactly (in double) and
-// rounded to an integer, added to the level's fixed-point sum. A warp's
-// 32 threads cover 4 corners x 8 features of one point, 8 neighbouring
-// 8-byte words per corner.
-__global__ void grid_scatter_kernel(BwdParams p, int e_n) {
+// K5's scatter of the grid cotangent onto the tables, a quad of lanes a
+// (point, level): lane q of quad t takes features q, q + 4, ... of level
+// t / n, point t % n (ops/fused_mlp.py grid_scatter_item), so a warp holds 8
+// consecutive points of one level, which are mostly samples along one ray,
+// and each of its reds of a corner and feature group covers one 32-byte
+// sector a point (F = 8). The cell once a lane, then for each corner and
+// feature the term w(corner) * denc_grid in f32, scaled by 2^k exactly (in
+// double) and rounded to an integer (grid_scale_exp: the same terms as the
+// first design's thread a term). Terms that a warp's runs of consecutive
+// points add to one table element (the same cell) are summed by a
+// segmented suffix sum over the run (shuffles by 4, 8 and 16 lanes, 64-bit
+// integers, exact), and the run's first point issues one 64-bit red;
+// integer sums in any order give the same bits. Where no two neighbouring
+// points share a row the terms go out one red each.
+constexpr int kScatterLanes = 4;
+
+__global__ void __launch_bounds__(256) grid_scatter_kernel(BwdParams p, int e_n) {
   const GridParams& g = p.grid;
-  const int F = g.features;
-  const size_t per_point = static_cast<size_t>(g.n_levels) * 8 * F;
-  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<size_t>(p.n) * per_point) return;
-  const int pt = static_cast<int>(t / per_point);
-  int rem = static_cast<int>(t - static_cast<size_t>(pt) * per_point);
-  const int level = rem / (8 * F);
-  rem -= level * 8 * F;
-  const int corner = rem / F;
-  const int f = rem - corner * F;
+  const int F = g.features, n_grid = g.n_levels * F;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, fq = lane & (kScatterLanes - 1);
+  const long long items = static_cast<long long>(p.n) * g.n_levels;
+  if ((t - lane) / kScatterLanes >= items) return;   // whole warps past the end
+  const long long item = t / kScatterLanes;
+  bool valid = item < items;
+  const int level = valid ? static_cast<int>(item / p.n) : 0;
+  const int pt = valid ? static_cast<int>(item - static_cast<long long>(level) * p.n) : 0;
   const float m = __uint_as_float(p.gmax[level]);
-  if (!(m > 0.f) || !(m <= 3.402823466e38f)) return;  // all zero, or not finite
-  const int G = g.size[level];
+  valid = valid && m > 0.f && m <= 3.402823466e38f;   // all zero, or not finite: nothing
+  const GridLevel lv = grid_level(g, level);
+  const int G = static_cast<int>(lv.size);
   int lo[3];
   float fr[3];
   grid_cell(p.pts + static_cast<size_t>(pt) * p.d_in, G, g.bound, lo, fr);
-  int row;
-  const float w = grid_corner(lo, fr, G, corner, row);
-  const float v = __fmul_rn(w, p.dgrid[static_cast<size_t>(pt) * g.n_levels * F + level * F + f]);
-  const long long q = __double2ll_rn(static_cast<double>(v)
-                                     * ldexp(1.0, grid_scale_exp(m, e_n)));
-  if (q == 0) return;
-  size_t off = 0;
-  for (int l = 0; l < level; ++l)
-    off += static_cast<size_t>(g.size[l]) * g.size[l] * g.size[l] * F;
-  atomicAdd(p.gacc + off + static_cast<size_t>(row) * F + f,
-            static_cast<unsigned long long>(q));
+  float w[8];
+  long long key[8];   // each corner's table row, as an element of the sums
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int row;
+    w[c] = grid_corner(lo, fr, G, c, row);
+    key[c] = valid ? lv.offset + static_cast<long long>(row) * F : -1;
+  }
+  const double scale = valid ? ldexp(1.0, grid_scale_exp(m, e_n)) : 0.0;
+  const float* d = p.dgrid + static_cast<size_t>(pt) * n_grid + level * F;
+  // this lane's residue class (lanes fq, fq + 4, ...) past it
+  const unsigned later = (0x11111111u << fq) & ~((2u << lane) - 1u);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    // the runs of points with this corner's row: heads, and each lane's
+    // end (the lane before the next head of its class)
+    const long long prev = __shfl_up_sync(0xffffffffu, key[c], kScatterLanes);
+    const bool head = lane < kScatterLanes || prev != key[c];
+    const unsigned heads = __ballot_sync(0xffffffffu, head);
+    const unsigned after = heads & later;
+    const int end = after ? __ffs(after) - 1 - kScatterLanes : 32 - kScatterLanes + fq;
+    const bool merge = SUNERF_ABLATION != 10 && heads != 0xFFFFFFFFu;
+    for (int f0 = 0; f0 < F; f0 += kScatterLanes) {
+      const int f = f0 + fq;
+      long long q = 0;
+      if (valid && f < F)
+        q = __double2ll_rn(static_cast<double>(__fmul_rn(w[c], __ldg(d + f))) * scale);
+      if (merge) {
+#pragma unroll
+        for (int off = kScatterLanes; off < 32; off <<= 1) {
+          const long long o = __shfl_down_sync(0xffffffffu, q, off);
+          if (lane + off <= end) q += o;
+        }
+        if (!head) continue;
+      }
+      if (q != 0)
+        atomicAdd(p.gacc + key[c] + f, static_cast<unsigned long long>(q));
+    }
+  }
 }
 
 // d_table = the fixed-point sums times 2^-k, in f32; NaN for a level whose
 // cotangent was not finite, 0 for one that was all zero.
-__global__ void grid_convert_kernel(BwdParams p, size_t total, int e_n) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  size_t i = t;
-  const int level = grid_level_of(p.grid, i);
+__global__ void grid_convert_kernel(BwdParams p, int e_n) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= p.grid.total) return;
+  const int level = grid_level_of(p.grid, t);
   const float m = __uint_as_float(p.gmax[level]);
   float v;
   if (!(m <= 3.402823466e38f))
@@ -1558,7 +1652,9 @@ cudaError_t launch_chain(BwdParams p, cudaStream_t stream) {
   // an int8 gate tile [64, H] or half a 16-bit one [32, H]; a 16-bit gate is
   // taken while two chunks are in flight (4 stages)
   p.stage_bytes = kKC * H * 2;
-  const size_t fixed = kChainHead + static_cast<size_t>(kRows) * H * 2;
+  // K5's level maxima in the head, or, past 128 levels, after the ring
+  const size_t grid_max = p.grid.n_levels > kHeadLevels ? (p.grid.n_levels * 4 + 15) / 16 * 16 : 0;
+  const size_t fixed = kChainHead + static_cast<size_t>(kRows) * H * 2 + grid_max;
   p.stages = static_cast<int>((kSmemLimit - fixed) / p.stage_bytes);
   if (p.stages > kMaxStages) p.stages = kMaxStages;
   // K3 takes a chunk's CW / 32 stages at once
@@ -1566,9 +1662,14 @@ cudaError_t launch_chain(BwdParams p, cudaStream_t stream) {
       (kDpts && p.stages < (H < 128 ? H : 128) / 32))
     return cudaErrorInvalidConfiguration;
   const int tiles = (p.n + kRows - 1) / kRows;
-  prep_kernel<<<tiles, kConsumers, 0, stream>>>(p);
+  if (p.grid.n_levels > 0)
+    prep_grid_kernel<<<tiles, kConsumers, 0, stream>>>(p);
+  else
+    prep_kernel<<<tiles, kConsumers, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  p.gmax_at = grid_max > 0 ? static_cast<int>(fixed - grid_max) + p.stages * p.stage_bytes
+                           : kGridMaxAt;
   chain_wgmma_kernel<H, kGate, kDpts><<<tiles < max_blocks ? tiles : max_blocks, kThreads,
                                         fixed + static_cast<size_t>(p.stages) * p.stage_bytes,
                                         stream>>>(p);
@@ -1690,16 +1791,11 @@ inline cudaError_t launch_after_chain(const BwdParams& p, cudaStream_t s) {
   if (p.grid.n_levels > 0) {
     int e_n = 0;
     while ((1LL << e_n) < n) ++e_n;
-    size_t total = 0;
-    for (int l = 0; l < p.grid.n_levels; ++l)
-      total += static_cast<size_t>(p.grid.size[l]) * p.grid.size[l] * p.grid.size[l]
-               * p.grid.features;
-    const size_t terms = static_cast<size_t>(n) * p.grid.n_levels * 8 * p.grid.features;
-    grid_scatter_kernel<<<static_cast<unsigned>((terms + 255) / 256), 256, 0, s>>>(p, e_n);
+    const long long lanes = static_cast<long long>(n) * p.grid.n_levels * kScatterLanes;
+    grid_scatter_kernel<<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, s>>>(p, e_n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    grid_convert_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-        p, total, e_n);
+    grid_convert_kernel<<<static_cast<unsigned>((p.grid.total + 255) / 256), 256, 0, s>>>(p, e_n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

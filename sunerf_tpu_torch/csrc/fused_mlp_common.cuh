@@ -1,6 +1,7 @@
 // Device code shared by the fused-MLP kernels for Hopper (sm_90a): the
 // sine, cosine, bf16 and stash helpers and the dense feature-grid branch K5
-// of the forward (fused_mlp_fwd_wgmma.cuh: K0, K1, K6a, K6b and K4's
+// (its level descriptors and the per-(point, level) feature helper) of the
+// forward (fused_mlp_fwd_wgmma.cuh: K0, K1, K6a, K6b and K4's
 // recompute forward) and of the backwards (fused_mlp_backward.cuh). See
 // those files for what each replaces and what bounds it.
 #pragma once
@@ -10,8 +11,6 @@
 #include <stdint.h>
 
 namespace sunerf {
-
-constexpr int kMaxLevels = 4;         // feature-grid levels the kernels take
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvTwoPi = 0.15915494309189535f;
@@ -79,16 +78,26 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The dense feature-grid levels (K5), the same struct on the host
+// The dense feature-grid levels (K5), any number of them, as the JAX
+// kernels loop over dims.grid_sizes: one descriptor a level in a small
+// device array (ops/fused_mlp.py grid_descriptors, int64 [levels, 3]) that
+// the kernels read by pointer, and GridParams, the same struct on the host
 // (ops/fused_mlp.py _GridArgs, passed by pointer) and in the kernels'
 // parameters. Tables are the float32 parameters themselves, read through
 // L2: the optimizer updates them in place, and nothing caches them.
+struct GridLevel {
+  const float* table;   // [G, G, G, F] f32, axis order (y, z, x, f)
+  long long offset;     // its first element in d_table and the fixed-point sums
+  long long size;       // G
+};
+
 struct GridParams {
-  const float* table[kMaxLevels];   // [G, G, G, F] f32, axis order (y, z, x, f)
-  int size[kMaxLevels];             // G of each level
-  int n_levels;                     // 0 = no grid
-  int features;                     // F
-  float bound;                      // the tables span [-bound, bound]^3
+  const GridLevel* levels;   // [n_levels], device memory
+  long long total;           // elements of all the tables: sum of G^3 F
+  int n_levels;              // 0 = no grid
+  int features;              // F
+  float bound;               // the tables span [-bound, bound]^3
+  int vec4;                  // 1: F % 4 == 0 and every table 16-byte aligned
 };
 
 inline GridParams grid_params(const void* grid) {
@@ -97,13 +106,21 @@ inline GridParams grid_params(const void* grid) {
   return g;
 }
 
+// What the host can check; the descriptors (tables, G >= 2, offsets) are
+// the wrapper's (ops/fused_mlp.py _check, grid_descriptors)
 inline bool grid_ok(const GridParams& g) {
-  if (g.n_levels < 0 || g.n_levels > kMaxLevels) return false;
+  if (g.n_levels < 0) return false;
   if (g.n_levels == 0) return true;
-  if (g.features < 1 || !(g.bound > 0.f)) return false;
-  for (int l = 0; l < g.n_levels; ++l)
-    if (g.table[l] == nullptr || g.size[l] < 2) return false;
-  return true;
+  return g.levels != nullptr && g.features >= 1 && g.bound > 0.f && g.total > 0;
+}
+
+__device__ __forceinline__ GridLevel grid_level(const GridParams& g, int l) {
+  const long long* d = reinterpret_cast<const long long*>(g.levels + l);
+  GridLevel v;
+  v.table = reinterpret_cast<const float*>(__ldg(d));
+  v.offset = __ldg(d + 1);
+  v.size = __ldg(d + 2);
+  return v;
 }
 
 // The lower cell corner lo and the offset fr from it, per axis, of point x
@@ -135,24 +152,76 @@ __device__ __forceinline__ float grid_corner(const int (&lo)[3], const float (&f
   return __fmul_rn(__fmul_rn(wx, wy), wz);
 }
 
-// Feature f of grid level `level` at point x: the trilinear interpolation
-// of ops/grid_encoding.py grid_encode, corners summed in the same order with
-// the same roundings, so both give the same bits. 8 loads from L2.
-__device__ __forceinline__ float grid_feature(const GridParams& g, int level,
-                                              const float* x, int f) {
-  const int G = g.size[level];
+// The F features of grid level `level` at point x, put(f, value) for each:
+// the trilinear interpolation of ops/grid_encoding.py grid_encode. The
+// cell is computed once a (point, level), not once a feature; each corner's
+// row of F floats comes as 16-byte loads (with vec4), kWide (8 or 4)
+// features at a time, all 8 corners' loads issued before the first sum;
+// the corners are summed in _corners' order with every operation rounded
+// on its own, so every feature has grid_encode's bits. kWide = 4 holds 32
+// loaded floats a thread instead of 64, for kernels that need occupancy.
+template <int kWide = 8, typename Put>
+__device__ __forceinline__ void grid_level_features(const GridParams& g, int level,
+                                                    const float* x, Put&& put) {
+  const GridLevel lv = grid_level(g, level);
+  const int G = static_cast<int>(lv.size), F = g.features;
   int lo[3];
   float fr[3];
   grid_cell(x, G, g.bound, lo, fr);
-  const float* t = g.table[level];
-  float acc = 0.f;
+  float w[8];
+  int t[8];   // each corner's row's first element (a table has < 2^31)
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     int row;
-    const float w = grid_corner(lo, fr, G, c, row);
-    acc = __fadd_rn(acc, __fmul_rn(w, __ldg(t + static_cast<size_t>(row) * g.features + f)));
+    w[c] = grid_corner(lo, fr, G, c, row);
+    t[c] = row * F;
   }
-  return acc;
+  int f0 = 0;
+  if (g.vec4) {
+    for (; kWide == 8 && f0 + 8 <= F; f0 += 8) {
+      float4 v[8][2];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        v[c][0] = __ldg(reinterpret_cast<const float4*>(lv.table + t[c] + f0));
+        v[c][1] = __ldg(reinterpret_cast<const float4*>(lv.table + t[c] + f0 + 4));
+      }
+      float a[8] = {};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float e[8] = {v[c][0].x, v[c][0].y, v[c][0].z, v[c][0].w,
+                            v[c][1].x, v[c][1].y, v[c][1].z, v[c][1].w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) a[k] = __fadd_rn(a[k], __fmul_rn(w[c], e[k]));
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) put(f0 + k, a[k]);
+    }
+    for (; f0 < F; f0 += 4) {   // kWide 4, or F % 8 == 4
+      float4 v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v[c] = __ldg(reinterpret_cast<const float4*>(lv.table + t[c] + f0));
+      float a[4] = {};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        a[0] = __fadd_rn(a[0], __fmul_rn(w[c], v[c].x));
+        a[1] = __fadd_rn(a[1], __fmul_rn(w[c], v[c].y));
+        a[2] = __fadd_rn(a[2], __fmul_rn(w[c], v[c].z));
+        a[3] = __fadd_rn(a[3], __fmul_rn(w[c], v[c].w));
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) put(f0 + k, a[k]);
+    }
+    return;
+  }
+  for (; f0 < F; ++f0) {
+    float v[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[c] = __ldg(lv.table + t[c] + f0);
+    float a = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) a = __fadd_rn(a, __fmul_rn(w[c], v[c]));
+    put(f0, a);
+  }
 }
 
 }  // namespace sunerf

@@ -21,7 +21,15 @@
 // wrong. With dense grid levels (K5, the grid branch of _fwd_kernel:
 // _encode_grid/_grid_feats, fused_mlp.py:283-327) enc also holds each
 // level's F trilinear features after the sin/cos columns, computed in f32
-// from the float32 tables (grid_feature in fused_mlp_common.cuh).
+// from the float32 tables (grid_level_features in fused_mlp_common.cuh),
+// any number of levels. A grid warp, launched only with a grid, computes
+// the next tile's features, a (point, level) a lane at a time, while the
+// consumers run the current tile's products, and stages them as bf16
+// [64][levels F] beside the activations (2 KB at the NGP recipe's 16
+// features, which the ring's 5 stages at 8x512 leave free); the encode
+// copies them in. The first design computed each (point, feature)
+// in the encode itself, the cell and 8 scalar L2 loads every time, while
+// the tensor cores waited.
 // The stashes, [N, L*H] row-major (the TPU kernels' layout), with y_i the
 // range-reduced pre-activation of layer i that the sine also uses:
 //   kStashInt8 (K1): hs = bf16(sin y_i), the value that feeds layer i+1,
@@ -112,7 +120,9 @@
 #include "hopper.cuh"
 
 // Measurement only (see fused_mlp_backward.cuh): 6 = K4's recompute
-// forward without its hs / cs stores
+// forward without its hs / cs stores; K5 14 = the grid warp stages nothing
+// (no loads, no features: the staging tile as it is), 15 = the consumers
+// neither wait for the grid warp nor copy its features
 #ifndef SUNERF_ABLATION
 #define SUNERF_ABLATION 0
 #endif
@@ -132,8 +142,11 @@ constexpr int kKC = 32;               // weight rows (k) per ring chunk
 constexpr int kConsumerWarps = 8;     // two warpgroups
 constexpr int kConsumers = kConsumerWarps * 32;
 constexpr int kThreads = kConsumers + 32;   // + the producer warp
+constexpr int kGridWarp = kConsumerWarps + 1;   // launched only with grid levels
+constexpr int kGridThreads = kThreads + 32;
 constexpr int kMaxStages = 32;
 constexpr int kBarBytes = 1024;       // the barriers, before the buffers
+constexpr int kGridBar = 2 * kMaxStages;   // the grid staging's full and empty barriers
 constexpr size_t kSmemLimit = 232448; // a block's shared memory on sm_90
 constexpr int kHeadN = 8;             // the head's wgmma width: d_out up to 8, padded
 
@@ -156,6 +169,7 @@ struct Params {
   int act_k;                 // activation buffer width: max(H, k_in) (K4: to 64)
   int stages;                // ring stages
   int resident;              // 1: every chunk of the weights has its own stage
+  int grid_bytes;            // the grid staging tile (0 without a grid)
 };
 
 constexpr int kColumn = kRows * 16;   // bytes of a column of core matrices
@@ -194,9 +208,11 @@ __host__ __device__ constexpr int staging_bytes(int H, int fmt) {
 // the activation buffer, as the plain version computes
 // it: consumer thread t takes row t % 64 and a quarter of each kind of
 // column (t / 64 + 4 i), reading its point's coordinates through L1; each
-// phase u gives its sin and its cos column.
+// phase u gives its sin and its cos column. The grid features come from the
+// grid warp's staging tile `gstage` [64][n_grid] bf16, already rounded.
 template <bool kSw>
-__device__ __forceinline__ void encode(const Params& p, int row0, unsigned char* dst) {
+__device__ __forceinline__ void encode(const Params& p, int row0, unsigned char* dst,
+                                       const __nv_bfloat16* gstage) {
   const int r = threadIdx.x & (kRows - 1);
   const int part = threadIdx.x / kRows;
   constexpr int kParts = kConsumers / kRows;
@@ -217,10 +233,43 @@ __device__ __forceinline__ void encode(const Params& p, int row0, unsigned char*
     put(cos0 + j, valid ? fast_sin(__fadd_rn(u, kHalfPi)) : 0.f);
   }
   const int n_grid = p.grid.n_levels * p.grid.features;
-  for (int j = part; j < n_grid; j += kParts)
-    put(grid0 + j, valid ? grid_feature(p.grid, j / p.grid.features, xp,
-                                        j % p.grid.features) : 0.f);
+  for (int idx = threadIdx.x; SUNERF_ABLATION != 15 && idx < kRows * n_grid;
+       idx += kConsumers) {
+    const int row = idx / n_grid;
+    *reinterpret_cast<__nv_bfloat16*>(dst + act_at<kSw>(row, grid0 + idx - row * n_grid)) =
+        gstage[idx];
+  }
   for (int c = grid0 + n_grid + part; c < p.k_in; c += kParts) put(c, 0.f);
+}
+
+// The grid warp: for each of the block's tiles in turn, once the consumers
+// have copied the last tile's features out of the staging tile, the
+// features of the tile's rows (zeros past n) into it as bf16, a (point,
+// level) a lane at a time (grid_level_features), then one arrival on full.
+__device__ __forceinline__ void grid_stage_tiles(const Params& p, __nv_bfloat16* gstage,
+                                                 uint64_t* gfull, uint64_t* gempty) {
+  const int lane = threadIdx.x & 31;
+  const int F = p.grid.features, n_grid = p.grid.n_levels * F;
+  const int tiles = (p.n + kRows - 1) / kRows;
+  int phase = 0;
+  for (int w = blockIdx.x; w < tiles; w += gridDim.x, phase ^= 1) {
+    // one lane waits, asleep between polls: the warp takes no issue slots
+    // from the consumers on its SM sub-partition while they run a tile
+    if (lane == 0) hp::mbar_wait(gempty, phase ^ 1, 1000);
+    __syncwarp();
+    for (int it = lane; SUNERF_ABLATION != 14 && it < kRows * p.grid.n_levels; it += 32) {
+      const int r = it & (kRows - 1), level = it / kRows;
+      const int gr = w * kRows + r;
+      __nv_bfloat16* dst = gstage + r * n_grid + level * F;
+      if (gr < p.n)
+        grid_level_features(p.grid, level, p.pts + static_cast<size_t>(gr) * p.d_in,
+                            [&](int f, float v) { dst[f] = __float2bfloat16_rn(v); });
+      else
+        for (int f = 0; f < F; ++f) dst[f] = __float2bfloat16_rn(0.f);
+    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(gfull);
+  }
 }
 
 __device__ __forceinline__ void release(uint64_t* empty, int lane) {
@@ -257,7 +306,7 @@ __device__ __forceinline__ void copy_stash(const unsigned char* src, int pieces,
 }
 
 template <int H, int kFmt>
-__global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(const __grid_constant__ Params p) {
+__global__ void __launch_bounds__(kGridThreads, 1) fwd_wgmma_kernel(const __grid_constant__ Params p) {
   constexpr int N = H / 2;                   // columns of each warpgroup
   constexpr bool kSw = tma_stash(kFmt);
   constexpr int KC = ring_rows(kFmt);        // weight rows a ring chunk
@@ -268,7 +317,12 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(const __grid_con
   unsigned char* act = smem + kBarBytes;
   // the stash's staging tile, after the activations
   unsigned char* staging = act + p.act_k * kRows * 2;
-  unsigned char* ring = staging + staging_bytes(H, kFmt);
+  // the grid warp's staging tile, then the ring
+  auto* gstage = reinterpret_cast<__nv_bfloat16*>(staging + staging_bytes(H, kFmt));
+  unsigned char* ring = staging + staging_bytes(H, kFmt) + p.grid_bytes;
+  uint64_t* gfull = full + kGridBar;
+  uint64_t* gempty = gfull + 1;
+  const bool grid = p.grid.n_levels > 0;
   const int S = p.stages;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -280,11 +334,15 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(const __grid_con
       hp::mbar_init(&full[s], 1);
       hp::mbar_init(&empty[s], kConsumerWarps);
     }
+    hp::mbar_init(gfull, 1);
+    hp::mbar_init(gempty, 1);
     hp::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == kConsumerWarps) {
+  if (warp == kGridWarp) {
+    grid_stage_tiles(p, gstage, gfull, gempty);
+  } else if (warp == kConsumerWarps) {
     // producer: one thread keeps the ring full, across layers and tiles
     if (lane == 0) {
       const uint64_t policy = hp::evict_last_policy();
@@ -317,12 +375,19 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(const __grid_con
     const uint32_t ring0 = hp::smem_u32(ring);
     const uint64_t stream = hp::evict_first_policy();
     // the ring's stage and phase, and the stages of the last two chunks
-    int stage = 0, phase = 0, prev1 = 0, prev2 = 0;
+    int stage = 0, phase = 0, prev1 = 0, prev2 = 0, gphase = 0;
     for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
       const int row0 = w * kRows;
-      encode<kSw>(p, row0, act);
+      // the grid warp has staged this tile's features
+      if (grid && SUNERF_ABLATION != 15) hp::mbar_wait(gfull, gphase);
+      encode<kSw>(p, row0, act, gstage);
       hp::fence_async_smem();
       hp::named_sync(1, kConsumers);
+      // the staging tile is free for the next tile's features
+      if (grid) {
+        if (threadIdx.x == 0) hp::mbar_arrive(gempty);
+        gphase ^= 1;
+      }
       const uint32_t a0 = hp::smem_u32(act);
       // A of the k16 step at column k: its two columns of core matrices
       auto a_desc = [&](int k) {
@@ -499,8 +564,8 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_wgmma_kernel(const __grid_con
   }
 }
 
-inline size_t smem_bytes(int H, int act_k, int stages, int fmt) {
-  return kBarBytes + static_cast<size_t>(kRows) * act_k * 2 + staging_bytes(H, fmt)
+inline size_t smem_bytes(int H, int act_k, int stages, int fmt, int grid_bytes) {
+  return kBarBytes + static_cast<size_t>(kRows) * act_k * 2 + staging_bytes(H, fmt) + grid_bytes
          + static_cast<size_t>(stages) * ring_rows(fmt) * H * 2;
 }
 
@@ -520,14 +585,16 @@ cudaError_t launch_width(const Params& p, cudaStream_t stream) {
     // one block an SM whatever the smem: the occupancy of the largest
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fwd_wgmma_kernel<H, kFmt>,
-                                                          kThreads, kSmemLimit);
+                                                          kGridThreads, kSmemLimit);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     max_blocks = sms * per_sm;
   }
   const int tiles = (p.n + kRows - 1) / kRows;
-  fwd_wgmma_kernel<H, kFmt><<<tiles < max_blocks ? tiles : max_blocks, kThreads,
-                              smem_bytes(H, p.act_k, p.stages, kFmt), stream>>>(p);
+  // the grid warp only with a grid
+  fwd_wgmma_kernel<H, kFmt><<<tiles < max_blocks ? tiles : max_blocks,
+                              p.grid.n_levels > 0 ? kGridThreads : kThreads,
+                              smem_bytes(H, p.act_k, p.stages, kFmt, p.grid_bytes), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -541,7 +608,9 @@ cudaError_t launch(Params p, int e_pad, int d_filter, cudaStream_t stream) {
   p.act_k = d_filter > p.k_in ? d_filter : p.k_in;
   if (tma_stash(kFmt)) p.act_k = (p.act_k + 63) / 64 * 64;
   const size_t chunk = static_cast<size_t>(ring_rows(kFmt)) * d_filter * 2;
-  const size_t fixed = smem_bytes(d_filter, p.act_k, 0, kFmt);
+  // the grid staging tile, bf16 [64][levels F], in whole 128-byte lines
+  p.grid_bytes = (kRows * p.grid.n_levels * p.grid.features * 2 + 127) / 128 * 128;
+  const size_t fixed = smem_bytes(d_filter, p.act_k, 0, kFmt, p.grid_bytes);
   p.stages = fixed < kSmemLimit ? static_cast<int>((kSmemLimit - fixed) / chunk) : 0;
   if (p.stages > kMaxStages) p.stages = kMaxStages;
   const int chunks =

@@ -108,7 +108,19 @@
 // f32's); grid_convert_kernel turns the sums back into f32. The gradients
 // are bit-identical run to run, and within f32 rounding of the plain
 // version's float32 index_add. Grid configs take the 'int8' format and no
-// point cotangent, as in the JAX package.
+// point cotangent, as in the JAX package; any number of levels, each a
+// descriptor (table, G, offset into d_table) in a device array.
+// Bound: the grid's own work is tiny (0.0034 ms of operations at the NGP
+// recipe); what it costs is latency and traffic around the MLP's. At the
+// NGP recipe (8x512, levels 16 + 32, F = 8, N = 196,608) the first design
+// added 1.01 ms to K2 (H100 80GB HBM3, 700 W; PERF.md): the grid
+// cotangent summed on the CUDA cores in the chain kernel's tail (+0.41),
+// the scatter a thread a term, 25.2 M threads each recomputing its cell
+// (0.26), and prep's features a scalar L2 load a corner (+0.08). Now: the
+// cotangent is a wgmma product from one ring stage a 32 columns
+// (pack_wgmma_grid), db_0's sums under it; the scatter a quad of lanes a
+// (point, level), a warp's equal rows merged before the reds; prep's
+// features a (point, level) a thread, rows as 16-byte vectors.
 
 #include "fused_mlp_backward.cuh"
 
@@ -123,7 +135,10 @@
 // and tiles), with dz_rowmax [L-1][n][2] and dz_max [groups][L-1] scratch
 // (pps8, splits8, dz_rowmax and dz_max are ignored for the other formats).
 // dpts null: no point cotangent; else w_dpts, dpts_pairs and dpts_gdim are
-// pack_wgmma_dpts's pack and tables over dpts_cols columns. Returns a
+// pack_wgmma_dpts's pack and tables over dpts_cols columns. grid a
+// GridParams (its levels a device array of descriptors) or null; w_grid
+// pack_wgmma_grid's chunks, dgrid [n, levels F], gmax [levels] and gacc
+// [sum G^3 F] zeroed, grad_grid [sum G^3 F]. Returns a
 // cudaError_t (0 = launched).
 extern "C" int sunerf_fused_mlp_stash_bwd(
     const void* pts, const void* col_dim, const void* col_freq, const void* dy,

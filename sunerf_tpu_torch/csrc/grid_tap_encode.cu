@@ -26,6 +26,15 @@
 //     JAX kernel's order, as ops/grid_probes.py tap_encode_reference does:
 //     nvcc would otherwise contract them into fused multiply-adds, and the
 //     kernel and its plain version agree to the bit.
+// It sits at its L2 gather floor: 8 ceil(4 F / 32) sectors of 32 bytes a
+// point at the rate the card reads P1's gathers, which sector_read_kernel
+// below measures (P1's loads of random cells of the same table without the
+// arithmetic: 0.0163 ms at N = 262,144, G = 32, where this kernel took
+// 0.0159-0.0160; H100 80GB HBM3, 700 W, PERF.md). Two redesigns measured
+// no faster and were not kept: persistent blocks with each chunk's
+// coordinates read coalesced into shared memory (0.0162-0.0164), and that
+// with a lane a point, all 8 features (0.0220: a lane's two 16-byte halves
+// of a sector are two L1 requests, where a pair of lanes makes one).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,6 +99,59 @@ cudaError_t launch(const float* pts, const float* table, float* out, int n, int 
   return cudaGetLastError();
 }
 
+// Blocks of `kernel` that fit on the card at once, found once per kernel
+template <typename K>
+cudaError_t resident_blocks(K kernel, int& blocks) {
+  if (blocks > 0) return cudaSuccess;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  blocks = sms * per_sm;
+  return cudaSuccess;
+}
+
+// The L2 gather floor's microbenchmark (no TPU kernel; added to measure
+// what bounds P1): P1's taps without their arithmetic. `n` points a pair
+// of lanes each, as P1 runs them, each point a pseudo-random cell of the
+// [G^3, F] table (F a multiple of 4) whose 8 corner rows the pair reads as
+// P1 does (lane h the float4 groups h, h + 2, ...), all loads issued
+// before a plain sum, one float out a lane so nothing is dropped. The
+// table stays in L2; 8 ceil(4 F / 32) sectors a point over its time is the
+// card's rate for P1's gathers.
+__global__ void __launch_bounds__(kThreads) sector_read_kernel(
+    const float* __restrict__ table, float* __restrict__ out, int n, int G, int F) {
+  const int h = threadIdx.x & 1;
+  for (long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; t < 2LL * n;
+       t += static_cast<long long>(gridDim.x) * kThreads) {
+    unsigned x = static_cast<unsigned>(t >> 1) * 2654435761u + 0x9E3779B9u;
+    int lo[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      x ^= x >> 15;
+      x *= 2246822519u;
+      x ^= x >> 13;
+      lo[a] = static_cast<int>(x % static_cast<unsigned>(G - 1));
+    }
+    float s = 0.f;
+    for (int f = 4 * h; f < F; f += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int dy = c >> 2, dz = (c >> 1) & 1, dx = c & 1;
+        const size_t row = (static_cast<size_t>(lo[1] + dy) * G + lo[2] + dz) * G + lo[0] + dx;
+        v[c] = __ldg(reinterpret_cast<const float4*>(table + row * F + f));
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s += v[c].x + v[c].y + v[c].z + v[c].w;
+    }
+    out[t] = s;
+  }
+}
+
 }  // namespace
 
 // C entry, bound with ctypes. pts [n, 3] f32, table [G^3, F] f32, out
@@ -105,4 +167,20 @@ extern "C" int sunerf_grid_tap_encode(const void* pts, const void* table, void* 
                     && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   return static_cast<int>(vec4 ? launch<4>(p, t, o, n, G, F, bound, scale, s)
                                : launch<1>(p, t, o, n, G, F, bound, scale, s));
+}
+
+// C entry of the microbenchmark: table [G^3, F] f32 (F a multiple of 4,
+// 16-byte aligned), out [2 n] f32. Returns a cudaError_t.
+extern "C" int sunerf_l2_sector_read(const void* table, void* out, int n, int G, int F,
+                                     void* stream) {
+  if (n < 1 || G < 2 || F < 4 || F % 4 != 0 || reinterpret_cast<uintptr_t>(table) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int max_blocks = 0;
+  cudaError_t err = resident_blocks(sector_read_kernel, max_blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long want = (2LL * n + kThreads - 1) / kThreads;
+  sector_read_kernel<<<static_cast<unsigned>(want < max_blocks ? want : max_blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<float*>(out), n, G, F);
+  return static_cast<int>(cudaGetLastError());
 }

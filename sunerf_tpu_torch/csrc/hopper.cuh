@@ -95,8 +95,11 @@ __device__ __forceinline__ uint64_t global_ns() {
 
 // wait until the phase of parity `parity` has completed; a wait of more
 // than 10 s (a lost arrival, never a slow copy) traps, so a fault in a
-// pipeline ends the launch with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+// pipeline ends the launch with an error instead of hanging the card.
+// sleep_ns > 0: sleep so long between polls, for a thread that only waits
+// and shares its SM's issue slots with the math warps (the forward's grid
+// warp)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity, int sleep_ns = 0) {
   const uint32_t addr = smem_u32(bar);
   uint64_t start = 0;
   for (;;) {
@@ -107,6 +110,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
     if (done) return;
+    if (sleep_ns > 0) __nanosleep(sleep_ns);
     const uint64_t now = global_ns();
     if (start == 0) start = now;
     else if (now - start > 10000000000ull) __trap();
@@ -268,6 +272,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t desc_a, uint64_
       "%0, %1, %2, %3 "
       "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

@@ -13,11 +13,14 @@ sunerf_tpu/ops/pallas/fused_mlp.py.
   K3 its compute_dpts=True branch -> the same file: the point cotangent
   K4 _bwd_kernel        -> csrc/fused_mlp_recompute_bwd.cu  the recompute
                            backward of stash=False (no activation memory)
-  K5 the dense feature-grid branch of K0-K2 (_encode_grid, d_table):
-     trilinear features of each level's [G, G, G, F] table after the
-     sin/cos columns (grid_feature in csrc/fused_mlp_common.cuh), and in
-     K2 the tables' gradients, summed in fixed point so a run gives the
-     same bits as the last
+  K5 the dense feature-grid branch of K0-K2 (_encode_grid, d_table), any
+     number of levels (grid_descriptors): trilinear features of each
+     level's [G, G, G, F] table after the sin/cos columns
+     (grid_level_features in csrc/fused_mlp_common.cuh, staged by the
+     forward's grid warp), and in K2 the grid cotangent on wgmma
+     (pack_wgmma_grid) and the tables' gradients, scattered a quad of lanes
+     a (point, level) (grid_scatter_item) and summed in fixed point so a
+     run gives the same bits as the last
   K6a _fwd_stash_lsb_kernel and the lsb branch of K2 ('lsb': one bf16
       stream, sign(cos) in the sin's last bit; the backward brings it
       through the chain kernel's weight ring and decodes it there,
@@ -90,7 +93,7 @@ KERNEL_WIDTHS = (64, 128, 256, 384, 512)   # d_filter values the kernels take
 _WGMMA_KC = 32          # K0's weight rows per ring chunk
 MAX_K0_OUTPUTS = 8      # d_output values K0 takes: 1..8, its head's wgmma width
 MAX_BWD_OUTPUTS = 4                         # d_output values K2 takes: 1..4
-MAX_GRID_LEVELS = 4                         # grid levels the kernels take
+GRID_STAGE_COLS = 32    # K5's grid-cotangent columns a ring stage of the chain kernel
 _KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
 _NO_VM_KERNEL = ('VM grid levels (grid_rank > 0) have no fused kernel; they run '
                  'the float32 field (use_fused=False), as in the JAX package')
@@ -737,7 +740,7 @@ class _KernelWeights:
     b_h: torch.Tensor         # [L-1, H] f32
     w_out: torch.Tensor       # [d_out, H] bf16
     b_out: torch.Tensor       # [d_out] f32
-    w_grid: torch.Tensor      # [levels * F, H] bf16 grid rows of w_in (K2)
+    w_grid: torch.Tensor      # pack_wgmma_grid of w_in's grid rows (K2), or None
     e_pad: int
 
 
@@ -756,7 +759,8 @@ def _prepare(config: NeRFConfig, params: dict) -> _KernelWeights:
             b_h=params['b_h'].float().contiguous(),
             w_out=params['w_out'].t().to(torch.bfloat16).contiguous(),
             b_out=params['b_out'].float().contiguous(),
-            w_grid=params['w_in'][off:off + config.d_grid].to(torch.bfloat16).contiguous(),
+            w_grid=(pack_wgmma_grid(params['w_in'][off:off + config.d_grid])
+                    if config.grid_sizes else None),
             e_pad=e_pad)
 
 
@@ -823,11 +827,9 @@ def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
         raise ValueError(f'no fused kernel for device {points.device}')
     if config.grid_rank:
         raise NotImplementedError(_NO_VM_KERNEL)
-    if len(config.grid_sizes) > MAX_GRID_LEVELS or min(config.grid_sizes,
-                                                       default=2) < 2:
-        raise ValueError(f'the fused kernels take up to {MAX_GRID_LEVELS} grid '
-                         f'levels of 2 or more cells a side, got '
-                         f'{config.grid_sizes}')
+    if min(config.grid_sizes, default=2) < 2:
+        raise ValueError(f'the fused kernels take grid levels of 2 or more cells '
+                         f'a side, got {config.grid_sizes}')
     if config.d_filter not in KERNEL_WIDTHS:
         raise ValueError(f'fused kernel takes d_filter in {KERNEL_WIDTHS}, '
                          f'got {config.d_filter}')
@@ -847,24 +849,89 @@ def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
 
 
 class _GridArgs(ctypes.Structure):
-    """GridParams of csrc/fused_mlp_common.cuh, passed by pointer."""
-    _fields_ = [('table', ctypes.c_void_p * MAX_GRID_LEVELS),
-                ('size', ctypes.c_int * MAX_GRID_LEVELS),
+    """GridParams of csrc/fused_mlp_common.cuh, passed by pointer; `levels`
+    is grid_descriptors' device array."""
+    _fields_ = [('levels', ctypes.c_void_p),
+                ('total', ctypes.c_longlong),
                 ('n_levels', ctypes.c_int),
                 ('features', ctypes.c_int),
-                ('bound', ctypes.c_float)]
+                ('bound', ctypes.c_float),
+                ('vec4', ctypes.c_int)]
+
+
+_grid_descriptors: dict = {}
+
+
+def grid_offsets(config: NeRFConfig) -> list:
+    """Each level's first element in the flat d_table (and the fixed-point
+    sums), the levels' G^3 F elements in grid_keys order, and the total
+    last: [0, G_0^3 F, ..., sum G^3 F]."""
+    offsets = [0]
+    for g in config.grid_sizes:
+        offsets.append(offsets[-1] + g ** 3 * config.grid_features)
+    return offsets
+
+
+def grid_descriptors(config: NeRFConfig, params: dict) -> torch.Tensor:
+    """int64 [levels, 3]: per level (the table's address, its offset in
+    d_table, G), GridLevel of csrc/fused_mlp_common.cuh, on the tables'
+    device: the kernels read it by pointer, so any number of levels fits.
+    Made once per set of table addresses and kept (an optimizer's in-place
+    update keeps the addresses)."""
+    tables = [params[k] for k in grid_keys(config)]
+    dev = tables[0].device
+    key = (dev, config.grid_sizes, config.grid_features) + tuple(t.data_ptr() for t in tables)
+    hit = _grid_descriptors.get(key)
+    if hit is None:
+        offsets = grid_offsets(config)
+        rows = [[t.data_ptr(), offsets[i], g]
+                for i, (t, g) in enumerate(zip(tables, config.grid_sizes))]
+        hit = torch.tensor(rows, dtype=torch.int64).to(dev)
+        if len(_grid_descriptors) >= 64:
+            _grid_descriptors.clear()
+        _grid_descriptors[key] = hit
+    return hit
+
+
+GRID_SCATTER_LANES = 4   # grid_scatter_kernel's lanes a (point, level)
+
+
+def grid_scatter_item(t, n: int):
+    """(point, level, first feature) of grid_scatter_kernel's thread t for n
+    points: a quad of lanes a (point, level), quad t // 4 taking level
+    (t // 4) // n and point (t // 4) % n, lane t % 4 its features t % 4,
+    t % 4 + 4, ...; so a warp holds 8 consecutive points of one level.
+    Works on ints and integer arrays alike."""
+    item = t // GRID_SCATTER_LANES
+    return item % n, item // n, t % GRID_SCATTER_LANES
+
+
+def pack_wgmma_grid(w_grid: torch.Tensor) -> torch.Tensor:
+    """w_in's grid rows [levels F, H] float -> bf16 [n_gc H/32, 32 * 32]:
+    the grid cotangent's B operand W_in[grid rows]^T [k = H, n = grid
+    column], its columns zero-padded to whole blocks of GRID_STAGE_COLS, as
+    H/32 ring chunks (_core_chunks) for each block in turn: one block is
+    one ring stage of the chain kernel."""
+    b = w_grid.float().t()
+    b = F.pad(b, (0, -b.shape[1] % GRID_STAGE_COLS))
+    return torch.cat([_core_chunks(b[:, c:c + GRID_STAGE_COLS].contiguous())
+                      for c in range(0, b.shape[1], GRID_STAGE_COLS)]).contiguous()
 
 
 def _grid_args(config: NeRFConfig, params: dict) -> _GridArgs:
     """The live float32 tables (checked by _check) as the kernels take
     them; the caller keeps `params` alive over the launch."""
     args = _GridArgs()
-    for i, (k, g) in enumerate(zip(grid_keys(config), config.grid_sizes)):
-        args.table[i] = params[k].data_ptr()
-        args.size[i] = g
+    if not config.grid_sizes:
+        return args
+    tables = [params[k] for k in grid_keys(config)]
+    args.levels = grid_descriptors(config, params).data_ptr()
+    args.total = grid_offsets(config)[-1]
     args.n_levels = len(config.grid_sizes)
     args.features = config.grid_features
     args.bound = config.grid_bound
+    args.vec4 = int(config.grid_features % 4 == 0
+                    and all(t.data_ptr() % 16 == 0 for t in tables))
     return args
 
 
@@ -890,9 +957,11 @@ def _count_grid(config: NeRFConfig):
 
 
 def _forward_k0(config: NeRFConfig, params: dict,
-                points: torch.Tensor) -> torch.Tensor:
+                points: torch.Tensor, defines: tuple = ()) -> torch.Tensor:
     """The K0 wrapper: CUDA tensors launch csrc/fused_mlp_fwd_wgmma.cu (or
-    raise), CPU tensors run its plain version."""
+    raise), CPU tensors run its plain version. `defines` launches a variant
+    built with those macros (scripts/backward_ablation.py's
+    measurement-only ablations)."""
     global LAUNCHES
     if points.device.type == 'cpu':
         return fused_mlp_reference(config, params, points)
@@ -908,7 +977,7 @@ def _forward_k0(config: NeRFConfig, params: dict,
     w = _kernel_weights(config, params)
     grid = _grid_args(config, params)
     _launch('fused_mlp_fwd_wgmma', 9, 7, points.device, *_fwd_args(w, params, points, grid, out),
-            *_fwd_ints(config, w, n))
+            *_fwd_ints(config, w, n), defines=defines)
     LAUNCHES += 1
     _count_grid(config)
     return out
@@ -980,10 +1049,9 @@ def _grads_from_flat(config: NeRFConfig, grad_chain: torch.Tensor,
              'b_h': db[1:],
              'w_out': grad_chain[:O * H].view(H, O),
              'b_out': grad_chain[O * H:O * H + O]}
-    off, F_ = 0, config.grid_features
-    for k, g in zip(grid_keys(config), config.grid_sizes):
-        grads[k] = grad_grid[off:off + g ** 3 * F_].view(g, g, g, F_)
-        off += g ** 3 * F_
+    offsets = grid_offsets(config)
+    for i, (k, g) in enumerate(zip(grid_keys(config), config.grid_sizes)):
+        grads[k] = grad_grid[offsets[i]:offsets[i + 1]].view(g, g, g, config.grid_features)
     return grads
 
 
@@ -1055,7 +1123,7 @@ def _stash_backward_launch(config: NeRFConfig, params: dict, points: torch.Tenso
     f32 = dict(dtype=torch.float32, device=dev)
     grad_chain = torch.empty(O * H + O + L * H, **f32)
     grad_dw = torch.empty(e_pad * H + (L - 1) * H * H, **f32)
-    n_table = sum(g ** 3 for g in config.grid_sizes) * config.grid_features
+    n_table = grid_offsets(config)[-1]
     grad_grid = torch.empty(n_table, **f32)
     dpts = torch.empty((n, config.d_input), **f32) if compute_dpts else None
     if n == 0:
@@ -1093,7 +1161,7 @@ def _stash_backward_launch(config: NeRFConfig, params: dict, points: torch.Tenso
             dy.data_ptr(), hs.data_ptr(), ptr(cs), _bwd_weights(params['w_h']).data_ptr(),
             w.w_out.data_ptr(), dz.data_ptr(), enc.data_ptr(),
             part_chain.data_ptr(), part_dw.data_ptr(), grad_chain.data_ptr(),
-            grad_dw.data_ptr(), ctypes.addressof(grid), w.w_grid.data_ptr(),
+            grad_dw.data_ptr(), ctypes.addressof(grid), ptr(w.w_grid),
             dgrid.data_ptr(), gmax.data_ptr(), gacc.data_ptr(), grad_grid.data_ptr(),
             ptr(dpts), ptr(w_dpts), ptr(pairs), ptr(gdim), ptr(dz_rowmax), ptr(dz_max),
             n, config.d_input, w.col_dim.numel(), e_pad, H, L - 1, O, pps, splits,

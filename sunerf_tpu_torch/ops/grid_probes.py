@@ -3,6 +3,8 @@
   P1 make_tap_encode (scripts/probe_grid_taps.py)     -> csrc/grid_tap_encode.cu
      trilinear features [N, F] of a packed [G^3 / P, 128] f32 table by 8
      table taps per point (`tap_encode`)
+     (`sector_read` beside it: the microbenchmark of the L2's rate for
+     P1's gathers, its L2 gather floor)
   P2 make_encode (scripts/probe_grid_hatbuild.py)     -> csrc/grid_hat_encode.cu
      the (y, z) hat weights wyz [N, G^2] of each point, then wyz @ table
      [G^2, G F] with bf16 operands and f32 sums (`hat_encode`), the weights
@@ -120,6 +122,29 @@ def tap_encode(packed_table: torch.Tensor, points: torch.Tensor,
                  points.data_ptr(), packed_table.data_ptr(), out.data_ptr(),
                  n, grid_size, features, bound, scale)
     TAP_LAUNCHES += 1
+    return out
+
+
+def sector_read(table: torch.Tensor, grid_size: int, n: int) -> torch.Tensor:
+    """The L2 gather floor's microbenchmark (csrc/grid_tap_encode.cu
+    sector_read_kernel; it ports no TPU kernel): P1's taps without their
+    arithmetic, n points at pseudo-random cells of `table` ([G^3, F] f32,
+    F a multiple of 4, 16-byte aligned), each cell's 8 corner rows read as
+    P1 reads them -> [2 n] f32 sums. It measures the card, so it takes CUDA
+    tensors only; P1's L2 gather floor is its time, 8 ceil(4 F / 32) sectors
+    of 32 bytes a point at the rate it reads them."""
+    if table.device.type != 'cuda':
+        raise ValueError('sector_read measures the card: it takes a CUDA table')
+    features = table.numel() // grid_size ** 3
+    build.check_tensor('table', table, table.shape, torch.float32, table.device)
+    if (features * grid_size ** 3 != table.numel() or features % 4 or table.data_ptr() % 16
+            or grid_size < 2 or n < 1):
+        raise ValueError('sector_read takes a 16-byte aligned [G^3, F] table, F a multiple '
+                         'of 4, G >= 2 and n >= 1')
+    out = torch.empty(2 * n, dtype=torch.float32, device=table.device)
+    build.launch('grid_tap_encode', build.signature(2, 3), table.device,
+                 table.data_ptr(), out.data_ptr(), n, grid_size, features,
+                 entry='l2_sector_read')
     return out
 
 

@@ -47,7 +47,25 @@ file measures the parent and the change. One JSON line:
   * k6a_bwd_ms: the lsb backward with the point cotangent (K6a with K3) at
     the same shape, k6a_bwd_kernels by kernel name;
   * k4_ms: the recompute backward (K4, chunks of 32,768 points) at the
-    same shape, k4_kernels by kernel name.
+    same shape, k4_kernels by kernel name;
+  * K5, the grid branch, at bench.py grid_quarter's fine field (4x128, one
+    16^3 x 8 level, N = 73,728) and the NGP recipe's (8x512, levels 16 +
+    32, F = 8, N = 196,608), weights, U(-1, 1) tables and points U(-1.5,
+    1.5) from seed N + 7 (as chip_smoke's [grid]): k0_<shape>_ms,
+    k1_<shape>_ms, k2_<shape>_ms with the grid and, with _no_grid, at the
+    same widths without it; grid_share_<shape>_ms = K1 + K2 less K1 + K2
+    without the grid; k2_<shape>_kernels and k2_<shape>_no_grid_kernels by
+    kernel name; the bits of K0's
+    output (k0_<shape>_sha256), K1's output and stash (k1_<shape>_sha256)
+    and K2's gradients (k2_<shape>_sha256), so parent and change compare
+    bits;
+  * step_ngp_ms and step_grid_quarter_ms: the NGP recipe's training step
+    (MIGRATION.md: 8x512, levels 16 + 32, table_lr_mult 10, adam_eps 1e-15,
+    lambda_table_tv 1e-4, 64 + 128 samples) and bench.py grid_quarter's
+    (4x128 with the 16^3 x 8 table, 4x128 coarse, 24 + 48 samples), 1024
+    rays, seed 1 and 0, CUDA events around whole steps;
+  * p1_<N>_<G>_ms: P1 at N = 262,144 and 65,536, G = 32 and 64, F = 8 (a
+    CUDA graph of 10 calls, as P2).
 P2 and grid_sample times are CUDA graphs of 10 back-to-back calls (the
 device's time, not the host's dispatch), the median of 5 replays; K0, K1,
 K2 and the step are CUDA events around one call, the median of 10; the
@@ -308,6 +326,83 @@ def main(argv=None) -> dict:
         row['k4_kernels'] = _by_kernel(k4)
         del k4
         del pts6, dy6
+
+    # K5 at grid_quarter and at the NGP recipe, with and without the grid
+    from sunerf_tpu_torch.systems import make_emission_system
+    from sunerf_tpu_torch.train.optim import OptimConfig
+
+    def sha(tensors) -> str:
+        torch.cuda.synchronize()
+        return hashlib.sha256(b''.join(t.detach().contiguous().view(torch.uint8).cpu()
+                                       .numpy().tobytes() for t in tensors)).hexdigest()[:16]
+
+    grid_shapes = (('grid_quarter', dict(n_layers=4, d_filter=128, grid_sizes=(16,),
+                                         grid_features=8, grid_bound=1.3), 1024 * 72),
+                   ('ngp', dict(grid_sizes=(16, 32), grid_features=8, grid_bound=1.3),
+                    1024 * 192))
+    with torch.no_grad():
+        for name, kw, n in grid_shapes:
+            cfg = emission_config(**kw)
+            gen = torch.Generator(device=dev).manual_seed(n + 7)
+            p = init_nerf(gen, cfg, dev)
+            for k in fused_mlp.grid_keys(cfg):
+                p[k] = p[k] * 1e4
+            pts = torch.rand(n, 4, generator=gen, device=dev) * 3.0 - 1.5
+            pts[:, 3] = 0.0
+            dy = torch.randn(n, cfg.d_output, generator=gen, device=dev)
+            base_cfg = emission_config(n_layers=cfg.n_layers, d_filter=cfg.d_filter)
+            base = dict(p, w_in=p['w_in'][:base_cfg.d_encoded].contiguous())
+            row[f'k0_{name}_sha256'] = sha([fused_mlp.fused_mlp_forward(cfg, p, pts)])
+            out, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, p, pts)
+            row[f'k1_{name}_sha256'] = sha([out, hs, cs])
+            grads = fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs)
+            row[f'k2_{name}_sha256'] = sha([grads[k] for k in sorted(grads)])
+            del out, grads
+            for tag, c, q in (('', cfg, p), ('_no_grid', base_cfg, base)):
+                _, hs, cs = fused_mlp.fused_mlp_stash_forward(c, q, pts)
+                bwd = (lambda c=c, q=q, hs=hs, cs=cs: fused_mlp.fused_mlp_stash_backward(
+                    c, q, pts, dy, hs, cs))
+                row[f'k0_{name}{tag}_ms'] = _events_ms(
+                    lambda c=c, q=q: fused_mlp.fused_mlp_forward(c, q, pts))
+                row[f'k1_{name}{tag}_ms'] = _events_ms(
+                    lambda c=c, q=q: fused_mlp.fused_mlp_stash_forward(c, q, pts))
+                row[f'k2_{name}{tag}_ms'] = _events_ms(bwd)
+                row[f'k2_{name}{tag}_kernels'] = _by_kernel(bwd)
+                del hs, cs, bwd
+            row[f'grid_share_{name}_ms'] = (
+                row[f'k1_{name}_ms'] + row[f'k2_{name}_ms'] - row[f'k1_{name}_no_grid_ms']
+                - row[f'k2_{name}_no_grid_ms'])
+            del p, base, pts, dy
+
+    # the NGP recipe's and grid_quarter's training steps
+    ngp = emission_config(grid_sizes=(16, 32), grid_features=8, grid_bound=1.3)
+    for name, system, seed, optim, loss in (
+            ('ngp', dict(model_config=ngp), 1, OptimConfig(table_lr_mult=10.0, adam_eps=1e-15),
+             LossConfig(lambda_table_tv=1e-4)),
+            ('grid_quarter', dict(
+                model_config=emission_config(n_layers=4, d_filter=128, grid_sizes=(16,),
+                                             grid_features=8, grid_bound=1.3),
+                coarse_config=emission_config(n_layers=4, d_filter=128), n_stratified=24,
+                n_hierarchical=48), 0, None, LossConfig())):
+        renderer, init = make_emission_system(device='cuda', **system)
+        state_params = init(torch.Generator(device=dev).manual_seed(seed))
+        opt = make_optimizer(optim) if optim is not None else make_optimizer()
+        gstep = make_train_step(renderer, loss, opt)
+        gstate = create_train_state(state_params, opt)
+        for _ in range(3):
+            gstep(gstate, batch, 0)
+        row[f'step_{name}_ms'] = _events_ms(lambda: gstep(gstate, batch, 0))
+        del renderer, gstep, gstate, state_params
+
+    # P1 at its script's N and at bench_kernel's
+    g4 = torch.Generator(device=dev).manual_seed(4)
+    for n in (262144, 65536):
+        for G in (32, 64):
+            packed = grid_probes.pack_table(torch.randn((G, G, G, 8), generator=g4, device=dev))
+            pts1 = torch.rand((n, 3), generator=g4, device=dev) * 2.4 - 1.2
+            row[f'p1_{n}_{G}_ms'] = _graph_ms(
+                lambda: grid_probes.tap_encode(packed, pts1, G, 1.3))
+            del packed, pts1
 
     # P2 and its library call
     n, G, F = 262144, 32, 8

@@ -191,13 +191,14 @@ def test_function_grads_match_plain_path(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize('n_layers,d_filter,grid_sizes,n', [
     (3, 64, (8,), 1), (4, 128, (16,), 20480), (8, 512, (16, 32), 4097),
+    (4, 128, (8, 12, 16, 24, 32), 4097),
 ])
 def test_grid_kernels_match_plain_versions(cuda, n_layers, d_filter, grid_sizes, n):
     """K0, K1 and K2 with the grid branch against their plain versions, K2
     fed K1's stash; K1's output within 1e-5 of K0's (the same bf16
     operands, sums in another order); the table gradients bit-identical
     over two runs; a table updated in place is read by the next launch
-    (tables are not cached)."""
+    (tables are not cached). Any number of levels: five in the last case."""
     cfg, params, pts, dy = _setup(cuda, n_layers, d_filter, n, grid_sizes=grid_sizes)
     pts[0, :3] = 1.3                    # a point exactly on the bound
     keys = fused_mlp.param_keys(cfg)
@@ -373,16 +374,24 @@ def test_point_cotangent_takes_any_d_input(cuda, monkeypatch, path, d_input, d_f
 
 @pytest.mark.gpu
 def test_grid_probe_kernels_match_plain_versions(cuda):
+    """P1 at F = 8 and 16 (float4 taps), 4 and features not divisible by 4
+    (a float a tap), past one chunk a block (N = 300,001): the plain
+    version's bits; P2's variants within its tolerances."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    for G, Fe in ((8, 8), (6, 16), (32, 8)):
+    for G, Fe, n in ((8, 8, 1000), (6, 16, 1000), (32, 8, 1000), (32, 8, 300001),
+                     (8, 4, 1000), (21, 6, 1000), (5, 3, 4097)):
         table4 = torch.randn((G, G, G, Fe), generator=gen, device=cuda)
-        pts = torch.rand((1000, 3), generator=gen, device=cuda) * 3.2 - 1.6
-        packed = grid_probes.pack_table(table4)
+        pts = torch.rand((n, 3), generator=gen, device=cuda) * 3.2 - 1.6
+        # the TPU's 128-lane packing where it divides the table, else its
+        # bytes as [G^3, F]
+        packed = (grid_probes.pack_table(table4) if 128 % Fe == 0 and G ** 3 % (128 // Fe) == 0
+                  else table4.reshape(G ** 3, Fe))
         before = grid_probes.TAP_LAUNCHES
         got = grid_probes.tap_encode(packed, pts, G, 1.3)
         assert grid_probes.TAP_LAUNCHES == before + 1
         ref = grid_probes.tap_encode_reference(packed, pts, G, 1.3)
         assert (got - ref).abs().max() <= 1e-5
+        assert torch.equal(got, ref), (G, Fe, n)
     for G in (8, 13, 32):
         table = torch.randn((G * G, G * 8), generator=gen, device=cuda).bfloat16()
         pts = torch.rand((1000, 3), generator=gen, device=cuda) * 3.2 - 1.6
