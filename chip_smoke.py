@@ -63,6 +63,30 @@ Phases (the first failure ends the run with a non-zero exit):
   7. tune    3 training steps on the committed bundle at its own spec (8x512
              fine, 4x128 coarse, 20 + 40): finite losses, 2 K1 and 2 K2
              launches a step (one per field, at widths 512 and 128).
+  7a. widths fields of widths outside KERNEL_WIDTHS, run zero-padded to the
+             next kernel width, through fused_mlp_forward at N = 65,536:
+             2x16, 2x32, 2x96 and 4x96: K0 (one launch, KERNEL_TOL against
+             the plain version at the real width), K1 + K2 under autograd
+             (one launch each, K1's out within K1_VS_K0_TOL of K0's, every
+             gradient within GRAD_TOL of the plain path's, the same bits
+             twice); at 2x32 K3, K4, K6a and K6b (their launches; gradients
+             within GRAD_TOL, dpts within DPTS_TOL). Times beside the same
+             calls of a field of the width each runs at, the plain versions'
+             times, the bound of the real width's work and the pad's own
+             time.
+  7b. trainer  the committed bundle rendered at 256^2 from
+             config/render_simple_star.yaml's 8 observers, written as FITS;
+             `sunerf_tpu_torch.run_emission.main` at 8x512, 64 + 128, batch
+             1024, 300 steps (validation every 150 with keep_best, EMA
+             0.999, a 4-view 64^2 drift probe; 20 steps profiled): 2 K1 and
+             2 K2 launches a step, K0 launches for validation, finite and
+             falling losses, val_psnr at 300 above step 0's, save_state,
+             save_state_ema and save_state_best each served at 64^2 through
+             K0; a second main resumes at step 300 and logs 350; a 2x32 run
+             (8 + 8 samples, 40 steps) on the padded kernels, loss falling.
+             Prints the Trainer's ms/step over steps 51-300 beside [train]'s
+             bare step, the profiled window's device idle share and the
+             Rice decoder that loaded.
   8. grid    K0, K1 and K2 with the dense feature-grid branch (K5) against
              their plain versions, random weights and U(-1, 1) tables from a
              seed, at bench.py grid_quarter's fine field (4x128, G = 16,
@@ -244,6 +268,18 @@ TAP_TOL = 1e-5
 SCRIPT_TIME_TOL = 1.5
 HAT_TOL = 1e-2
 HAT_RMS_TOL = 1e-4
+# [widths]: fields of widths outside KERNEL_WIDTHS, run zero-padded to the
+# next kernel width, at one step's worth of points
+WIDTH_SHAPES = ((2, 16), (2, 32), (2, 96), (4, 96))
+WIDTHS_N = 65536
+# [trainer]: the committed bundle rendered at TRAINER_RES^2 from
+# config/render_simple_star.yaml's 8 observers (data/synthetic.py
+# synthesize_views) as the run's FITS views
+TRAINER_RES = 256
+TRAINER_STEPS = 300
+TRAINER_BATCH = 1024
+TRAINER_MODEL = {}        # the CLI's defaults: 8x512 for both fields
+TRAINER_RENDERING = {}    # 64 + 128 samples
 
 
 
@@ -718,6 +754,294 @@ def _tune_phase(device, gview: dict, g_view) -> list:
     _check(all(np.isfinite(losses)), 'fine-tune losses not finite')
     _check(launches == (6, 6, 0), f'fine-tune launches {launches}, not 6 K1, 6 K2, 0 K0')
     return losses
+
+
+_COUNTERS = ('LAUNCHES', 'STASH_FWD_LAUNCHES', 'STASH_BWD_LAUNCHES', 'DPTS_LAUNCHES',
+             'RECOMPUTE_BWD_LAUNCHES', 'LSB_LAUNCHES', 'I8PAIR_LAUNCHES')
+
+
+def _zero_counters():
+    from sunerf_tpu_torch.ops import fused_mlp
+    for c in _COUNTERS:
+        setattr(fused_mlp, c, 0)
+
+
+def _counters() -> dict:
+    from sunerf_tpu_torch.ops import fused_mlp
+    return {c: getattr(fused_mlp, c) for c in _COUNTERS if getattr(fused_mlp, c)}
+
+
+def _autograd(cfg, p, pts, dy, **knobs) -> tuple:
+    """out and the gradients of sum(dy * out) through fused_mlp_forward
+    (the padded kernels for a width outside KERNEL_WIDTHS), 'dpts' when the
+    points get one."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    x = pts.clone().requires_grad_()
+    out = fused_mlp.fused_mlp_forward(cfg, leaves, x, **knobs)
+    out.backward(dy)
+    grads = {k: v.grad for k, v in leaves.items()}
+    if x.grad is not None:
+        grads['dpts'] = x.grad
+    return out.detach(), grads
+
+
+def _width_row(layers: int, width: int, n: int, device) -> dict:
+    """K0, then K1 + K2, at one width through fused_mlp_forward, against
+    the plain versions at the real width; the times beside the same calls
+    of a field of the kernel width it runs at."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    cfg, p, pts, dy = _setup_field(layers, width, n, device, seed=width + layers)
+    run_width = fused_mlp.kernel_width(width)
+    tag = f'[widths] {layers}x{width} (runs at {run_width}) N={n}'
+    _zero_counters()
+    with torch.no_grad():
+        out = fused_mlp.fused_mlp_forward(cfg, p, pts)
+    k0_launches = _counters()
+    ref = fused_mlp.fused_mlp_reference(cfg, p, pts)
+    err = _err_stats(ref, out)
+    _zero_counters()
+    out1, grads = _autograd(cfg, p, pts, dy, compute_dpts=False)
+    k12_launches = _counters()
+    out_p, grads_p = _autograd(cfg, p, pts, dy, compute_dpts=False)   # again: the bits
+    same = all(torch.equal(grads[k], grads_p[k]) for k in grads)
+    leaves = [v.detach().clone().requires_grad_() for v in p.values()]
+    plain_out = _PlainStash.apply(cfg, pts, *leaves)
+    plain_out.backward(dy)
+    gerr = _grad_err({k: v.grad for k, v in zip(p, leaves)}, grads)
+    torch.cuda.synchronize()
+    print(f'{tag}: K0 launches {k0_launches}, K1 + K2 launches {k12_launches}; K0 vs plain '
+          f'{_fmt(err)}; K1 out vs K0 {_rel(out.cpu(), out1.cpu()):.2e}; K2 vs plain, max: '
+          + '; '.join(f"{k} {e['max_rel_err']:.2e}" for k, e in gerr.items())
+          + f'; two runs bit-identical: {same}', flush=True)
+    _check(k0_launches == {'LAUNCHES': 1}, f'{tag}: K0 launches {k0_launches}')
+    _check(k12_launches == {'STASH_FWD_LAUNCHES': 1, 'STASH_BWD_LAUNCHES': 1},
+           f'{tag}: K1 + K2 launches {k12_launches}')
+    _check(bool(torch.isfinite(out).all()), f'{tag}: K0 output not finite')
+    _check(err['p9999_rel_err'] <= KERNEL_TOL and err['rms_rel_err'] <= KERNEL_RMS_TOL
+           and err['max_rel_err'] <= KERNEL_MAX_TOL, f'{tag}: K0 vs plain {_fmt(err)}')
+    _check(_rel(out.cpu(), out1.cpu()) <= K1_VS_K0_TOL, f'{tag}: K1 out vs K0')
+    for k, e in gerr.items():
+        _check(bool(torch.isfinite(grads[k]).all()), f'{tag}: {k} not finite')
+        _check(e['max_rel_err'] <= GRAD_TOL, f"{tag}: {k} vs plain {e['max_rel_err']:.3e}")
+    _check(same, f'{tag}: K2 gradients differ over two runs')
+    del grads_p, plain_out, leaves
+
+    # times: this width (pads included) beside a field of the width it runs
+    # at, and the plain versions
+    wide, wp, _, _ = _setup_field(layers, run_width, n, device, seed=1)
+    with torch.no_grad():
+        k0_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_forward(cfg, p, pts))
+        k0_wide_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_forward(wide, wp, pts))
+        k0_plain_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_reference(cfg, p, pts))
+    step_ms = _cuda_ms(lambda: _autograd(cfg, p, pts, dy, compute_dpts=False), reps=10)
+    step_wide_ms = _cuda_ms(lambda: _autograd(wide, wp, pts, dy, compute_dpts=False), reps=10)
+
+    def plain_step():
+        lv = [v.detach().clone().requires_grad_() for v in p.values()]
+        _PlainStash.apply(cfg, pts, *lv).backward(dy)
+    step_plain_ms = _cuda_ms(plain_step, warmup=1, reps=5)
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    pad_ms = _cuda_ms(lambda: fused_mlp.pad_field(cfg, leaves))
+    io = n * 4 * (cfg.d_input + cfg.d_output)
+    k0_bound = _bound(_flops(cfg, n), io + _param_bytes(cfg))
+    stash_bytes = n * cfg.n_layers * width * 3
+    k12_bound = _bound(_flops(cfg, n) + _bwd_flops(cfg, n),
+                       2 * io + 2 * stash_bytes + 3 * _param_bytes(cfg))
+    print(f'{tag}: K0 {k0_ms:.3f} ms (at width {run_width} {k0_wide_ms:.3f}; plain '
+          f'{k0_plain_ms:.3f}; bound of the real width {k0_bound[0]:.4f} by {k0_bound[1]}); '
+          f'K1 + K2 under autograd {step_ms:.3f} ms (at width {run_width} {step_wide_ms:.3f}; '
+          f'plain {step_plain_ms:.3f}; bound {k12_bound[0]:.4f} by {k12_bound[1]}); the pad '
+          f'alone {pad_ms:.4f} ms', flush=True)
+    return dict(layers=layers, width=width, runs_at=run_width, n=n,
+                k0=dict(ms=k0_ms, ms_at_run_width=k0_wide_ms, plain_ms=k0_plain_ms,
+                        bound_ms=k0_bound[0], bound_by=k0_bound[1], **err,
+                        launches=k0_launches),
+                k1_k2=dict(ms=step_ms, ms_at_run_width=step_wide_ms, plain_ms=step_plain_ms,
+                           bound_ms=k12_bound[0], bound_by=k12_bound[1],
+                           max_abs_err=max(e['max_abs_err'] for e in gerr.values()),
+                           max_rel_err=max(e['max_rel_err'] for e in gerr.values()),
+                           grads=gerr, bit_identical=same, launches=k12_launches),
+                pad_ms=pad_ms)
+
+
+def _widths_paths(n: int, device) -> dict:
+    """K3, K4, K6a and K6b at 2x32 (run at 64) through fused_mlp_forward
+    against the plain versions at the real width."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    cfg, p, pts, dy = _setup_field(2, 32, n, device, seed=32)
+    group = fused_mlp.STASH_BWD_TILE
+    rows = {}
+    for name, knobs, expect in (
+            ('K3', dict(), dict(STASH_FWD_LAUNCHES=1, STASH_BWD_LAUNCHES=1, DPTS_LAUNCHES=1)),
+            ('K4', dict(stash=False), dict(LAUNCHES=1, RECOMPUTE_BWD_LAUNCHES=1)),
+            ('K6a', dict(stash_format='lsb'),
+             dict(STASH_FWD_LAUNCHES=1, STASH_BWD_LAUNCHES=1, DPTS_LAUNCHES=1, LSB_LAUNCHES=2)),
+            ('K6b', dict(stash_format='i8pair'),
+             dict(STASH_FWD_LAUNCHES=1, STASH_BWD_LAUNCHES=1, DPTS_LAUNCHES=1,
+                  I8PAIR_LAUNCHES=2))):
+        tag = f'[widths] {name} 2x32 (runs at 64) N={n}'
+        _zero_counters()
+        _, got = _autograd(cfg, p, pts, dy, **knobs)
+        launches = _counters()
+        if name == 'K4':
+            ref = fused_mlp.fused_mlp_recompute_bwd_reference(cfg, p, pts, dy)
+        else:
+            fmt = knobs.get('stash_format', 'int8')
+            _, hs, cs = fused_mlp.fused_mlp_stash_reference(cfg, p, pts, fmt)
+            ref = fused_mlp.fused_mlp_stash_bwd_reference(cfg, p, pts, dy, hs, cs, fmt, True,
+                                                          group)
+        torch.cuda.synchronize()
+        gerr = _grad_err(ref, got)
+        ms = _cuda_ms(lambda: _autograd(cfg, p, pts, dy, **knobs), reps=10)
+        print(f'{tag}: launches {launches}; vs plain, max: ' + '; '.join(
+            f"{k} {e['max_rel_err']:.2e}" for k, e in gerr.items())
+            + f'; forward + backward {ms:.3f} ms', flush=True)
+        _check(launches == expect, f'{tag}: launches {launches}, expected {expect}')
+        _check(set(got) == set(ref), f'{tag}: gradients {sorted(got)} against {sorted(ref)}')
+        for k, e in gerr.items():
+            tol = DPTS_TOL if k == 'dpts' else GRAD_TOL
+            _check(bool(torch.isfinite(got[k]).all()), f'{tag}: {k} not finite')
+            _check(e['max_rel_err'] <= tol, f"{tag}: {k} vs plain {e['max_rel_err']:.3e}")
+        rows[name] = dict(launches=launches, grads=gerr, ms=ms,
+                          max_abs_err=max(e['max_abs_err'] for e in gerr.values()),
+                          max_rel_err=max(e['max_rel_err'] for e in gerr.values()))
+    return rows
+
+
+def _widths_phase(device) -> dict:
+    """[widths]: fields of widths outside KERNEL_WIDTHS on the kernels,
+    zero-padded to the next kernel width."""
+    t0 = time.perf_counter()
+    rows = {f'{layers}x{width}': _width_row(layers, width, WIDTHS_N, device)
+            for layers, width in WIDTH_SHAPES}
+    paths = _widths_paths(WIDTHS_N, device)
+    wall = time.perf_counter() - t0
+    print(f'[widths] {wall:.1f} s', flush=True)
+    return dict(rows=rows, paths=paths, wall_s=wall)
+
+
+def _run_cli(config: dict, path: str, device):
+    """sunerf_tpu_torch.run_emission.main on a config written as JSON, which
+    YAML reads as it is."""
+    from sunerf_tpu_torch.run_emission import main
+    with open(path, 'w') as f:
+        json.dump(config, f)
+    return main(['--config', path, '--device', str(device)])
+
+
+def _trainer_phase(device, train: dict) -> dict:
+    """[trainer]: the emission CLI at 8x512 on synthesized FITS views, its
+    bundles served, a resume, and a 2x32 run on the padded kernels."""
+    from sunerf_tpu_torch import native
+    from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.data.synthetic import OBSERVERS, synthesize_views
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pattern = synthesize_views(tmp, device, TRAINER_RES, BUNDLE)
+        synth_s = time.perf_counter() - t0
+        workdir = os.path.join(tmp, 'run')
+        config = {'path_to_save': workdir, 'model': dict(TRAINER_MODEL),
+                  'rendering': dict(TRAINER_RENDERING),
+                  'data': {'data_path': pattern, 'batch_size': TRAINER_BATCH},
+                  'training': {'total_steps': TRAINER_STEPS, 'log_every_n_steps': 150,
+                               'scalar_log_every': 50, 'ema_decay': 0.999, 'keep_best': True,
+                               'drift_probe_views': 4, 'drift_probe_resolution': 64,
+                               'profile_steps': 20}}
+        _zero_counters()
+        t1 = time.perf_counter()
+        trainer = _run_cli(config, os.path.join(tmp, 'emission.yaml'), device)
+        run_s = time.perf_counter() - t1
+        launches = _counters()
+        recs = [json.loads(line) for line in open(os.path.join(workdir, 'metrics.jsonl'))]
+        steps = [r for r in recs if 'loss' in r]
+        vals = {r['step']: r for r in recs if 'val_psnr' in r}
+        window = [r for r in steps if 50 < r['step'] <= TRAINER_STEPS]
+        ms_step = statistics.mean(r['step_ms'] for r in window)
+        with open(os.path.join(workdir, 'profile', 'summary.json')) as f:
+            prof = json.load(f)
+        print(f'[trainer] synthesized {len(OBSERVERS)} views at {TRAINER_RES}^2 in '
+              f'{synth_s:.1f} s; Rice decoder: {native.decoder()}', flush=True)
+        print(f'[trainer] run_emission {TRAINER_MODEL or "8x512"}, '
+              f'{TRAINER_RENDERING or "64 + 128"}, batch {TRAINER_BATCH}, {TRAINER_STEPS} steps: '
+              f'{run_s:.1f} s; launches {launches}; losses ' + ' '.join(
+                  f"{r['step']}:{r['loss']:.5f}" for r in steps) + '; val_psnr ' + ' '.join(
+                  f"{s}:{r['val_psnr']:.3f}" for s, r in sorted(vals.items())), flush=True)
+        print(f'[trainer] {ms_step:.2f} ms/step ({TRAINER_BATCH / ms_step * 1e3:.0f} rays/s) over steps '
+              f'51-{TRAINER_STEPS}, validations excluded (the host clock, waiting for the '
+              f'loss every 50 steps), beside [train]\'s bare step {train["step_ms"]:.2f} ms; '
+              f'profiled steps {prof["steps"]}: {prof["wall_ms"]:.1f} ms wall, '
+              f'{prof["device_ms"]:.1f} ms of kernels, device idle {prof["idle_share"]:.1%}',
+              flush=True)
+        _check(launches.get('STASH_FWD_LAUNCHES') == 2 * TRAINER_STEPS
+               and launches.get('STASH_BWD_LAUNCHES') == 2 * TRAINER_STEPS,
+               f'trainer launches {launches}: not 2 K1 and 2 K2 a step')
+        _check(launches.get('LAUNCHES', 0) > 0, 'the trainer\'s validation launched no K0')
+        _check(all(np.isfinite(r['loss']) for r in steps), 'trainer losses not finite')
+        _check(steps[-1]['loss'] < steps[0]['loss'],
+               f"trainer loss did not fall: {steps[0]['loss']} -> {steps[-1]['loss']}")
+        _check(vals[TRAINER_STEPS]['val_psnr'] > vals[0]['val_psnr'],
+               f"val_psnr {vals[TRAINER_STEPS]['val_psnr']} not above step 0's "
+               f"{vals[0]['val_psnr']}")
+        served = {}
+        for bundle in ('save_state', 'save_state_ema', 'save_state_best'):
+            path = os.path.join(workdir, bundle)
+            _check(os.path.exists(path + '.npz') and os.path.exists(path + '.json'),
+                   f'{bundle} missing')
+            fused_mlp.LAUNCHES = 0
+            view = SuNeRFLoader(path, device=device).render_observer_image(
+                lat=0.3, lon=1.1, time=0.0, distance=215.0, resolution=64)
+            served[bundle] = dict(k0_launches=fused_mlp.LAUNCHES,
+                                  image_max=float(np.max(view.image)))
+            for k in MAPS:
+                _check(bool(np.isfinite(getattr(view, k)).all()), f'{bundle} {k} not finite')
+            _check(fused_mlp.LAUNCHES > 0, f'{bundle} rendered without K0')
+        print(f'[trainer] bundles served at 64^2: {served}', flush=True)
+        del trainer
+
+        # resume: the same workdir, 50 more steps
+        n_before = len(recs)
+        config['training']['total_steps'] = TRAINER_STEPS + 50
+        t1 = time.perf_counter()
+        resumed = _run_cli(config, os.path.join(tmp, 'resume.yaml'), device)
+        resume_s = time.perf_counter() - t1
+        recs = [json.loads(line) for line in open(os.path.join(workdir, 'metrics.jsonl'))]
+        after = [r['step'] for r in recs[n_before:] if 'loss' in r]
+        print(f'[trainer] resumed at step {TRAINER_STEPS}: now at {resumed.state.step}, logged '
+              f'steps {after} ({resume_s:.1f} s)', flush=True)
+        _check(resumed.state.step == TRAINER_STEPS + 50 and after == [TRAINER_STEPS + 50],
+               f'resume: step {resumed.state.step}, logged {after}')
+        del resumed
+
+        # the repaired width: 2x32 with 8 + 8 samples on the padded kernels
+        narrow = {'path_to_save': os.path.join(tmp, 'narrow'),
+                  'data': dict(config['data']),
+                  'model': {'n_layers': 2, 'd_filter': 32},
+                  'rendering': {'n_stratified': 8, 'n_hierarchical': 8},
+                  'optimizer': {'lr_start': 1e-3, 'lr_floor': 1e-3},
+                  'training': {'total_steps': 40, 'log_every_n_steps': 20,
+                               'scalar_log_every': 10, 'drift_probe_views': 0}}
+        _zero_counters()
+        _run_cli(narrow, os.path.join(tmp, 'narrow.yaml'), device)
+        n_launches = _counters()
+        n_recs = [json.loads(line) for line in open(os.path.join(narrow['path_to_save'],
+                                                                 'metrics.jsonl'))]
+        n_losses = [r['loss'] for r in n_recs if 'loss' in r]
+        print(f'[trainer] 2x32 (runs at 64), 8 + 8, 40 steps: launches {n_launches}; losses '
+              + ' '.join(f'{v:.5f}' for v in n_losses), flush=True)
+        _check(n_launches.get('STASH_FWD_LAUNCHES') == 80
+               and n_launches.get('STASH_BWD_LAUNCHES') == 80
+               and n_launches.get('LAUNCHES', 0) > 0, f'2x32 launches {n_launches}')
+        _check(all(np.isfinite(n_losses)) and n_losses[-1] < n_losses[0],
+               f'2x32 loss did not fall: {n_losses}')
+    wall = time.perf_counter() - t0
+    print(f'[trainer] {wall:.1f} s', flush=True)
+    return dict(launches=launches, ms_per_step=ms_step, rays_per_s=TRAINER_BATCH / ms_step * 1e3,
+                bare_step_ms=train['step_ms'], profile=prof, losses=[r['loss'] for r in steps],
+                val_psnr={s: r['val_psnr'] for s, r in vals.items()}, served=served,
+                decoder=native.decoder(), narrow_launches=n_launches, narrow_losses=n_losses,
+                run_s=run_s, resume_s=resume_s, wall_s=wall)
 
 
 def _grid_bytes(cfg) -> int:
@@ -1854,6 +2178,12 @@ def main() -> int:
     _serve_phase(train.pop('renderer'), train.pop('state'))
     tune = _tune_phase(device, gview, g_fused)
 
+    # 8-9. fields of any width up to 512; the Trainer through the CLI ------
+    torch.cuda.empty_cache()
+    widths = _widths_phase(device)
+    torch.cuda.empty_cache()
+    trainer = _trainer_phase(device, train)
+
     # 8-11. dense feature grids (K5) ----------------------------------------
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -1906,6 +2236,9 @@ def main() -> int:
         'golden_err': golden_err,
         'grid_shapes': {name: r['k0'] for name, r in grid_rows.items()},
         'grid_render_256': grid_serve,
+        'widths': {name: dict(r['k0'], runs_at=r['runs_at'], pad_ms=r['pad_ms'])
+                   for name, r in widths['rows'].items()},
+        'trainer_served': trainer['served'],
     })
     for key, kname, line, header in (
             ('k1', 'fused_mlp_stash_fwd', 453, 'fused_mlp_fwd_wgmma.cuh'),
@@ -1928,6 +2261,10 @@ def main() -> int:
             'train_profile': train['profile'], 'train_peak_gib': train['peak_gib'],
             'train_vs_plain': train['vs_plain'], 'tune_losses': tune,
             'grid_shapes': {name: r[key] for name, r in grid_rows.items()},
+            # K1 + K2 together under autograd at the padded widths
+            'widths_k1_k2': {name: dict(r['k1_k2'], runs_at=r['runs_at'])
+                             for name, r in widths['rows'].items()},
+            'trainer': trainer,
         })
     gq = grid_rows['grid_quarter']
     kernels.append({
@@ -1968,7 +2305,7 @@ def main() -> int:
         'max_rel_err': max(r['max_rel_err'] for r in dpts_rows.values()),
         'ms': fine_dpts['ms'], 'plain_ms': fine_dpts['plain_ms'],
         'bound_ms': fine_dpts['bound_ms'], 'bound_by': fine_dpts['bound_by'],
-        'library_ms': None, 'shapes': dpts_rows,
+        'library_ms': None, 'shapes': dpts_rows, 'width_2x32': widths['paths']['K3'],
     })
     kernels.append({
         'name': 'fused_mlp_recompute_bwd (K4)', 'route': 'cuda',
@@ -1979,7 +2316,7 @@ def main() -> int:
         'max_abs_err': recompute['max_abs_err'], 'max_rel_err': recompute['max_rel_err'],
         'ms': recompute['ms'], 'plain_ms': recompute['plain_ms'],
         'bound_ms': recompute['bound_ms'], 'bound_by': recompute['bound_by'],
-        'library_ms': None, 'detail': recompute,
+        'library_ms': None, 'detail': recompute, 'width_2x32': widths['paths']['K4'],
     })
     backward_design = {
         'lsb': 'the packed-sin gate through the chain kernel\'s weight ring (TMA boxes, two '
@@ -2005,6 +2342,7 @@ def main() -> int:
             'max_abs_err': r['max_abs_err'], 'max_rel_err': r['max_rel_err'],
             'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': None, 'detail': r,
+            'width_2x32': widths['paths'][kname],
         })
     kernels[-1]['bench_kernel'] = bench['rows']
     kernels[-1]['probe_step'] = [{k: v for k, v in row.items() if k != 'losses'}

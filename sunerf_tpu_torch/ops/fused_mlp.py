@@ -29,7 +29,13 @@ sunerf_tpu/ops/pallas/fused_mlp.py.
       ('i8pair': one int8 stream of sin/cos pairs, dW_h on the int8
       tensor cores: dw_i8_wgmma_kernel, i8_build_operands)
 
-`fused_mlp_forward` is the entry, with fused_nerf_raw's knobs. With no
+`fused_mlp_forward` is the entry, with fused_nerf_raw's knobs. The kernels
+are built for the widths of KERNEL_WIDTHS; on the card a field of another
+d_filter up to 512 runs at the next of them, zero-padded (`kernel_width`,
+`pad_field`: a padded unit's pre-activation is 0, its sin 0 and its outgoing
+weights 0, so the field and the real entries' gradients are unchanged),
+and the pad is an F.pad outside the autograd Functions, so autograd slices
+the gradients back to the caller's shapes. With no
 gradient needed it runs K0. When a parameter (or, with compute_dpts, the
 points) needs one it runs, for stash=True (or None), `FusedMLPStash`, the
 autograd Function whose forward is the stashing forward of `stash_format`
@@ -106,6 +112,7 @@ _prepared: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _prepared_dpts: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _prepared_wgmma: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _prepared_bwd: WeakIdKeyDictionary = WeakIdKeyDictionary()
+_padded: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _TWO_PI = 6.283185307179586
 _INV_TWO_PI = 0.15915494309189535
 _HALF_PI = 1.5707963267948966
@@ -822,6 +829,59 @@ def _wgmma_weights(params: dict) -> torch.Tensor:
     return hit[1]
 
 
+def kernel_width(d_filter: int) -> int:
+    """The width a field of d_filter runs at in the kernels: d_filter when
+    it is one of KERNEL_WIDTHS, else the next larger one. Above the largest
+    (512) there is none: ValueError."""
+    for width in KERNEL_WIDTHS:
+        if d_filter <= width:
+            return width
+    raise ValueError(f'the fused kernels take d_filter up to {KERNEL_WIDTHS[-1]} '
+                     f'(the widest kernel width), got {d_filter}')
+
+
+def pad_field(config: NeRFConfig, params: dict) -> tuple:
+    """(config, params) of the same field zero-padded to kernel_width(
+    d_filter): w_in's columns, b_in, both hidden axes of w_h, b_h and w_out's
+    rows. A padded unit has pre-activation 0 and sin 0, and its outgoing
+    weights are 0, so it adds nothing to the next layer and the cotangent
+    reaching it is 0: the field and the real entries' gradients are
+    unchanged. The pads are F.pad, so under autograd the gradients of the
+    caller's tensors come back sliced to their shapes. Grid tables and
+    other keys pass through. A field of a kernel width is returned as it
+    is."""
+    width = kernel_width(config.d_filter)
+    if width == config.d_filter:
+        return config, params
+    pad = width - config.d_filter
+    padded = dict(params)
+    padded.update(w_in=F.pad(params['w_in'], (0, pad)),
+                  b_in=F.pad(params['b_in'], (0, pad)),
+                  w_h=F.pad(params['w_h'], (0, pad, 0, pad)),
+                  b_h=F.pad(params['b_h'], (0, pad)),
+                  w_out=F.pad(params['w_out'], (0, 0, 0, pad)))
+    return dataclasses.replace(config, d_filter=width), padded
+
+
+def _kernel_field(config: NeRFConfig, params: dict) -> tuple:
+    """pad_field for the kernels. A field that needs gradients is padded
+    afresh, through autograd, on every call (one copy of its weights); one
+    that does not (a render) is padded once and reused while the same
+    tensors, unmodified, come back, as the packed weights are."""
+    if kernel_width(config.d_filter) == config.d_filter:
+        return config, params
+    keys = param_keys(config)
+    if torch.is_grad_enabled() and any(params[k].requires_grad for k in keys):
+        return pad_field(config, params)
+    stamp = (config,) + tuple((id(params[k]), _version(params[k])) for k in keys)
+    hit = _padded.get(params['w_in'])
+    if hit is None or hit[0] != stamp:
+        with torch.no_grad():
+            hit = (stamp, pad_field(config, params))
+        _padded[params['w_in']] = hit
+    return hit[1]
+
+
 def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
     if points.device.type != 'cuda':
         raise ValueError(f'no fused kernel for device {points.device}')
@@ -831,8 +891,9 @@ def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
         raise ValueError(f'the fused kernels take grid levels of 2 or more cells '
                          f'a side, got {config.grid_sizes}')
     if config.d_filter not in KERNEL_WIDTHS:
-        raise ValueError(f'fused kernel takes d_filter in {KERNEL_WIDTHS}, '
-                         f'got {config.d_filter}')
+        raise ValueError(f'the kernels take d_filter in {KERNEL_WIDTHS}, got '
+                         f'{config.d_filter}: fused_mlp_forward pads other widths '
+                         f'(pad_field)')
     if points.dtype != torch.float32 or points.dim() != 2 \
             or points.shape[1] != config.d_input:
         raise ValueError(f'points must be float32 [N, {config.d_input}], got '
@@ -1301,10 +1362,13 @@ def fused_mlp_forward(config: NeRFConfig, params: dict, points: torch.Tensor,
     compute_dpts=False gives the points no gradient on the stashing path
     (the renderer detaches them). Grid configs take the 'int8' stash only
     and no point cotangent, and their recompute backward raises, as in the
-    JAX package."""
+    JAX package. On the card a d_filter outside KERNEL_WIDTHS runs zero-padded
+    to the next kernel width (pad_field); above 512 it raises."""
     if config.grid_rank:
         raise NotImplementedError(_NO_VM_KERNEL)
     _check_format(config, stash_format)
+    if points.device.type == 'cuda':
+        config, params = _kernel_field(config, params)
     stash = True if stash is None else bool(stash)
     keys = param_keys(config)
     if torch.is_grad_enabled():

@@ -7,13 +7,84 @@ that a kernel is not read as the host's dispatch of one call; for kernels
 of a few microseconds, which the host cannot dispatch as fast as they run,
 the batch is one CUDA graph. A CPU run is timed with the host clock, a
 number about the CPU that is never a device metric.
+
+`trace` records a window of work under torch.profiler (the Trainer's
+profile_steps) and `StepTimer` times the Trainer's steps.
 """
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import statistics
 import time
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device='cuda'):
+    """torch.profiler over the block: the host's ops and, on a CUDA device,
+    the card's kernels. On exit writes <log_dir>/trace.json (Chrome /
+    Perfetto) and <log_dir>/summary.json, and fills the dict it yields:
+    wall_ms (the block by the host clock, the device synchronized at both
+    ends), device_ms (the card's kernel time summed), idle_share (1 -
+    device_ms / wall_ms; None on the CPU) and kernels (kernel records)."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.device(device).type == 'cuda'
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    summary = {}
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        try:
+            yield summary
+        finally:
+            if cuda:
+                torch.cuda.synchronize(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, kernels = 0.0, 0
+    if cuda:
+        for evt in prof.events():
+            # kernels only: a user annotation spans kernels counted on their own
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(evt, 'is_user_annotation', False) and '#' not in evt.name):
+                device_ms += evt.device_time / 1e3
+                kernels += 1
+    summary.update(wall_ms=wall_ms, device_ms=device_ms if cuda else None,
+                   idle_share=(1.0 - device_ms / wall_ms) if cuda and wall_ms > 0 else None,
+                   kernels=kernels)
+    prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+    with open(os.path.join(log_dir, 'summary.json'), 'w') as f:
+        json.dump(summary, f)
+
+
+class StepTimer:
+    """Items and host-clock seconds since the last reset. seconds() first
+    waits for the device through a value the caller hands it (a step's
+    loss), so the time covers the work, not only its dispatch."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._t0 = time.perf_counter()
+        self._count = 0
+
+    def tick(self, n: int = 1):
+        self._count += n
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    def seconds(self, sync_value=None) -> float:
+        """Seconds since the last reset, after waiting for sync_value."""
+        if sync_value is not None:
+            float(sync_value)
+        return time.perf_counter() - self._t0
 
 
 def timeit(fn, *args, device='cuda', warmup: int = 3, reps: int = 20,

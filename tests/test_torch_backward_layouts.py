@@ -45,18 +45,24 @@ def _bf16_np(x) -> np.ndarray:
     return torch.as_tensor(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
 
 
-@pytest.mark.parametrize('d_filter', fused_mlp.KERNEL_WIDTHS)
+@pytest.mark.parametrize('d_filter', fused_mlp.KERNEL_WIDTHS + (32, 96))
 def test_backward_packing_unpacks_to_the_jax_layout(d_filter):
     """pack_wgmma_bwd's chunks, unpacked, are each layer's bf16(w_h[i])^T
     (B [k = out, n = in] of dh = dz w_h^T, so w_h itself read K-major), and
     pack_wgmma_dpts's are bf16(w_in)^T's columns in dpts_layout's order
     (zeros where it has -1), in column blocks of dpts_chunk_cols, of
     JAX-initialised params (3 layers): x_d, a zero, then each phase's sin
-    and cos columns, dimension by dimension."""
+    and cos columns, dimension by dimension. A width outside KERNEL_WIDTHS
+    (32, 96) is packed as the card packs it, zero-padded to the next kernel
+    width (pad_field): JAX's parameters with zero rows and columns."""
     jc = JaxNeRFConfig(n_layers=3, d_filter=d_filter, n_freqs=4)
     jp = jax.tree.map(np.array, jax_init_nerf(jax.random.PRNGKey(0), jc))
-    params = params_from_numpy(jp, 'cpu')
-    h = d_filter
+    cfg = emission_config(n_layers=3, d_filter=d_filter, n_freqs=4)
+    cfg, params = fused_mlp.pad_field(cfg, params_from_numpy(jp, 'cpu'))
+    h = cfg.d_filter
+    pad = h - d_filter
+    jp = dict(jp, w_h=np.pad(jp['w_h'], ((0, 0), (0, pad), (0, pad))),
+              w_in=np.pad(jp['w_in'], ((0, 0), (0, pad))))
     packed = fused_mlp.pack_wgmma_bwd(params['w_h'].float())
     assert packed.dtype == torch.bfloat16 and packed.shape == (2 * h // 32, 32 * h)
     flat = packed.float().numpy()

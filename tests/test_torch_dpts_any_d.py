@@ -112,7 +112,8 @@ def test_card_path_takes_any_d_input():
     cfg = NeRFConfig(d_input=12, **TINY)
     fused_mlp._check_backward(cfg, torch.zeros(5, 2), 5, torch.device('cpu'))
     dims, _ = encoding_columns(12, cfg.n_freqs, cfg.scale_factor, cfg.n_freqs_time)
-    for h in fused_mlp.KERNEL_WIDTHS:
+    # every width up to 512 runs at a kernel width (32 and 96 zero-padded)
+    for h in map(fused_mlp.kernel_width, fused_mlp.KERNEL_WIDTHS + (32, 96)):
         cols, pairs, gdim = fused_mlp.dpts_layout(12, dims, h)
         assert len(cols) % fused_mlp.dpts_chunk_cols(h) == 0
         assert sorted(c for c in cols if c >= 0) == list(range(cfg.d_encoded))

@@ -231,11 +231,19 @@ def test_grid_kernels_match_plain_versions(cuda, n_layers, d_filter, grid_sizes,
 
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    cfg = emission_config(n_layers=2, d_filter=96)
+    """Above the widest kernel width (512) a field raises; below it the
+    entry pads (test_narrow_fields_run_padded_on_the_kernels), and only
+    the low-level wrappers, which take the kernels' own widths, refuse
+    another."""
+    cfg = emission_config(n_layers=2, d_filter=600)
     params = init_nerf(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
     pts = torch.zeros(8, 4, device=cuda)
     with pytest.raises(ValueError, match='d_filter'):
         fused_mlp.fused_mlp_forward(cfg, params, pts)
+    cfg = emission_config(n_layers=2, d_filter=96)
+    params = init_nerf(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    with pytest.raises(ValueError, match='pad_field'):
+        fused_mlp.fused_mlp_stash_forward(cfg, params, pts)
     cfg = emission_config(n_layers=2, d_filter=64)
     params = init_nerf(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
     with pytest.raises(ValueError, match='contiguous'):
@@ -559,3 +567,70 @@ def test_lsb_gate_decode_on_the_card_matches_plain_on_every_pattern(cuda):
     nan = torch.isnan(want.view(torch.bfloat16).float())
     assert torch.equal(torch.isnan(got.view(torch.bfloat16).float()), nan)
     assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('knobs', [dict(compute_dpts=False), dict(), dict(stash=False),
+                                   dict(stash_format='lsb'), dict(stash_format='i8pair')],
+                         ids=['int8', 'dpts', 'recompute', 'lsb', 'i8pair'])
+@pytest.mark.parametrize('n_layers,d_filter,n', [(2, 16, 3000), (2, 32, 4097), (4, 96, 20480)])
+def test_narrow_fields_run_padded_on_the_kernels(cuda, monkeypatch, knobs, n_layers, d_filter,
+                                                 n):
+    """A field of a width outside KERNEL_WIDTHS runs on the kernels,
+    zero-padded to the next kernel width: K0 with no gradient, and under
+    autograd the stashing path (K1 + K2, K3 for the points, K6a, K6b) or
+    the recompute path (K0 + K4), against the same entry on CPU copies
+    (the plain versions, unpadded): outputs within 2e-2, gradients within
+    3e-2 (6e-2 for 'i8pair'), point gradients within 5e-2 of max. A render
+    pads and packs the weights once for all its calls; a training call pads
+    once and packs once (its backward reuses the forward's pack)."""
+    cfg, params, pts, dy = _setup(cuda, n_layers, d_filter, n)
+    calls = {'pad_field': 0, '_prepare': 0}
+    for name in calls:
+        def counted(*a, _f=getattr(fused_mlp, name), _n=name):
+            calls[_n] += 1
+            return _f(*a)
+        monkeypatch.setattr(fused_mlp, name, counted)
+    k0 = fused_mlp.LAUNCHES
+    with torch.no_grad():
+        out = fused_mlp.fused_mlp_forward(cfg, params, pts)
+        again = fused_mlp.fused_mlp_forward(cfg, params, pts)
+        ref = fused_mlp.fused_mlp_forward(cfg, {k: v.cpu() for k, v in params.items()},
+                                          pts.cpu())
+    assert fused_mlp.LAUNCHES == k0 + 2
+    assert torch.equal(out, again)
+    # a render pads and packs once, then reuses both
+    assert calls == {'pad_field': 1, '_prepare': 1}, calls
+    assert _rel(ref, out.cpu()) <= 2e-2
+
+    def grads(device):
+        leaves = {k: v.detach().to(device).requires_grad_() for k, v in params.items()}
+        x = pts.detach().to(device).requires_grad_()
+        o = fused_mlp.fused_mlp_forward(cfg, leaves, x, **knobs)
+        (o * dy.to(device)).sum().backward()
+        got = {k: v.grad.cpu() for k, v in leaves.items()}
+        if x.grad is not None:
+            got['dpts'] = x.grad.cpu()
+        return o.detach().cpu(), got
+    counters = ('STASH_FWD_LAUNCHES', 'STASH_BWD_LAUNCHES', 'RECOMPUTE_BWD_LAUNCHES',
+                'DPTS_LAUNCHES')
+    before = {c: getattr(fused_mlp, c) for c in counters}
+    calls.update(pad_field=0, _prepare=0)
+    out, got = grads(cuda)
+    ran = {c: getattr(fused_mlp, c) - before[c] for c in counters}
+    # a training call pads afresh and packs once: the backward reuses the
+    # forward's pack
+    assert calls == {'pad_field': 1, '_prepare': 1}, calls
+    ref_out, ref = grads('cpu')
+    if knobs.get('stash') is False:
+        assert ran['RECOMPUTE_BWD_LAUNCHES'] == 1
+    else:
+        assert ran['STASH_FWD_LAUNCHES'] == ran['STASH_BWD_LAUNCHES'] == 1
+        assert ran['DPTS_LAUNCHES'] == int(knobs.get('compute_dpts', True))
+    assert _rel(ref_out, out) <= 2e-2
+    assert set(got) == set(ref)
+    tol = 6e-2 if knobs.get('stash_format') == 'i8pair' else 3e-2
+    for k, g in got.items():
+        assert g.shape == ref[k].shape, k
+        assert bool(torch.isfinite(g).all()), k
+        assert _rel(ref[k], g) <= (5e-2 if k == 'dpts' else tol), (k, _rel(ref[k], g))

@@ -449,16 +449,26 @@ def test_train_save_serve(tmp_path):
 
 
 def test_step_rejects_what_is_not_ported():
+    """mesh and microbatch still raise, naming their ROADMAP items; the
+    spike guard and EMA are ported (tests/test_torch_trainer.py holds them
+    against JAX), and need a state made with their leaves."""
     tr = make_emission_system(model_config=emission_config(**TINY), device='cpu')[0]
     opt = make_optimizer()
-    for kw in (dict(mesh=object()), dict(microbatch=4), dict(spike_guard=3.0),
-               dict(ema_decay=0.99), dict(donate=True)):
-        with pytest.raises(NotImplementedError, match='Queue 1 items 10 and 11'):
+    for kw, match in ((dict(mesh=object()), 'Queue 1 item 11'),
+                      (dict(microbatch=4), 'Queue 1 item 10'),
+                      (dict(donate=True), 'in place')):
+        with pytest.raises(NotImplementedError, match=match):
             make_train_step(tr, LossConfig(), opt, **kw)
-    with pytest.raises(NotImplementedError, match='Queue 1 items 10 and 11'):
+    with pytest.raises(NotImplementedError, match='Queue 1 item 11'):
         make_eval_step(tr, mesh=object())
-    with pytest.raises(NotImplementedError, match='spike guard'):
-        create_train_state({'fine': {}}, opt, spike_guard=True)
+    params = params_from_numpy(_random_params(emission_config(**TINY)), 'cpu')
+    state = create_train_state({'fine': params}, opt, spike_guard=True, ema=True)
+    # the snapshot and the average are copies, never aliases of the params
+    for copy in (state.snapshot.params['fine']['w_in'], state.ema_params['fine']['w_in']):
+        assert torch.equal(copy, state.params['fine']['w_in'])
+        assert copy.data_ptr() != state.params['fine']['w_in'].data_ptr()
+    plain = create_train_state({'fine': params}, opt)
+    assert plain.snapshot is None and plain.ema_params is None
     a = torch.rand(4, generator=step_generator(3, 5, 'cpu'))
     b = torch.rand(4, generator=step_generator(3, 5, 'cpu'))
     c = torch.rand(4, generator=step_generator(3, 6, 'cpu'))
