@@ -87,6 +87,41 @@ Phases (the first failure ends the run with a non-zero exit):
              Prints the Trainer's ms/step over steps 51-300 beside [train]'s
              bare step, the profiled window's device idle share and the
              Rice decoder that loaded.
+  7c. dt     the analytic SimpleStar rendered by the port's
+             evaluation.image_render.render_observers at
+             config/render_simple_star.yaml's 8 observers and pif (1e9), at
+             256^2, over all seven AIA channels, as an aia / euvia / euvib
+             FITS tree, with euvib's 94 and 131 directories removed (its rays
+             carry 0 for them); `sunerf_tpu_torch.run_density_temperature.main`
+             with config/DT_2012_11.yaml (8x512 DT field for both passes,
+             64 + 128, batch 3072, pif 1e17) on that tree, cut to 300 steps
+             (validation every 150 with keep_best, EMA 0.999, the 4-view 64^2
+             drift probe pinned at 94 A): 2 K1 and 2 K2 launches a step, K0
+             launches for validation, finite and falling losses, no
+             degenerate validation, the three bundles each served at 64^2
+             in seven finite channels, all-zero wavelengths rendering 0. One
+             step from the run's first params and batch (perturb off) against
+             the plain versions: loss within STEP_LOSS_TOL, every gradient
+             within GRAD_TOL (the float32 field's figures beside); the
+             trained fine field's raw at the 256^2 held-out view's fine
+             samples, K0 against its plain version under KERNEL_TOL, and the
+             seven-channel image from those samples within the bound derived
+             at DT_RAW_TO_IMAGE; K0, K1 and K2 at the step's shapes (fine N =
+             589,824, coarse 196,608) against their plain versions, as in
+             2 (stash). Prints ms/step and rays/s over steps 51-300,
+             validations excluded; the device idle share of 20 profiled
+             Trainer steps (301-320, run after the checks); the head's share
+             of a profiled step; the peak device memory of the run and of a
+             step; max|dy| into K2 at step 1; val_psnr at 0, 150 and 300.
+  7d. thomson  the analytic electron-density teacher of
+             tests/test_end_to_end.py (observer at 4 Rs) renders its target
+             for 1,024 rays; make_thomson_system() at 8x512, 64 + 128, trains
+             100 steps on the kernels (the asinh-scaled loss, Adam's
+             defaults) with sampling 'stratified' and then 'spherical': 2 K1 + 2 K2 launches a step, a falling loss, one
+             step against the plain versions (STEP_LOSS_TOL, GRAD_TOL), the
+             trained student's fine raw, K0 against the plain version under
+             KERNEL_TOL, finite pixel_density, distance_from_sun and
+             distance_from_obs.
   8. grid    K0, K1 and K2 with the dense feature-grid branch (K5) against
              their plain versions, random weights and U(-1, 1) tables from a
              seed, at bench.py grid_quarter's fine field (4x128, G = 16,
@@ -280,6 +315,23 @@ TRAINER_STEPS = 300
 TRAINER_BATCH = 1024
 TRAINER_MODEL = {}        # the CLI's defaults: 8x512 for both fields
 TRAINER_RENDERING = {}    # 64 + 128 samples
+# [dt]: config/render_simple_star.yaml's observers (data/synthetic.py
+# OBSERVERS) rendered at DT_RES^2 over every AIA channel; euvib loses
+# DT_DROPPED; config/DT_2012_11.yaml cut to DT_STEPS
+DT_RES = 256
+DT_STEPS = 300
+DT_DROPPED = ('euvib', (94, 131))
+DT_CONFIG = 'config/DT_2012_11.yaml'
+# the image from the K0 raw against the image from the plain raw, each
+# channel as a fraction of its max: the head squares exp(raw0), so a raw
+# error of d moves a sample's emission by a factor e^(2d), about 1 + 2d.
+# The bound takes d as the K0 check's bulk allowance, KERNEL_TOL of
+# max|raw|, read from the run: DT_IMAGE_TOL = exp(2 KERNEL_TOL max|raw|) - 1
+# (the response's slope in log T, which raw1's error meets, is not in it)
+DT_RAW_TO_IMAGE = 2.0
+# [thomson]: the teacher's rays and the student's schedule
+THOMSON_RAYS = 1024
+THOMSON_STEPS = 100
 
 
 
@@ -1042,6 +1094,483 @@ def _trainer_phase(device, train: dict) -> dict:
                 val_psnr={s: r['val_psnr'] for s, r in vals.items()}, served=served,
                 decoder=native.decoder(), narrow_launches=n_launches, narrow_losses=n_losses,
                 run_s=run_s, resume_s=resume_s, wall_s=wall)
+
+
+def _with_dt_offsets(cfg, fn):
+    """fn's raw [N, 2] as a DT field's FieldOutput: the base offsets added
+    and log_abs / vol_c attached, as models.fields does for the kernels."""
+    from sunerf_tpu_torch.models.fields import FieldOutput
+    base = torch.tensor([cfg.base_log_density, cfg.base_log_temperature])
+
+    def apply(p, x):
+        return FieldOutput(raw=fn(p, x) + base.to(x.device), log_abs=p['log_abs'],
+                           vol_c=p['vol_c'])
+    return apply
+
+
+def _plain_apply(cfg):
+    """The kernels' plain versions as a field_apply: _PlainStash under
+    autograd, K0's plain version without; DT offsets and aux as the fused
+    path has them."""
+    from sunerf_tpu_torch.ops import fused_mlp
+
+    def raw(p, x):
+        if torch.is_grad_enabled():
+            return _PlainStash.apply(cfg, x, *(p[k] for k in fused_mlp.param_keys(cfg)))
+        return fused_mlp.fused_mlp_reference(cfg, p, x)
+    if cfg.with_aux:
+        return _with_dt_offsets(cfg, raw)
+    from sunerf_tpu_torch.models.fields import FieldOutput
+    return lambda p, x: FieldOutput(raw=raw(p, x))
+
+
+def _step_vs_plain(renderer, plain, params: dict, batch: dict, loss_config) -> dict:
+    """One step's loss and gradients through `renderer` (the kernels)
+    against `plain`, from the same params and batch, perturb off."""
+    from sunerf_tpu_torch.train.objective import render_loss
+
+    def run(r):
+        p = {f: {k: v.detach().clone().requires_grad_() for k, v in sub.items()}
+             for f, sub in params.items()}
+        rays = batch['rays']
+        out = r(p, rays[:, 0], rays[:, 1], batch['time'], wavelengths=batch.get('wavelength'))
+        loss, _ = render_loss(loss_config, out, batch['target_image'])
+        loss.backward()
+        return float(loss.detach()), {f: {k: v.grad for k, v in sub.items()}
+                                      for f, sub in p.items()}
+    fixed = dataclasses.replace(renderer, perturb=False)
+    loss_k, grads_k = run(fixed)
+    loss_p, grads_p = run(dataclasses.replace(fixed, **plain))
+    return {'loss': loss_k, 'plain_loss': loss_p,
+            'loss_rel_err': abs(loss_k - loss_p) / abs(loss_p),
+            'grads': {f: _grad_err(grads_p[f], grads_k[f]) for f in grads_p}}
+
+
+def _check_vs_plain(tag: str, vs: dict):
+    print(f'[{tag}] one step vs the plain versions: loss {vs["loss"]:.7g} vs '
+          f'{vs["plain_loss"]:.7g} (rel {vs["loss_rel_err"]:.2e}, tol {STEP_LOSS_TOL}); '
+          'grads max/max: ' + '; '.join(f"{f}/{k} {e['max_rel_err']:.2e}"
+                                        for f, g in vs['grads'].items() for k, e in g.items()),
+          flush=True)
+    _check(vs['loss_rel_err'] <= STEP_LOSS_TOL, f'{tag} loss vs plain {vs["loss_rel_err"]:.3e}')
+    for f, g in vs['grads'].items():
+        for k, e in g.items():
+            _check(e['max_rel_err'] <= GRAD_TOL,
+                   f"{tag} grad {f}/{k} vs plain {e['max_rel_err']:.3e} (tol {GRAD_TOL})")
+
+
+def _fine_points(renderer, params: dict, arrays: dict, chunk: int) -> list:
+    """The fine pass's sample points of a no-jitter render of `arrays`
+    (rays, time, wavelength), chunk by chunk: the renderer's field_apply
+    recorded (a coarse proposal field, when there is one, runs apart)."""
+    seen = []
+
+    def record(p, x):
+        seen.append(x)
+        return renderer.field_apply(p, x)
+    rec = dataclasses.replace(renderer, field_apply=record,
+                              coarse_field_apply=renderer.coarse_field_apply
+                              or renderer.field_apply)
+    n = arrays['rays'].shape[0]
+    with torch.no_grad():
+        for i in range(0, n, chunk):
+            sl = slice(i, i + chunk)
+            rays = arrays['rays'][sl]
+            rec(params, rays[:, 0], rays[:, 1], arrays['time'][sl],
+                wavelengths=arrays['wavelength'][sl] if 'wavelength' in arrays else None)
+    return seen
+
+
+def _k0_on_points(cfg, p: dict, chunks: list) -> tuple:
+    """K0 and its plain version on each chunk of points; both outputs
+    concatenated (the kernels' raw, without DT offsets)."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    got, ref = [], []
+    with torch.inference_mode():
+        for x in chunks:
+            got.append(fused_mlp.fused_mlp_forward(cfg, p, x))
+            ref.append(fused_mlp.fused_mlp_reference(cfg, p, x))
+    return torch.cat(got), torch.cat(ref)
+
+
+def _check_k0(tag: str, err: dict):
+    print(f'[{tag}] K0 vs plain on the trained fine field: {_fmt(err)}', flush=True)
+    _check(err['p9999_rel_err'] <= KERNEL_TOL and err['rms_rel_err'] <= KERNEL_RMS_TOL
+           and err['max_rel_err'] <= KERNEL_MAX_TOL,
+           f'{tag}: K0 vs plain {_fmt(err)} (tol p99.99 {KERNEL_TOL}, rms '
+           f'{KERNEL_RMS_TOL}, max {KERNEL_MAX_TOL})')
+
+
+def _device_ms(fn) -> float:
+    """The device kernel time of one call of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False) and '#' not in e.name) / 1e3
+
+
+def _head_ms(head, n_rays: int, samples: tuple, wavelengths, device) -> float:
+    """The DT head's forward + backward at one step's shapes (the coarse
+    and the fine pass), device time by torch.profiler."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    inputs = []
+    for s in samples:
+        raw = torch.rand(n_rays, s, 2, generator=gen, device=device) * 3.0 \
+            + torch.tensor([10.0, 4.0], device=device)
+        z = torch.sort(torch.rand(n_rays, s, generator=gen, device=device) * 2.6 + 213.7,
+                       dim=1).values
+        inputs.append((raw, z))
+    log_abs = torch.full((7,), 1e-6, device=device, requires_grad=True)
+    vol_c = torch.tensor(1.0, device=device, requires_grad=True)
+
+    def fwd_bwd():
+        from sunerf_tpu_torch.models.fields import FieldOutput
+        total = 0.0
+        for raw, z in inputs:
+            r = raw.detach().requires_grad_()
+            out = head.raw2outputs(FieldOutput(raw=r, log_abs=log_abs, vol_c=vol_c), z,
+                                   None, None, None, wavelengths)
+            total = total + out['image'].sum()
+        total.backward()
+    return _device_ms(fwd_bwd)
+
+
+def _synthesize_dt_tree(root: str, device) -> dict:
+    """render_simple_star.yaml's observers and pif at DT_RES^2 over every
+    AIA channel, through the port's synthesizer; DT_DROPPED removed."""
+    import shutil
+
+    import yaml
+
+    from sunerf_tpu_torch.evaluation.image_render import render_observers
+    from sunerf_tpu_torch.models.fields import AIA_WAVELENGTHS
+    with open('config/render_simple_star.yaml') as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(render_path=root, render_format=['fits'], resolution=DT_RES,
+               wavelengths=list(AIA_WAVELENGTHS))
+    render_observers(cfg, device=device)
+    inst, wls = DT_DROPPED
+    for wl in wls:
+        shutil.rmtree(os.path.join(root, inst, str(wl)))
+    counts = {i: {w: len(os.listdir(os.path.join(root, i, w)))
+                  for w in sorted(os.listdir(os.path.join(root, i)), key=int)}
+              for i in sorted(os.listdir(root))}
+    return dict(counts=counts, pif=float(cfg['pixel_intensity_factor']),
+                observers=len(cfg['observers']), ref_time=min(o['time'] for o in cfg['observers']))
+
+
+def _dt_phase(device) -> dict:
+    """[dt]: the DT CLI at config/DT_2012_11.yaml's widths on a synthesized
+    seven-channel tree; its bundles served; a step and K0 against the plain
+    versions; the Trainer's step time, idle share, head share and memory."""
+    import yaml
+
+    from sunerf_tpu_torch.data.datasets import iterate_batches
+    from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+    from sunerf_tpu_torch.models.fields import NeRFConfig
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.run_density_temperature import main as dt_main
+    from sunerf_tpu_torch.systems import from_spec
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.step import make_train_step
+    from sunerf_tpu_torch.utils.logging import MetricsLogger
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = _synthesize_dt_tree(os.path.join(tmp, 'tree'), device)
+        synth_s = time.perf_counter() - t0
+        print(f'[dt] synthesized SimpleStar tree at {DT_RES}^2, pif {tree["pif"]:g}: '
+              f'{tree["counts"]} ({synth_s:.1f} s)', flush=True)
+        with open(DT_CONFIG) as f:
+            config = yaml.safe_load(f)
+        workdir = os.path.join(tmp, 'run')
+        config.update(path_to_save=workdir, work_directory=os.path.join(workdir, 'batches'))
+        # the tree's own epoch in place of 2012-11's
+        config['data'].update(data_path=os.path.join(tmp, 'tree'), ref_time=tree['ref_time'])
+        config['training'].update(total_steps=DT_STEPS, log_every_n_steps=150,
+                                  scalar_log_every=50, ema_decay=0.999, keep_best=True)
+        path = os.path.join(tmp, 'dt.yaml')
+        with open(path, 'w') as f:
+            yaml.safe_dump(config, f)
+        _zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        trainer = dt_main(['--config', path, '--device', str(device)])
+        run_s = time.perf_counter() - t1
+        launches = _counters()
+        run_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs = [json.loads(line) for line in open(os.path.join(workdir, 'metrics.jsonl'))]
+        steps = [r for r in recs if 'loss' in r]
+        vals = {r['step']: r for r in recs if 'val_loss' in r}
+        window = [r for r in steps if 50 < r['step'] <= DT_STEPS]
+        ms_step = statistics.mean(r['step_ms'] for r in window)
+        batch_size = config['data']['batch_size']
+        spec = trainer.renderer.spec
+        cfg = NeRFConfig(**spec['model_config'])
+        probe_wl = float(np.asarray(trainer.data.valid.arrays['wavelength']).ravel()[0])
+        print(f'[dt] run_density_temperature {cfg.n_layers}x{cfg.d_filter} (coarse '
+              f'{spec.get("coarse_model_config") or "the same"}), '
+              f'{spec["render"] or "64 + 128"}, batch {batch_size}, pif '
+              f'{spec["pixel_intensity_factor"]:g}, {DT_STEPS} steps: {run_s:.1f} s; launches '
+              f'{launches}; drift probe pinned at {probe_wl:g} A; losses ' + ' '.join(
+                  f"{r['step']}:{r['loss']:.6g}" for r in steps) + '; val_psnr ' + ' '.join(
+                  f"{s}:{r.get('val_psnr', float('nan')):.3f}" for s, r in sorted(vals.items())),
+              flush=True)
+        _check(cfg.n_layers == 8 and cfg.d_filter == 512 and batch_size == 3072
+               and spec['pixel_intensity_factor'] == 1e17, f'[dt] not at DT_2012_11: {spec}')
+        _check(launches.get('STASH_FWD_LAUNCHES') == 2 * DT_STEPS
+               and launches.get('STASH_BWD_LAUNCHES') == 2 * DT_STEPS,
+               f'dt launches {launches}: not 2 K1 and 2 K2 a step')
+        _check(launches.get('LAUNCHES', 0) > 0, 'the DT validation launched no K0')
+        _check(all(np.isfinite(r['loss']) for r in steps), 'dt losses not finite')
+        _check(steps[-1]['loss'] < steps[0]['loss'],
+               f"dt loss did not fall: {steps[0]['loss']} -> {steps[-1]['loss']}")
+        _check(sorted(vals) == [0, 150, DT_STEPS], f'dt validations at {sorted(vals)}')
+        _check(not any(r.get('val_pred_degenerate') for r in vals.values()),
+               'a DT validation was degenerate (near-zero prediction)')
+        _check(probe_wl == 94.0, f'drift probe pinned at {probe_wl}, not 94')
+
+        served = {}
+        wls = [float(w) for w in trainer.data.config['wavelengths']]
+        for bundle in ('save_state', 'save_state_ema', 'save_state_best'):
+            bpath = os.path.join(workdir, bundle)
+            _check(os.path.exists(bpath + '.npz') and os.path.exists(bpath + '.json'),
+                   f'{bundle} missing')
+            loader = SuNeRFLoader(bpath, device=device)
+            _check(loader.wavelengths == [int(w) for w in wls],
+                   f'{bundle} wavelengths {loader.wavelengths}')
+            fused_mlp.LAUNCHES = 0
+            view = loader.render_observer_image(lat=0.3, lon=1.1, time=0.0, distance=215.0,
+                                                resolution=64, wavelengths=wls)
+            k0 = fused_mlp.LAUNCHES
+            zero = loader.render_observer_image(lat=0.3, lon=1.1, time=0.0, distance=215.0,
+                                                resolution=64, wavelengths=[0.0] * len(wls))
+            served[bundle] = dict(k0_launches=k0, channel_max=[float(v) for v in
+                                                               view.image.max(axis=(0, 1))])
+            _check(view.image.shape == (64, 64, 7), f'{bundle} image {view.image.shape}')
+            for k in MAPS:
+                _check(bool(np.isfinite(getattr(view, k)).all()), f'{bundle} {k} not finite')
+            _check(k0 > 0, f'{bundle} rendered without K0')
+            _check(bool((zero.image == 0.0).all()), f'{bundle}: all-zero wavelengths not 0')
+        print(f'[dt] bundles served at 64^2 in {len(wls)} channels: {served}', flush=True)
+
+        # one step from the run's first params and batch, against the plain versions
+        renderer, init = from_spec(spec, device=device)
+        params0 = init(torch.Generator().manual_seed(trainer.config.seed))
+        batch = {k: torch.as_tensor(np.array(v)).to(device) for k, v in
+                 next(iterate_batches(trainer.data.train, shuffle=True,
+                                      seed=trainer.config.seed)).items()}
+        loss_config = trainer.loss_config
+        vs_plain = _step_vs_plain(renderer, {'field_apply': _plain_apply(cfg)}, params0, batch,
+                                  loss_config)
+        _check_vs_plain('dt', vs_plain)
+        f32 = _step_vs_plain(renderer, {'field_apply': from_spec(spec, use_fused=False,
+                                                                 device=device)[0].field_apply},
+                             params0, batch, loss_config)
+        print(f'[dt] the same step vs the float32 field (reported): loss rel '
+              f'{f32["loss_rel_err"]:.2e}; grads max/max ' + '; '.join(
+                  f"{f}/{k} {e['max_rel_err']:.2e}" for f, g in f32['grads'].items()
+                  for k, e in g.items()), flush=True)
+
+        # max|dy| into K2 at step 1: the gradient reaching each field's raw
+        dy_max = []
+
+        def hooked(apply):
+            def fn(p, x):
+                out = apply(p, x)
+                out.raw.register_hook(lambda g: dy_max.append(float(g.abs().max())))
+                return out
+            return fn
+        probe = dataclasses.replace(renderer, field_apply=hooked(renderer.field_apply))
+        step1 = make_train_step(probe, loss_config, trainer.optimizer)
+        from sunerf_tpu_torch.train.step import create_train_state
+        state1 = create_train_state({f: {k: v.clone() for k, v in sub.items()}
+                                     for f, sub in params0.items()}, trainer.optimizer)
+        step1(state1, batch, trainer.config.seed)
+        print(f'[dt] max|dy| into K2 at step 1: fine, coarse {dy_max} (log10 '
+              f'{[round(float(np.log10(max(v, 1e-45))), 2) for v in dy_max]})', flush=True)
+        _check(all(np.isfinite(v) for v in dy_max) and len(dy_max) == 2,
+               f'dy into K2 not finite: {dy_max}')
+
+        # a bare step: its peak memory and profile; the head's share of it
+        step = make_train_step(renderer, loss_config, trainer.optimizer)
+        state = create_train_state({f: {k: v.clone() for k, v in sub.items()}
+                                    for f, sub in params0.items()}, trainer.optimizer)
+        step(state, batch, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch, 0)
+        torch.cuda.synchronize()
+        step_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        bare_ms = _step_times(step, state, batch)
+        prof_step = _profile_step(step, state, batch, 'DT step')
+        head_ms = _head_ms(renderer.head, batch_size,
+                           (renderer.n_stratified, renderer.n_stratified + renderer.n_hierarchical),
+                           batch['wavelength'], device)
+        head_share = head_ms / prof_step['device_ms']
+        del state, state1
+
+        # the trained fine field at the held-out view: K0 vs plain, raw and image
+        arrays = trainer._valid_arrays()
+        chunks = _fine_points(trainer.renderer, trainer.state.params, arrays, batch_size)
+        got, ref = _k0_on_points(cfg, trainer.state.params['fine'], chunks)
+        raw_err = _err_stats(ref, got)
+        _check_k0('dt', raw_err)
+        max_raw = float(ref.abs().max())
+        # K0, K1 and K2 at the step's shapes: the fine pass (N = 3072 x 192,
+        # K0 on the first chunk of held-out fine samples) and the coarse
+        fine_p = trainer.state.params['fine']
+        k0_rows = {}
+        for name, x in (('dt_fine', chunks[0]), ('dt_coarse', chunks[0][::3].contiguous())):
+            with torch.inference_mode():
+                k0_rows[name] = dict(
+                    n=x.shape[0], ms=_cuda_ms(lambda: fused_mlp.fused_mlp_forward(cfg, fine_p, x)),
+                    plain_ms=_cuda_ms(lambda: fused_mlp.fused_mlp_reference(cfg, fine_p, x)),
+                    bound_ms=_flops(cfg, x.shape[0]) / (BF16_TFLOPS * 1e12) * 1e3)
+        print(f'[dt] K0 at the step\'s shapes: {k0_rows}', flush=True)
+        with torch.no_grad():
+            stash_rows = {name: _stash_phase(name, cfg.n_layers, cfg.d_filter, n, device)
+                          for name, n in (('dt_fine', batch_size * (renderer.n_stratified
+                                                                    + renderer.n_hierarchical)),
+                                          ('dt_coarse', batch_size * renderer.n_stratified))}
+        image_tol = float(np.exp(DT_RAW_TO_IMAGE * KERNEL_TOL * max_raw) - 1.0)
+        plain_fine = dataclasses.replace(trainer.renderer, field_apply=_plain_apply(cfg),
+                                         coarse_field_apply=trainer.renderer.field_apply)
+        imgs = {'k0': [], 'plain': []}
+        n = arrays['rays'].shape[0]
+        with torch.no_grad():
+            for i in range(0, n, batch_size):
+                sl = slice(i, i + batch_size)
+                rays = arrays['rays'][sl]
+                for name, r in (('k0', trainer.renderer), ('plain', plain_fine)):
+                    imgs[name].append(r(trainer.state.params, rays[:, 0], rays[:, 1],
+                                        arrays['time'][sl],
+                                        wavelengths=arrays['wavelength'][sl])['image'])
+        img_k, img_p = torch.cat(imgs['k0']).double(), torch.cat(imgs['plain']).double()
+        per_channel = ((img_k - img_p).abs().amax(0)
+                       / img_p.abs().amax(0).clamp_min(1e-30)).tolist()
+        image_err = max(per_channel)
+        print(f'[dt] held-out {DT_RES}^2 view, 7 channels from the same fine samples: image '
+              f'K0 vs plain {image_err:.3e} of each channel\'s max (per channel '
+              f'{[f"{v:.2e}" for v in per_channel]}); derived tolerance exp(2 x {KERNEL_TOL} '
+              f'x max|raw| {max_raw:.3f}) - 1 = {image_tol:.3e}', flush=True)
+        _check(bool(torch.isfinite(img_k).all()), 'dt held-out image not finite')
+        _check(image_err <= image_tol, f'dt image K0 vs plain {image_err:.3e} > {image_tol:.3e}')
+        del chunks, got, ref, imgs
+
+        # 20 profiled Trainer steps (301-320), after the checks above; the
+        # run ends a step later, so its checkpoint falls outside the window
+        trainer.config.total_steps = DT_STEPS + 21
+        trainer.config.profile_start, trainer.config.profile_steps = DT_STEPS, 20
+        trainer.logger = MetricsLogger(workdir)
+        try:
+            trainer.fit()
+        finally:
+            trainer.logger.close()
+        with open(os.path.join(workdir, 'profile', 'summary.json')) as f:
+            prof = json.load(f)
+        vp = {s: vals[s].get('val_psnr') for s in sorted(vals)}
+        print(f'[dt] {ms_step:.2f} ms/step ({batch_size / ms_step * 1e3:.0f} rays/s) over steps '
+              f'51-{DT_STEPS}, validations excluded (the host clock, waiting for the loss every '
+              f'50 steps); bare step {bare_ms:.2f} ms (CUDA events); Trainer steps '
+              f'{prof["steps"]} profiled: {prof["wall_ms"]:.1f} ms wall, '
+              f'{prof["device_ms"]:.1f} ms of kernels, device idle {prof["idle_share"]:.1%}; '
+              f'head fwd + bwd {head_ms:.2f} ms of a step\'s {prof_step["device_ms"]:.2f} ms of '
+              f'kernels ({head_share:.1%}); peak memory {run_peak_gib:.2f} GiB over the run, '
+              f'{step_peak_gib:.2f} GiB a step; val_psnr {vp}', flush=True)
+    wall = time.perf_counter() - t0
+    print(f'[dt] {wall:.1f} s', flush=True)
+    return dict(launches=launches, tree=tree['counts'], ms_per_step=ms_step,
+                rays_per_s=batch_size / ms_step * 1e3, bare_step_ms=bare_ms,
+                trainer_profile=prof, step_profile=prof_step, head_ms=head_ms,
+                head_share=head_share, run_peak_gib=run_peak_gib, step_peak_gib=step_peak_gib,
+                dy_max=dy_max, val_psnr=vp, losses=[r['loss'] for r in steps],
+                vs_plain=vs_plain, vs_float32=f32, k0_raw_err=raw_err, image_err=image_err,
+                k0_rows=k0_rows, stash_rows=stash_rows,
+                image_err_per_channel=per_channel, image_tol=image_tol, served=served,
+                synth_s=synth_s, run_s=run_s, wall_s=wall)
+
+
+def _thomson_phase(device) -> dict:
+    """[thomson]: an 8x512 student on the kernels learns the analytic
+    teacher's white-light target, with either sampler."""
+    from sunerf_tpu_torch.core.sampling import norm3
+    from sunerf_tpu_torch.models.fields import FieldOutput, NeRFConfig
+    from sunerf_tpu_torch.rendering.renderer import Renderer
+    from sunerf_tpu_torch.rendering.thomson import ThomsonHead
+    from sunerf_tpu_torch.systems import make_thomson_system
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.optim import make_optimizer
+    from sunerf_tpu_torch.train.step import create_train_state, make_train_step
+    t0 = time.perf_counter()
+
+    def teacher_apply(params, pts):
+        r = norm3(pts[:, :3])
+        log_ne = 8.0 + ((1.0 / torch.clamp(r, min=0.5) - 1.0) / 0.2) / np.log(10.0)
+        return FieldOutput(raw=torch.stack([log_ne, torch.zeros_like(log_ne)], -1))
+
+    batch = _bench_batch(device, n=THOMSON_RAYS, seed=2)
+    rays = batch['rays']
+    teacher = Renderer(field_apply=teacher_apply, head=ThomsonHead(), perturb=False)
+    with torch.no_grad():
+        target = teacher({'coarse': {}, 'fine': {}}, rays[:, 0], rays[:, 1],
+                         batch['time'])['image']
+    _check(bool(torch.isfinite(target).all()) and float(target.max()) > 0,
+           'thomson target not finite and positive')
+    batch['target_image'] = target
+    # the asinh-scaled loss (LossConfig's defaults, no regularizer): on raw
+    # intensities (~1e8) the student's 10^raw either stalls or overshoots
+    # within 100 steps at 8x512 (lr 2e-5 against 1e-4 and 1e-3 in a CPU trial)
+    loss_config = LossConfig(lambda_regularization=0.0)
+    rows = {}
+    for sampling in ('stratified', 'spherical'):
+        renderer, init = make_thomson_system(device=device, sampling=sampling)
+        cfg = NeRFConfig(**renderer.spec['model_config'])
+        params = init(torch.Generator(device=device).manual_seed(0))
+        vs_plain = _step_vs_plain(renderer, {'field_apply': _plain_apply(cfg)}, params, batch,
+                                  loss_config)
+        _check_vs_plain(f'thomson {sampling}', vs_plain)
+        opt = make_optimizer()
+        step = make_train_step(renderer, loss_config, opt)
+        state = create_train_state(params, opt)
+        _zero_counters()
+        losses = [step(state, batch, 0)[1]['loss'] for _ in range(THOMSON_STEPS)]
+        launches = _counters()
+        losses = [float(v) for v in losses]
+        _check(launches.get('STASH_FWD_LAUNCHES') == 2 * THOMSON_STEPS
+               and launches.get('STASH_BWD_LAUNCHES') == 2 * THOMSON_STEPS
+               and not launches.get('LAUNCHES'),
+               f'thomson {sampling} launches {launches}: not 2 K1 and 2 K2 a step')
+        _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+               f'thomson {sampling} loss did not fall: {losses[0]} -> {losses[-1]}')
+        step_ms = _step_times(step, state, batch)
+        arrays = {'rays': rays, 'time': batch['time']}
+        chunks = _fine_points(renderer, state.params, arrays, THOMSON_RAYS)
+        got, ref = _k0_on_points(cfg, state.params['fine'], chunks)
+        raw_err = _err_stats(ref, got)
+        _check_k0(f'thomson {sampling}', raw_err)
+        with torch.no_grad():
+            out = renderer(state.params, rays[:, 0], rays[:, 1], batch['time'])
+        extras = {k: float(out[k].abs().max()) for k in
+                  ('pixel_density', 'distance_from_sun', 'distance_from_obs')}
+        for k in extras:
+            _check(bool(torch.isfinite(out[k]).all()), f'thomson {sampling} {k} not finite')
+        rows[sampling] = dict(launches=launches, losses=losses[::10] + [losses[-1]],
+                              step_ms=step_ms, rays_per_s=THOMSON_RAYS / step_ms * 1e3,
+                              vs_plain=vs_plain, k0_raw_err=raw_err, extras_absmax=extras)
+        print(f'[thomson] {sampling}, {cfg.n_layers}x{cfg.d_filter}, '
+              f'{renderer.n_stratified} + {renderer.n_hierarchical}, {THOMSON_RAYS} rays: '
+              f'launches {launches}; loss {losses[0]:.5g} -> {losses[-1]:.5g}; step '
+              f'{step_ms:.2f} ms ({THOMSON_RAYS / step_ms * 1e3:.0f} rays/s, CUDA events); '
+              f'extras |max| {extras}', flush=True)
+        del state, step, chunks, got, ref
+    wall = time.perf_counter() - t0
+    print(f'[thomson] {wall:.1f} s', flush=True)
+    return dict(rows=rows, wall_s=wall)
 
 
 def _grid_bytes(cfg) -> int:
@@ -2183,6 +2712,10 @@ def main() -> int:
     widths = _widths_phase(device)
     torch.cuda.empty_cache()
     trainer = _trainer_phase(device, train)
+    torch.cuda.empty_cache()
+    dt = _dt_phase(device)
+    torch.cuda.empty_cache()
+    thomson = _thomson_phase(device)
 
     # 8-11. dense feature grids (K5) ----------------------------------------
     torch.cuda.empty_cache()
@@ -2239,6 +2772,11 @@ def main() -> int:
         'widths': {name: dict(r['k0'], runs_at=r['runs_at'], pad_ms=r['pad_ms'])
                    for name, r in widths['rows'].items()},
         'trainer_served': trainer['served'],
+        'dt_launches': dt['launches'].get('LAUNCHES', 0), 'dt_served': dt['served'],
+        'dt_shapes': dt['k0_rows'],
+        'dt_raw_err': dt['k0_raw_err'], 'dt_image_err': dt['image_err'],
+        'dt_image_tol': dt['image_tol'],
+        'thomson_raw_err': {k: r['k0_raw_err'] for k, r in thomson['rows'].items()},
     })
     for key, kname, line, header in (
             ('k1', 'fused_mlp_stash_fwd', 453, 'fused_mlp_fwd_wgmma.cuh'),
@@ -2265,6 +2803,12 @@ def main() -> int:
             'widths_k1_k2': {name: dict(r['k1_k2'], runs_at=r['runs_at'])
                              for name, r in widths['rows'].items()},
             'trainer': trainer,
+            'dt_shapes': {name: r[key] for name, r in dt['stash_rows'].items()},
+            'dt_launches': dt['launches'][{'k1': 'STASH_FWD_LAUNCHES',
+                                            'k2': 'STASH_BWD_LAUNCHES'}[key]],
+            'thomson_launches': {k: r['launches'] for k, r in thomson['rows'].items()},
+            'dt': dt if key == 'k1' else {'vs_plain': dt['vs_plain'], 'dy_max': dt['dy_max']},
+            'thomson': thomson if key == 'k1' else None,
         })
     gq = grid_rows['grid_quarter']
     kernels.append({

@@ -3,8 +3,7 @@
 The ray-sphere clip uses discriminant masking, and randomness comes from an
 explicit torch.Generator (None = deterministic). The inverse CDF uses
 torch.searchsorted + gather, the natural form on a GPU; for a sorted cdf
-searchsorted-right equals the JAX package's comparison count. The spherical
-sampler comes with the Thomson head.
+searchsorted-right equals the JAX package's comparison count.
 
 Shapes: rays_o/rays_d [R, 3]; all z_vals [R, S] sorted ascending per ray.
 """
@@ -71,6 +70,35 @@ def stratified_sample(rays_o: torch.Tensor, rays_d: torch.Tensor,
     t_inner, _, hit = _ray_sphere_near_intersection(rays_o, rays_d, solar_radius)
     near = obs_distance - distance
     far = torch.where(hit, t_inner, obs_distance + distance)
+
+    t_vals = torch.linspace(0.0, 1.0, n_samples, dtype=rays_o.dtype,
+                            device=rays_o.device)
+    z_vals = near[:, None] * (1.0 - t_vals) + far[:, None] * t_vals
+    if generator is not None:
+        z_vals = _perturb_bins(z_vals, _uniform(z_vals.shape, z_vals, generator))
+    points = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+    return {'points': points, 'z_vals': z_vals}
+
+
+def spherical_sample(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                     n_samples: int = 64, distance: float = 2.0,
+                     solar_radius: float = 1.0,
+                     generator: Optional[torch.Generator] = None):
+    """Uniform bins between the entry and exit of a bounding sphere of the
+    given radius, the far plane clipped at the solar surface (reference
+    SphericalSampler, sampling.py:4-54). A ray that misses the bounding
+    sphere collapses to a zero-length segment at its closest approach (NaN
+    in the reference). With a generator, each sample is jittered uniformly
+    within its bin.
+
+    Returns:
+        dict(points=[R, S, 3], z_vals=[R, S]).
+    """
+    t_near_b, t_far_b, hit_b = _ray_sphere_near_intersection(rays_o, rays_d, distance)
+    t_inner, _, hit_s = _ray_sphere_near_intersection(rays_o, rays_d, solar_radius)
+    t_mid = -dot3(rays_o, rays_d) / dot3(rays_d, rays_d)
+    near = torch.where(hit_b, t_near_b, t_mid)
+    far = torch.where(hit_s, t_inner, torch.where(hit_b, t_far_b, t_mid))
 
     t_vals = torch.linspace(0.0, 1.0, n_samples, dtype=rays_o.dtype,
                             device=rays_o.device)

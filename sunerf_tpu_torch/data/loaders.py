@@ -1,15 +1,13 @@
-"""FITS -> pre-shuffled ray-shard builder of the emission head
+"""FITS -> pre-shuffled ray-shard builders of the emission and DT heads
 (sunerf_tpu/data/loaders.py; the port imports nothing of the JAX package).
 
   * build_single_channel_data  <- SingleChannelDataModule (single_channel.py:14-88)
+  * build_multi_thermal_data   <- MultiThermalDataModule (multi_thermal_loader.py)
 
 Pipeline per map: FITS -> observer pose (pose_spherical of Carrington lon/lat
 + dsun) -> per-pixel helioprojective rays -> flatten -> global shuffle ->
 npy shards on disk consumed by MmapDataset. The same numpy code as the JAX
 package's, so the same files give the same arrays and the same batch order.
-The DT head's build_multi_thermal_data and _load_stack come with that head
-(ROADMAP Queue 1 item 6); scan_instrument_tree and date_from_filename, which
-it uses, are here already.
 
 FITS loading fans out over worker processes (n_workers > 1). They are
 spawned, not forked (the parent may hold threads or a CUDA context), and
@@ -36,7 +34,7 @@ from sunerf_tpu_torch.core.geometry import get_rays, pose_spherical
 from sunerf_tpu_torch.core.scaling import normalize_datetime
 from sunerf_tpu_torch.data.datasets import ArrayDataset, MmapDataset
 from sunerf_tpu_torch.data.fits import read_fits
-from sunerf_tpu_torch.data.norms import remove_nans
+from sunerf_tpu_torch.data.norms import block_reduce_mean, remove_nans
 from sunerf_tpu_torch.data.wcs import helioprojective_grid, parse_observer
 
 logger = logging.getLogger(__name__)
@@ -126,18 +124,24 @@ def _default_sigterm():
     signal.signal(signal.SIGTERM, signal.SIG_DFL)
 
 
-def _load_maps(files: list[str], Rs_per_ds: float,
-               n_workers: int | None) -> list[dict]:
+def _pool_map(fn, items: list, n_workers: int | None) -> list:
+    """fn over items, in n_workers spawned processes when more than one
+    (None = one per CPU, at most one per item)."""
     if n_workers is None:
-        n_workers = min(os.cpu_count() or 1, len(files))
+        n_workers = min(os.cpu_count() or 1, len(items))
     if n_workers > 1:
-        import functools
         import multiprocessing
         ctx = multiprocessing.get_context('spawn')
         with ctx.Pool(n_workers, initializer=_default_sigterm) as pool:
-            return pool.map(functools.partial(load_map_data,
-                                              Rs_per_ds=Rs_per_ds), files)
-    return [load_map_data(f, Rs_per_ds) for f in files]
+            return pool.map(fn, items)
+    return [fn(x) for x in items]
+
+
+def _load_maps(files: list[str], Rs_per_ds: float,
+               n_workers: int | None) -> list[dict]:
+    import functools
+    return _pool_map(functools.partial(load_map_data, Rs_per_ds=Rs_per_ds), files,
+                     n_workers)
 
 
 def build_single_channel_data(data_path, working_dir: str,
@@ -340,3 +344,128 @@ def scan_instrument_tree(data_path: str) -> dict:
         src['file_stacks'] = [stacks_by_time[k]
                               for k in sorted(stacks_by_time or {})]
     return {'sources': sources, 'all_wavelengths': union}
+
+
+def _load_stack(stack_paths, wavelengths, Rs_per_ds, seconds_per_dt, ref_time,
+                target_resolution=None):
+    """One time-aligned wavelength stack -> per-pixel ray/image/wavelength
+    rows (multi_thermal_loader.py:209-258); wavelengths is the source's row
+    of the union set, 0 where it lacks a channel."""
+    imgs, header0 = [], None
+    for p in stack_paths:
+        data, header = read_fits(p)
+        imgs.append(remove_nans(data))
+        if header0 is None:
+            header0 = header
+    stack = np.stack(imgs)  # [n_present, H, W]
+
+    if target_resolution is not None:
+        factor = stack.shape[1] // int(target_resolution)
+        if factor > 1:
+            stack = block_reduce_mean(stack, factor)
+
+    obs = parse_observer(header0)
+    time = normalize_datetime(obs.time, seconds_per_dt, ref_time)
+    pose = pose_spherical(-obs.carrington_lon, obs.carrington_lat,
+                          obs.dsun_rs / Rs_per_ds)
+    tx, ty = helioprojective_grid(header0, shape=(stack.shape[1], stack.shape[2]))
+    rays_o, rays_d = get_rays(tx, ty, pose)
+    all_rays = np.stack([rays_o, rays_d], axis=-2).reshape(-1, 2, 3)
+
+    n_wl = len(wavelengths)
+    h, w = stack.shape[1:]
+    extended = np.zeros((n_wl, h, w), np.float32)
+    wl_stack = np.zeros((n_wl, h, w), np.float32)
+    n = 0
+    for i, wl in enumerate(wavelengths):
+        if wl != 0:
+            extended[i] = stack[n]
+            wl_stack[i] = wl
+            n += 1
+
+    return {
+        'image': extended.transpose(1, 2, 0).reshape(-1, n_wl),
+        'wavelength': wl_stack.transpose(1, 2, 0).reshape(-1, n_wl),
+        'all_rays': all_rays,
+        'time': np.full((all_rays.shape[0], 1), time, np.float32),
+        'pose': pose, 'shape': (h, w),
+    }
+
+
+def _load_stack_job(job):
+    return _load_stack(*job)
+
+
+def build_multi_thermal_data(data_path: str, working_dir: str,
+                             Rs_per_ds: float = 1.0,
+                             seconds_per_dt: float = 86400.0,
+                             ref_time: Optional[datetime] = None,
+                             batch_size: int = 1024,
+                             n_devices: int = 1,
+                             target_resolution: Optional[int] = None,
+                             debug: bool = False,
+                             n_workers: int | None = None,
+                             seed: int = 42) -> RayData:
+    """DT-head pipeline: per-source wavelength stacks joined on rounded
+    datetimes (scan_instrument_tree), per-pixel wavelength vectors over the
+    union of channels with 0 where a source lacks one, the held-out stack
+    at len//6, a numpy default_rng(seed) shuffle and npy shards, as the JAX
+    package builds them. n_workers > 1 loads the stacks in that many
+    spawned processes (None = one per CPU)."""
+    tree = scan_instrument_tree(data_path)
+    union = tree['all_wavelengths']
+
+    if ref_time is None:
+        first = []
+        for src in tree['sources'].values():
+            if src['file_stacks']:
+                first.append(date_from_filename(src['file_stacks'][0][0]))
+        ref_time = min(first)
+
+    jobs = []
+    for src in tree['sources'].values():
+        stacks = src['file_stacks'][::10] if debug else src['file_stacks']
+        jobs += [(stack, src['wavelengths'], Rs_per_ds, seconds_per_dt, ref_time,
+                  target_resolution) for stack in stacks]
+    if not jobs:
+        raise FileNotFoundError(f'no instrument/wavelength FITS under {data_path}')
+    records = _pool_map(_load_stack_job, jobs, n_workers)
+
+    valid_idx = len(records) // 6
+    valid = records[valid_idx]
+    train = [r for i, r in enumerate(records) if i != valid_idx]
+
+    rays = np.concatenate([r['all_rays'] for r in train])
+    times = np.concatenate([r['time'] for r in train])
+    images = np.concatenate([r['image'] for r in train])
+    wls = np.concatenate([r['wavelength'] for r in train])
+
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(rays.shape[0])
+    shard_paths = _save_shards(working_dir, {
+        'rays': rays[perm], 'times': times[perm], 'images': images[perm],
+        'wavelengths': wls[perm]})
+
+    global_batch = int(batch_size) * int(n_devices)
+    train_ds = MmapDataset(shard_paths, batch_size=global_batch)
+    valid_ds = ArrayDataset({'rays': valid['all_rays'], 'time': valid['time'],
+                             'target_image': valid['image'],
+                             'wavelength': valid['wavelength']},
+                            batch_size=global_batch)
+
+    config = {'type': 'D_T', 'Rs_per_ds': Rs_per_ds,
+              'seconds_per_dt': seconds_per_dt,
+              'ref_time': ref_time.isoformat(),
+              'wavelengths': union.tolist(),
+              'resolution': list(valid['shape'])}
+    return RayData(train=train_ds, valid=valid_ds, config=config,
+                   ref_time=ref_time, Rs_per_ds=Rs_per_ds,
+                   seconds_per_dt=seconds_per_dt,
+                   validation_shape=valid['shape'],
+                   extras={'overview': {
+                       'poses': np.stack([r['pose'] for r in records]),
+                       'times': np.asarray([float(r['time'][0, 0])
+                                            for r in records], np.float32),
+                       'images': [r['image'].reshape(*r['shape'], -1).max(-1)
+                                  for r in records[:4]],
+                   }})

@@ -1,10 +1,9 @@
-"""Rendering orchestrator: stratified sampling -> coarse field pass ->
+"""Rendering orchestrator: stratified (or spherical) sampling -> coarse field pass ->
 hierarchical resampling -> fine field pass -> physics-head quadrature
 (sunerf_tpu/rendering/renderer.py).
 
 Adaptive per-ray tiers are not ported yet: a renderer that asks for them
-raises (as systems.make_emission_system does for occupancy-guided
-sampling).
+raises (as the system factories do for occupancy-guided sampling).
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ from typing import Callable, Optional
 import torch
 
 from sunerf_tpu_torch.core.sampling import (hierarchical_sample, norm3,
-                                            stratified_sample)
+                                            spherical_sample, stratified_sample)
 from sunerf_tpu_torch.models.fields import FieldOutput
 
 
@@ -23,7 +22,8 @@ class Renderer:
     """Volume renderer over a neural field.
 
     field_apply: (params, points [N, 4]) -> FieldOutput.
-    head: physics quadrature (EmissionHead).
+    head: physics quadrature (EmissionHead, DensityTemperatureHead,
+        ThomsonHead).
     coarse_field_apply: optional separate apply for the coarse pass (a smaller
         proposal field); None = the fine architecture for both passes.
     """
@@ -34,7 +34,7 @@ class Renderer:
     n_stratified: int = 64
     n_hierarchical: int = 128
     sample_distance: float = 1.3
-    sampling: str = 'stratified'
+    sampling: str = 'stratified'  # 'stratified' | 'spherical'
     perturb: bool = True
     perturb_hierarchical: bool = False
     # adaptive per-ray tiers: bundles carry these keys; only 0.0 (off) runs
@@ -44,10 +44,8 @@ class Renderer:
     spec: Optional[dict] = None
 
     def __post_init__(self):
-        if self.sampling != 'stratified':
-            raise NotImplementedError(
-                f'sampling={self.sampling!r}: the spherical sampler comes with '
-                f'the Thomson head (ROADMAP Queue 1, Thomson head)')
+        if self.sampling not in _SAMPLERS:
+            raise ValueError(f'Unknown sampling type {self.sampling}')
         if not 0.0 <= self.tier_fraction < 1.0:
             raise ValueError(f'tier_fraction must be in [0, 1), got '
                              f'{self.tier_fraction}')
@@ -90,7 +88,7 @@ class Renderer:
             absorption_map, regularization, z_vals_stratified,
             z_vals_hierarchical.
         """
-        strat = stratified_sample(
+        strat = _SAMPLERS[self.sampling](
             rays_o, rays_d, n_samples=self.n_stratified,
             distance=self.sample_distance / self.Rs_per_ds,
             solar_radius=self.solar_radius,
@@ -135,6 +133,9 @@ class Renderer:
         a proposal coarse field exists only to place samples."""
         flat = query_points.reshape(-1, query_points.shape[-1])
         return self.field_apply(params['fine'], flat)
+
+
+_SAMPLERS = {'stratified': stratified_sample, 'spherical': spherical_sample}
 
 
 def _with_time(points: torch.Tensor, times: torch.Tensor) -> torch.Tensor:

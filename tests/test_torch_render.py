@@ -169,8 +169,8 @@ def test_renderer_rejects_unported_options():
         make_emission_system(model_config=emission_config(grid_sizes=(8,), grid_rank=2),
                              use_fused=True, device='cpu')
     _, config = load_state(BUNDLE)
-    spec = dict(config['renderer_spec'], head='thomson')
-    with pytest.raises(NotImplementedError, match='Thomson head'):
+    spec = dict(config['renderer_spec'], head='mhd')
+    with pytest.raises(NotImplementedError, match='item 9'):
         from_spec(spec, device='cpu')
     # the bundle's own tier_fraction 0.0 / tier_samples 16 are accepted
     renderer, _ = from_spec(config['renderer_spec'], device='cpu')
