@@ -122,6 +122,52 @@ Phases (the first failure ends the run with a non-zero exit):
              trained student's fine raw, K0 against the plain version under
              KERNEL_TOL, finite pixel_density, distance_from_sun and
              distance_from_obs.
+  7e. eval  the committed bundle through the evaluation layer on K0: 8
+             ground-truth FITS views at 256^2 (4 with |lat| <= 7 deg, 4 beyond)
+             rendered by its float32 field; evaluation.metrics_harness's
+             evaluate_viewpoints on the kernel path: both splits populated,
+             every metric finite, each view's metrics within HARNESS_TOL of
+             the same metrics computed directly from the same render; the
+             reprojection baseline from the 4 band views, scored alike
+             (reported). The five products (volume 64^3, synchronic 90x180,
+             topographic 256^2, eruption at 3 times at 64^2, uncertainty
+             128^2) against the same products through the kernels' plain
+             versions: the volume's raw under KERNEL_TOL, the images within
+             RENDER_TOL of max (the uncertainty of the fine image's max); the
+             float32 field's distance and each product's seconds reported.
+             The 256^2 view with tier=TIER: 48 K0 launches against 32
+             untiered, the bright tier (per 4,096-ray chunk, the half the
+             coarse pass ranks brightest) within TIER_BRIGHT_TOL relative of
+             the untiered render, the frame's relative L1 below TIER_L1_TOL,
+             ms a frame beside the untiered render and each frame's device
+             time under torch.profiler; K0 at the tiered chunk's fine shapes
+             (2,048 x 60 and 2,048 x 16 points). The eruption frames off the
+             bundle's one training instant are held by K0's point check at
+             their own fine samples (the t = 0 frame also by RENDER_TOL), their
+             image gap reported: there the trained field is hypersensitive to
+             bf16 flips.
+  7f. tiers  bench.py's workload and DT_2012_11's widths (3,072 rays, 7
+             channels) with tier TIER: one step on the kernels against the
+             plain versions (STEP_LOSS_TOL, GRAD_TOL), 3 K1 + 3 K2 a step
+             (2 + 2 untiered), step times tiered and untiered in turns; K1
+             and K2 at the tiered fine shapes (as 2, stash); run_emission at
+             8x512 on [trainer]'s synthesized views, TIERS_TRAINER_STEPS
+             steps, the first half at the full budget (tier_warmup_steps):
+             2 + 2 launches a step before the switch and 3 + 3 after, a
+             falling loss.
+  7g. occupancy  run_emission at 8x512 with rendering.occupancy at its
+             defaults but warmup 50 and update_every 16, to the grid's first
+             update (step 64; its occupied fractions reported), then resumed
+             from its checkpoint to step 112 with a falling loss, 2 K1 + 2 K2
+             a step and the fractions in the log; the update's cell activity
+             on K0 against the plain version on the same jitter under
+             KERNEL_TOL, with the cells whose occupancy differs counted, on
+             the run's field and on the committed bundle's trained field,
+             whose one update from the warm grid must leave it (an untrained
+             field lights every cell); the bundle's 256^2 view sampled by that
+             grid (32 K0 launches, finite); the run's bundle, grid included,
+             served as a topographic map; ms a step beside [trainer]'s, and
+             the update's ms.
   8. grid    K0, K1 and K2 with the dense feature-grid branch (K5) against
              their plain versions, random weights and U(-1, 1) tables from a
              seed, at bench.py grid_quarter's fine field (4x128, G = 16,
@@ -205,7 +251,9 @@ Phases (the first failure ends the run with a non-zero exit):
              cells of the same table, without the arithmetic).
 Then it prints the card's name and power limit, one {"kernels": [...]} line
 (K0 with the widths it serves on the render path, K1, K2, K3,
-K4, K5, K6a, K6b, P1 and P2) and, last, {"ok": true, "device": {...}}.
+K4, K5, K6a, K6b, P1 and P2; K0's entry with [eval]'s and the occupancy
+update's launches, K1's and K2's with the tiered steps' and the tier
+shapes') and, last, {"ok": true, "device": {...}}.
 """
 import dataclasses
 import hashlib
@@ -332,6 +380,27 @@ DT_RAW_TO_IMAGE = 2.0
 # [thomson]: the teacher's rays and the student's schedule
 THOMSON_RAYS = 1024
 THOMSON_STEPS = 100
+# [eval]: the harness's ground truth, (lat, lon) in degrees at 1 AU, four
+# inside the |lat| <= 7 deg training band and four beyond, at EVAL_RES^2;
+# its per-view metrics against the same metrics computed directly, relative
+EVAL_RES = 256
+EVAL_VIEWS = ((0.0, 0.0), (4.0, 90.0), (-5.0, 180.0), (7.0, 270.0),
+              (15.0, 45.0), (-20.0, 135.0), (35.0, 225.0), (-50.0, 315.0))
+HARNESS_TOL = 1e-6
+# [eval]: the eruption profile's times (normalized; the bundle was trained
+# at t = 0 alone)
+ERUPTION_TIMES = (0.0, 0.5, 1.0)
+# [eval] / [tiers]: the adaptive per-ray tiers (fraction, samples); the
+# tiered render's bright pixels against the untiered render, relative, and
+# the frame's relative L1 (JAX's tests/test_renderer.py:237-260)
+TIER = (0.5, 16)
+TIER_BRIGHT_TOL = 1e-5
+TIER_L1_TOL = 0.05
+DT_TIER_RAYS = 3072
+TIERS_TRAINER_STEPS = 100
+# [occupancy]: run_emission to the first grid update (warmup 50, every 16:
+# step 64), then resumed to the second number
+OCC_STEPS = (64, 112)
 
 
 
@@ -1124,16 +1193,21 @@ def _plain_apply(cfg):
     return lambda p, x: FieldOutput(raw=raw(p, x))
 
 
-def _step_vs_plain(renderer, plain, params: dict, batch: dict, loss_config) -> dict:
+def _step_vs_plain(renderer, plain, params: dict, batch: dict, loss_config,
+                   train_pass: bool = False) -> dict:
     """One step's loss and gradients through `renderer` (the kernels)
-    against `plain`, from the same params and batch, perturb off."""
+    against `plain`, from the same params and batch, perturb off. With
+    train_pass a generator (from which nothing is drawn) selects the
+    training pass: the tiered fine pass of a tiered renderer."""
     from sunerf_tpu_torch.train.objective import render_loss
 
     def run(r):
         p = {f: {k: v.detach().clone().requires_grad_() for k, v in sub.items()}
              for f, sub in params.items()}
         rays = batch['rays']
-        out = r(p, rays[:, 0], rays[:, 1], batch['time'], wavelengths=batch.get('wavelength'))
+        gen = torch.Generator(device=rays.device).manual_seed(0) if train_pass else None
+        out = r(p, rays[:, 0], rays[:, 1], batch['time'], wavelengths=batch.get('wavelength'),
+                generator=gen)
         loss, _ = render_loss(loss_config, out, batch['target_image'])
         loss.backward()
         return float(loss.detach()), {f: {k: v.grad for k, v in sub.items()}
@@ -1571,6 +1645,530 @@ def _thomson_phase(device) -> dict:
     wall = time.perf_counter() - t0
     print(f'[thomson] {wall:.1f} s', flush=True)
     return dict(rows=rows, wall_s=wall)
+
+
+# ------------------------------------------------ the evaluation layer, tiers, occupancy
+
+def _k0_row(cfg, p: dict, n: int, device, seed: int) -> dict:
+    """K0 against its plain version at N points of the field p (K0's
+    tolerances), its time, the plain version's and the ops bound."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pts = torch.rand(n, 4, generator=gen, device=device) * 2.6 - 1.3
+    pts[:, 3] = 0.0
+    with torch.inference_mode():
+        err = _err_stats(fused_mlp.fused_mlp_reference(cfg, p, pts),
+                         fused_mlp.fused_mlp_forward(cfg, p, pts))
+        ms = _cuda_ms(lambda: fused_mlp.fused_mlp_forward(cfg, p, pts))
+        plain_ms = _cuda_ms(lambda: fused_mlp.fused_mlp_reference(cfg, p, pts))
+    bound_ms, bound_by = _bound(_flops(cfg, n), n * 4 * (cfg.d_input + cfg.d_output)
+                                + _param_bytes(cfg))
+    _check(err['p9999_rel_err'] <= KERNEL_TOL and err['rms_rel_err'] <= KERNEL_RMS_TOL
+           and err['max_rel_err'] <= KERNEL_MAX_TOL, f'K0 N={n} vs plain {_fmt(err)}')
+    return dict(n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, **err)
+
+
+def _wall_and_device_ms(fn) -> dict:
+    """One call of fn under torch.profiler: its host-clock ms, the device
+    kernels' ms and the share of the wall time the device sat idle."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = sum(e.device_time for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, 'is_user_annotation', False) and '#' not in e.name) / 1e3
+    return dict(wall_ms=wall_ms, device_ms=device_ms, idle_share=1 - device_ms / wall_ms)
+
+
+def _eval_phase(device, plain_renderer, fine_cfg) -> dict:
+    """[eval]: the metrics harness, the five products and the tiered 256^2
+    render of the committed bundle, on K0."""
+    from sunerf_tpu_torch.baseline.reprojection import (create_heliographic_map,
+                                                        heliographic_to_observer)
+    from sunerf_tpu_torch.core.geometry import observer_rays
+    from sunerf_tpu_torch.core.scaling import image_asinh_scaling
+    from sunerf_tpu_torch.data.fits import Header, read_fits, write_fits
+    from sunerf_tpu_torch.data.wcs import observer_header, parse_observer
+    from sunerf_tpu_torch.evaluation import products
+    from sunerf_tpu_torch.evaluation.loader import ModelLoader, SuNeRFLoader
+    from sunerf_tpu_torch.evaluation.metrics_harness import (METRICS, evaluate_viewpoints,
+                                                             view_metrics)
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.train.metrics import mae_percent, me_percent, psnr, ssim
+    t0 = time.perf_counter()
+    kernel = SuNeRFLoader(BUNDLE, device=device)
+    f32 = SuNeRFLoader(BUNDLE, use_fused=False, device=device)
+    plain = ModelLoader(plain_renderer, kernel.params, ref_time=kernel.ref_time, device=device)
+    when, wl = kernel.ref_time, float(kernel.config['wavelength'])
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the harness: ground truth from the float32 field, scored on K0
+        files = []
+        for i, (lat, lon) in enumerate(EVAL_VIEWS):
+            view = f32.render_observer_image(np.deg2rad(lat), np.deg2rad(lon), when, 215.0,
+                                             EVAL_RES)
+            header = Header()
+            header.update(observer_header(lat, lon, 215.0, when, EVAL_RES, wl))
+            files.append(os.path.join(tmp, f'view_{i}.fits'))
+            write_fits(files[-1], view.image[:, :, 0], header)
+        _zero_counters()
+        t1 = time.perf_counter()
+        result = evaluate_viewpoints(kernel, files)
+        harness_s = time.perf_counter() - t1
+        k0 = fused_mlp.LAUNCHES
+        _check(result['n_train'] == 4 and result['n_test'] == 4,
+               f"harness splits {result['n_train']} / {result['n_test']}")
+        _check(all(np.isfinite(v) for s in ('train', 'test', 'all')
+                   for v in result[s].values()), f'harness metrics not finite: {result}')
+        # the same metrics computed directly from the same renders
+        direct_err = 0.0
+        for v, path in zip(result['views'], files):
+            data, header = read_fits(path)
+            obs = parse_observer(header)
+            img = kernel.render_observer_image(obs.carrington_lat, obs.carrington_lon, obs.time,
+                                               obs.dsun_rs, data.shape[0],
+                                               wavelengths=[obs.wavelength]).image[:, :, 0]
+            p = image_asinh_scaling(torch.from_numpy(img)).numpy()
+            t = image_asinh_scaling(torch.from_numpy(data.astype(np.float32))).numpy()
+            direct = dict(psnr=psnr(p, t), ssim=ssim(p, t, data_range=float(t.max() - t.min() or 1)),
+                          mae_percent=mae_percent(p, t), me_percent=me_percent(p, t))
+            direct_err = max([direct_err] + [abs(v[k] - direct[k]) / max(abs(direct[k]), 1e-30)
+                                             for k in METRICS])
+        _check(direct_err <= HARNESS_TOL, f'harness vs direct metrics {direct_err:.2e}')
+        # the reprojection baseline from the |lat| <= 7 deg views, scored as
+        # scripts/reprojection_baseline_psi.py scores it (off-disk 0)
+        t1 = time.perf_counter()
+        hmap = create_heliographic_map([read_fits(f) for f, v in zip(files, result['views'])
+                                        if abs(v['lat_deg']) <= 7.0])
+        base = {'train': [], 'test': []}
+        for path, v in zip(files, result['views']):
+            data, header = read_fits(path)
+            obs = parse_observer(header)
+            pred = heliographic_to_observer(hmap, obs.carrington_lat, obs.carrington_lon,
+                                            obs.dsun_rs, data.shape[0])
+            base['train' if abs(v['lat_deg']) <= 7.0 else 'test'].append(
+                view_metrics(np.nan_to_num(pred, nan=0.0).astype(np.float32), data))
+        baseline = {s: {k: float(np.mean([m[k] for m in rows])) for k in METRICS}
+                    for s, rows in base.items()}
+        baseline_s = time.perf_counter() - t1
+        fmt = lambda m: ' '.join(f'{k} {m[k]:.4f}' for k in METRICS)  # noqa: E731
+        print(f'[eval] harness, 8 views at {EVAL_RES}^2 on K0 ({k0} launches, {harness_s:.2f} s): '
+              f"train (|lat| <= 7) {fmt(result['train'])}; test {fmt(result['test'])}; "
+              f'per-view metrics vs direct {direct_err:.1e} (tol {HARNESS_TOL:g})', flush=True)
+        print(f"[eval] reprojection baseline from the 4 train views ({baseline_s:.1f} s, host): "
+              f"train {fmt(baseline['train'])}; test {fmt(baseline['test'])}", flush=True)
+        out['harness'] = dict(train=result['train'], test=result['test'], k0_launches=k0,
+                              seconds=harness_s, vs_direct=direct_err, baseline=baseline)
+
+    # the five products on K0, against the same products through the plain
+    # versions (the float32 field's distance reported)
+    lat, lon = VIEW['lat'], VIEW['lon']
+    specs = {
+        'volume': lambda l: products.extract_volume(l, 0.0, resolution=64),
+        'synchronic': lambda l: {'map': products.synchronic_map(l, 0.0, resolution_lat=90)},
+        'topographic': lambda l: products.topographic_maps(l, lat, lon, 0.0, 215.0, 256),
+        'eruption': lambda l: products.eruption_profile(l, ERUPTION_TIMES, lat, lon, 215.0, 64),
+        'uncertainty': lambda l: {'uncertainty': products.uncertainty_map(l, lat, lon, 0.0,
+                                                                          215.0, 128)},
+    }
+    image_key = {'synchronic': 'map', 'topographic': 'image', 'eruption': 'images',
+                 'uncertainty': 'uncertainty'}
+    o, d = observer_rays(lat, lon, 215.0, 128)
+    fine_max = float(np.max(plain.render_rays(o, d, 0.0, keys=('fine_image',))['fine_image']))
+    rows = {}
+    for name, fn in specs.items():
+        fn(kernel)
+        torch.cuda.synchronize()
+        _zero_counters()
+        t1 = time.perf_counter()
+        got = fn(kernel)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launches = fused_mlp.LAUNCHES
+        ref, f32_out = fn(plain), fn(f32)
+        _check(launches > 0, f'{name}: no K0 launch')
+        for k, v in got.items():
+            _check(bool(np.isfinite(np.asarray(v, np.float64)).all()), f'{name} {k} not finite')
+        if name == 'volume':
+            shape = got['raw'].shape
+            err = _err_stats(torch.from_numpy(ref['raw'].reshape(-1, shape[-1])),
+                             torch.from_numpy(got['raw'].reshape(-1, shape[-1])))
+            _check(err['p9999_rel_err'] <= KERNEL_TOL and err['rms_rel_err'] <= KERNEL_RMS_TOL
+                   and err['max_rel_err'] <= KERNEL_MAX_TOL, f'volume vs plain {_fmt(err)}')
+            row = dict(vs_plain=err, vs_float32=_rel(f32_out['raw'], got['raw']))
+        elif name == 'eruption':
+            # the bundle was trained at one instant (t = 0); off it the field
+            # is hypersensitive to bf16 flips (ROADMAP Queue 3), so the frames
+            # at t != 0 are held by K0's point check at their own fine samples
+            # and their image gap to the plain version is reported
+            frames = []
+            for i, t in enumerate(ERUPTION_TIMES):
+                o, d = observer_rays(lat, lon, 215.0, 64)
+                arrays = {'rays': torch.from_numpy(np.stack([o.reshape(-1, 3),
+                                                             d.reshape(-1, 3)], 1)).to(device),
+                          'time': torch.full((64 * 64, 1), t, device=device)}
+                k0, plain_raw = _k0_on_points(fine_cfg, kernel.params['fine'], _fine_points(
+                    kernel.renderer, kernel.params, arrays, kernel.batch_size))
+                err = _err_stats(plain_raw, k0)
+                _check(err['p9999_rel_err'] <= KERNEL_TOL and err['rms_rel_err'] <= KERNEL_RMS_TOL
+                       and err['max_rel_err'] <= KERNEL_MAX_TOL,
+                       f'eruption t={t}: K0 vs plain at its fine samples {_fmt(err)}')
+                image = float(np.max(np.abs(ref['images'][i] - got['images'][i]))
+                              / np.max(np.abs(ref['images'][i])))
+                if t == 0.0:
+                    _check(image <= RENDER_TOL, f'eruption t=0 vs plain {image:.3e}')
+                frames.append(dict(time=t, k0_raw=err, image_vs_plain=image))
+            row = dict(vs_plain=max(f['image_vs_plain'] for f in frames), frames=frames,
+                       vs_float32=float(np.max(np.abs(f32_out['images'] - got['images'])))
+                       / float(np.max(np.abs(ref['images']))))
+        else:
+            k = image_key[name]
+            scale = fine_max if name == 'uncertainty' else float(np.max(np.abs(ref[k])))
+            vs_plain = float(np.max(np.abs(ref[k] - got[k]))) / scale
+            _check(vs_plain <= RENDER_TOL, f'{name} vs plain {vs_plain:.3e} (tol {RENDER_TOL})')
+            row = dict(vs_plain=vs_plain,
+                       vs_float32=float(np.max(np.abs(f32_out[k] - got[k]))) / scale)
+        rows[name] = dict(row, seconds=seconds, k0_launches=launches,
+                          shape=list(np.shape(got[image_key.get(name, 'raw')])))
+    print('[eval] products on K0 (seconds, K0 launches, vs plain / vs float32): ' + '; '.join(
+        f"{n} {r['seconds']:.3f} s x{r['k0_launches']} "
+        + (_fmt(r['vs_plain']) if n == 'volume' else f"{r['vs_plain']:.2e}")
+        + f" / {r['vs_float32']:.2e}" for n, r in rows.items()), flush=True)
+    print('[eval] eruption frames (time: image vs plain of the frame\'s max, reported; K0 vs '
+          'plain at the frame\'s fine samples, checked): ' + '; '.join(
+              f"t={f['time']}: {f['image_vs_plain']:.2e}, {_fmt(f['k0_raw'])}"
+              for f in rows['eruption']['frames']), flush=True)
+    out['products'] = rows
+
+    # the tiered 256^2 render against the untiered one, both on K0
+    tiered = SuNeRFLoader(BUNDLE, tier=TIER, device=device)
+    view256 = dict(VIEW, resolution=256)
+    tiered.render_observer_image(**view256)
+    full = kernel.render_observer_image(**view256)
+    torch.cuda.synchronize()
+    counts = {}
+    for name, loader in (('untiered', kernel), ('tiered', tiered)):
+        _zero_counters()
+        view = loader.render_observer_image(**view256)   # the tiered one last
+        counts[name] = fused_mlp.LAUNCHES
+    _check(counts == {'untiered': 32, 'tiered': 48}, f'render K0 launches {counts}')
+    _check(bool(np.isfinite(view.image).all()), 'tiered render not finite')
+    # the bright tier: per chunk of batch_size rays, the half that the
+    # coarse pass ranks brightest (the same coarse pass in both renders)
+    o, d = observer_rays(VIEW['lat'], VIEW['lon'], 215.0, 256)
+    score = kernel.render_rays(o, d, 0.0, keys=('coarse_image',))['coarse_image'].max(-1)
+    bs, n_lo = kernel.batch_size, round(kernel.batch_size * TIER[0])
+    in_bright = np.zeros(score.size, bool)
+    for c in range(0, score.size, bs):
+        in_bright[c + np.argsort(score[c:c + bs], kind='stable')[n_lo:]] = True
+    got, ref = view.image[..., 0].reshape(-1), full.image[..., 0].reshape(-1)
+    rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)
+    bright_err = float(rel[in_bright].max())
+    # JAX's criterion (one chunk a frame there): pixels above the untiered
+    # frame's 60th percentile, some of which fall in their chunk's dim half
+    above60 = ref > np.percentile(ref, 60)
+    above60_err = float(rel[above60].max())
+    above60_dim = int((above60 & ~in_bright).sum())
+    l1 = float(np.abs(view.image - full.image).sum() / full.image.sum())
+    _check(bright_err <= TIER_BRIGHT_TOL, f'tiered bright tier {bright_err:.2e}')
+    _check(l1 < TIER_L1_TOL, f'tiered frame relative L1 {l1:.3f}')
+    times = {'untiered': [], 'tiered': []}
+    for name in ('untiered', 'tiered', 'tiered', 'untiered') * 2:
+        loader = kernel if name == 'untiered' else tiered
+        t1 = time.perf_counter()
+        loader.render_observer_image(**view256)
+        times[name].append((time.perf_counter() - t1) * 1e3)
+    ms = {k: statistics.median(v[:3]) for k, v in times.items()}
+    # where a frame's time goes: device kernels against the host clock
+    prof = {name: _wall_and_device_ms(lambda: loader.render_observer_image(**view256))
+            for name, loader in (('untiered', kernel), ('tiered', tiered))}
+    print(f'[eval] tiered 256^2 render {TIER}: {counts["tiered"]} K0 launches (untiered '
+          f'{counts["untiered"]}); the bright tier\'s {int(in_bright.sum())} pixels within '
+          f'{bright_err:.1e} relative of the untiered render (tol {TIER_BRIGHT_TOL:g}); pixels '
+          f'above the untiered 60th percentile within {above60_err:.2e} ({above60_dim} of them '
+          f'in their chunk\'s dim half; reported); frame L1 {l1:.4f} (tol {TIER_L1_TOL}); '
+          f'{ms["tiered"]:.1f} ms a frame against {ms["untiered"]:.1f} untiered (host clock to '
+          f'the host copy, median of 3, in turns); under torch.profiler ' + '; '.join(
+              f"{k} {v['wall_ms']:.1f} ms wall, {v['device_ms']:.1f} ms of kernels, idle "
+              f"{v['idle_share']:.1%}" for k, v in prof.items()), flush=True)
+    shapes = {name: _k0_row(fine_cfg, kernel.params['fine'], n, device, seed)
+              for name, n, seed in (('tier_bright', 2048 * 60, 11), ('tier_dim', 2048 * 16, 12))}
+    print('[eval] K0 at the tiered render\'s fine shapes (trained fine field, random points): '
+          + '; '.join(f"{k} N={r['n']} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
+                      f"{r['bound_ms']:.3f} by {r['bound_by']}), {_fmt(r)}"
+                      for k, r in shapes.items()), flush=True)
+    out['tiered_render'] = dict(launches=counts, bright_tier_rel_err=bright_err,
+                                above60_rel_err=above60_err, above60_in_dim_tier=above60_dim,
+                                frame_l1=l1, ms=ms, profile=prof, k0_shapes=shapes)
+    out['wall_s'] = time.perf_counter() - t0
+    print(f'[eval] {out["wall_s"]:.1f} s', flush=True)
+    return out
+
+
+def _dt_tier_batch(device, n: int) -> dict:
+    """n rays of a 1 AU view at 256^2 (lat 0.3, lon 1.1), drawn from a
+    seed, in every AIA channel, target 1 (the DT CLI's raw intensities)."""
+    from sunerf_tpu_torch.core.geometry import observer_rays
+    from sunerf_tpu_torch.models.fields import AIA_WAVELENGTHS
+    o, d = observer_rays(VIEW['lat'], VIEW['lon'], 215.0, 256)
+    pick = np.random.default_rng(4).choice(256 * 256, n, replace=False)
+    rays = np.stack([o.reshape(-1, 3)[pick], d.reshape(-1, 3)[pick]], axis=1)
+    wl = torch.tensor(AIA_WAVELENGTHS, dtype=torch.float32, device=device)
+    return {'rays': torch.from_numpy(rays.astype(np.float32)).to(device),
+            'time': torch.zeros((n, 1), device=device),
+            'wavelength': wl.expand(n, len(AIA_WAVELENGTHS)).contiguous(),
+            'target_image': torch.ones((n, len(AIA_WAVELENGTHS)), device=device)}
+
+
+def _tiers_phase(device, trainer: dict) -> dict:
+    """[tiers]: tiered training steps at bench.py's workload and at
+    DT_2012_11's widths against the plain versions, their launches and
+    step times, the tiers' kernel shapes, and a run_emission Trainer run with
+    tier_warmup_steps."""
+    from sunerf_tpu_torch.data.synthetic import synthesize_views
+    from sunerf_tpu_torch.models.fields import density_temperature_config, emission_config
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.systems import make_density_temperature_system, make_emission_system
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.optim import make_optimizer
+    from sunerf_tpu_torch.train.step import create_train_state, make_train_step
+    t0 = time.perf_counter()
+    tier = dict(tier_fraction=TIER[0], tier_samples=TIER[1])
+    rows = {}
+    for name, factory, cfg, batch, loss_config in (
+            ('bench', make_emission_system, emission_config(), _bench_batch(device),
+             LossConfig()),
+            ('dt', make_density_temperature_system, density_temperature_config(),
+             _dt_tier_batch(device, DT_TIER_RAYS), LossConfig(image_scaling='none'))):
+        tiered, init = factory(device=device, **tier)
+        untiered = dataclasses.replace(tiered, tier_fraction=0.0)
+        params = init(torch.Generator(device=device).manual_seed(0))
+        tag = f'tiers] [{name}'
+        vs = _step_vs_plain(tiered, {'field_apply': _plain_apply(cfg)}, params, batch,
+                            loss_config, train_pass=True)
+        _check_vs_plain(tag, vs)
+        opt = make_optimizer()
+        state = create_train_state(params, opt)
+        steps = {'tiered': make_train_step(tiered, loss_config, opt),
+                 'untiered': make_train_step(untiered, loss_config, opt)}
+        launches = {}
+        for k, step in steps.items():
+            step(state, batch, 0)
+            torch.cuda.synchronize()
+            _zero_counters()
+            _, m = step(state, batch, 0)
+            launches[k] = _counters()
+            _check(np.isfinite(float(m['loss'])), f'[{tag}] {k} loss not finite')
+        _check(launches['tiered'] == {'STASH_FWD_LAUNCHES': 3, 'STASH_BWD_LAUNCHES': 3}
+               and launches['untiered'] == {'STASH_FWD_LAUNCHES': 2, 'STASH_BWD_LAUNCHES': 2},
+               f'[{tag}] launches {launches}')
+        ms = {'untiered': [], 'tiered': []}
+        for k in ('untiered', 'tiered', 'tiered', 'untiered'):
+            ms[k].append(_step_times(steps[k], state, batch))
+        n_rays = batch['rays'].shape[0]
+        print(f'[{tag}] {cfg.n_layers}x{cfg.d_filter}, {n_rays} rays, tier {TIER}: a step '
+              f'launches {launches["tiered"]} (untiered {launches["untiered"]}); step '
+              f'{ms["tiered"]} ms against {ms["untiered"]} untiered (CUDA events, median of 10 '
+              f'after 3, in turns U T T U)', flush=True)
+        rows[name] = dict(vs_plain=vs, launches=launches, step_ms=ms, rays=n_rays,
+                          fine_n=(n_rays - round(n_rays * TIER[0])) * 192
+                          + round(n_rays * TIER[0]) * TIER[1])
+        del state, steps, params
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        shapes = {name: _stash_phase(name, 8, 512, n, device)
+                  for name, n in (('tier_bright', 512 * 192), ('tier_dim', 512 * TIER[1]))}
+
+    # the Trainer: run_emission with the tiers after tier_warmup_steps
+    with tempfile.TemporaryDirectory() as tmp:
+        pattern = synthesize_views(tmp, device, TRAINER_RES, BUNDLE)
+        workdir = os.path.join(tmp, 'run')
+        warm = TIERS_TRAINER_STEPS // 2
+        config = {'path_to_save': workdir, 'rendering': dict(tier),
+                  'data': {'data_path': pattern, 'batch_size': TRAINER_BATCH},
+                  'training': {'total_steps': TIERS_TRAINER_STEPS, 'tier_warmup_steps': warm,
+                               'log_every_n_steps': TIERS_TRAINER_STEPS,
+                               'scalar_log_every': 10, 'drift_probe_views': 0}}
+        _zero_counters()
+        t1 = time.perf_counter()
+        run = _run_cli(config, os.path.join(tmp, 'tiers.yaml'), device)
+        run_s = time.perf_counter() - t1
+        launches = _counters()
+        recs = [json.loads(line) for line in open(os.path.join(workdir, 'metrics.jsonl'))]
+        losses = {r['step']: r['loss'] for r in recs if 'loss' in r}
+        step_ms = {r['step']: r['step_ms'] for r in recs if 'step_ms' in r}
+        want = 2 * warm + 3 * (TIERS_TRAINER_STEPS - warm)
+        print(f'[tiers] run_emission 8x512, batch {TRAINER_BATCH}, {TIERS_TRAINER_STEPS} steps, '
+              f'tier {TIER} after {warm} full-budget steps: {run_s:.1f} s; launches {launches} '
+              f'(K1, K2 expected {want} each); losses ' + ' '.join(
+                  f'{s}:{v:.5f}' for s, v in sorted(losses.items())) + '; ms/step ' + ' '.join(
+                  f'{s}:{v:.2f}' for s, v in sorted(step_ms.items())), flush=True)
+        _check(launches.get('STASH_FWD_LAUNCHES') == want
+               and launches.get('STASH_BWD_LAUNCHES') == want,
+               f'tiers trainer launches {launches}, not {want} K1 and K2')
+        _check(run.warmup_step_fn is not None, 'tiers trainer has no warm-up step')
+        first, last = min(losses), max(losses)
+        _check(all(np.isfinite(list(losses.values()))) and losses[last] < losses[first],
+               f'tiers trainer loss did not fall: {losses}')
+        del run
+    wall = time.perf_counter() - t0
+    print(f'[tiers] {wall:.1f} s', flush=True)
+    return dict(rows=rows, shapes=shapes, trainer=dict(
+        launches=launches, losses=losses, step_ms=step_ms, warmup=warm, run_s=run_s,
+        bare_trainer_ms=trainer['ms_per_step']), wall_s=wall)
+
+
+def _occupancy_activity(tag: str, occ, renderer, fine: dict, plain_fn, device, seed: int):
+    """One cell-ordered activity of the occupancy update (the fine field on
+    one jitter per cell), through the renderer's field (K0) and through the
+    plain version, held to K0's tolerances; the cells whose occupancy the
+    two disagree on are counted. Returns (K0 activity, error row)."""
+    from sunerf_tpu_torch.core.occupancy import cell_activity
+    u = torch.rand((occ.nr, occ.ntheta, occ.nphi, 3), device=device,
+                   generator=torch.Generator(device=device).manual_seed(seed))
+    act = {name: cell_activity(occ, apply, fine, renderer.head.occupancy_activity, u, 0.0,
+                               renderer.solar_radius)
+           for name, apply in (('kernel', renderer.field_apply), ('plain', plain_fn))}
+    err = _err_stats(act['plain'].reshape(-1, 1), act['kernel'].reshape(-1, 1))
+    occupied = {k: a > occ.threshold * torch.quantile(a.reshape(-1), 0.995)
+                for k, a in act.items()}
+    flipped = int((occupied['kernel'] != occupied['plain']).sum())
+    print(f'[occupancy] {tag}: the update\'s activity ({act["kernel"].numel()} cells), K0 vs '
+          f'plain: {_fmt(err)}; cells occupied in one and not the other: {flipped} (reported)',
+          flush=True)
+    _check(err['p9999_rel_err'] <= KERNEL_TOL and err['rms_rel_err'] <= KERNEL_RMS_TOL
+           and err['max_rel_err'] <= KERNEL_MAX_TOL, f'{tag}: occupancy activity {_fmt(err)}')
+    return act['kernel'], dict(err, flipped_cells=flipped)
+
+
+def _occupancy_phase(device, trainer: dict) -> dict:
+    """[occupancy]: run_emission at 8x512 with the occupancy grid (warmup 50,
+    update_every 16) on synthesized views, to its first update (step 64) and,
+    resumed from the checkpoint, to OCC_STEPS[1]; the update's activity on K0
+    against the plain version, on the run's field and on the committed
+    bundle's trained one, whose update takes the grid out of its warm state
+    and whose render then samples by it; the run's bundle served through
+    one product; ms a step and the update's ms."""
+    from sunerf_tpu_torch.core.occupancy import (OccupancyConfig, init_occupancy,
+                                                 occupancy_from_activity)
+    from sunerf_tpu_torch.data.synthetic import synthesize_views
+    from sunerf_tpu_torch.evaluation import products
+    from sunerf_tpu_torch.evaluation.loader import ModelLoader, SuNeRFLoader
+    from sunerf_tpu_torch.models.fields import NeRFConfig
+    from sunerf_tpu_torch.ops import fused_mlp
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pattern = synthesize_views(tmp, device, TRAINER_RES, BUNDLE)
+        workdir = os.path.join(tmp, 'run')
+        first, total = OCC_STEPS
+        config = {'path_to_save': workdir,
+                  'rendering': {'occupancy': {'warmup': 50, 'update_every': 16}},
+                  'data': {'data_path': pattern, 'batch_size': TRAINER_BATCH},
+                  'training': {'total_steps': first, 'log_every_n_steps': total,
+                               'scalar_log_every': 16, 'drift_probe_views': 0}}
+        _zero_counters()
+        run = _run_cli(config, os.path.join(tmp, 'occ.yaml'), device)
+        first_fracs = {k: float((g > 0.5).float().mean())
+                       for k, g in run.state.params['occupancy'].items()}
+        first_min = {k: float(g.min()) for k, g in run.state.params['occupancy'].items()}
+        del run
+        config['training']['total_steps'] = total
+        t1 = time.perf_counter()
+        run = _run_cli(config, os.path.join(tmp, 'occ_resume.yaml'), device)
+        run_s = time.perf_counter() - t1
+        launches = _counters()
+        _check(run.state.step == total, f'occupancy resume at {run.state.step}')
+        recs = [json.loads(line) for line in open(os.path.join(workdir, 'metrics.jsonl'))]
+        steps = [r for r in recs if 'loss' in r]
+        losses = {r['step']: r['loss'] for r in steps}
+        ms_step = statistics.mean(r['step_ms'] for r in steps if r['step'] > 16)
+        print(f'[occupancy] run_emission 8x512 to step {total} (resumed at {first}, '
+              f'{run_s:.1f} s): launches {launches}; losses ' + ' '.join(
+                  f'{s}:{v:.5f}' for s, v in sorted(losses.items())) + '; occupied fractions '
+              + ' '.join(f"{r['step']}:{r.get('occ_r_frac')}/{r.get('occ_ang_frac')}/"
+                         f"{r.get('occ_vol_frac')}" for r in steps)
+              + f'; after the first update (step {first}) fractions {first_fracs}, minima '
+              f'{first_min}; {ms_step:.2f} ms/step over steps 17-{total} against '
+              f'{trainer["ms_per_step"]:.2f} without occupancy ([trainer])', flush=True)
+        _check(all(np.isfinite(list(losses.values())))
+               and losses[max(losses)] < losses[min(losses)],
+               f'occupancy loss did not fall: {losses}')
+        _check(launches.get('STASH_FWD_LAUNCHES') == 2 * total
+               and launches.get('STASH_BWD_LAUNCHES') == 2 * total,
+               f'occupancy launches {launches}: not 2 K1 and 2 K2 a step')
+        _check(all(k in r for r in steps for k in ('occ_r_frac', 'occ_ang_frac', 'occ_vol_frac')),
+               'occupancy fractions missing from the log')
+
+        r = run.renderer
+        occ = r.occupancy
+        _, run_err = _occupancy_activity(f'run field (step {total})', occ, r,
+                                         run.state.params['fine'],
+                                         _plain_apply(NeRFConfig(**r.spec['model_config'])),
+                                         device, 5)
+        _zero_counters()
+        run.update_occupancy(total, 0.0)
+        update_k0 = fused_mlp.LAUNCHES
+        update_ms = _cuda_ms(lambda: run.update_occupancy(total, 0.0), warmup=2, reps=10)
+        _check(update_k0 == 1, f'the update launched K0 {update_k0} times')
+
+        # the run's bundle, grid included, served through one product
+        loader = SuNeRFLoader(os.path.join(workdir, 'save_state'), device=device)
+        _check(loader.renderer.occupancy == occ and 'occupancy' in loader.params,
+               'the bundle lost its occupancy grid')
+        _zero_counters()
+        topo = products.topographic_maps(loader, VIEW['lat'], VIEW['lon'], 0.0, 215.0, 64)
+        served_k0 = fused_mlp.LAUNCHES
+        _check(served_k0 > 0 and all(bool(np.isfinite(v).all()) for v in topo.values()),
+               f'occupancy bundle product: {served_k0} K0 launches')
+        del run, loader
+
+    # the committed bundle's trained fine field: one update from the warm
+    # grid (the defaults), and the 256^2 view rendered by that grid
+    bundle = SuNeRFLoader(BUNDLE, device=device)
+    occ = OccupancyConfig()
+    fine_cfg = NeRFConfig(**bundle.renderer.spec['model_config'])
+    act, bundle_err = _occupancy_activity('the committed bundle\'s field', occ, bundle.renderer,
+                                          bundle.params['fine'], _plain_apply(fine_cfg), device, 6)
+    grid = occupancy_from_activity(init_occupancy(occ, device), occ, act)
+    fracs = {k: float((g > 0.5).float().mean()) for k, g in grid.items()}
+    _check(any(bool((g < 1.0).any()) for g in grid.values()),
+           'the trained field\'s update left the grid warm')
+    guided = ModelLoader(dataclasses.replace(bundle.renderer, occupancy=occ),
+                         dict(bundle.params, occupancy=grid), ref_time=bundle.ref_time,
+                         device=device)
+    view256 = dict(VIEW, resolution=256)
+    guided.render_observer_image(**view256)
+    _zero_counters()
+    t1 = time.perf_counter()
+    view = guided.render_observer_image(**view256)
+    guided_ms = (time.perf_counter() - t1) * 1e3
+    guided_k0 = fused_mlp.LAUNCHES
+    base = bundle.render_observer_image(**view256)
+    _check(guided_k0 == 32 and all(bool(np.isfinite(getattr(view, k)).all()) for k in MAPS),
+           f'occupancy-guided render: {guided_k0} K0 launches')
+    gap = _rel(base.image, view.image)
+    print(f'[occupancy] the committed bundle\'s field, one update from the warm grid '
+          f'(defaults): occupied fractions {fracs}; its 256^2 view sampled by that grid: '
+          f'{guided_k0} K0 launches, {guided_ms:.1f} ms, image {gap:.3e} of max from the '
+          f'stratified render (reported); the update on the run\'s field {update_ms:.3f} ms '
+          f'({update_k0} K0 launch, CUDA events, median of 10); the run\'s bundle served as a '
+          f'64^2 topographic map ({served_k0} K0 launches)', flush=True)
+    wall = time.perf_counter() - t0
+    print(f'[occupancy] {wall:.1f} s', flush=True)
+    out.update(first_update=dict(fractions=first_fracs, minima=first_min), launches=launches,
+               losses=losses, ms_per_step=ms_step, bare_trainer_ms=trainer['ms_per_step'],
+               run_activity_err=run_err, bundle_activity_err=bundle_err,
+               bundle_grid_fractions=fracs, guided_render=dict(ms=guided_ms, k0_launches=guided_k0,
+                                                               image_vs_stratified=gap),
+               update_ms=update_ms, update_k0_launches=update_k0, served_k0_launches=served_k0,
+               wall_s=wall)
+    return out
 
 
 def _grid_bytes(cfg) -> int:
@@ -2717,6 +3315,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     thomson = _thomson_phase(device)
 
+    # 7e-7g. the evaluation layer, the tiers and the occupancy grid ----------
+    torch.cuda.empty_cache()
+    evals = _eval_phase(device, plain_renderer, fields['fine'][0])
+    torch.cuda.empty_cache()
+    tiers = _tiers_phase(device, trainer)
+    torch.cuda.empty_cache()
+    occupancy = _occupancy_phase(device, trainer)
+
     # 8-11. dense feature grids (K5) ----------------------------------------
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -2777,6 +3383,11 @@ def main() -> int:
         'dt_raw_err': dt['k0_raw_err'], 'dt_image_err': dt['image_err'],
         'dt_image_tol': dt['image_tol'],
         'thomson_raw_err': {k: r['k0_raw_err'] for k, r in thomson['rows'].items()},
+        'eval': evals, 'tiered_render_launches': evals['tiered_render']['launches'],
+        'tier_shapes': evals['tiered_render']['k0_shapes'],
+        'occupancy_update': {k: occupancy[k] for k in ('update_ms', 'update_k0_launches',
+                                                       'run_activity_err',
+                                                       'bundle_activity_err', 'guided_render')},
     })
     for key, kname, line, header in (
             ('k1', 'fused_mlp_stash_fwd', 453, 'fused_mlp_fwd_wgmma.cuh'),
@@ -2809,6 +3420,10 @@ def main() -> int:
             'thomson_launches': {k: r['launches'] for k, r in thomson['rows'].items()},
             'dt': dt if key == 'k1' else {'vs_plain': dt['vs_plain'], 'dy_max': dt['dy_max']},
             'thomson': thomson if key == 'k1' else None,
+            'tier_launches': {k: r['launches'] for k, r in tiers['rows'].items()},
+            'tier_shapes': {name: r[key] for name, r in tiers['shapes'].items()},
+            'tiers': {'rows': tiers['rows'], 'trainer': tiers['trainer']} if key == 'k1' else None,
+            'occupancy_trainer': occupancy if key == 'k1' else None,
         })
     gq = grid_rows['grid_quarter']
     kernels.append({

@@ -49,3 +49,21 @@ def positional_encoding(x: torch.Tensor, n_freqs: int = 10,
                                    n_freqs_time)
     u = x[..., dims] * torch.tensor(freqs, dtype=x.dtype, device=x.device)
     return torch.cat([x, torch.sin(u), torch.cos(u)], dim=-1)
+
+
+def init_trainable_encoding(d_input: int, n_freqs: int = 20, device='cpu') -> dict:
+    """Learnable frequency bands (sunerf_tpu/core/encoding.py:64-70;
+    reference TrainablePositionalEncoding, model.py:75-89): log2
+    frequencies linspace(-3, 9) for every input dimension, [F, D]."""
+    freqs = torch.linspace(-3.0, 9.0, n_freqs, dtype=torch.float32, device=device)
+    return {'frequencies': freqs[:, None].expand(n_freqs, d_input).contiguous()}
+
+
+def trainable_encoding_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """[N, D] -> [N, 2*F*D]: sin and cos of pi * 2^f * x, each divided by its
+    frequency, frequency-major within each half (model.py:83-89)."""
+    freqs = torch.pi * 2.0 ** params['frequencies']     # [F, D]
+    encoded = x[:, None, :] * freqs[None]               # [N, F, D]
+    n = x.shape[0]
+    return torch.cat([(torch.sin(encoded) / freqs[None]).reshape(n, -1),
+                      (torch.cos(encoded) / freqs[None]).reshape(n, -1)], dim=-1)

@@ -1,9 +1,13 @@
 """Trained-model inference loaders: render observer views from a deployment
 bundle or a live renderer (sunerf_tpu/evaluation/loader.py).
 
-Rays are built on the host, uploaded once per view and rendered in fixed
-chunks of batch_size rays under torch.inference_mode(). No device mesh and no
-adaptive tiers yet.
+Rays are built on the host, uploaded once per call and rendered in chunks of
+batch_size rays under torch.inference_mode(), through render_rays, the one
+batched method that the observer view and the products use. With adaptive
+tiers (tier=(fraction, samples)) each chunk ranks its own rays, so the last
+chunk is padded to batch_size as the JAX loader pads it (zeros; the products
+pad directions with ones) and its padded rays take part in the ranking. No
+device mesh (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -19,6 +23,12 @@ from sunerf_tpu_torch.core.scaling import normalize_datetime
 from sunerf_tpu_torch.models.fields import params_from_numpy
 from sunerf_tpu_torch.systems import from_spec
 from sunerf_tpu_torch.utils.checkpoint import load_state
+
+
+MAPS = ('image', 'height_map', 'absorption_map')
+# what the CLIs raise for a serving artifact in place of a bundle
+SHLO = ('serving artifacts (.shlo) are not ported yet (ROADMAP Queue 1 item 12, '
+        'serving export); pass the deployment bundle')
 
 
 @dataclasses.dataclass
@@ -37,12 +47,28 @@ def _device(device) -> torch.device:
     return device
 
 
+def _tensor(x, device) -> torch.Tensor:
+    """A float32 tensor on `device` from a tensor, an array, a sequence or a
+    scalar."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x, np.float32))
+    return x.to(device, torch.float32)
+
+
 class ModelLoader:
     """Batched observer-image rendering over any renderer + params."""
 
     def __init__(self, renderer, params: dict, ref_time: datetime | None = None,
                  seconds_per_dt: float = 86400.0, batch_size: int = 4096,
-                 device='cuda'):
+                 tier: Optional[tuple] = None, device='cuda'):
+        """tier: optional (fraction, samples), adaptive per-ray budgets for
+        inference: per chunk, the dimmest `fraction` of the rays (ranked by
+        the coarse pass) render at `samples` samples (the renderer's tiered
+        fine pass with tier_eval=True). Off by default (the full budget)."""
+        if tier is not None:
+            renderer = dataclasses.replace(
+                renderer, tier_fraction=float(tier[0]), tier_samples=int(tier[1]),
+                tier_eval=True)
         self.renderer = renderer
         self.params = params
         self.ref_time = ref_time
@@ -57,41 +83,57 @@ class ModelLoader:
             return normalize_datetime(time, self.seconds_per_dt, self.ref_time)
         return float(time)
 
+    def render_rays(self, rays_o, rays_d, times, wavelengths=None, keys=MAPS,
+                    pad_direction: float = 0.0) -> dict:
+        """Render [n, 3] rays (numpy arrays or tensors) at `times` (a scalar
+        or [n, 1]) with `wavelengths` (None, [W] for every ray, or [n, W]),
+        in chunks of batch_size, without jitter. Returns {key: numpy array
+        [n, ...]} of the renderer's outputs named in `keys`. Under tiers the
+        last chunk is padded to batch_size with zero origins and times and
+        directions of `pad_direction` (0 in render_observer_image, 1 in the
+        products, as in the JAX package)."""
+        rays_o = _tensor(rays_o, self.device).reshape(-1, 3)
+        rays_d = _tensor(rays_d, self.device).reshape(-1, 3)
+        n = rays_o.shape[0]
+        times = _tensor(times, self.device).reshape(-1, 1).expand(n, 1)
+        wl = None
+        if wavelengths is not None:
+            wl = _tensor(wavelengths, self.device)
+            wl = wl.reshape(1, -1).expand(n, -1) if wl.ndim == 1 else wl
+        bs = self.batch_size
+        pad = (-n) % bs if self.renderer.tier_fraction and self.renderer.tier_eval else 0
+        if pad:
+            fill = lambda x, v: torch.cat([x, x.new_full((pad, x.shape[1]), v)])  # noqa: E731
+            rays_o, rays_d, times = fill(rays_o, 0.0), fill(rays_d, pad_direction), fill(times, 0.0)
+            wl = fill(wl, 0.0) if wl is not None else None
+        parts = {k: [] for k in keys}
+        with torch.inference_mode():
+            for i in range(0, n + pad, bs):
+                sl = slice(i, i + bs)
+                out = self.renderer(self.params, rays_o[sl], rays_d[sl], times[sl],
+                                    wavelengths=wl[sl] if wl is not None else None)
+                for k in keys:
+                    parts[k].append(out[k])
+            return {k: torch.cat(v)[:n].cpu().numpy() for k, v in parts.items()}
+
     def render_observer_image(self, lat: float, lon: float, time,
                               distance: float, resolution: int = 256,
-                              wavelengths=None, fov: float | None = None) -> RenderedView:
+                              wavelengths=None, fov: float | None = None,
+                              center_distance: float | None = None) -> RenderedView:
         """Render the Sun as seen from Carrington (lat, lon) [rad] at the given
         distance [solar radii / ds].
 
         wavelengths: sequence of channel values for multi-channel heads.
+        center_distance: accepted and unused, as in the JAX package.
         """
         rays_o, rays_d = observer_rays(lat, lon, distance, resolution,
                                        fov=fov or fov_for_distance(distance))
-        n = resolution * resolution
-        upload = lambda x: torch.as_tensor(x.reshape(n, -1)).to(self.device)
-        rays_o, rays_d = upload(rays_o), upload(rays_d)
-        t = torch.full((n, 1), self.normalize_time(time), dtype=torch.float32,
-                       device=self.device)
-        wl = None
-        if wavelengths is not None:
-            wl = torch.tensor(wavelengths, dtype=torch.float32,
-                              device=self.device).expand(n, len(wavelengths))
-
-        images, heights, absorptions = [], [], []
-        with torch.inference_mode():
-            for i in range(0, n, self.batch_size):
-                sl = slice(i, i + self.batch_size)
-                out = self.renderer(self.params, rays_o[sl], rays_d[sl], t[sl],
-                                    wavelengths=wl[sl] if wl is not None else None)
-                images.append(out['image'])
-                heights.append(out['height_map'])
-                absorptions.append(out['absorption_map'])
-            image = torch.cat(images).reshape(resolution, resolution, -1)
-            height = torch.cat(heights).reshape(resolution, resolution)
-            absorption = torch.cat(absorptions).reshape(resolution, resolution)
-        return RenderedView(image=image.cpu().numpy(),
-                            height_map=height.cpu().numpy(),
-                            absorption_map=absorption.cpu().numpy())
+        out = self.render_rays(rays_o, rays_d, self.normalize_time(time),
+                               None if wavelengths is None else list(wavelengths))
+        res = (resolution, resolution)
+        return RenderedView(image=out['image'].reshape(*res, -1),
+                            height_map=out['height_map'].reshape(res),
+                            absorption_map=out['absorption_map'].reshape(res))
 
     def load_coords(self, query_points: np.ndarray, batch_size: int | None = None):
         """Direct field query at [N, 4] (x, y, z, t) points. Returns raw
@@ -111,11 +153,13 @@ class SuNeRFLoader(ModelLoader):
     """Load a trained deployment bundle (<state_path>.npz/.json) and render."""
 
     def __init__(self, state_path: str, batch_size: int = 4096,
-                 use_fused: Optional[bool] = None,
+                 use_fused: Optional[bool] = None, tier: Optional[tuple] = None,
                  render_overrides: Optional[dict] = None, device='cuda'):
         """use_fused: None = the fused kernel on CUDA, the plain field on the
         CPU; True/False forces it (True on the CPU runs the kernel's plain
         bf16 version).
+        tier: optional (fraction, samples) adaptive per-ray budgets
+        (ModelLoader).
         render_overrides: optional sampling kwargs merged over the saved
         spec's render section (e.g. {'n_stratified': 64, 'n_hierarchical':
         128}); None = render exactly as trained.
@@ -134,7 +178,7 @@ class SuNeRFLoader(ModelLoader):
             renderer, params_from_numpy(params, device),
             ref_time=datetime.fromisoformat(ref_time) if ref_time else None,
             seconds_per_dt=config.get('seconds_per_dt', 86400.0),
-            batch_size=batch_size, device=device)
+            batch_size=batch_size, tier=tier, device=device)
         self.config = config
 
     @property

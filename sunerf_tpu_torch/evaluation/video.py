@@ -3,7 +3,8 @@ pass + zoom, saved as JPEG frames (sunerf_tpu/evaluation/video.py; ffmpeg
 assembly of the frames stays manual).
 
 Usage: python -m sunerf_tpu_torch.evaluation.video --state <bundle> \
-           --output frames/ [--n-frames 60] [--resolution 256] [--device cuda]
+           --output frames/ [--n-frames 60] [--resolution 256] \
+           [--tier FRACTION SAMPLES] [--device cuda]
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import os
 import numpy as np
 
 from sunerf_tpu_torch.core.geometry import fov_for_distance
-from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+from sunerf_tpu_torch.evaluation.loader import SHLO, SuNeRFLoader
 
 
 def frame_to_jpeg(path: str, image: np.ndarray):
@@ -46,14 +47,13 @@ def flyby_poses(n_frames: int = 60, distance: float = 215.0):
 def render_video_frames(state_path: str, output_dir: str, n_frames: int = 60,
                         resolution: int = 256, time: float = 0.0,
                         batch_size: int = 4096, wavelengths=None,
-                        distance: float = 215.0, device='cuda'):
+                        distance: float = 215.0, tier=None, device='cuda'):
     """Render the flyby of a deployment bundle into output_dir; returns the
-    frame paths."""
+    frame paths. tier: optional (fraction, samples), adaptive per-ray
+    budgets for the frame renders (evaluation/loader.py)."""
     if state_path.endswith('.shlo'):
-        raise NotImplementedError('serving artifacts (.shlo) are not ported '
-                                  'yet (ROADMAP Queue 1, serving export); '
-                                  'pass the deployment bundle')
-    loader = SuNeRFLoader(state_path, batch_size=batch_size, device=device)
+        raise NotImplementedError(SHLO)
+    loader = SuNeRFLoader(state_path, batch_size=batch_size, tier=tier, device=device)
     if wavelengths is None:
         wl_cfg = loader.wavelengths
         wavelengths = list(wl_cfg) if wl_cfg else None
@@ -78,10 +78,16 @@ def main(argv=None):
     parser.add_argument('--n-frames', type=int, default=60)
     parser.add_argument('--resolution', type=int, default=256)
     parser.add_argument('--time', type=float, default=0.0)
+    parser.add_argument('--tier', type=float, nargs=2, default=None,
+                        metavar=('FRACTION', 'SAMPLES'),
+                        help='adaptive per-ray budget for frame renders, '
+                             'e.g. --tier 0.5 16')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
     paths = render_video_frames(args.state, args.output, args.n_frames,
-                                args.resolution, args.time, device=args.device)
+                                args.resolution, args.time,
+                                tier=tuple(args.tier) if args.tier else None,
+                                device=args.device)
     print(f'wrote {len(paths)} frames to {args.output} '
           f'(assemble: ffmpeg -i frame_%04d.jpg video.mp4)')
 

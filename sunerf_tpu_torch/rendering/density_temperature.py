@@ -110,8 +110,7 @@ class DensityTemperatureHead:
 
     def occupancy_activity(self, raw: torch.Tensor) -> torch.Tensor:
         """EUV emission scales with density squared, so the occupancy
-        criterion follows it (its caller, occupancy-guided sampling, is not
-        ported yet: ROADMAP Queue 1 item 10)."""
+        criterion follows it (core/occupancy.update_occupancy)."""
         return torch.exp(2.0 * torch.clamp(raw[..., 0], min=0.0))
 
     def regularization(self, distance: torch.Tensor,

@@ -61,6 +61,12 @@ class EmissionHead:
         return {'image': pixel_intensity, 'weights': weights,
                 'regularizing_quantity': transmission}
 
+    def occupancy_activity(self, raw: torch.Tensor) -> torch.Tensor:
+        """Per-point scene activity for the occupancy grid (core/occupancy.py):
+        emission per unit length plus absorption, so absorbing-but-dark
+        regions, which still shape the quadrature, are not culled."""
+        return torch.exp(raw[..., 0]) + torch.clamp(raw[..., 1], min=0.0)
+
     def regularization(self, distance: torch.Tensor,
                        regularizing_quantity: torch.Tensor) -> torch.Tensor:
         """Penalize absorption beyond 1.2 Rsun, elementwise [R, S]."""

@@ -5,8 +5,10 @@ Usage: python -m sunerf_tpu_torch.run_emission --config config/emission.yaml
 
 Config sections (YAML): data, training, logging, model, rendering,
 optimizer, image_scaling — the JAX CLI's layout and defaults. One device:
-the card unless --device cpu is given. There is no mesh (ROADMAP Queue 1
-item 11), and training.microbatch raises (item 10).
+the card unless --device cpu is given. rendering.tier_fraction /
+tier_samples and rendering.occupancy go to the system factory as in the JAX
+CLI; training.tier_warmup_steps to the Trainer. There is no mesh (ROADMAP
+Queue 1 item 11), and training.microbatch raises (item 10).
 """
 from __future__ import annotations
 
@@ -98,7 +100,10 @@ def main(argv=None):
         # promotions whose probe render drifted past drift_probe_warn_db
         drift_probe_gate=train_cfg.get('drift_probe_gate', False),
         drift_probe_gate_margin_db=train_cfg.get(
-            'drift_probe_gate_margin_db', 1.0))
+            'drift_probe_gate_margin_db', 1.0),
+        # full-budget steps before rendering.tier_fraction's tiers start (a
+        # key of the port's CLI: JAX's scripts set it on the Trainer)
+        tier_warmup_steps=train_cfg.get('tier_warmup_steps', 0))
 
     logger = MetricsLogger(workdir, project=log_cfg.get('project'),
                            name=log_cfg.get('name'),

@@ -2,7 +2,9 @@
 (sunerf_tpu/systems.py): each returns a Renderer and an init function for
 its parameters on `device`. The emission, density-temperature, SimpleStar
 and Thomson systems are ported; the MHD field is not (ROADMAP Queue 1
-item 9)."""
+item 9). An occupancy config in the render kwargs (an OccupancyConfig or
+a dict, as YAML and bundle specs carry it) adds the grid to the params as
+params['occupancy']."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from sunerf_tpu_torch.core.occupancy import OccupancyConfig, init_occupancy
 from sunerf_tpu_torch.models.fields import (NeRFConfig, density_temperature_config,
                                             emission_config, init_nerf, nerf_apply,
                                             nerf_apply_fused)
@@ -46,30 +49,49 @@ def _select_apply(config: NeRFConfig, use_fused: Optional[bool], device):
 
 
 def _spec(head_name: str, config, Rs_per_ds, render_kwargs, **extra) -> dict:
-    spec = {'head': head_name, 'Rs_per_ds': Rs_per_ds,
-            'render': dict(render_kwargs)}
+    render = dict(render_kwargs)
+    if isinstance(render.get('occupancy'), OccupancyConfig):
+        render['occupancy'] = dataclasses.asdict(render['occupancy'])
+    spec = {'head': head_name, 'Rs_per_ds': Rs_per_ds, 'render': render}
     if config is not None:
         spec['model_config'] = dataclasses.asdict(config)
     spec.update(extra)
     return spec
 
 
-def _refuse_occupancy(render_kwargs: dict) -> dict:
-    """Render kwargs without 'occupancy'; an enabled occupancy grid raises
-    (not ported yet), and, as in the JAX package, so does its combination
-    with any sampler but the stratified one."""
+def _normalize_occupancy(render_kwargs: dict) -> dict:
+    """Accept occupancy as an OccupancyConfig or a plain dict (YAML configs,
+    deserialized specs); returns kwargs with an OccupancyConfig, or without
+    the key. A falsy value or enabled: false disables it."""
     kwargs = dict(render_kwargs)
-    occ = kwargs.pop('occupancy', None)
-    if occ and not (isinstance(occ, dict) and not occ.get('enabled', True)):
-        if kwargs.get('sampling', 'stratified') != 'stratified':
-            raise ValueError(
-                f"occupancy-guided sampling assumes the stratified sampler's "
-                f"integration bounds; got sampling={kwargs['sampling']!r}. "
-                f"Disable occupancy or use sampling='stratified'.")
-        raise NotImplementedError('occupancy-guided sampling is not ported '
-                                  'yet (ROADMAP Queue 1 item 10, opt-in dials: '
-                                  'occupancy)')
+    occ = kwargs.get('occupancy')
+    if occ is None or occ is False:
+        kwargs.pop('occupancy', None)
+        return kwargs
+    if isinstance(occ, dict):
+        occ = dict(occ)
+        if not occ.pop('enabled', True):
+            kwargs.pop('occupancy', None)
+            return kwargs
+        if occ.get('nvol') is not None:
+            occ['nvol'] = tuple(occ['nvol'])  # JSON/YAML round-trips as list
+        kwargs['occupancy'] = OccupancyConfig(**occ)
     return kwargs
+
+
+def _with_occupancy(init_fn, occupancy: Optional[OccupancyConfig], device):
+    """Wrap an init function to add the (fully occupied) occupancy grid to
+    the params as params['occupancy'], tensors without gradients that the
+    optimizer leaves alone (train/step.create_train_state)."""
+    if occupancy is None:
+        return init_fn
+
+    def init(generator: Optional[torch.Generator] = None) -> dict:
+        params = init_fn(generator) if generator is not None else init_fn()
+        params['occupancy'] = init_occupancy(occupancy, device)
+        return params
+
+    return init
 
 
 def _nerf_pair(config: NeRFConfig, coarse_config: Optional[NeRFConfig],
@@ -104,7 +126,7 @@ def make_emission_system(Rs_per_ds: float = 1.0,
     coarse_config: optional SMALLER architecture for the coarse pass
     (proposal-network style); None = both passes share model_config."""
     config = model_config or emission_config()
-    render_kwargs = _refuse_occupancy(render_kwargs)
+    render_kwargs = _normalize_occupancy(render_kwargs)
     fine_apply, coarse_apply, init = _nerf_pair(config, coarse_config, use_fused, device)
     renderer = Renderer(
         field_apply=fine_apply, coarse_field_apply=coarse_apply,
@@ -112,7 +134,7 @@ def make_emission_system(Rs_per_ds: float = 1.0,
         spec=_spec('emission', config, Rs_per_ds, render_kwargs,
                    **_coarse_extra(coarse_config)),
         **render_kwargs)
-    return renderer, init
+    return renderer, _with_occupancy(init, renderer.occupancy, device)
 
 
 def make_density_temperature_system(Rs_per_ds: float = 1.0,
@@ -136,7 +158,7 @@ def make_density_temperature_system(Rs_per_ds: float = 1.0,
                                   pixel_intensity_factor=pixel_intensity_factor,
                                   Rs_per_ds=Rs_per_ds,
                                   hierarchical_weighting=hierarchical_weighting)
-    render_kwargs = _refuse_occupancy(render_kwargs)
+    render_kwargs = _normalize_occupancy(render_kwargs)
     fine_apply, coarse_apply, init = _nerf_pair(config, coarse_config, use_fused, device)
     renderer = Renderer(
         field_apply=fine_apply, coarse_field_apply=coarse_apply,
@@ -146,7 +168,7 @@ def make_density_temperature_system(Rs_per_ds: float = 1.0,
                    hierarchical_weighting=hierarchical_weighting,
                    **_coarse_extra(coarse_config)),
         **render_kwargs)
-    return renderer, init
+    return renderer, _with_occupancy(init, renderer.occupancy, device)
 
 
 def make_simple_star_renderer(Rs_per_ds: float = 1.0,
@@ -163,7 +185,7 @@ def make_simple_star_renderer(Rs_per_ds: float = 1.0,
     head = DensityTemperatureHead(response=response,
                                   pixel_intensity_factor=pixel_intensity_factor,
                                   Rs_per_ds=Rs_per_ds)
-    render_kwargs = _refuse_occupancy(render_kwargs)
+    render_kwargs = _normalize_occupancy(render_kwargs)
     renderer = Renderer(field_apply=functools.partial(simple_star_apply, star_config),
                         head=head, Rs_per_ds=Rs_per_ds,
                         spec=_spec('simple_star', None, Rs_per_ds, render_kwargs,
@@ -174,7 +196,7 @@ def make_simple_star_renderer(Rs_per_ds: float = 1.0,
         p = init_simple_star(star_config, device)
         return {'coarse': p, 'fine': p}
 
-    return renderer, init
+    return renderer, _with_occupancy(init, renderer.occupancy, device)
 
 
 def make_thomson_system(Rs_per_ds: float = 1.0,
@@ -185,13 +207,13 @@ def make_thomson_system(Rs_per_ds: float = 1.0,
     orphaned there): the emission field config (8x512 on the fused kernels)
     read as log10 electron density."""
     config = model_config or emission_config()
-    render_kwargs = _refuse_occupancy(render_kwargs)
+    render_kwargs = _normalize_occupancy(render_kwargs)
     fine_apply, _, init = _nerf_pair(config, None, use_fused, device)
     renderer = Renderer(field_apply=fine_apply,
                         head=ThomsonHead(Rs_per_ds=Rs_per_ds), Rs_per_ds=Rs_per_ds,
                         spec=_spec('thomson', config, Rs_per_ds, render_kwargs),
                         **render_kwargs)
-    return renderer, init
+    return renderer, _with_occupancy(init, renderer.occupancy, device)
 
 
 def from_spec(spec: dict, use_fused: Optional[bool] = None, device='cuda'):

@@ -15,8 +15,10 @@ preemption) is restored to the process's previous handler on every way out
 of fit, whether it ends, is preempted or raises; the validation render runs
 in chunks of the validation set's batch size under torch.no_grad() with one
 host fetch at the end; the rays/s window restarts after each validation and
-checkpoint, so it times steps only. Tiers, occupancy, microbatching and the
-mesh are not ported (ROADMAP Queue 1 items 10 and 11) and raise.
+checkpoint, so it times steps only. The occupancy grid is updated in place
+in params['occupancy'] (never by the optimizer); tier_warmup_steps swaps
+between two step functions on the host. Microbatching and the mesh are not
+ported (ROADMAP Queue 1 item 11) and raise.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sunerf_tpu_torch.core.occupancy import init_occupancy, update_occupancy
 from sunerf_tpu_torch.core.scaling import image_asinh_scaling
 from sunerf_tpu_torch.data.datasets import iterate_batches
 from sunerf_tpu_torch.data.loaders import RayData
@@ -37,8 +40,8 @@ from sunerf_tpu_torch.models.fields import params_from_numpy
 from sunerf_tpu_torch.train.metrics import psnr as psnr_metric, ssim as ssim_metric
 from sunerf_tpu_torch.train.objective import LossConfig
 from sunerf_tpu_torch.train.optim import OptimConfig, make_optimizer
-from sunerf_tpu_torch.train.step import (create_train_state, make_eval_step,
-                                         make_train_step)
+from sunerf_tpu_torch.train.step import (copy_params, create_train_state, make_eval_step,
+                                         make_train_step, step_generator)
 from sunerf_tpu_torch.utils.checkpoint import (restore_train_checkpoint,
                                                save_state, save_train_checkpoint)
 from sunerf_tpu_torch.utils.logging import MetricsLogger
@@ -153,8 +156,8 @@ class TrainerConfig:
     # latched at the scene constant by step 1400 while the untier'd
     # proposal row trained fine on the same scene/seed). For the first
     # tier_warmup_steps the Trainer steps a full-budget clone of the
-    # renderer (tier_fraction=0). 0 = off; tiers are not ported yet
-    # (ROADMAP Queue 1 item 10), so any other value raises.
+    # renderer (tier_fraction=0), swapped on the host. 0 = off (tiers from
+    # step 0).
     tier_warmup_steps: int = 0
     # GT-free high-latitude drift probe (train/probe.py): render
     # drift_probe_views FIXED |lat| = drift_probe_lat_deg viewpoints at
@@ -212,9 +215,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError('mesh is not ported yet (ROADMAP Queue 1 '
                                       'item 11, data parallel)')
-        if trainer_config.tier_warmup_steps:
-            raise NotImplementedError('tier_warmup_steps: adaptive tiers are not '
-                                      'ported yet (ROADMAP Queue 1 item 10)')
         self.renderer = renderer
         self.data = data
         self.config = trainer_config
@@ -228,11 +228,23 @@ class Trainer:
                                        microbatch=microbatch,
                                        spike_guard=spike_guard,
                                        ema_decay=ema_decay)
+        self.warmup_step_fn = None
+        if trainer_config.tier_warmup_steps and renderer.tier_fraction:
+            # the full-budget step for steps [0, tier_warmup_steps): the
+            # same state, so the two step functions alternate freely
+            self.warmup_step_fn = make_train_step(
+                dataclasses.replace(renderer, tier_fraction=0.0), loss_config,
+                self.optimizer, microbatch=microbatch, spike_guard=spike_guard,
+                ema_decay=ema_decay)
         self.eval_fn = make_eval_step(renderer)
         self.loss_config = loss_config
 
         params = (init_params(torch.Generator().manual_seed(trainer_config.seed))
                   if callable(init_params) else init_params)
+        if renderer.occupancy is not None and 'occupancy' not in params:
+            # pre-built params without the grid: add the fully occupied one,
+            # so the renderer samples by occupancy and the update has a grid
+            params = dict(params, occupancy=init_occupancy(renderer.occupancy, self.device))
         self.state = create_train_state(_to_device(params, self.device), self.optimizer,
                                         spike_guard=spike_guard is not None,
                                         ema=ema_decay is not None)
@@ -363,9 +375,17 @@ class Trainer:
                     self.save(step)
                     self.logger.log({'preempted': 1.0}, step)
                     return self.state
-                batch = upload(next(batches))
-                self.state, metrics = self.step_fn(self.state, batch, cfg.seed)
+                host_batch = next(batches)
+                t0 = float(host_batch['time'].ravel()[0])
+                batch = upload(host_batch)
+                fn = (self.warmup_step_fn if self.warmup_step_fn is not None
+                      and step < cfg.tier_warmup_steps else self.step_fn)
+                self.state, metrics = fn(self.state, batch, cfg.seed)
                 timer.tick(batch['rays'].shape[0])
+                occ = self.renderer.occupancy
+                if occ is not None and (step + 1) >= occ.warmup \
+                        and (step + 1) % occ.update_every == 0:
+                    self.update_occupancy(step, t0)
 
                 if (step + 1) % cfg.log_every == 0:
                     n_steps = timer.count / batch['rays'].shape[0]
@@ -373,6 +393,11 @@ class Trainer:
                     m = {k: float(v) for k, v in metrics.items()}
                     m['rays_per_sec'] = timer.count / seconds if seconds > 0 else 0.0
                     m['step_ms'] = seconds * 1e3 / n_steps
+                    if occ is not None:
+                        # grid health beside the loss: a collapsing grid
+                        # shows in its occupied fractions
+                        for k, g in self.state.params['occupancy'].items():
+                            m[f'{k}_frac'] = float((g > 0.5).float().mean())
                     if not np.isfinite(m['loss']):
                         raise FloatingPointError(
                             f'! [Numerical Alert] non-finite loss at step {step + 1}')
@@ -393,6 +418,20 @@ class Trainer:
             torch.autograd.set_detect_anomaly(anomaly)
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
+
+    def update_occupancy(self, step: int, time: float, uniforms=None):
+        """One EMA-max update of the occupancy grid from the fine field at
+        `time`, written in place into params['occupancy']. The jitter is
+        `uniforms` [Nr, Nt, Np, 3] when given, else drawn from
+        step_generator(seed + 2, step), the counterpart of JAX's
+        fold_in(key(seed + 2), step)."""
+        r = self.renderer
+        grid = update_occupancy(
+            self.state.params['occupancy'], r.occupancy, r.field_apply,
+            self.state.params['fine'], r.head.occupancy_activity,
+            step_generator(self.config.seed + 2, step, self.device), time,
+            solar_radius=r.solar_radius, uniforms=uniforms)
+        copy_params(self.state.params['occupancy'], grid)
 
     # ------------------------------------------------------------- validate
     def _valid_arrays(self) -> dict:
@@ -594,9 +633,13 @@ class Trainer:
         return val
 
     def _ema_render_params(self) -> dict:
-        """The EMA params (no occupancy grid to substitute here: occupancy
-        is not ported)."""
-        return self.state.ema_params
+        """The EMA params with the NON-learned leaves (the occupancy grid)
+        taken from the live params: averaging the grid would lag the
+        sampling distribution rather than smooth the field."""
+        ema = dict(self.state.ema_params)
+        if 'occupancy' in ema and 'occupancy' in self.state.params:
+            ema['occupancy'] = self.state.params['occupancy']
+        return ema
 
     def _best_psnr_high_water(self) -> float:
         """Best held-out PSNR seen by ANY Trainer on this workdir: in-memory

@@ -138,13 +138,24 @@ def _refresh(snap: Snapshot, state: TrainState):
     snap.updates = state.updates
 
 
+# top-level params that are state, not learned: the occupancy grid, which
+# the Trainer's update writes. They need no gradient and the optimizer never
+# sees them, so Adam leaves them exactly as the update wrote them (the JAX
+# package relies on their zero gradient instead)
+NOT_LEARNED = ('occupancy',)
+
+
 def create_train_state(params: dict, optimizer: Optimizer,
                        spike_guard: bool = False, ema: bool = False) -> TrainState:
     """A state that owns a copy of `params` (float32 tensors that require
-    grad), which its steps update in place. spike_guard adds the guard's
-    loss EMA, snapshot and trip count; ema the averaged copy of params."""
-    params = map_params(lambda t: t.detach().float().clone().requires_grad_(True), params)
-    state = TrainState(params=params, opt_state=optimizer.init(params))
+    grad, but for NOT_LEARNED's, which the optimizer does not hold), which
+    its steps update in place. spike_guard adds the guard's loss EMA,
+    snapshot and trip count; ema the averaged copy of params."""
+    params = {k: map_params(lambda t, learned=k not in NOT_LEARNED:
+                            t.detach().float().clone().requires_grad_(learned), v)
+              for k, v in params.items()}
+    state = TrainState(params=params, opt_state=optimizer.init(
+        {k: v for k, v in params.items() if k not in NOT_LEARNED}))
     if spike_guard:
         state.snapshot = snapshot(state)
         state.trip_count = 0

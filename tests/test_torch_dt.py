@@ -516,8 +516,18 @@ def test_systems_round_trip_both_ways():
     assert dt_default.spec['model_config']['d_filter'] == 512
     with pytest.raises(NotImplementedError, match='item 9'):
         from_spec({'head': 'mhd', 'Rs_per_ds': 1.0}, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 10'):
-        make_density_temperature_system(device='cpu', occupancy={'nvol': [8, 8, 8]})
+    # occupancy is ported: the DT system with a grid builds, its spec equals
+    # JAX's and rebuilds (both ways) with the grid in the params
+    occ = {'nr': 8, 'ntheta': 4, 'nphi': 8, 'nvol': [4, 2, 4]}
+    pr, _ = cases[0][0](occupancy=occ)
+    jr, _ = cases[0][1](occupancy=occ)
+    assert _json(pr.spec) == _json(jr.spec)
+    rebuilt, init = from_spec(_json(jr.spec), device='cpu')
+    assert rebuilt.occupancy == pr.occupancy and rebuilt.occupancy.nvol == (4, 2, 4)
+    grid = init(torch.Generator().manual_seed(0))['occupancy']
+    assert {k: tuple(v.shape) for k, v in grid.items()} == {
+        'occ_r': (8,), 'occ_ang': (4, 8), 'occ_vol': (4, 2, 4)}
+    assert _json(jax_from_spec(_json(pr.spec), use_fused=False)[0].spec) == _json(pr.spec)
 
 
 def test_entry_points_default_to_the_card():

@@ -158,10 +158,19 @@ def test_renderer_matches_jax_on_tiny_params(coarse):
 
 
 def test_renderer_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match='tiers'):
-        make_emission_system(device='cpu', tier_fraction=0.5)
-    with pytest.raises(NotImplementedError, match='occupancy'):
-        make_emission_system(device='cpu', occupancy={'nvol': [8, 8, 8]})
+    # tiers and occupancy are ported: each dial builds and round-trips
+    # through the spec (as JSON), the grid in the params of both inits
+    small = emission_config(n_layers=2, d_filter=32)
+    for kw in (dict(tier_fraction=0.5, tier_samples=8),
+               dict(occupancy={'nr': 8, 'ntheta': 4, 'nphi': 8, 'nvol': [4, 2, 4]})):
+        renderer, init = make_emission_system(model_config=small, device='cpu', **kw)
+        rebuilt, init2 = from_spec(json.loads(json.dumps(renderer.spec)), device='cpu')
+        for k in ('tier_fraction', 'tier_samples', 'tier_eval', 'occupancy'):
+            assert getattr(rebuilt, k) == getattr(renderer, k), k
+        params = init2(torch.Generator().manual_seed(0))
+        assert ('occupancy' in params) == ('occupancy' in kw)
+        assert ('occupancy' in init(torch.Generator().manual_seed(0))) == ('occupancy' in kw)
+    assert rebuilt.occupancy.nvol == (4, 2, 4)
     # feature grids are ported: dense levels take the fused path, VM levels
     # (grid_rank) the float32 field, with a warning
     make_emission_system(model_config=emission_config(grid_sizes=(8,)), device='cpu')

@@ -349,11 +349,17 @@ def test_fit_restores_the_sigterm_handler(port_data, tmp_path):
 def test_trainer_refuses_what_is_not_ported(port_data, tmp_path):
     tr, init = _port_system()
     for kw, match in ((dict(mesh=object()), 'Queue 1 item 11'),
-                      (dict(microbatch=4), 'Queue 1 item 10'),
-                      (dict(trainer_config=TrainerConfig(tier_warmup_steps=5)),
-                       'Queue 1 item 10')):
+                      (dict(microbatch=4), 'Queue 1 item 10')):
         with pytest.raises(NotImplementedError, match=match):
             Trainer(tr, init, port_data, workdir=str(tmp_path / 'x'), device='cpu', **kw)
+    # tier_warmup_steps is ported: a full-budget warm-up step beside a tiered
+    # renderer, none beside an untiered one
+    warm = TrainerConfig(tier_warmup_steps=5)
+    assert Trainer(tr, init, port_data, trainer_config=warm, workdir=str(tmp_path / 'w0'),
+                   device='cpu').warmup_step_fn is None
+    tiered = dataclasses.replace(tr, tier_fraction=0.5, tier_samples=4)
+    assert Trainer(tiered, init, port_data, trainer_config=warm, workdir=str(tmp_path / 'w1'),
+                   device='cpu').warmup_step_fn is not None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             Trainer(tr, init, port_data, workdir=str(tmp_path / 'y'))
