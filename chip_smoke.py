@@ -168,6 +168,28 @@ Phases (the first failure ends the run with a non-zero exit):
              grid (32 K0 launches, finite); the run's bundle, grid included,
              served as a topographic map; ms a step beside [trainer]'s, and
              the update's ms.
+  7h. dp     data parallel and microbatch at bench.py's workload (8x512 for
+             both fields, 64 + 128 samples, random weights from a seed):
+             a. a one-rank mesh over NCCL in this process (a FileStore):
+             one step on 1,024 rays against the single-device step (2 K1 +
+             2 K2; the same bits, or the gap), both timed in turns (CUDA
+             events, median of 10 after 3 warm-ups), the all-reduce of the
+             step's 15 MB of gradients timed alone and with its flatten and
+             copy back; b. two spawned ranks on this card over gloo, 1,024
+             rays each: one step against the single-process step on the
+             2,048 rays (loss within STEP_LOSS_TOL, clipped gradients within
+             GRAD_TOL of max), 4 K1 + 4 K2 in all, the step's ms and the
+             gloo all-reduce's (host clock: gloo stages through the host);
+             c. 4,096 rays with microbatch 1,024 against the unchunked step
+             (STEP_LOSS_TOL, GRAD_TOL), 8 K1 + 8 K2, ms/step and the peak
+             device memory of both; d. run_emission at 8x512 under
+             torchrun's environment (a one-rank NCCL mesh), 50 steps with
+             microbatch 512 on [trainer]'s synthesized views: 4 K1 + 4 K2 a
+             step, a falling loss, one checkpoint, the bundle served on K0,
+             ms/step beside [trainer]'s; e. the committed bundle's 256^2
+             frame through SuNeRFLoader(mesh=...) on the one-rank NCCL mesh
+             and on each gloo rank, against the single-device frame (the
+             same bits, or within FRAME_TOL of max).
   8. grid    K0, K1 and K2 with the dense feature-grid branch (K5) against
              their plain versions, random weights and U(-1, 1) tables from a
              seed, at bench.py grid_quarter's fine field (4x128, G = 16,
@@ -260,6 +282,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -401,6 +424,16 @@ TIERS_TRAINER_STEPS = 100
 # [occupancy]: run_emission to the first grid update (warmup 50, every 16:
 # step 64), then resumed to the second number
 OCC_STEPS = (64, 112)
+# [dp]: a rank's rays in the mesh steps; the microbatched step's rays and
+# microbatch; run_emission's steps and microbatch under torchrun's
+# environment; the spawned ranks' deadline from their go signal; the tiled
+# frames against the single-device frame, of max
+DP_RAYS = 1024
+DP_MICRO = (4096, 1024)
+DP_TRAINER_STEPS = 50
+DP_TRAINER_MICRO = 512
+DP_DEADLINE_S = 180.0
+FRAME_TOL = 1e-6
 
 
 
@@ -2171,6 +2204,369 @@ def _occupancy_phase(device, trainer: dict) -> dict:
     return out
 
 
+# ------------------------------------------------ data parallel and microbatch
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _clipped_grads(state) -> dict:
+    """The step's gradients as Adam took them (global-norm clipped), by
+    field and key."""
+    return {f: {k: v.grad.detach().clone() for k, v in sub.items()}
+            for f, sub in state.params.items()}
+
+
+def _grads_vs(tag: str, ref: dict, got: dict) -> float:
+    errs = {f: _grad_err(ref[f], got[f]) for f in ref}
+    worst = max(e['max_rel_err'] for g in errs.values() for e in g.values())
+    _check(worst <= GRAD_TOL, f'[dp] {tag}: gradients {worst:.3e} of max (tol {GRAD_TOL})')
+    return worst
+
+
+def _same_bits(a: dict, b: dict) -> float:
+    """0.0 where two nested dicts of tensors hold the same bits, else the
+    largest gap over max|a| of any leaf."""
+    gaps = [float((b[f][k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+            for f, sub in a.items() for k, v in sub.items() if not torch.equal(v, b[f][k])]
+    return max(gaps, default=0.0)
+
+
+def _timed_in_turns(steps: dict, states: dict, batch: dict, warmup: int = 3,
+                    reps: int = 10) -> dict:
+    """Median CUDA-event ms of each named step, the steps taken in turns."""
+    for name in steps:
+        for _ in range(warmup):
+            steps[name](states[name], batch, 0)
+    times = {name: [] for name in steps}
+    for _ in range(reps):
+        for name in steps:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            steps[name](states[name], batch, 0)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _dp_rank(rank: int, world: int, tmp: str):
+    """One of [dp]'s spawned ranks, both on cuda:0 over gloo: one mesh step
+    on its rows of DP_RAYS * world rays (launches counted, loss and clipped
+    gradients saved), the step's and the all-reduce's times, and the
+    committed bundle's frame tiled over the ranks."""
+    import signal
+    from datetime import timedelta
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.parallel.mesh import all_mean_, make_mesh, replicate, shard_batch
+    from sunerf_tpu_torch.systems import make_emission_system
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.optim import make_optimizer
+    from sunerf_tpu_torch.train.step import create_train_state, make_train_step
+    device = torch.device('cuda', 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the imports above overlap the parent's phases; the card is touched
+    # only once the parent has finished with it
+    go = os.path.join(tmp, 'go')
+    t0 = time.perf_counter()
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > 2 * DP_DEADLINE_S:
+            raise SystemExit(f'rank {rank}: no go signal')
+        time.sleep(0.05)
+    mesh = make_mesh(devices=[device] * world, init_method=f'file://{tmp}/store_gloo',
+                     rank=rank, world_size=world, timeout=timedelta(seconds=60))
+    out = {'backend': mesh.backend}
+    params = torch.load(os.path.join(tmp, 'params.pt'))
+    params = {f: {k: v.to(device) for k, v in sub.items()} for f, sub in params.items()}
+    opt = make_optimizer()
+    fixed, _ = make_emission_system(device='cuda', perturb=False)
+    bench, _ = make_emission_system(device='cuda')
+    batch = shard_batch(mesh, _bench_batch(device, DP_RAYS * world))
+    state = replicate(mesh, create_train_state(params, opt))
+    step = make_train_step(fixed, LossConfig(), opt, mesh=mesh)
+    _zero_counters()
+    _, m = step(state, batch, 0)
+    torch.cuda.synchronize()
+    out['launches'] = _counters()
+    out['loss'] = float(m['loss'])
+    out['grads'] = {f: {k: v.cpu() for k, v in g.items()}
+                    for f, g in _clipped_grads(state).items()}
+    timed = create_train_state(params, opt)
+    out['step_ms'] = _timed_in_turns(
+        {'mesh': make_train_step(bench, LossConfig(), opt, mesh=mesh)}, {'mesh': timed},
+        batch)['mesh']
+    grads = [p.grad for group in timed.opt_state.param_groups for p in group['params']]
+    times = []
+    for _ in range(13):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_mean_(mesh, grads)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out['all_reduce_ms'] = statistics.median(times[3:])
+    out['all_reduce_bytes'] = 4 * sum(g.numel() for g in grads)
+    fused_mlp.LAUNCHES = 0
+    view = SuNeRFLoader(BUNDLE, mesh=mesh).render_observer_image(**VIEW, resolution=256)
+    out['frame_k0_launches'] = fused_mlp.LAUNCHES
+    out['frame'] = view.image
+    torch.save(out, os.path.join(tmp, f'rank{rank}.pt'))
+    torch.distributed.destroy_process_group()
+
+
+def _dp_trainer(device, trainer: dict) -> dict:
+    """[dp] d: run_emission at 8x512 as a one-rank mesh under torchrun's
+    environment, with training.microbatch."""
+    from sunerf_tpu_torch.data.synthetic import synthesize_views
+    from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+    from sunerf_tpu_torch.ops import fused_mlp
+    env = dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0', MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(_free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    with tempfile.TemporaryDirectory() as tmp:
+        pattern = synthesize_views(tmp, device, TRAINER_RES, BUNDLE)
+        workdir = os.path.join(tmp, 'run')
+        config = {'path_to_save': workdir,
+                  'data': {'data_path': pattern, 'batch_size': TRAINER_BATCH},
+                  'training': {'total_steps': DP_TRAINER_STEPS,
+                               'log_every_n_steps': DP_TRAINER_STEPS, 'scalar_log_every': 10,
+                               'drift_probe_views': 0, 'microbatch': DP_TRAINER_MICRO}}
+        os.environ.update(env)
+        try:
+            _zero_counters()
+            t0 = time.perf_counter()
+            tr = _run_cli(config, os.path.join(tmp, 'dp.yaml'), device)
+            run_s = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = _counters()
+        mesh = (tr.mesh.size, tr.mesh.backend, str(tr.mesh.device))
+        recs = [json.loads(line) for line in open(os.path.join(workdir, 'metrics.jsonl'))]
+        steps = [r for r in recs if 'loss' in r]
+        ms_step = statistics.mean(r['step_ms'] for r in steps[1:])
+        ckpts = sorted(os.listdir(os.path.join(workdir, 'checkpoints')))
+        fused_mlp.LAUNCHES = 0
+        view = SuNeRFLoader(os.path.join(workdir, 'save_state'), device=device) \
+            .render_observer_image(lat=0.3, lon=1.1, time=0.0, distance=215.0, resolution=64)
+        served = fused_mlp.LAUNCHES
+    chunks = TRAINER_BATCH // DP_TRAINER_MICRO
+    print(f'[dp] d. run_emission 8x512 under torchrun\'s environment: mesh (size, backend, '
+          f'device) {mesh}, batch {TRAINER_BATCH}, microbatch {DP_TRAINER_MICRO}, '
+          f'{DP_TRAINER_STEPS} steps in {run_s:.1f} s; launches {launches} (K1, K2 expected '
+          f'{2 * chunks * DP_TRAINER_STEPS} each); losses ' + ' '.join(
+              f"{r['step']}:{r['loss']:.5f}" for r in steps)
+          + f'; checkpoints {ckpts}; {ms_step:.2f} ms/step over steps 11-{DP_TRAINER_STEPS} '
+          f'(the host clock, waiting for the loss every 10 steps) beside [trainer]\'s '
+          f'{trainer["ms_per_step"]:.2f} (no microbatch, no mesh); the bundle served at 64^2: '
+          f'{served} K0 launches', flush=True)
+    _check(mesh[:2] == (1, 'nccl'), f'[dp] d: the CLI made no one-rank NCCL mesh: {mesh}')
+    _check(launches.get('STASH_FWD_LAUNCHES') == 2 * chunks * DP_TRAINER_STEPS
+           and launches.get('STASH_BWD_LAUNCHES') == 2 * chunks * DP_TRAINER_STEPS,
+           f'[dp] d: launches {launches}')
+    _check(all(np.isfinite(r['loss']) for r in steps) and steps[-1]['loss'] < steps[0]['loss'],
+           f"[dp] d: loss did not fall: {[r['loss'] for r in steps]}")
+    _check(ckpts == [f'step_{DP_TRAINER_STEPS:08d}.pt'], f'[dp] d: checkpoints {ckpts}')
+    _check(served > 0 and all(np.isfinite(getattr(view, k)).all() for k in MAPS),
+           f'[dp] d: the bundle was not served on K0 ({served} launches)')
+    return dict(mesh=list(mesh), launches=launches, losses=[r['loss'] for r in steps],
+                ms_per_step=ms_step, trainer_ms_per_step=trainer['ms_per_step'],
+                checkpoints=ckpts, served_k0_launches=served, run_s=run_s)
+
+
+def _dp_phase(device, trainer: dict) -> dict:
+    """[dp]: the mesh and microbatch at bench.py's workload (8x512 for both
+    fields, 64 + 128 samples): a. a one-rank NCCL mesh in this process
+    against the single-device step; b. two spawned ranks on this card over
+    gloo against the single-process step on both ranks' rays; c. the
+    microbatched step against the unchunked one; d. the Trainer through the
+    CLI as a one-rank mesh; e. the committed bundle's 256^2 frame tiled over
+    the one-rank NCCL mesh and the two gloo ranks against the single-device
+    frame."""
+    import multiprocessing
+    from datetime import timedelta
+    import torch.distributed as dist
+    from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+    from sunerf_tpu_torch.parallel.mesh import all_mean_, make_mesh
+    from sunerf_tpu_torch.systems import make_emission_system
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.optim import make_optimizer
+    from sunerf_tpu_torch.train.step import create_train_state, make_train_step
+    t_phase = time.perf_counter()
+    out = {}
+    fixed, init = make_emission_system(device='cuda', perturb=False)
+    bench, _ = make_emission_system(device='cuda')
+    params = init(torch.Generator(device=device).manual_seed(0))
+    opt = make_optimizer()
+    batch = _bench_batch(device, DP_RAYS)
+    tmp = tempfile.mkdtemp()
+    torch.save({f: {k: v.cpu() for k, v in sub.items()} for f, sub in params.items()},
+               os.path.join(tmp, 'params.pt'))
+    single_frame = SuNeRFLoader(BUNDLE, device=device).render_observer_image(
+        **VIEW, resolution=256).image
+
+    # b. two ranks on this card over gloo, spawned first so that their
+    # start overlaps a, c and d; they touch the card after d (the go file)
+    ctx = multiprocessing.get_context('spawn')
+    ranks = [ctx.Process(target=_dp_rank, args=(r, 2, tmp)) for r in range(2)]
+    for p in ranks:
+        p.start()
+    try:
+        # a. one rank over NCCL, in this process
+        mesh = make_mesh(devices=[device], init_method=f'file://{tmp}/store',
+                         rank=0, world_size=1, timeout=timedelta(seconds=60))
+        try:
+            _check(mesh.backend == 'nccl', f'[dp] a: a one-card mesh over {mesh.backend}')
+            states = {k: create_train_state(params, opt) for k in ('single', 'mesh')}
+            make_train_step(fixed, LossConfig(), opt)(states['single'], batch, 0)
+            _zero_counters()
+            _, m = make_train_step(fixed, LossConfig(), opt, mesh=mesh)(states['mesh'], batch, 0)
+            torch.cuda.synchronize()
+            launches = _counters()
+            gap = _same_bits(states['single'].params, states['mesh'].params)
+            grads_gap = _same_bits(_clipped_grads(states['single']),
+                                   _clipped_grads(states['mesh']))
+            timed = {k: create_train_state(params, opt) for k in ('single', 'mesh')}
+            ms = _timed_in_turns({'single': make_train_step(bench, LossConfig(), opt),
+                                  'mesh': make_train_step(bench, LossConfig(), opt, mesh=mesh)},
+                                 timed, batch)
+            grads = [p.grad for g in timed['mesh'].opt_state.param_groups for p in g['params']]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            ar_ms = _cuda_ms(lambda: dist.all_reduce(flat))
+            mean_ms = _cuda_ms(lambda: all_mean_(mesh, grads))
+            nccl_frame = SuNeRFLoader(BUNDLE, mesh=mesh).render_observer_image(
+                **VIEW, resolution=256).image
+        finally:
+            dist.destroy_process_group()
+        out['a'] = dict(launches=launches, params_gap=gap, grads_gap=grads_gap,
+                        loss=float(m['loss']), step_ms=ms['mesh'], single_step_ms=ms['single'],
+                        all_reduce_ms=ar_ms, all_mean_ms=mean_ms,
+                        all_reduce_bytes=flat.numel() * 4)
+        print(f'[dp] a. one-rank NCCL mesh, {DP_RAYS} rays: launches {launches} (expected 2 K1, '
+              f'2 K2); vs the single-device step: params {"the same bits" if gap == 0 else gap}, '
+              f'clipped grads {"the same bits" if grads_gap == 0 else grads_gap}; step '
+              f'{ms["mesh"]:.2f} ms against {ms["single"]:.2f} (CUDA events, median of 10 after '
+              f'3 warm-ups, in turns); the all-reduce of {flat.numel() * 4 / 1e6:.2f} MB '
+              f'{ar_ms:.4f} ms, with its flatten, mean and copy back {mean_ms:.4f} ms (CUDA '
+              f'events, median of 20)', flush=True)
+        _check(launches == {'STASH_FWD_LAUNCHES': 2, 'STASH_BWD_LAUNCHES': 2},
+               f'[dp] a: launches {launches}')
+        _check(gap <= STEP_LOSS_TOL, f'[dp] a: mesh params {gap:.3e} from single-device')
+        del states, timed, grads, flat
+
+        # c. microbatch against the unchunked step
+        n, micro = DP_MICRO
+        big = _bench_batch(device, n)
+        checks, peaks = {}, {}
+        for name, mb in (('whole', None), ('micro', micro)):
+            state = create_train_state(params, opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            _zero_counters()
+            _, m = make_train_step(fixed, LossConfig(), opt, microbatch=mb)(state, big, 0)
+            torch.cuda.synchronize()
+            peaks[name] = dict(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                               growth_gib=(torch.cuda.max_memory_allocated() - before) / 2 ** 30)
+            checks[name] = dict(loss=float(m['loss']), grads=_clipped_grads(state),
+                                launches=_counters())
+            del state
+        loss_rel = abs(checks['micro']['loss'] - checks['whole']['loss']) / abs(
+            checks['whole']['loss'])
+        worst = _grads_vs('c. microbatch', checks['whole']['grads'], checks['micro']['grads'])
+        timed = {k: create_train_state(params, opt) for k in ('whole', 'micro')}
+        ms = _timed_in_turns({'whole': make_train_step(bench, LossConfig(), opt),
+                              'micro': make_train_step(bench, LossConfig(), opt,
+                                                       microbatch=micro)}, timed, big)
+        del timed
+        out['c'] = dict(rays=n, microbatch=micro, launches=checks['micro']['launches'],
+                        loss_rel_err=loss_rel, grads_max_rel_err=worst, step_ms=ms['micro'],
+                        whole_step_ms=ms['whole'], memory=peaks)
+        print(f'[dp] c. {n} rays, microbatch {micro}: launches {checks["micro"]["launches"]} '
+              f'(expected 8 K1, 8 K2; unchunked {checks["whole"]["launches"]}); vs the '
+              f'unchunked step: loss {loss_rel:.2e} relative (tol {STEP_LOSS_TOL}), clipped '
+              f'grads {worst:.2e} of max (tol {GRAD_TOL}); {ms["micro"]:.2f} ms/step against '
+              f'{ms["whole"]:.2f} (in turns); peak device memory {peaks["micro"]["peak_gib"]:.2f} '
+              f'GiB against {peaks["whole"]["peak_gib"]:.2f}, the step\'s growth over what it '
+              f'found {peaks["micro"]["growth_gib"]:.2f} against '
+              f'{peaks["whole"]["growth_gib"]:.2f} GiB', flush=True)
+        _check(checks['micro']['launches'] == {'STASH_FWD_LAUNCHES': 8, 'STASH_BWD_LAUNCHES': 8},
+               f'[dp] c: launches {checks["micro"]["launches"]}')
+        _check(loss_rel <= STEP_LOSS_TOL, f'[dp] c: loss {loss_rel:.3e}')
+        del checks, big
+        torch.cuda.empty_cache()
+
+        # d. the Trainer through the CLI
+        out['d'] = _dp_trainer(device, trainer)
+
+        # b. the two ranks' results
+        open(os.path.join(tmp, 'go'), 'w').close()
+        t_spawn = time.perf_counter()
+        for p in ranks:
+            p.join(max(DP_DEADLINE_S - (time.perf_counter() - t_spawn), 1.0))
+        alive = [p.pid for p in ranks if p.is_alive()]
+        _check(not alive, f'[dp] b: ranks {alive} still running after {DP_DEADLINE_S} s')
+    finally:
+        for p in ranks:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    _check(all(p.exitcode == 0 for p in ranks),
+           f'[dp] b: rank exit codes {[p.exitcode for p in ranks]}')
+    res = [torch.load(os.path.join(tmp, f'rank{r}.pt'), weights_only=False) for r in range(2)]
+    state = create_train_state(params, opt)
+    _, m = make_train_step(fixed, LossConfig(), opt)(state, _bench_batch(device, 2 * DP_RAYS), 0)
+    ref_loss, ref_grads = float(m['loss']), _clipped_grads(state)
+    launches = {}
+    for r in res:
+        for k, v in r['launches'].items():
+            launches[k] = launches.get(k, 0) + v
+    loss_rel = max(abs(r['loss'] - ref_loss) / abs(ref_loss) for r in res)
+    worst = max(_grads_vs(f'b. rank {i}',
+                          {f: {k: v.cpu() for k, v in g.items()} for f, g in ref_grads.items()},
+                          r['grads']) for i, r in enumerate(res))
+    out['b'] = dict(backend=res[0]['backend'], launches=launches, loss_rel_err=loss_rel,
+                    grads_max_rel_err=worst, step_ms=[r['step_ms'] for r in res],
+                    all_reduce_host_ms=[r['all_reduce_ms'] for r in res],
+                    all_reduce_bytes=res[0]['all_reduce_bytes'],
+                    single_step_ms=out['a']['single_step_ms'])
+    print(f'[dp] b. two spawned ranks on cuda:0 over {res[0]["backend"]}, {DP_RAYS} rays each: '
+          f'launches in all {launches} (expected 4 K1, 4 K2); vs the single-process step on '
+          f'the {2 * DP_RAYS} rays: loss {loss_rel:.2e} relative (tol {STEP_LOSS_TOL}), clipped '
+          f'grads {worst:.2e} of max (tol {GRAD_TOL}); step {res[0]["step_ms"]:.2f} / '
+          f'{res[1]["step_ms"]:.2f} ms a rank (CUDA events, median of 10); the gloo all-reduce '
+          f'of {res[0]["all_reduce_bytes"] / 1e6:.2f} MB {res[0]["all_reduce_ms"]:.2f} / '
+          f'{res[1]["all_reduce_ms"]:.2f} ms (host clock to a synchronize, median of 10: '
+          f'gloo stages CUDA tensors through the host, a cost of two ranks on one card, not of '
+          f'data parallel across cards)', flush=True)
+    _check(launches == {'STASH_FWD_LAUNCHES': 4, 'STASH_BWD_LAUNCHES': 4},
+           f'[dp] b: launches {launches}')
+    _check(loss_rel <= STEP_LOSS_TOL, f'[dp] b: loss {loss_rel:.3e}')
+
+    # e. the tiled frames
+    frames = {'nccl_1': nccl_frame, 'gloo_2_rank0': res[0]['frame'],
+              'gloo_2_rank1': res[1]['frame']}
+    gaps = {k: (0.0 if np.array_equal(v, single_frame) else _rel(single_frame, v))
+            for k, v in frames.items()}
+    out['e'] = dict(gaps=gaps, k0_launches=[r['frame_k0_launches'] for r in res])
+    print(f'[dp] e. the committed bundle\'s 256^2 frame tiled over the mesh, against the '
+          f'single-device frame (0.0: the same bits): {gaps}; K0 launches a gloo rank '
+          f'{out["e"]["k0_launches"]} (32 untiled)', flush=True)
+    _check(all(g <= FRAME_TOL for g in gaps.values()), f'[dp] e: frames {gaps}')
+    shutil.rmtree(tmp, ignore_errors=True)
+    out['wall_s'] = time.perf_counter() - t_phase
+    print(f'[dp] {out["wall_s"]:.1f} s', flush=True)
+    return out
+
+
 def _grid_bytes(cfg) -> int:
     """Bytes of a config's float32 grid tables."""
     return 4 * sum(g ** 3 for g in cfg.grid_sizes) * cfg.grid_features
@@ -3323,6 +3719,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     occupancy = _occupancy_phase(device, trainer)
 
+    # 7h. data parallel and microbatch ------------------------------------
+    torch.cuda.empty_cache()
+    dp = _dp_phase(device, trainer)
+
     # 8-11. dense feature grids (K5) ----------------------------------------
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -3388,6 +3788,7 @@ def main() -> int:
         'occupancy_update': {k: occupancy[k] for k in ('update_ms', 'update_k0_launches',
                                                        'run_activity_err',
                                                        'bundle_activity_err', 'guided_render')},
+        'dp_tiled_render': dp['e'],
     })
     for key, kname, line, header in (
             ('k1', 'fused_mlp_stash_fwd', 453, 'fused_mlp_fwd_wgmma.cuh'),
@@ -3424,6 +3825,11 @@ def main() -> int:
             'tier_shapes': {name: r[key] for name, r in tiers['shapes'].items()},
             'tiers': {'rows': tiers['rows'], 'trainer': tiers['trainer']} if key == 'k1' else None,
             'occupancy_trainer': occupancy if key == 'k1' else None,
+            'dp_launches': {'mesh_1_rank': dp['a']['launches'],
+                            'gloo_2_ranks': dp['b']['launches'],
+                            'microbatch': dp['c']['launches'],
+                            'trainer': dp['d']['launches']},
+            'dp': dp if key == 'k1' else None,
         })
     gq = grid_rows['grid_quarter']
     kernels.append({

@@ -8,7 +8,10 @@ same seed. A copy of sunerf_tpu/data/datasets.py (the port imports nothing
 of the JAX package), but for one thing: MmapDataset maps its files once,
 where the JAX one maps each file again for every batch (an open, a header
 parse and an mmap a file a step, which the host pays inside every training
-step); the batches are the same.
+step); the batches are the same. Both datasets read any run of rows
+(rows(lo, hi), which a mesh rank's view of a batch reads), and an
+MmapDataset pickles as its paths, so that the ranks of a mesh map the files
+that rank 0 wrote.
 """
 from __future__ import annotations
 
@@ -31,8 +34,17 @@ class MmapDataset:
         return int(np.ceil(self._n_rows / self.batch_size))
 
     def __getitem__(self, idx: int) -> dict:
-        lo, hi = idx * self.batch_size, (idx + 1) * self.batch_size
+        return self.rows(idx * self.batch_size, (idx + 1) * self.batch_size)
+
+    def rows(self, lo: int, hi: int) -> dict:
         return {k: np.copy(m[lo:hi]) for k, m in self._maps.items()}
+
+    def __getstate__(self) -> dict:
+        return dict(self.__dict__, _maps=None)
+
+    def __setstate__(self, state: dict):
+        self.__dict__.update(state)
+        self._maps = {k: np.load(f, mmap_mode='r') for k, f in self.batch_files.items()}
 
     def clear(self):
         self._maps = {}
@@ -53,7 +65,9 @@ class ArrayDataset:
         return int(np.ceil(self._n_rows / self.batch_size))
 
     def __getitem__(self, idx: int) -> dict:
-        lo, hi = idx * self.batch_size, (idx + 1) * self.batch_size
+        return self.rows(idx * self.batch_size, (idx + 1) * self.batch_size)
+
+    def rows(self, lo: int, hi: int) -> dict:
         return {k: np.copy(v[lo:hi]) for k, v in self.arrays.items()}
 
 

@@ -6,8 +6,11 @@ batch_size rays under torch.inference_mode(), through render_rays, the one
 batched method that the observer view and the products use. With adaptive
 tiers (tier=(fraction, samples)) each chunk ranks its own rays, so the last
 chunk is padded to batch_size as the JAX loader pads it (zeros; the products
-pad directions with ones) and its padded rays take part in the ranking. No
-device mesh (ROADMAP Queue 1 item 11).
+pad directions with ones) and its padded rays take part in the ranking. On a
+mesh (parallel/mesh.py) every chunk is tiled over the ranks, each rendering
+its contiguous batch_size / size rays of it (so a tiered chunk ranks within
+a rank's rows, as under JAX's shard_map), the rays are padded to whole
+chunks, and one all-gather gives every rank the whole frame.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from sunerf_tpu_torch.core.geometry import fov_for_distance, observer_rays
 from sunerf_tpu_torch.core.scaling import normalize_datetime
 from sunerf_tpu_torch.models.fields import params_from_numpy
+from sunerf_tpu_torch.parallel.mesh import mesh_device, render_tiled
 from sunerf_tpu_torch.systems import from_spec
 from sunerf_tpu_torch.utils.checkpoint import load_state
 
@@ -60,11 +64,15 @@ class ModelLoader:
 
     def __init__(self, renderer, params: dict, ref_time: datetime | None = None,
                  seconds_per_dt: float = 86400.0, batch_size: int = 4096,
-                 tier: Optional[tuple] = None, device='cuda'):
+                 tier: Optional[tuple] = None, device='cuda', mesh=None):
         """tier: optional (fraction, samples), adaptive per-ray budgets for
         inference: per chunk, the dimmest `fraction` of the rays (ranked by
         the coarse pass) render at `samples` samples (the renderer's tiered
-        fine pass with tier_eval=True). Off by default (the full budget)."""
+        fine pass with tier_eval=True). Off by default (the full budget).
+        mesh: optional parallel.mesh.Mesh; renders are then tiled over its
+        ranks, and batch_size must divide by its size. device: 'cuda' (the
+        default) or 'cpu'; on a mesh the mesh's device, which device must
+        name."""
         if tier is not None:
             renderer = dataclasses.replace(
                 renderer, tier_fraction=float(tier[0]), tier_samples=int(tier[1]),
@@ -74,6 +82,12 @@ class ModelLoader:
         self.ref_time = ref_time
         self.seconds_per_dt = seconds_per_dt
         self.batch_size = int(batch_size)
+        self.mesh = mesh
+        if mesh is not None:
+            if self.batch_size % mesh.size:
+                raise ValueError(f'batch_size {self.batch_size} does not divide by the '
+                                 f'mesh size {mesh.size}')
+            device = mesh_device(mesh, device)
         self.device = _device(device)
 
     def normalize_time(self, time) -> float:
@@ -100,21 +114,19 @@ class ModelLoader:
         if wavelengths is not None:
             wl = _tensor(wavelengths, self.device)
             wl = wl.reshape(1, -1).expand(n, -1) if wl.ndim == 1 else wl
-        bs = self.batch_size
-        pad = (-n) % bs if self.renderer.tier_fraction and self.renderer.tier_eval else 0
-        if pad:
-            fill = lambda x, v: torch.cat([x, x.new_full((pad, x.shape[1]), v)])  # noqa: E731
-            rays_o, rays_d, times = fill(rays_o, 0.0), fill(rays_d, pad_direction), fill(times, 0.0)
-            wl = fill(wl, 0.0) if wl is not None else None
-        parts = {k: [] for k in keys}
+        inputs = {'rays_o': rays_o, 'rays_d': rays_d, 'times': times}
+        if wl is not None:
+            inputs['wavelengths'] = wl
+
+        def render(rows):
+            out = self.renderer(self.params, rows['rays_o'], rows['rays_d'], rows['times'],
+                                wavelengths=rows.get('wavelengths'))
+            return [out[k] for k in keys]
         with torch.inference_mode():
-            for i in range(0, n + pad, bs):
-                sl = slice(i, i + bs)
-                out = self.renderer(self.params, rays_o[sl], rays_d[sl], times[sl],
-                                    wavelengths=wl[sl] if wl is not None else None)
-                for k in keys:
-                    parts[k].append(out[k])
-            return {k: torch.cat(v)[:n].cpu().numpy() for k, v in parts.items()}
+            tiered = bool(self.renderer.tier_fraction and self.renderer.tier_eval)
+            outs = render_tiled(self.mesh, inputs, self.batch_size, render,
+                                fill={'rays_d': pad_direction}, pad=tiered)
+            return {k: x.cpu().numpy() for k, x in zip(keys, outs)}
 
     def render_observer_image(self, lat: float, lon: float, time,
                               distance: float, resolution: int = 256,
@@ -154,7 +166,7 @@ class SuNeRFLoader(ModelLoader):
 
     def __init__(self, state_path: str, batch_size: int = 4096,
                  use_fused: Optional[bool] = None, tier: Optional[tuple] = None,
-                 render_overrides: Optional[dict] = None, device='cuda'):
+                 render_overrides: Optional[dict] = None, device='cuda', mesh=None):
         """use_fused: None = the fused kernel on CUDA, the plain field on the
         CPU; True/False forces it (True on the CPU runs the kernel's plain
         bf16 version).
@@ -163,8 +175,10 @@ class SuNeRFLoader(ModelLoader):
         render_overrides: optional sampling kwargs merged over the saved
         spec's render section (e.g. {'n_stratified': 64, 'n_hierarchical':
         128}); None = render exactly as trained.
-        device: 'cuda' (default) raises when there is no card."""
-        device = _device(device)
+        device: 'cuda' (default) raises when there is no card.
+        mesh: optional parallel.mesh.Mesh, tiling renders over its ranks
+        (ModelLoader); its device then serves."""
+        device = _device(device if mesh is None else mesh_device(mesh, device))
         params, config = load_state(state_path)
         spec = config.get('renderer_spec')
         if spec is None:
@@ -178,7 +192,7 @@ class SuNeRFLoader(ModelLoader):
             renderer, params_from_numpy(params, device),
             ref_time=datetime.fromisoformat(ref_time) if ref_time else None,
             seconds_per_dt=config.get('seconds_per_dt', 86400.0),
-            batch_size=batch_size, tier=tier, device=device)
+            batch_size=batch_size, tier=tier, device=device, mesh=mesh)
         self.config = config
 
     @property

@@ -2,15 +2,16 @@
 
 Usage: python -m sunerf_tpu_torch.run_density_temperature --config config/DT_2012_11.yaml
        [--device cuda|cpu]
+       torchrun --nproc-per-node N -m sunerf_tpu_torch.run_density_temperature --config ...
 
 Config sections (YAML): data (an <instrument>/<wavelength>/*.fits tree),
 training, logging, model (model.coarse for a proposal field), rendering,
 optimizer, pixel_intensity_factor (1e17) — the JAX CLI's layout and
-defaults; the loss is on raw intensities (image_scaling 'none'). One device:
-the card unless --device cpu is given. rendering.tier_fraction /
-tier_samples and rendering.occupancy go to the system factory as in the JAX
-CLI; training.tier_warmup_steps to the Trainer. There is no mesh (ROADMAP
-Queue 1 item 11), and training.microbatch raises (item 10).
+defaults; the loss is on raw intensities (image_scaling 'none'). The card
+unless --device cpu is given. rendering.tier_fraction / tier_samples and
+rendering.occupancy go to the system factory as in the JAX CLI;
+training.tier_warmup_steps and training.microbatch to the Trainer. Launched
+by torchrun the run is data parallel, as run_emission's is.
 """
 from __future__ import annotations
 
@@ -19,12 +20,13 @@ from datetime import datetime
 
 from sunerf_tpu_torch.data.loaders import build_multi_thermal_data
 from sunerf_tpu_torch.models.fields import density_temperature_config
-from sunerf_tpu_torch.run_emission import parse_config
+from sunerf_tpu_torch.parallel.mesh import build_on_rank0
+from sunerf_tpu_torch.run_emission import (launched_mesh, parse_config, rank0_logger,
+                                           run_paths)
 from sunerf_tpu_torch.systems import make_density_temperature_system
 from sunerf_tpu_torch.train.loop import Trainer, TrainerConfig
 from sunerf_tpu_torch.train.objective import LossConfig
 from sunerf_tpu_torch.train.optim import OptimConfig
-from sunerf_tpu_torch.utils.logging import MetricsLogger
 
 
 def main(argv=None):
@@ -34,31 +36,31 @@ def main(argv=None):
                         help="'cuda' (the default, the card) or 'cpu'")
     args = parser.parse_args(argv)
     config = parse_config(args.config)
+    with launched_mesh(args.device) as mesh:
+        return _train(config, args.device if mesh is None else mesh.device, mesh)
 
+
+def _train(config: dict, device, mesh):
     data_cfg = config.get('data', {})
     train_cfg = config.get('training', {})
     log_cfg = config.get('logging', {})
     model_cfg = config.get('model', {})
-    if train_cfg.get('microbatch') is not None:
-        raise NotImplementedError('training.microbatch is not ported yet (ROADMAP '
-                                  'Queue 1 item 10, opt-in dials: microbatch)')
-
-    workdir = config.get('path_to_save', config.get('workdir', './workdir'))
-    working_dir = config.get('work_directory', workdir + '/batches')
+    workdir, working_dir = run_paths(config)
 
     ref_time = data_cfg.get('ref_time')
-    data = build_multi_thermal_data(
+    data = build_on_rank0(mesh, lambda: build_multi_thermal_data(
         data_path=data_cfg['data_path'],
         working_dir=working_dir,
         Rs_per_ds=data_cfg.get('Rs_per_ds', 1.0),
         seconds_per_dt=data_cfg.get('seconds_per_dt', 86400.0),
         ref_time=datetime.fromisoformat(ref_time) if ref_time else None,
         batch_size=data_cfg.get('batch_size', 1024),
+        n_devices=1 if mesh is None else mesh.size,
         # read as the JAX CLI reads it: downscaling_factor alone gives None
         target_resolution=data_cfg.get('target_resolution',
                                        data_cfg.get('downscaling_factor')
                                        and None),
-        debug=data_cfg.get('debug', False))
+        debug=data_cfg.get('debug', False)))
 
     # model: {coarse: {n_layers: 4, d_filter: 128}} opts into a small
     # proposal-style coarse field (systems.make_density_temperature_system)
@@ -70,7 +72,7 @@ def main(argv=None):
         coarse_config=(density_temperature_config(**coarse_cfg)
                        if coarse_cfg else None),
         pixel_intensity_factor=float(config.get('pixel_intensity_factor', 1e17)),
-        device=args.device, **config.get('rendering', {}))
+        device=device, **config.get('rendering', {}))
 
     loss_config = LossConfig(
         lambda_image=config.get('lambda_image', 1.0),
@@ -104,18 +106,17 @@ def main(argv=None):
         # key of the port's CLI: JAX's scripts set it on the Trainer)
         tier_warmup_steps=train_cfg.get('tier_warmup_steps', 0))
 
-    logger = MetricsLogger(workdir, project=log_cfg.get('project'),
-                           name=log_cfg.get('name'),
-                           use_wandb=log_cfg.get('wandb', None))
-
+    logger = rank0_logger(workdir, log_cfg, mesh)
     trainer = Trainer(renderer, init, data, loss_config=loss_config,
                       optim_config=OptimConfig(**config.get('optimizer', {})),
                       trainer_config=trainer_config, workdir=workdir,
-                      logger=logger, device=args.device)
+                      logger=logger, device=device, mesh=mesh,
+                      microbatch=train_cfg.get('microbatch'))
     try:
         trainer.fit()
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return trainer
 
 

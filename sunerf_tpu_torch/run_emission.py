@@ -2,21 +2,34 @@
 
 Usage: python -m sunerf_tpu_torch.run_emission --config config/emission.yaml
        [--device cuda|cpu]
+       torchrun --nproc-per-node N -m sunerf_tpu_torch.run_emission --config ...
 
 Config sections (YAML): data, training, logging, model, rendering,
-optimizer, image_scaling — the JAX CLI's layout and defaults. One device:
-the card unless --device cpu is given. rendering.tier_fraction /
-tier_samples and rendering.occupancy go to the system factory as in the JAX
-CLI; training.tier_warmup_steps to the Trainer. There is no mesh (ROADMAP
-Queue 1 item 11), and training.microbatch raises (item 10).
+optimizer, image_scaling — the JAX CLI's layout and defaults. The card
+unless --device cpu is given. rendering.tier_fraction / tier_samples and
+rendering.occupancy go to the system factory as in the JAX CLI;
+training.tier_warmup_steps and training.microbatch to the Trainer.
+
+Launched by torchrun (WORLD_SIZE in the environment) the run is data
+parallel over a mesh of WORLD_SIZE ranks (parallel/mesh.py; the JAX CLI
+makes one when it sees more than one device): rank r trains on
+cuda:LOCAL_RANK over NCCL (--device cpu or cuda:N puts every rank there,
+over gloo), data.batch_size is the per-rank batch, rank 0 builds the data
+shards and writes the workdir, and every rank maps the same shards and
+reads its own rows of each batch.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 from datetime import datetime
+
+import torch.distributed as dist
 
 from sunerf_tpu_torch.data.loaders import build_single_channel_data
 from sunerf_tpu_torch.models.fields import emission_config
+from sunerf_tpu_torch.parallel.mesh import build_on_rank0, make_mesh
 from sunerf_tpu_torch.systems import make_emission_system
 from sunerf_tpu_torch.train.loop import Trainer, TrainerConfig
 from sunerf_tpu_torch.train.objective import LossConfig
@@ -30,6 +43,32 @@ def parse_config(path: str) -> dict:
         return yaml.safe_load(f)
 
 
+@contextlib.contextmanager
+def launched_mesh(device: str):
+    """The mesh of a run launched by torchrun (WORLD_SIZE in the
+    environment), else None. device 'cuda' places rank r on
+    cuda:LOCAL_RANK; any other ('cpu', 'cuda:0') holds every rank. The
+    process group this made is destroyed on exit."""
+    if 'WORLD_SIZE' not in os.environ:
+        yield None
+        return
+    owned = not dist.is_initialized()
+    world = int(os.environ['WORLD_SIZE'])
+    mesh = make_mesh(devices=None if device == 'cuda' else [device] * world)
+    try:
+        yield mesh
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def run_paths(config: dict) -> tuple:
+    """(workdir, working_dir): the run's output directory and its data
+    shards' directory."""
+    workdir = config.get('path_to_save', config.get('workdir', './workdir'))
+    return workdir, config.get('work_directory', workdir + '/batches')
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--config', type=str, required=True)
@@ -37,28 +76,28 @@ def main(argv=None):
                         help="'cuda' (the default, the card) or 'cpu'")
     args = parser.parse_args(argv)
     config = parse_config(args.config)
+    with launched_mesh(args.device) as mesh:
+        return _train(config, args.device if mesh is None else mesh.device, mesh)
 
+
+def _train(config: dict, device, mesh):
     data_cfg = config.get('data', {})
     train_cfg = config.get('training', {})
     log_cfg = config.get('logging', {})
     model_cfg = config.get('model', {})
     scaling_cfg = config.get('image_scaling', {})
-    if train_cfg.get('microbatch') is not None:
-        raise NotImplementedError('training.microbatch is not ported yet (ROADMAP '
-                                  'Queue 1 item 10, opt-in dials: microbatch)')
-
-    workdir = config.get('path_to_save', config.get('workdir', './workdir'))
-    working_dir = config.get('work_directory', workdir + '/batches')
+    workdir, working_dir = run_paths(config)
 
     ref_time = data_cfg.get('ref_time')
-    data = build_single_channel_data(
+    data = build_on_rank0(mesh, lambda: build_single_channel_data(
         data_path=data_cfg['data_path'],
         working_dir=working_dir,
         Rs_per_ds=data_cfg.get('Rs_per_ds', 1.0),
         seconds_per_dt=data_cfg.get('seconds_per_dt', 86400.0),
         ref_time=datetime.fromisoformat(ref_time) if ref_time else None,
         batch_size=data_cfg.get('batch_size', 1024),
-        debug=data_cfg.get('debug', False))
+        n_devices=1 if mesh is None else mesh.size,
+        debug=data_cfg.get('debug', False)))
 
     # model: {coarse: {n_layers: 4, d_filter: 128}} opts into a small
     # proposal-style coarse field (systems.make_emission_system)
@@ -68,7 +107,7 @@ def main(argv=None):
     renderer, init = make_emission_system(
         Rs_per_ds=data.Rs_per_ds, model_config=nerf_cfg,
         coarse_config=emission_config(**coarse_cfg) if coarse_cfg else None,
-        device=args.device, **config.get('rendering', {}))
+        device=device, **config.get('rendering', {}))
 
     loss_config = LossConfig(
         lambda_image=config.get('lambda_image', 1.0),
@@ -105,19 +144,27 @@ def main(argv=None):
         # key of the port's CLI: JAX's scripts set it on the Trainer)
         tier_warmup_steps=train_cfg.get('tier_warmup_steps', 0))
 
-    logger = MetricsLogger(workdir, project=log_cfg.get('project'),
-                           name=log_cfg.get('name'),
-                           use_wandb=log_cfg.get('wandb', None))
-
+    logger = rank0_logger(workdir, log_cfg, mesh)
     trainer = Trainer(renderer, init, data, loss_config=loss_config,
                       optim_config=OptimConfig(**config.get('optimizer', {})),
                       trainer_config=trainer_config, workdir=workdir,
-                      logger=logger, device=args.device)
+                      logger=logger, device=device, mesh=mesh,
+                      microbatch=train_cfg.get('microbatch'))
     try:
         trainer.fit()
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return trainer
+
+
+def rank0_logger(workdir: str, log_cfg: dict, mesh):
+    """The run's MetricsLogger on rank 0 (or without a mesh), None on the
+    other ranks, which write nothing."""
+    if mesh is not None and mesh.rank:
+        return None
+    return MetricsLogger(workdir, project=log_cfg.get('project'),
+                         name=log_cfg.get('name'), use_wandb=log_cfg.get('wandb', None))
 
 
 if __name__ == '__main__':

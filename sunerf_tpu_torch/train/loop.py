@@ -17,8 +17,17 @@ in chunks of the validation set's batch size under torch.no_grad() with one
 host fetch at the end; the rays/s window restarts after each validation and
 checkpoint, so it times steps only. The occupancy grid is updated in place
 in params['occupancy'] (never by the optimizer); tier_warmup_steps swaps
-between two step functions on the host. Microbatching and the mesh are not
-ported (ROADMAP Queue 1 item 11) and raise.
+between two step functions on the host.
+
+On a mesh (parallel/mesh.py) every rank runs this loop: the state is
+replicated from rank 0 after a restore, each rank reads its own rows of the
+same global batch and steps on them, the held-out view renders tiled over
+the ranks
+and every rank scores it alike, and the occupancy update draws the same
+jitter at rank 0's time on every rank, so the grids agree. JAX's loop is one process and
+writes each file once; here only rank 0 writes the metrics log, the
+images, the checkpoints and the bundles. A SIGTERM on any rank stops every
+rank at the same step (a host-side all-reduce of the flag each step).
 """
 from __future__ import annotations
 
@@ -37,6 +46,8 @@ from sunerf_tpu_torch.core.scaling import image_asinh_scaling
 from sunerf_tpu_torch.data.datasets import iterate_batches
 from sunerf_tpu_torch.data.loaders import RayData
 from sunerf_tpu_torch.models.fields import params_from_numpy
+from sunerf_tpu_torch.parallel.mesh import (ShardedRows, host_any, host_first, mesh_device,
+                                            render_tiled, replicate)
 from sunerf_tpu_torch.train.metrics import psnr as psnr_metric, ssim as ssim_metric
 from sunerf_tpu_torch.train.objective import LossConfig
 from sunerf_tpu_torch.train.optim import OptimConfig, make_optimizer
@@ -108,6 +119,19 @@ class _Uploader:
         slot['event'].record()
         self._turn ^= 1
         return out
+
+
+class _Silent:
+    """The logger of a rank other than 0: it records nothing."""
+
+    def log(self, metrics: dict, step: int):
+        pass
+
+    def log_image(self, name: str, path: str, step: int):
+        pass
+
+    def close(self):
+        pass
 
 
 def _asinh(loss_config: LossConfig, x: torch.Tensor) -> np.ndarray:
@@ -210,22 +234,24 @@ class Trainer:
         generator is a CPU torch.Generator seeded with trainer_config.seed,
         so the same seed gives the same init on every device), or the
         params themselves, as tensors or numpy arrays. device: 'cuda' (the
-        default; raises when there is no card) or 'cpu'. A workdir holding a
-        training checkpoint resumes from its newest one."""
-        if mesh is not None:
-            raise NotImplementedError('mesh is not ported yet (ROADMAP Queue 1 '
-                                      'item 11, data parallel)')
+        default; raises when there is no card) or 'cpu'; on a mesh the
+        mesh's device, which device must name. mesh: a
+        parallel.mesh.Mesh; data's batches are then the global batches.
+        microbatch: make_train_step's. A workdir holding a training
+        checkpoint resumes from its newest one."""
         self.renderer = renderer
         self.data = data
         self.config = trainer_config
         self.workdir = workdir
-        self.device = _device(device)
+        self.mesh = mesh
+        self.chief = mesh is None or mesh.rank == 0
+        self.device = _device(device if mesh is None else mesh_device(mesh, device))
         os.makedirs(workdir, exist_ok=True)
 
         self.optimizer = make_optimizer(optim_config)
         ema_decay = trainer_config.ema_decay or None
         self.step_fn = make_train_step(renderer, loss_config, self.optimizer,
-                                       microbatch=microbatch,
+                                       mesh=mesh, microbatch=microbatch,
                                        spike_guard=spike_guard,
                                        ema_decay=ema_decay)
         self.warmup_step_fn = None
@@ -234,8 +260,9 @@ class Trainer:
             # same state, so the two step functions alternate freely
             self.warmup_step_fn = make_train_step(
                 dataclasses.replace(renderer, tier_fraction=0.0), loss_config,
-                self.optimizer, microbatch=microbatch, spike_guard=spike_guard,
-                ema_decay=ema_decay)
+                self.optimizer, mesh=mesh, microbatch=microbatch,
+                spike_guard=spike_guard, ema_decay=ema_decay)
+        # a rank's rows of a chunk; _render_valid gathers the whole view
         self.eval_fn = make_eval_step(renderer)
         self.loss_config = loss_config
 
@@ -249,8 +276,13 @@ class Trainer:
                                         spike_guard=spike_guard is not None,
                                         ema=ema_decay is not None)
         restore_train_checkpoint(workdir, self.state)
+        if mesh is not None:
+            replicate(mesh, self.state)
+            # read once, before any rank writes: rank 0's first promotion
+            # writes the sidecar that another rank's later read would find
+            self._best_val_psnr = self._best_psnr_high_water()
 
-        self.logger = logger or MetricsLogger(workdir)
+        self.logger = (logger or MetricsLogger(workdir)) if self.chief else _Silent()
         self.profile_summary = None
         self._valid_dev = None
 
@@ -325,16 +357,21 @@ class Trainer:
     # ------------------------------------------------------------------ fit
     def fit(self):
         """Train from the state's step to total_steps. On SIGTERM the run
-        checkpoints and returns at the next step; the process's previous
-        SIGTERM handler is back in place whenever fit returns or raises."""
+        checkpoints and returns at the next step (on a mesh, every rank at
+        the same step); the process's previous SIGTERM handler is back in
+        place whenever fit returns or raises. Only rank 0 profiles."""
         from sunerf_tpu_torch.utils.profiling import StepTimer, trace
         cfg = self.config
         start_step = int(self.state.step)
-        batches = iterate_batches(self.data.train, shuffle=True, seed=cfg.seed)
+        train = self.data.train if self.mesh is None else ShardedRows(self.mesh,
+                                                                      self.data.train)
+        batches = iterate_batches(train, shuffle=True, seed=cfg.seed)
+        size = 1 if self.mesh is None else self.mesh.size
 
         if start_step == 0:
-            self._log_fit_start_overview()
-            self._log_ray_sampling(cfg.seed + 1)
+            if self.chief:
+                self._log_fit_start_overview()
+                self._log_ray_sampling(cfg.seed + 1)
             # pre-training sanity render of the held-out view (reference
             # num_sanity_val_steps=-1, run_emission.py:70): a mis-wired run
             # shows a broken image immediately, not val_every steps later
@@ -357,7 +394,7 @@ class Trainer:
             upload = _Uploader(self.device)
             timer = StepTimer()
             for step in range(start_step, cfg.total_steps):
-                if cfg.profile_steps:
+                if cfg.profile_steps and self.chief:
                     if step == cfg.profile_start:
                         profile_cm = trace(os.path.join(self.workdir, 'profile'),
                                            self.device)
@@ -371,24 +408,28 @@ class Trainer:
                                          self.profile_summary.items()
                                          if isinstance(v, (int, float))}, step)
                         timer.reset()
-                if preempted['flag']:
+                if (preempted['flag'] if self.mesh is None
+                        else host_any(self.mesh, preempted['flag'])):
                     self.save(step)
                     self.logger.log({'preempted': 1.0}, step)
                     return self.state
-                host_batch = next(batches)
+                host_batch = next(batches)      # on a mesh, this rank's rows
                 t0 = float(host_batch['time'].ravel()[0])
                 batch = upload(host_batch)
                 fn = (self.warmup_step_fn if self.warmup_step_fn is not None
                       and step < cfg.tier_warmup_steps else self.step_fn)
                 self.state, metrics = fn(self.state, batch, cfg.seed)
-                timer.tick(batch['rays'].shape[0])
+                n_rays = host_batch['rays'].shape[0] * size    # the global batch's
+                timer.tick(n_rays)
                 occ = self.renderer.occupancy
                 if occ is not None and (step + 1) >= occ.warmup \
                         and (step + 1) % occ.update_every == 0:
-                    self.update_occupancy(step, t0)
+                    # the global batch's first time: rank 0's first row
+                    self.update_occupancy(step, t0 if self.mesh is None
+                                          else host_first(self.mesh, t0))
 
                 if (step + 1) % cfg.log_every == 0:
-                    n_steps = timer.count / batch['rays'].shape[0]
+                    n_steps = timer.count / n_rays
                     seconds = timer.seconds(sync_value=metrics['loss'])
                     m = {k: float(v) for k, v in metrics.items()}
                     m['rays_per_sec'] = timer.count / seconds if seconds > 0 else 0.0
@@ -446,18 +487,17 @@ class Trainer:
     def _render_valid(self, params: dict) -> tuple:
         """The held-out view through the renderer with no jitter and no
         gradient, in chunks of the validation batch size; one host fetch.
-        Returns (fine, coarse, height, absorption) as CPU tensors [n, ...]."""
-        arrays = self._valid_arrays()
-        n = arrays['rays'].shape[0]
-        bs = self.data.valid.batch_size
-        parts = []
-        for i in range(0, n, bs):
-            chunk = {k: v[i:i + bs] for k, v in arrays.items()}
+        On a mesh each chunk is tiled over the ranks (the view padded with
+        zero rays to whole chunks, as JAX's validation pads it) and one
+        all-gather gives every rank the whole view. Returns (fine, coarse,
+        height, absorption) as CPU tensors [n, ...]."""
+        def render(chunk):
             out = self.eval_fn(params, chunk)
-            parts.append(torch.cat([out['fine_image'], out['coarse_image'],
-                                    out['height_map'][:, None],
-                                    out['absorption_map'][:, None]], dim=1))
-        host = torch.cat(parts).cpu()
+            return [torch.cat([out['fine_image'], out['coarse_image'],
+                               out['height_map'][:, None], out['absorption_map'][:, None]],
+                              dim=1)]
+        host = render_tiled(self.mesh, self._valid_arrays(), self.data.valid.batch_size,
+                            render)[0].cpu()
         c = (host.shape[1] - 2) // 2
         return host[:, :c], host[:, c:2 * c], host[:, 2 * c], host[:, 2 * c + 1]
 
@@ -503,7 +543,7 @@ class Trainer:
             psnrs.append(psnr_metric(p_img, t_img))
             ssims.append(ssim_metric(p_img, t_img,
                                      data_range=float(t_img.max() - t_img.min() or 1)))
-            if self.config.save_val_images:
+            if self.config.save_val_images and self.chief:
                 wl_arr = arrays.get('wavelength')
                 wl_c = (float(np.asarray(wl_arr)[0, c])
                         if wl_arr is not None and np.asarray(wl_arr).ndim == 2
@@ -585,8 +625,9 @@ class Trainer:
                 # best bundle with its first validation
                 config['best_val_psnr'] = best_score
                 config['best_variant'] = best_name
-                save_state(os.path.join(self.workdir, 'save_state_best'),
-                           best_params, config)
+                if self.chief:
+                    save_state(os.path.join(self.workdir, 'save_state_best'),
+                               best_params, config)
                 val['val_best_psnr'] = best_score
 
         if probe is not None:
@@ -617,9 +658,9 @@ class Trainer:
                     val['probe_drift_warning'] = 1.0
                     # the evidence for the warning: current stack + the
                     # best-checkpoint reference it drifted from
-                    np.savez(os.path.join(self.workdir,
-                                          f'probe_warn_{step:08d}.npz'),
-                             probe=probe, at_best=self._probe_at_best)
+                    if self.chief:
+                            np.savez(os.path.join(self.workdir, f'probe_warn_{step:08d}.npz'),
+                                 probe=probe, at_best=self._probe_at_best)
             # the probe reference tracks the best ACCEPTED checkpoint: a
             # gate-rejected candidate must not move it, or the drift
             # reference would creep along with the drifting field
@@ -702,7 +743,10 @@ class Trainer:
 
     def save(self, step: int):
         """The training checkpoint, then the deployment bundles:
-        save_state (live params) and, with EMA, save_state_ema."""
+        save_state (live params) and, with EMA, save_state_ema. On a mesh
+        rank 0 writes them; the other ranks hold the same state."""
+        if not self.chief:
+            return
         save_train_checkpoint(self.workdir, self.state)
         config = self._bundle_config()
         save_state(os.path.join(self.workdir, 'save_state'), self.state.params, config)

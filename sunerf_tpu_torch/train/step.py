@@ -1,10 +1,14 @@
-"""The training step and the eval step, single device
-(sunerf_tpu/train/step.py).
+"""The training step and the eval step (sunerf_tpu/train/step.py).
 
 One step: sampling -> coarse field -> hierarchical resample -> fine field ->
 quadrature -> loss -> backward -> clip -> Adam, then the optional spike
 guard and the Polyak (EMA) average. On the fused path the fields' forward
 is the stashing kernel K1 and their backward K2 (ops/fused_mlp.py).
+With microbatch the batch runs as sequential chunks, each its own forward
+and backward, and the gradients are their mean. On a mesh
+(parallel/mesh.py) each rank steps on its rows of the global batch and one
+all-reduce averages the gradients and the metrics before the update, which
+then runs identically on every rank.
 
 Where the JAX step is a pure function of an immutable state, this one
 updates its state in place: the parameters, Adam's moments, the guard's
@@ -20,12 +24,10 @@ import numpy as np
 import torch
 
 from sunerf_tpu_torch.ops.grid_encoding import table_tv
+from sunerf_tpu_torch.parallel.mesh import all_mean_, gather_tiles
 from sunerf_tpu_torch.rendering.renderer import Renderer
 from sunerf_tpu_torch.train.objective import LossConfig, render_loss
 from sunerf_tpu_torch.train.optim import Optimizer
-
-_MESH = 'ROADMAP Queue 1 item 11, data parallel'
-_MICROBATCH = 'ROADMAP Queue 1 item 10, opt-in dials: microbatch'
 
 
 @dataclasses.dataclass
@@ -164,13 +166,14 @@ def create_train_state(params: dict, optimizer: Optimizer,
     return state
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, *folds: int) -> torch.Generator:
     """The sampling generator of step `step`, the counterpart of the JAX
     step's fold_in(key, step): a torch.Generator on `device` seeded with
-    numpy's SeedSequence((seed, step)).generate_state(1, uint64)[0]. The
-    renderer draws the stratified jitter from it, then the hierarchical
-    jitter (when perturb_hierarchical is on)."""
-    value = int(np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0])
+    numpy's SeedSequence((seed, step, *folds)).generate_state(1, uint64)[0].
+    folds are the further fold_ins, in JAX's order: a mesh rank's index,
+    then a microbatch chunk's. The renderer draws the stratified jitter from
+    it, then the hierarchical jitter (when perturb_hierarchical is on)."""
+    value = int(np.random.SeedSequence((seed, step, *folds)).generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(value)
 
 
@@ -224,11 +227,24 @@ def make_train_step(renderer: Renderer, loss_config: LossConfig,
 
     batch: rays [B, 2, 3] (origin, direction), time [B, 1], target_image
     [B, C] (+ wavelength [B, W] for multi-channel heads), on the params'
-    device. seed: the run's integer seed; the step's sampling generator is
-    step_generator(seed, state.step). metrics: loss, coarse_loss, fine_loss,
-    regularization_loss, psnr (and table_tv, when loss_config.lambda_table_tv
-    adds lambda_table_tv * table_tv(params) to the loss) as 0-d tensors
-    (reading them waits for the device).
+    device; on a mesh, this rank's rows of the global batch
+    (parallel.mesh.shard_batch). seed: the run's integer seed; the step's
+    sampling generator is step_generator(seed, state.step), with the mesh
+    rank and the chunk index folded in after it. metrics: loss, coarse_loss,
+    fine_loss, regularization_loss, psnr (and table_tv, when
+    loss_config.lambda_table_tv adds lambda_table_tv * table_tv(params) to
+    the loss) as 0-d tensors (reading them waits for the device).
+
+    mesh: a parallel.mesh.Mesh. Each rank computes its rows' gradients and
+    one all-reduce of one flat buffer (the gradients, then the metrics)
+    takes their mean over the ranks (JAX's pmean); clip, Adam, the guard and
+    the EMA then run alike on every rank, the guard on the mean loss, so
+    every rank trips together. microbatch: the rank's rows run as
+    B // microbatch sequential chunks of microbatch rows (the remainder is
+    dropped, as in the JAX package; B below microbatch raises), each with
+    its own forward and backward (on the fused path one K1 + K2 pair a field
+    a chunk), so the activations held are one chunk's; the gradients and
+    metrics are the chunks' mean, and Adam steps once.
 
     spike_guard: optional factor k (see _guard); the state must come from
     create_train_state(spike_guard=True). The guard decides on the host, so
@@ -236,15 +252,45 @@ def make_train_step(renderer: Renderer, loss_config: LossConfig,
     gain update_skipped (0 or 1) and spike_trips. ema_decay: optional
     Polyak decay d; the state must come from create_train_state(ema=True).
 
-    mesh and microbatch are not ported and raise; donate=True raises too
-    (the step updates its state in place)."""
-    if mesh is not None:
-        raise NotImplementedError(f'mesh is not ported yet ({_MESH})')
-    if microbatch is not None:
-        raise NotImplementedError(f'microbatch is not ported yet ({_MICROBATCH})')
+    donate=True raises (the step updates its state in place)."""
     if donate:
         raise NotImplementedError('donate=True has no counterpart: the step '
                                   'updates its state in place')
+    folds = () if mesh is None else (mesh.rank,)
+
+    def chunk_grads(params: dict, chunk: dict, generator) -> dict:
+        """The chunk's loss backward into the parameters' .grad (added to
+        what is there); its metrics, detached."""
+        rays = chunk['rays']
+        outputs = renderer(params, rays[:, 0], rays[:, 1], chunk['time'],
+                           generator=generator, wavelengths=chunk.get('wavelength'))
+        loss, metrics = render_loss(loss_config, outputs, chunk['target_image'])
+        if loss_config.lambda_table_tv:
+            tv = table_tv(params)
+            loss = loss + loss_config.lambda_table_tv * tv
+            metrics = dict(metrics, loss=loss, table_tv=tv)
+        loss.backward()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def batch_grads(state: TrainState, batch: dict, seed: int) -> dict:
+        device = batch['rays'].device
+        if microbatch is None:
+            return chunk_grads(state.params, batch,
+                               step_generator(seed, state.step, device, *folds))
+        n = batch['rays'].shape[0]
+        if n < microbatch:
+            raise ValueError(f'a batch of {n} rows is smaller than microbatch={microbatch}')
+        n_chunks = n // microbatch
+        total = None
+        for i in range(n_chunks):
+            rows = slice(i * microbatch, (i + 1) * microbatch)
+            m = chunk_grads(state.params, {k: v[rows] for k, v in batch.items()},
+                            step_generator(seed, state.step, device, *folds, i))
+            total = m if total is None else {k: total[k] + v for k, v in m.items()}
+        inv = 1.0 / n_chunks
+        with torch.no_grad():
+            torch._foreach_mul_([p.grad for p in _adam_params(state.opt_state)], inv)
+        return {k: v * inv for k, v in total.items()}
 
     def step_fn(state: TrainState, batch: dict, seed: int):
         if spike_guard is not None and state.snapshot is None:
@@ -253,21 +299,15 @@ def make_train_step(renderer: Renderer, loss_config: LossConfig,
         if ema_decay is not None and state.ema_params is None:
             raise ValueError('ema_decay needs a state made by '
                              'create_train_state(..., ema=True)')
-        rays = batch['rays']
-        generator = step_generator(seed, state.step, rays.device)
-        outputs = renderer(state.params, rays[:, 0], rays[:, 1], batch['time'],
-                           generator=generator, wavelengths=batch.get('wavelength'))
-        loss, metrics = render_loss(loss_config, outputs, batch['target_image'])
-        if loss_config.lambda_table_tv:
-            tv = table_tv(state.params)
-            loss = loss + loss_config.lambda_table_tv * tv
-            metrics = dict(metrics, loss=loss, table_tv=tv)
         state.opt_state.zero_grad(set_to_none=True)
-        loss.backward()
+        metrics = batch_grads(state, batch, seed)
+        if mesh is not None:
+            values = torch.stack(list(metrics.values()))
+            all_mean_(mesh, [p.grad for p in _adam_params(state.opt_state)] + [values])
+            metrics = dict(zip(metrics, values.unbind()))
         optimizer.update(state.opt_state, state.updates)
         state.updates += 1
         state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
         if spike_guard is not None:
             tripped = _guard(state, float(metrics['loss']), spike_guard)
             metrics['update_skipped'] = torch.tensor(float(tripped))
@@ -281,14 +321,20 @@ def make_train_step(renderer: Renderer, loss_config: LossConfig,
 
 def make_eval_step(renderer: Renderer, mesh=None):
     """No-jitter forward pass without gradients (the fused path's K0):
-    eval_fn(params, batch) -> renderer outputs."""
-    if mesh is not None:
-        raise NotImplementedError(f'mesh is not ported yet ({_MESH})')
+    eval_fn(params, batch) -> renderer outputs. On a mesh the batch is this
+    rank's rows of the global batch, and every rank returns the outputs of
+    the whole batch in its order (one all-gather of the per-ray outputs)."""
 
     def eval_fn(params: dict, batch: dict) -> dict:
         rays = batch['rays']
         with torch.no_grad():
-            return renderer(params, rays[:, 0], rays[:, 1], batch['time'],
-                            generator=None, wavelengths=batch.get('wavelength'))
+            out = renderer(params, rays[:, 0], rays[:, 1], batch['time'],
+                           generator=None, wavelengths=batch.get('wavelength'))
+            if mesh is None:
+                return out
+            n = rays.shape[0]
+            keys = [k for k, v in out.items()
+                    if isinstance(v, torch.Tensor) and v.ndim and v.shape[0] == n]
+            return dict(out, **dict(zip(keys, gather_tiles(mesh, [out[k] for k in keys], n))))
 
     return eval_fn

@@ -258,11 +258,39 @@ def test_run_emission_cli_both_packages(views, tmp_path, monkeypatch):
     assert config['type'] == 'emission' and params['fine']['w_in'].shape == (84, 32)
 
 
-def test_run_emission_refuses_microbatch(tmp_path, views):
+def test_run_emission_refuses_microbatch(tmp_path, views, monkeypatch):
+    """training.microbatch is ported (this test refused it before): the CLI
+    under torchrun's environment makes a one-rank mesh (gloo on the CPU),
+    trains two steps of two 8-ray chunks and leaves no process group
+    behind; a microbatch above the per-rank batch raises."""
+    import socket
     from sunerf_tpu_torch.run_emission import main
     _, pattern = views
-    path = str(tmp_path / 'mb.yaml')
-    with open(path, 'w') as f:
-        yaml.safe_dump({'data': {'data_path': pattern}, 'training': {'microbatch': 64}}, f)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 10'):
-        main(['--config', path, '--device', 'cpu'])
+    monkeypatch.setattr(os, 'cpu_count', lambda: 1)
+    for microbatch in (8, 32):
+        with socket.socket() as s:
+            s.bind(('127.0.0.1', 0))
+            port = s.getsockname()[1]
+        for k, v in dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0', MASTER_ADDR='127.0.0.1',
+                         MASTER_PORT=str(port)).items():
+            monkeypatch.setenv(k, v)
+        workdir = str(tmp_path / f'mb{microbatch}')
+        path = str(tmp_path / f'mb{microbatch}.yaml')
+        with open(path, 'w') as f:
+            yaml.safe_dump({'path_to_save': workdir,
+                            'data': {'data_path': pattern, 'batch_size': 16},
+                            'model': {'n_layers': 2, 'd_filter': 32},
+                            'rendering': {'n_stratified': 8, 'n_hierarchical': 8},
+                            'training': {'total_steps': 2, 'log_every_n_steps': 2,
+                                         'scalar_log_every': 1, 'drift_probe_views': 0,
+                                         'microbatch': microbatch}}, f)
+        if microbatch > 16:
+            with pytest.raises(ValueError, match='smaller than microbatch'):
+                main(['--config', path, '--device', 'cpu'])
+        else:
+            trainer = main(['--config', path, '--device', 'cpu'])
+            assert trainer.mesh.size == 1 and trainer.state.step == 2
+            with open(os.path.join(workdir, 'metrics.jsonl')) as f:
+                losses = [json.loads(line)['loss'] for line in f if '"loss"' in line]
+            assert len(losses) == 2 and np.isfinite(losses).all()
+        assert not torch.distributed.is_initialized()

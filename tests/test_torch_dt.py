@@ -791,9 +791,21 @@ def test_run_density_temperature_cli_both_packages(dt_tree, tmp_path, monkeypatc
         for loader in (JaxLoader(path, batch_size=64),
                        SuNeRFLoader(path, batch_size=64, device='cpu')):
             assert np.isfinite(loader.render_observer_image(**view).image).all()
+    # training.microbatch is ported (it raised before): two steps of two
+    # 16-ray chunks
     mb = str(tmp_path / 'mb.yaml')
     with open(mb, 'w') as f:
-        yaml.safe_dump({'data': {'data_path': str(dt_tree / 'mt')},
-                        'training': {'microbatch': 64}}, f)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 10'):
-        main(['--config', mb, '--device', 'cpu'])
+        yaml.safe_dump({'path_to_save': str(tmp_path / 'mb'),
+                        'data': {'data_path': str(dt_tree / 'mt'), 'batch_size': 32},
+                        'model': {'n_layers': 2, 'd_filter': 32},
+                        'rendering': {'n_stratified': 8, 'n_hierarchical': 8},
+                        'training': {'total_steps': 2, 'log_every_n_steps': 2,
+                                     'scalar_log_every': 1, 'drift_probe_views': 0,
+                                     'microbatch': 16}}, f)
+    monkeypatch.setattr(os, 'cpu_count', lambda: 1)
+    try:
+        trainer = main(['--config', mb, '--device', 'cpu'])
+    finally:
+        monkeypatch.undo()
+    assert trainer.state.step == 2
+    assert all(np.isfinite(r['loss']) for r in _records(str(tmp_path / 'mb')) if 'loss' in r)

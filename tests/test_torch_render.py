@@ -306,7 +306,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         'bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")\n'
         '             or k == "sunerf_tpu" or k.startswith("sunerf_tpu."))\n'
         'print(len([k for k in sys.modules if k.startswith("sunerf_tpu_torch")]), bad)\n'
-        'assert not bad, bad\n')
+        'assert not bad, bad\n'
+        '# the walk reached the data-parallel package\n'
+        'assert "sunerf_tpu_torch.parallel.mesh" in sys.modules\n')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -448,19 +448,44 @@ def test_train_save_serve(tmp_path):
     assert out['image'].grad_fn is None and out['image'].shape == (N_RAYS, 1)
 
 
-def test_step_rejects_what_is_not_ported():
-    """mesh and microbatch still raise, naming their ROADMAP items; the
-    spike guard and EMA are ported (tests/test_torch_trainer.py holds them
-    against JAX), and need a state made with their leaves."""
+def test_step_rejects_what_is_not_ported(tmp_path):
+    """donate=True raises. mesh and microbatch, which raised here before,
+    run (tests/test_torch_parallel.py holds them against JAX): on the fused
+    path (the plain K1 / K2 on the CPU) a one-rank mesh, gloo in this
+    process, gives the single-device step's bits and the eval step's, and
+    microbatch 4 makes one update of two chunks of the 8 rays. The spike
+    guard and EMA are ported (tests/test_torch_trainer.py holds them against
+    JAX), and need a state made with their leaves."""
+    from datetime import timedelta
+    from sunerf_tpu_torch.parallel.mesh import make_mesh
     tr = make_emission_system(model_config=emission_config(**TINY), device='cpu')[0]
     opt = make_optimizer()
-    for kw, match in ((dict(mesh=object()), 'Queue 1 item 11'),
-                      (dict(microbatch=4), 'Queue 1 item 10'),
-                      (dict(donate=True), 'in place')):
-        with pytest.raises(NotImplementedError, match=match):
-            make_train_step(tr, LossConfig(), opt, **kw)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 11'):
-        make_eval_step(tr, mesh=object())
+    with pytest.raises(NotImplementedError, match='in place'):
+        make_train_step(tr, LossConfig(), opt, donate=True)
+    _, fused, pair = _systems(use_fused=True)
+    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+
+    def one_step(**kw):
+        state = create_train_state(params_from_numpy(pair, 'cpu'), opt)
+        return make_train_step(fused, LossConfig(), opt, **kw)(state, batch, 3)
+
+    single, m_single = one_step()
+    mesh = make_mesh(devices=['cpu'], init_method=f'file://{tmp_path}/store', rank=0,
+                     world_size=1, timeout=timedelta(seconds=60))
+    try:
+        meshed, m_mesh = one_step(mesh=mesh)
+        out_mesh = make_eval_step(fused, mesh=mesh)(single.params, batch)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert torch.equal(m_mesh['loss'], m_single['loss'])
+    for f in ('coarse', 'fine'):
+        for k in KEYS:
+            assert torch.equal(meshed.params[f][k], single.params[f][k]), (f, k)
+    out = make_eval_step(fused)(single.params, batch)
+    for k in ('image', 'height_map', 'absorption_map'):
+        assert torch.equal(out_mesh[k], out[k]), k
+    micro, m_micro = one_step(microbatch=4)
+    assert micro.updates == 1 and np.isfinite(float(m_micro['loss']))
     params = params_from_numpy(_random_params(emission_config(**TINY)), 'cpu')
     state = create_train_state({'fine': params}, opt, spike_guard=True, ema=True)
     # the snapshot and the average are copies, never aliases of the params

@@ -27,7 +27,7 @@ import json
 import os
 import shutil
 import signal
-from datetime import datetime
+from datetime import datetime, timedelta
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +54,7 @@ from sunerf_tpu.train.step import make_train_step as jax_make_train_step
 from sunerf_tpu_torch.data.loaders import build_single_channel_data
 from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
 from sunerf_tpu_torch.models.fields import emission_config, params_from_numpy
+from sunerf_tpu_torch.parallel.mesh import make_mesh
 from sunerf_tpu_torch.rendering.emission import EmissionHead
 from sunerf_tpu_torch.rendering.renderer import Renderer
 from sunerf_tpu_torch.systems import make_emission_system
@@ -348,10 +349,30 @@ def test_fit_restores_the_sigterm_handler(port_data, tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(port_data, tmp_path):
     tr, init = _port_system()
-    for kw, match in ((dict(mesh=object()), 'Queue 1 item 11'),
-                      (dict(microbatch=4), 'Queue 1 item 10')):
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(tr, init, port_data, workdir=str(tmp_path / 'x'), device='cpu', **kw)
+    # the mesh and microbatch, which raised here before, run: two steps on a
+    # one-rank mesh (gloo in this process) give the single-device Trainer's
+    # bits, and microbatch 64 takes each 128-ray batch in two chunks
+    two = TrainerConfig(total_steps=2, val_every=10, checkpoint_every=10, log_every=1,
+                        save_val_images=False)
+    single = Trainer(tr, init, port_data, trainer_config=two, workdir=str(tmp_path / 's'),
+                     device='cpu')
+    single.fit()
+    mesh = make_mesh(devices=['cpu'], init_method=f'file://{tmp_path}/store', rank=0,
+                     world_size=1, timeout=timedelta(seconds=60))
+    try:
+        meshed = Trainer(tr, init, port_data, trainer_config=two, workdir=str(tmp_path / 'm'),
+                         mesh=mesh, device='cpu')
+        meshed.fit()
+    finally:
+        torch.distributed.destroy_process_group()
+    for f in ('coarse', 'fine'):
+        for k, v in single.state.params[f].items():
+            assert torch.equal(meshed.state.params[f][k], v), (f, k)
+    micro = Trainer(tr, init, port_data, trainer_config=two, workdir=str(tmp_path / 'mb'),
+                    device='cpu', microbatch=64)
+    micro.fit()
+    losses = [r['loss'] for r in _records(str(tmp_path / 'mb')) if 'loss' in r]
+    assert micro.state.step == 2 and len(losses) == 2 and np.isfinite(losses).all()
     # tier_warmup_steps is ported: a full-budget warm-up step beside a tiered
     # renderer, none beside an untiered one
     warm = TrainerConfig(tier_warmup_steps=5)
@@ -625,17 +646,36 @@ def test_checkpoint_restores_by_key_whatever_the_order(tmp_path):
         restore_train_checkpoint(str(tmp_path), create_train_state(tp, opt))
 
 
-def test_step_refuses_what_is_not_ported():
-    _, tr, params, _ = _tiny()
+def test_step_refuses_what_is_not_ported(tmp_path):
+    """donate=True raises. mesh and microbatch, which raised here before,
+    run: with the spike guard and EMA, microbatch 8 on a one-rank mesh (gloo
+    in this process) gives the bits of microbatch 8 without it."""
+    _, tr, params, batch = _tiny()
     opt = make_optimizer()
-    for kw, match in ((dict(mesh=object()), 'Queue 1 item 11'),
-                      (dict(microbatch=4), 'Queue 1 item 10'),
-                      (dict(donate=True), 'in place')):
-        with pytest.raises(NotImplementedError, match=match):
-            make_train_step(tr, LossConfig(), opt, **kw)
-    state = create_train_state(params_from_numpy(params, 'cpu'), opt)
-    _, _, _, batch = _tiny()
+    with pytest.raises(NotImplementedError, match='in place'):
+        make_train_step(tr, LossConfig(), opt, donate=True)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    def one_step(**kw):
+        st = create_train_state(params_from_numpy(params, 'cpu'), opt, spike_guard=True,
+                                ema=True)
+        return make_train_step(tr, LossConfig(), opt, microbatch=8, spike_guard=3.0,
+                               ema_decay=0.9, **kw)(st, tb, 0)
+
+    alone, m_alone = one_step()
+    mesh = make_mesh(devices=['cpu'], init_method=f'file://{tmp_path}/store', rank=0,
+                     world_size=1, timeout=timedelta(seconds=60))
+    try:
+        meshed, m_mesh = one_step(mesh=mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    for k, v in m_alone.items():
+        assert torch.equal(m_mesh[k], v), k
+    for tree in ('params', 'ema_params'):
+        for f, sub in getattr(alone, tree).items():
+            for k, v in sub.items():
+                assert torch.equal(getattr(meshed, tree)[f][k], v), (tree, f, k)
+    state = create_train_state(params_from_numpy(params, 'cpu'), opt)
     for kw, match in ((dict(spike_guard=3.0), 'spike_guard=True'), (dict(ema_decay=0.9), 'ema=True')):
         with pytest.raises(ValueError, match=match):
             make_train_step(tr, LossConfig(), opt, **kw)(state, tb, 0)
