@@ -48,6 +48,38 @@ Phases (the first failure ends the run with a non-zero exit):
              within 1e-2 of the JAX package's own renders
              (sunerf_tpu_torch/assets/s8_golden_32.npz).
   4. flyby   3 frames through evaluation.video.render_video_frames.
+  4a. export the committed bundle through evaluation.serving at its own spec:
+             a. export_serving(platforms=('cpu', 'cuda'), batch 4,096) into a
+             temporary directory: seconds and size; the CUDA render program's
+             graph calls the registered K0 op sunerf_tpu_torch::fused_mlp_fwd
+             twice (coarse, fine), its points program once, the CPU programs
+             never, and no other call of the port; b. the 256^2 view of [render]
+             through ServingModel(device='cuda') against the live frame, every
+             map at rtol 1e-4 / atol 1e-6 (JAX's), the bits compared; c. K0's
+             launches in the served frame from torch.profiler's kernel names
+             (32), K0 at the frame's fine samples against its plain version
+             (KERNEL_TOL), served and live frames timed in turns and profiled;
+             d. the points entry on a 64^3 cube against live load_coords; e. a
+             tiered artifact (tier=TIER) against the live tiered loader, the
+             bright tier the same bits, 48 K0 launches; f.
+             scripts/probe_serving.py at 512^2, batch 8,192: artifact against
+             live, host clock, CUDA events and profiled device time; g. the
+             artifact's CPU program in a subprocess (a deadline) that imports
+             torch, zipfile and json only: a finite 16^2 frame, no sunerf_tpu
+             module loaded.
+  4b. mhd    a. the committed PSI fixture (sunerf_tpu_torch/assets/psi_fixture,
+             written by the JAX package's h5py writer) read by the port's numpy
+             reader: the arrays of its h5py read (psi_fixture.npz); rendered
+             through evaluation.image_render's MHDModel path at
+             config/render_mhd.yaml's four observers at 256^2 in its six
+             channels: finite FITS frames, each disk above its corners; b. a
+             field at the size of PSI's MAS cubes, made on the card (two frames
+             of rho and T at (n_phi, n_theta, n_r) = (360, 180, 256), 265 MB):
+             one 256^2 frame at the renderer's defaults (64 + 128 samples),
+             ms a frame, profiled, peak memory; 1,024 rays against the same
+             render in float64 on the card at 215 Rs (reported) and at 5 Rs
+             (MHD_F64_TOL); c. the fixture's MHD spec exported for cuda (no
+             op), a 64^2 view served against live at rtol 1e-4 / atol 1e-6.
   5. train   bench.py's workload: make_emission_system() defaults (8x512 for
              both fields, 64 + 128 samples), LossConfig(), make_optimizer(),
              1024 rays. One step with the launch counts set to 0 just before:
@@ -272,7 +304,8 @@ Phases (the first failure ends the run with a non-zero exit):
              each shape by grid_probes.sector_read (P1's loads of random
              cells of the same table, without the arithmetic).
 Then it prints the card's name and power limit, one {"kernels": [...]} line
-(K0 with the widths it serves on the render path, K1, K2, K3,
+(K0 with the widths it serves on the render path and the serving artifact's
+launches and times, K1, K2, K3,
 K4, K5, K6a, K6b, P1 and P2; K0's entry with [eval]'s and the occupancy
 update's launches, K1's and K2's with the tiered steps' and the tier
 shapes') and, last, {"ok": true, "device": {...}}.
@@ -434,6 +467,21 @@ DP_TRAINER_STEPS = 50
 DP_TRAINER_MICRO = 512
 DP_DEADLINE_S = 180.0
 FRAME_TOL = 1e-6
+# [export]: the serving artifact of the committed bundle, served against live
+EXPORT_BATCH = 4096
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-6   # JAX's own (tests/test_serving.py:57-63)
+K0_OP = 'sunerf_tpu_torch.fused_mlp_fwd.default'
+K0_KERNEL = 'fwd_wgmma_kernel'
+PROBE_SERVING = ('--resolution', '512', '--batch-size', '8192')
+CPU_PROGRAM_RES = 16
+SUBPROCESS_DEADLINE_S = 300.0
+# [mhd]: the committed PSI fixture, and a field at the size of PSI's MAS cubes
+PSI_FIXTURE = 'sunerf_tpu_torch/assets/psi_fixture'
+MHD_CONFIG = 'config/render_mhd.yaml'
+MHD_RES = 256
+PSI_SHAPE = (360, 180, 256)          # (n_phi, n_theta, n_r), two frames of rho and T
+MHD_F64_RAYS = 1024
+MHD_F64_TOL = 1e-3             # float32 vs float64 at 5 Rs, of max
 
 
 
@@ -3483,6 +3531,380 @@ def _grid_probe_phase(device) -> dict:
                 tap_rows=tap_rows, hat_rows=hat_rows)
 
 
+CPU_PROGRAM = """
+import io, json, sys, zipfile
+import torch
+path, rays, res = sys.argv[1], sys.argv[2], int(sys.argv[3])
+with zipfile.ZipFile(path) as zf:
+    meta = json.loads(zf.read('meta.json'))
+    render = torch.export.load(io.BytesIO(zf.read('render.cpu.pt2'))).module()
+r, b = torch.load(rays), meta['batch_size']
+pad = lambda x: torch.cat([x, x.new_zeros(b - x.shape[0], x.shape[1])])
+with torch.no_grad():
+    image = render(pad(r['ro']), pad(r['rd']), pad(r['t']),
+                   torch.zeros(b, meta['n_channels']))[0][:res * res]
+torch.save(image, rays + '.out')
+print(json.dumps({'finite': bool(torch.isfinite(image).all()), 'shape': list(image.shape),
+                  'port': sorted(k for k in sys.modules if k.startswith('sunerf_tpu'))}))
+"""
+
+
+def _close(tag: str, served, live) -> dict:
+    """max |served - live| and its share of max|live|, checked at SERVE_RTOL
+    / SERVE_ATOL elementwise, and whether the bits are the same."""
+    a, b = np.asarray(served, np.float64), np.asarray(live, np.float64)
+    diff = np.abs(a - b)
+    _check(bool(np.all(diff <= SERVE_ATOL + SERVE_RTOL * np.abs(b))),
+           f'{tag}: served vs live max diff {diff.max():.3e}')
+    return dict(max_abs_diff=float(diff.max()),
+                max_rel_diff=float(diff.max() / max(np.abs(b).max(), 1e-30)),
+                same_bits=bool(np.array_equal(served, live)))
+
+
+def _served_vs(tag: str, served, live) -> dict:
+    """_close of each map of two RenderedViews."""
+    return {k: _close(f'{tag} {k}', getattr(served, k), getattr(live, k)) for k in MAPS}
+
+
+def _k0_launches(breakdown: dict) -> int:
+    return sum(r['launches'] for k, r in breakdown.items() if k.startswith(K0_KERNEL))
+
+
+def _export_phase(device, loader, live_view) -> dict:
+    """[export]: the committed bundle exported (cpu + cuda programs) and
+    served from the artifact on the card against the live loader."""
+    import io
+    import zipfile
+    from sunerf_tpu_torch.core.geometry import observer_rays
+    from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+    from sunerf_tpu_torch.evaluation.serving import ServingModel, export_serving, program_name
+    from sunerf_tpu_torch.models.fields import NeRFConfig
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.scripts import probe_serving
+    t_phase = time.perf_counter()
+    out = {}
+    view256 = dict(VIEW, resolution=256)
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. the export and the CUDA program's graph
+        art = os.path.join(tmp, 'bundle.tsrv')
+        t0 = time.perf_counter()
+        meta = export_serving(BUNDLE, art, batch_size=EXPORT_BATCH, platforms=('cpu', 'cuda'))
+        out['export_s'] = time.perf_counter() - t0
+        out['artifact_bytes'] = os.path.getsize(art)
+        graph = {}
+        with zipfile.ZipFile(art) as zf:
+            out['members'] = {n: zf.getinfo(n).file_size for n in zf.namelist()}
+            for entry in ('render', 'points'):
+                for platform in ('cpu', 'cuda'):
+                    ep = torch.export.load(io.BytesIO(zf.read(program_name(entry, platform))))
+                    targets = [str(n.target) for n in ep.graph.nodes if n.op == 'call_function']
+                    graph[f'{entry}.{platform}'] = dict(
+                        nodes=len(targets), k0_ops=targets.count(K0_OP),
+                        other_port_calls=sorted({t for t in targets
+                                                 if 'sunerf' in t and t != K0_OP}))
+        _check(meta['fused_cuda'] and meta['platforms'] == ['cpu', 'cuda'], f'export meta {meta}')
+        _check(graph['render.cuda']['k0_ops'] == 2 and graph['points.cuda']['k0_ops'] == 1
+               and graph['render.cpu']['k0_ops'] == 0 and graph['points.cpu']['k0_ops'] == 0
+               and not any(g['other_port_calls'] for g in graph.values()),
+               f'export graphs {graph}')
+        out['graph'] = graph
+        print(f"[export] a. {BUNDLE} -> .tsrv (cpu + cuda, batch {EXPORT_BATCH}): "
+              f"{out['export_s']:.1f} s, {out['artifact_bytes'] / 2**20:.1f} MiB; "
+              + '; '.join(f"{k}: {g['nodes']} nodes, {g['k0_ops']} K0 op"
+                          for k, g in graph.items()), flush=True)
+
+        # b. the 256^2 view served from the artifact against the live frame
+        model = ServingModel(art, device='cuda')
+        model.render_observer_image(**view256)
+        torch.cuda.synchronize()
+        _zero_counters()
+        served = model.render_observer_image(**view256)
+        out['wrapper_launches_in_served_frame'] = fused_mlp.LAUNCHES
+        out['served_vs_live'] = _served_vs('[export] b. 256^2', served, live_view)
+        print('[export] b. 256^2 served vs live: ' + '; '.join(
+            f"{k} max {r['max_abs_diff']:.2e} ({r['max_rel_diff']:.2e} of max), same bits "
+            f"{r['same_bits']}" for k, r in out['served_vs_live'].items())
+            + f" (rtol {SERVE_RTOL:g}, atol {SERVE_ATOL:g})", flush=True)
+
+        # c. K0's launches in the served frame, by kernel name; K0 at the
+        # frame's fine samples against its plain version
+        served_k = _kernel_breakdown(lambda: model.render_observer_image(**view256),
+                                     'export served 256^2')
+        live_k = _kernel_breakdown(lambda: loader.render_observer_image(**view256),
+                                   'export live 256^2')
+        out['k0_launches'] = {'served': _k0_launches(served_k), 'live': _k0_launches(live_k)}
+        _check(out['k0_launches']['served'] == 32,
+               f"served frame launched K0 {out['k0_launches']['served']} times, not 32")
+        o, d = observer_rays(VIEW['lat'], VIEW['lon'], VIEW['distance'], 256)
+        arrays = {'rays': torch.as_tensor(np.stack([o.reshape(-1, 3), d.reshape(-1, 3)], 1),
+                                          device=device),
+                  'time': torch.zeros(256 * 256, 1, device=device)}
+        fine_cfg = NeRFConfig(**loader.config['renderer_spec']['model_config'])
+        got, ref = _k0_on_points(fine_cfg, loader.params['fine'],
+                                 _fine_points(loader.renderer, loader.params, arrays, 4096))
+        out['k0_fine_samples'] = _err_stats(ref, got)
+        _check_k0('export c. the frame\'s fine samples', out['k0_fine_samples'])
+        times = {'served': [], 'live': []}
+        for name in ('live', 'served', 'served', 'live') * 2:
+            src = model if name == 'served' else loader
+            t0 = time.perf_counter()
+            src.render_observer_image(**view256)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        out['render_256_ms'] = {k: statistics.median(v) for k, v in times.items()}
+        out['render_256_profile'] = {
+            'served': _wall_and_device_ms(lambda: model.render_observer_image(**view256)),
+            'live': _wall_and_device_ms(lambda: loader.render_observer_image(**view256))}
+        print(f"[export] c. K0 launches by kernel name: served {out['k0_launches']['served']}, "
+              f"live {out['k0_launches']['live']} (the wrapper's count in the served frame: "
+              f"{out['wrapper_launches_in_served_frame']}); 256^2 served "
+              f"{out['render_256_ms']['served']:.1f} ms, live {out['render_256_ms']['live']:.1f}"
+              f" ms (host clock, median of 4 in turns); under torch.profiler " + '; '.join(
+                  f"{k} {v['wall_ms']:.1f} ms wall, {v['device_ms']:.1f} ms of kernels, idle "
+                  f"{v['idle_share']:.1%}" for k, v in out['render_256_profile'].items()),
+              flush=True)
+
+        # d. the points entry on a 64^3 cube against live load_coords
+        axis = np.linspace(-1.3, 1.3, 64, dtype=np.float32)
+        cube = np.stack([*np.meshgrid(axis, axis, axis, indexing='ij'),
+                         np.zeros((64,) * 3, np.float32)], -1).reshape(-1, 4)
+        served_raw, live_raw = model.load_coords(cube), loader.load_coords(cube)
+        out['points_64'] = _close('[export] d. points', served_raw, live_raw)
+        print(f"[export] d. points entry, 64^3 cube: max diff {out['points_64']['max_abs_diff']:.2e}"
+              f", same bits {out['points_64']['same_bits']}", flush=True)
+
+        # e. a tiered artifact against the live tiered loader
+        tiered_art = os.path.join(tmp, 'tiered.tsrv')
+        export_serving(BUNDLE, tiered_art, batch_size=EXPORT_BATCH, platforms=('cuda',),
+                       tier=TIER)
+        tiered_model = ServingModel(tiered_art, device='cuda')
+        tiered_live = SuNeRFLoader(BUNDLE, tier=TIER, device=device)
+        t_served = tiered_model.render_observer_image(**view256).image[..., 0].reshape(-1)
+        t_live = tiered_live.render_observer_image(**view256).image[..., 0].reshape(-1)
+        score = loader.render_rays(o, d, 0.0, keys=('coarse_image',))['coarse_image'].max(-1)
+        n_lo = round(EXPORT_BATCH * TIER[0])
+        in_bright = np.zeros(score.size, bool)
+        for c in range(0, score.size, EXPORT_BATCH):
+            in_bright[c + np.argsort(score[c:c + EXPORT_BATCH], kind='stable')[n_lo:]] = True
+        bright_diff = float(np.abs(t_served - t_live)[in_bright].max())
+        out['tiered'] = dict(bright_max_abs_diff=bright_diff,
+                             frame_max_rel_diff=_rel(t_live, t_served),
+                             k0_launches=_k0_launches(_kernel_breakdown(
+                                 lambda: tiered_model.render_observer_image(**view256),
+                                 'export tiered served 256^2')))
+        _check(bright_diff == 0.0, f'tiered artifact: bright tier {bright_diff:.3e} from live')
+        _check(out['tiered']['k0_launches'] == 48,
+               f"tiered served frame launched K0 {out['tiered']['k0_launches']} times, not 48")
+        print(f"[export] e. tiered {TIER} artifact vs the live tiered loader: the bright tier's "
+              f"{int(in_bright.sum())} pixels {bright_diff:.1e} apart (the same bits required), "
+              f"the frame {out['tiered']['frame_max_rel_diff']:.2e} of max; "
+              f"{out['tiered']['k0_launches']} K0 launches", flush=True)
+        del tiered_model, tiered_live
+
+        # f. probe_serving: artifact against live at 512^2, batch 8,192
+        out['probe_serving'] = probe_serving.main(['--state', BUNDLE, *PROBE_SERVING])
+        ps = out['probe_serving']
+        _check(ps['max_rel_diff'] <= SERVE_RTOL, f"probe_serving frames {ps['max_rel_diff']:.2e}")
+        print(f"[export] f. probe_serving 512^2 batch 8192: live {ps['live']['wall_ms']:.1f} ms "
+              f"wall / {ps['live']['events_ms']:.1f} ms events / {ps['live']['device_ms']:.1f} ms "
+              f"of kernels ({ps['live']['k0_launches']} K0), served {ps['served']['wall_ms']:.1f} / "
+              f"{ps['served']['events_ms']:.1f} / {ps['served']['device_ms']:.1f} "
+              f"({ps['served']['k0_launches']} K0); served/live {ps['served_over_live']:.3f}",
+              flush=True)
+
+        # g. the CPU program in a process that imports only torch, zipfile and json
+        res = CPU_PROGRAM_RES
+        o16, d16 = observer_rays(VIEW['lat'], VIEW['lon'], VIEW['distance'], res)
+        rays = os.path.join(tmp, 'rays.pt')
+        torch.save({'ro': torch.as_tensor(o16.reshape(-1, 3)),
+                    'rd': torch.as_tensor(d16.reshape(-1, 3)),
+                    't': torch.zeros(res * res, 1)}, rays)
+        script = os.path.join(tmp, 'cpu_program.py')
+        Path(script).write_text(CPU_PROGRAM)
+        env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, script, art, rays, str(res)], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=SUBPROCESS_DEADLINE_S)
+        _check(proc.returncode == 0, f'CPU program: {proc.stdout[-2000:]}{proc.stderr[-2000:]}')
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        _check(line == {'finite': True, 'shape': [res * res, 1], 'port': []},
+               f'CPU program: {line}')
+        cpu_image = torch.load(rays + '.out').numpy().reshape(res, res, 1)
+        f32_view = SuNeRFLoader(BUNDLE, use_fused=False, device=device).render_observer_image(
+            **dict(VIEW, resolution=res))
+        out['cpu_program'] = dict(seconds=time.perf_counter() - t0,
+                                  vs_card_float32=_rel(f32_view.image, cpu_image))
+        print(f"[export] g. the CPU program in a process with torch alone: a finite {res}^2 "
+              f"frame in {out['cpu_program']['seconds']:.1f} s, no sunerf_tpu module loaded; "
+              f"{out['cpu_program']['vs_card_float32']:.2e} of max from the float32 field's "
+              f"live frame on the card (reported)", flush=True)
+    out['wall_s'] = time.perf_counter() - t_phase
+    print(f"[export] {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+class _Cubes:
+    """make_mhd_renderer's loader, over an MHDField made on the card."""
+
+    def __init__(self, field, device):
+        from sunerf_tpu_torch.models.mhd_field import MHDFieldLoader
+        self.field, self.device, self.data_path = field, device, None
+        self.init_params = lambda: MHDFieldLoader.init_params(self)
+
+
+def _psi_sized_field(device, dtype=torch.float32):
+    """Two frames of rho and T at PSI_SHAPE on the card: a corona falling off
+    with height on a geometric r grid from 1 to 30 Rs (as MAS's), streamers
+    in longitude and latitude."""
+    from sunerf_tpu_torch.models.mhd_field import MHDField
+    n_phi, n_theta, n_r = PSI_SHAPE
+    kw = dict(dtype=dtype, device=device)
+    r = torch.logspace(0.0, float(np.log10(30.0)), n_r, **kw)
+    th = torch.linspace(0.0, np.pi, n_theta, **kw)
+    ph = torch.linspace(0.0, 2 * np.pi, n_phi, **kw)
+    P, T, R = (g[None] for g in torch.meshgrid(ph, th, r, indexing='ij'))
+    shift = torch.tensor([0.0, 0.3], **kw).reshape(2, 1, 1, 1)
+    rho = 1e5 * torch.exp(-(R - 1.0) / 0.15) * (1 + 0.5 * torch.cos(2 * P + shift)
+                                                * torch.sin(T) ** 2) + 1e-3 / R ** 2
+    temp = 1.0 + 0.6 * torch.sin(T) ** 2 + 0.2 * torch.cos(P - shift) + 0.01 * R
+    return MHDField(r_grid=r, theta_grid=th, phi_grid=ph, rho=rho.contiguous(),
+                    temperature=temp.contiguous(), ffirst=0, flast=1)
+
+
+def _mhd_phase(device) -> dict:
+    """[mhd]: the PSI fixture through the numpy reader on the card, rendered
+    by image_render's MHDModel path; a PSI-sized field; an MHD export."""
+    import dataclasses as dc
+    import yaml
+    from sunerf_tpu_torch.core.geometry import observer_rays
+    from sunerf_tpu_torch.data import psi_io
+    from sunerf_tpu_torch.data.fits import read_fits
+    from sunerf_tpu_torch.evaluation.image_render import build_model_renderer, render_observers
+    from sunerf_tpu_torch.evaluation.loader import ModelLoader
+    from sunerf_tpu_torch.evaluation.serving import ServingModel, export_serving
+    from sunerf_tpu_torch.ops.tresp import TemperatureResponse
+    from sunerf_tpu_torch.systems import make_mhd_renderer
+    from sunerf_tpu_torch.utils.checkpoint import save_state
+    t_phase = time.perf_counter()
+    out = {'h5py_here': __import__('importlib').util.find_spec('h5py') is not None}
+    # a. the fixture: the reader's arrays are h5py's, the four observers of
+    # config/render_mhd.yaml at 256^2 in six channels
+    saved = np.load(PSI_FIXTURE + '.npz')
+    for f in sorted(Path(PSI_FIXTURE).glob('*/*.h5')):
+        key = str(f.relative_to(PSI_FIXTURE))
+        scales, data = psi_io.read_hdf(str(f))
+        _check(np.array_equal(data, saved[f'{key}/data']) and data.dtype == np.float32
+               and all(np.array_equal(s, saved[f'{key}/dim{i}']) for i, s in enumerate(scales)),
+               f'PSI reader: {key} differs from its h5py read')
+    with open(MHD_CONFIG) as f:
+        config = yaml.safe_load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        config.update(data_path=PSI_FIXTURE, resolution=MHD_RES, render_path=tmp)
+        t0 = time.perf_counter()
+        written = render_observers(config, device=device)
+        out['fixture_render_s'] = time.perf_counter() - t0
+        frames = {}
+        for base in written:
+            data, _ = read_fits(base + '.fits')
+            _check(bool(np.isfinite(data).all()), f'{base}: not finite')
+            c, w = MHD_RES // 2, MHD_RES // 16
+            disk = float(data[c - w:c + w, c - w:c + w].mean())
+            corners = float(np.mean([data[:w, :w], data[:w, -w:], data[-w:, :w],
+                                     data[-w:, -w:]]))
+            _check(disk > corners, f'{base}: disk {disk:.3e} not above corners {corners:.3e}')
+            frames[os.path.relpath(base, tmp)] = dict(max=float(data.max()), disk=disk,
+                                                      corners=corners)
+        _check(len(frames) == 4 * 6, f'{len(frames)} frames, not 24')
+    out['fixture_frames'] = frames
+    print(f"[mhd] a. {PSI_FIXTURE} read without h5py (h5py on this host: {out['h5py_here']}), "
+          f"the arrays h5py wrote; {len(frames)} frames at {MHD_RES}^2 (4 observers x 6 "
+          f"channels) in {out['fixture_render_s']:.1f} s, finite, each disk above its corners "
+          f"(disk/corners from {min(r['disk'] / max(r['corners'], 1e-30) for r in frames.values()):.3g})",
+          flush=True)
+
+    # b. a field at the size of PSI's MAS cubes, rendered at the defaults
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    field = _psi_sized_field(device)
+    out['psi_field_mib'] = (torch.cuda.memory_allocated() - base_mem) / 2**20
+    renderer, params = make_mhd_renderer(_Cubes(field, device))
+    zeros = torch.zeros(7, device=device)
+    params = {k: dict(v, log_abs=zeros) for k, v in params.items()}
+    wl = [94.0, 171.0, 193.0, 211.0, 304.0, 335.0]
+    loader = ModelLoader(renderer, params, device=device)
+    view256 = dict(VIEW, resolution=256)
+    view = loader.render_observer_image(**view256, wavelengths=wl)
+    _check(bool(np.isfinite(view.image).all()) and view.image.max() > 0,
+           'PSI-sized field: frame not finite or black')
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loader.render_observer_image(**view256, wavelengths=wl)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out['psi_frame_ms'] = statistics.median(times)
+    out['psi_frame_profile'] = _wall_and_device_ms(
+        lambda: loader.render_observer_image(**view256, wavelengths=wl))
+    out['psi_peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    # 1,024 rays against the same render in float64 on the card: of the
+    # frame's (1 AU, where float32's ray-sphere clip cancels about 5 digits:
+    # reported), and of a 5 Rs view (held at MHD_F64_TOL)
+    field64 = dc.replace(field, **{k: v.double() for k, v in field.tensors().items()})
+    resp = renderer.head.response
+    r64, _ = make_mhd_renderer(_Cubes(field64, device), response=TemperatureResponse(
+        resp.logte.double(), resp.tresp.double()))
+    p64 = {k: {kk: vv.double() for kk, vv in v.items()} for k, v in params.items()}
+    wl_t = torch.tensor(wl, device=device).expand(MHD_F64_RAYS, -1)
+    t = torch.zeros(MHD_F64_RAYS, 1, device=device)
+    out['psi_f32_vs_f64'] = {}
+    for distance in (VIEW['distance'], 5.0):
+        o, d = observer_rays(VIEW['lat'], VIEW['lon'], distance, 256)
+        pick = np.random.default_rng(0).choice(256 * 256, MHD_F64_RAYS, replace=False)
+        rays = [torch.as_tensor(x.reshape(-1, 3)[pick], device=device) for x in (o, d)]
+        with torch.inference_mode():
+            img32 = renderer(params, *rays, t, wavelengths=wl_t)['image']
+            img64 = r64(p64, *(x.double() for x in rays), t.double(),
+                        wavelengths=wl_t.double())['image']
+        out['psi_f32_vs_f64'][distance] = _rel(img64.cpu().numpy(), img32.cpu().numpy())
+    _check(out['psi_f32_vs_f64'][5.0] <= MHD_F64_TOL,
+           f"PSI-sized field at 5 Rs: float32 vs float64 {out['psi_f32_vs_f64'][5.0]:.3e}")
+    del field64, r64, p64
+    print(f"[mhd] b. PSI-sized field {PSI_SHAPE} x 2 frames x (rho, T): "
+          f"{out['psi_field_mib']:.0f} MiB on the card; 256^2 at 64 + 128 samples in 6 "
+          f"channels: {out['psi_frame_ms']:.1f} ms a frame (host clock, median of 3; "
+          f"profiled: {out['psi_frame_profile']['device_ms']:.1f} ms of kernels, idle "
+          f"{out['psi_frame_profile']['idle_share']:.1%}), peak {out['psi_peak_gib']:.2f} GiB; "
+          f"{MHD_F64_RAYS} rays vs float64 on the card: at 215 Rs "
+          f"{out['psi_f32_vs_f64'][VIEW['distance']]:.2e} of max (reported), at 5 Rs "
+          f"{out['psi_f32_vs_f64'][5.0]:.2e} (tol {MHD_F64_TOL:g})", flush=True)
+    del field, renderer, params, loader
+    torch.cuda.empty_cache()
+
+    # c. the fixture's MHD spec exported for cuda, one view served against live
+    with tempfile.TemporaryDirectory() as tmp:
+        renderer, params = build_model_renderer(dict(config, resolution=64), device=device)
+        path = os.path.join(tmp, 'mhd')
+        save_state(path, params, {'renderer_spec': renderer.spec, 'wavelengths': wl})
+        art = os.path.join(tmp, 'mhd.tsrv')
+        t0 = time.perf_counter()
+        meta = export_serving(path, art, batch_size=EXPORT_BATCH,
+                              platforms=(torch.device(device).type,))
+        export_s = time.perf_counter() - t0
+        _check(not meta['fused_cuda'], 'MHD export carries the K0 op')
+        view64 = dict(VIEW, resolution=64)
+        served = ServingModel(art, device=device).render_observer_image(**view64)
+        live = ModelLoader(renderer, params, device=device).render_observer_image(
+            **view64, wavelengths=wl)
+        out['export'] = dict(export_s=export_s, artifact_bytes=os.path.getsize(art),
+                             served_vs_live=_served_vs('[mhd] c.', served, live))
+    print(f"[mhd] c. the fixture's spec exported for cuda (no op) in {export_s:.1f} s, "
+          f"{out['export']['artifact_bytes'] / 2**10:.0f} KiB; 64^2 served vs live: " + '; '.join(
+              f"{k} {r['max_rel_diff']:.2e} of max" for k, r in
+              out['export']['served_vs_live'].items()), flush=True)
+    out['wall_s'] = time.perf_counter() - t_phase
+    print(f"[mhd] {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card',
@@ -3697,6 +4119,12 @@ def main() -> int:
                'flyby frames missing')
     print(f'[flyby] 3 frames at 256x256: {flyby_s:.2f} s', flush=True)
 
+    # 4a-4b. the serving export; the MHD field ------------------------------
+    torch.cuda.empty_cache()
+    export = _export_phase(device, loader, view)
+    torch.cuda.empty_cache()
+    mhd = _mhd_phase(device)
+
     train = _train_phase(device)
     _serve_phase(train.pop('renderer'), train.pop('state'))
     tune = _tune_phase(device, gview, g_fused)
@@ -3789,6 +4217,15 @@ def main() -> int:
                                                        'run_activity_err',
                                                        'bundle_activity_err', 'guided_render')},
         'dp_tiled_render': dp['e'],
+        # the serving artifact's CUDA program: K0 through the registered op
+        'artifact_launches': export['k0_launches']['served'],
+        'artifact': {k: export[k] for k in (
+            'export_s', 'artifact_bytes', 'graph', 'served_vs_live', 'k0_fine_samples',
+            'render_256_ms', 'render_256_profile', 'points_64', 'tiered', 'probe_serving',
+            'cpu_program')},
+        'mhd': {k: mhd[k] for k in ('fixture_render_s', 'psi_field_mib', 'psi_frame_ms',
+                                    'psi_frame_profile', 'psi_peak_gib', 'psi_f32_vs_f64',
+                                    'export')},
     })
     for key, kname, line, header in (
             ('k1', 'fused_mlp_stash_fwd', 453, 'fused_mlp_fwd_wgmma.cuh'),

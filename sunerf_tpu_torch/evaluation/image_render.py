@@ -1,15 +1,17 @@
 """Synthetic-observation generator: render EUV filtergrams of the analytic
-SimpleStar through the DT radiative-transfer head and write FITS/JPEG frames
-(sunerf_tpu/evaluation/image_render.py; reference
-evaluation/image_render.py:20-297). This is how SimpleStar training sets
-are made.
+SimpleStar or of PSI MHD cubes through the DT radiative-transfer head and
+write FITS/JPEG frames (sunerf_tpu/evaluation/image_render.py; reference
+evaluation/image_render.py:20-297 with config/render_mhd.yaml). This is how
+SimpleStar training sets are made.
 
 Usage:
   python -m sunerf_tpu_torch.evaluation.image_render --config config/render_simple_star.yaml
          [--device cuda|cpu]
 
 Config keys (the JAX CLI's):
-  model: SimpleStar (MHDModel is not ported yet: ROADMAP Queue 1 item 9)
+  model: SimpleStar | MHDModel
+  data_path: (MHDModel only) directory with rho/ and t/ HDF5 frames, read
+    without h5py (data/psi_io.py)
   render_path: output directory, written as <name>/<wavelength>/*.fits|jpg
   render_format: [jpeg, fits]
   batch_size: rays per device batch
@@ -51,8 +53,11 @@ def build_model_renderer(config: dict, device='cuda'):
             pixel_intensity_factor=pif, perturb=False, device=device)
         params = init()
     elif name == 'MHDModel':
-        raise NotImplementedError('the MHD field is not ported yet (ROADMAP Queue 1 '
-                                  'item 9)')
+        from sunerf_tpu_torch.models.mhd_field import MHDFieldLoader
+        from sunerf_tpu_torch.systems import make_mhd_renderer
+        renderer, params = make_mhd_renderer(
+            MHDFieldLoader(config['data_path'], device=device),
+            pixel_intensity_factor=pif, perturb=False)
     else:
         raise ValueError(f'unknown model {name!r}')
     if config.get('zero_absorption', True):

@@ -30,9 +30,6 @@ from sunerf_tpu_torch.utils.checkpoint import load_state
 
 
 MAPS = ('image', 'height_map', 'absorption_map')
-# what the CLIs raise for a serving artifact in place of a bundle
-SHLO = ('serving artifacts (.shlo) are not ported yet (ROADMAP Queue 1 item 12, '
-        'serving export); pass the deployment bundle')
 
 
 @dataclasses.dataclass

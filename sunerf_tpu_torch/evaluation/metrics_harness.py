@@ -22,7 +22,8 @@ import torch
 from sunerf_tpu_torch.core.scaling import image_asinh_scaling
 from sunerf_tpu_torch.data.fits import read_fits
 from sunerf_tpu_torch.data.wcs import parse_observer
-from sunerf_tpu_torch.evaluation.loader import SHLO, ModelLoader, SuNeRFLoader
+from sunerf_tpu_torch.evaluation.loader import ModelLoader, SuNeRFLoader
+from sunerf_tpu_torch.evaluation.serving import ServingModel, is_artifact
 from sunerf_tpu_torch.train.metrics import mae_percent, me_percent, psnr, ssim
 
 METRICS = ('psnr', 'ssim', 'mae_percent', 'me_percent')
@@ -41,11 +42,11 @@ def view_metrics(pred: np.ndarray, target: np.ndarray, image_scaling: str = 'asi
             'me_percent': me_percent(pred, target)}
 
 
-def evaluate_viewpoints(loader: ModelLoader, files: list[str],
+def evaluate_viewpoints(loader, files: list[str],
                         lat_split_deg: float = 7.0,
                         image_scaling: str = 'asinh') -> dict:
     """Render each FITS file's observer view at its resolution and
-    wavelength and score it against the file's data. Returns the mean
+    wavelength (a ModelLoader or a ServingModel) and score it against the file's data. Returns the mean
     metrics of the train split, the test split and all views, the split
     sizes, and the per-view metrics."""
     per_view = []
@@ -98,10 +99,16 @@ def main(argv=None):
         overrides['n_stratified'] = args.eval_stratified
     if args.eval_hierarchical is not None:
         overrides['n_hierarchical'] = args.eval_hierarchical
-    if args.state.endswith('.shlo'):
-        raise NotImplementedError(SHLO)
-    loader = SuNeRFLoader(args.state, batch_size=args.batch_size,
-                          render_overrides=overrides or None, device=args.device)
+    if is_artifact(args.state):
+        # a serving artifact: score the exact deployed program (its sample
+        # budget and tier are baked in at export)
+        if overrides:
+            parser.error('--eval-* overrides are baked into .tsrv artifacts at export '
+                         'time (evaluation.serving --n-stratified/...)')
+        loader = ServingModel(args.state, device=args.device)
+    else:
+        loader = SuNeRFLoader(args.state, batch_size=args.batch_size,
+                              render_overrides=overrides or None, device=args.device)
     files = sorted(glob.glob(args.data))
     result = evaluate_viewpoints(loader, files, args.lat_split, args.scaling)
     summary = {k: result[k] for k in ('train', 'test', 'all', 'n_train', 'n_test')}

@@ -19,7 +19,7 @@ import numpy as np
 
 from sunerf_tpu_torch.baseline.reprojection import carrington_to_world
 from sunerf_tpu_torch.core.geometry import observer_rays
-from sunerf_tpu_torch.evaluation.loader import SHLO, ModelLoader
+from sunerf_tpu_torch.evaluation.loader import ModelLoader
 
 
 def main(argv=None):
@@ -30,6 +30,7 @@ def main(argv=None):
     import argparse
 
     from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+    from sunerf_tpu_torch.evaluation.serving import ServingModel, is_artifact
 
     parser = argparse.ArgumentParser()
     parser.add_argument('product', choices=['volume', 'synchronic',
@@ -49,9 +50,16 @@ def main(argv=None):
                         help="'cuda' (the default, the card) or 'cpu'")
     args = parser.parse_args(argv)
 
-    if args.state.endswith('.shlo'):
-        raise NotImplementedError(SHLO)
-    loader = SuNeRFLoader(args.state, batch_size=args.batch_size, device=args.device)
+    if is_artifact(args.state):
+        # a serving artifact: the products built from render_observer_image
+        # and load_coords; synchronic and uncertainty need the live
+        # renderer's rays and passes (render_rays)
+        if args.product in ('synchronic', 'uncertainty'):
+            parser.error(f'{args.product} needs the live renderer (render_rays); pass the '
+                         'save_state bundle instead of the .tsrv artifact')
+        loader = ServingModel(args.state, device=args.device)
+    else:
+        loader = SuNeRFLoader(args.state, batch_size=args.batch_size, device=args.device)
     lat, lon = np.deg2rad(args.lat), np.deg2rad(args.lon)
     wl = args.wavelengths
 

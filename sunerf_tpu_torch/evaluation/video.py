@@ -1,5 +1,5 @@
-"""Flyby video frames from a trained SuNeRF bundle: ecliptic orbit + polar
-pass + zoom, saved as JPEG frames (sunerf_tpu/evaluation/video.py; ffmpeg
+"""Flyby video frames from a trained SuNeRF bundle or a .tsrv serving
+artifact: ecliptic orbit + polar pass + zoom, saved as JPEG frames (sunerf_tpu/evaluation/video.py; ffmpeg
 assembly of the frames stays manual).
 
 Usage: python -m sunerf_tpu_torch.evaluation.video --state <bundle> \
@@ -14,7 +14,8 @@ import os
 import numpy as np
 
 from sunerf_tpu_torch.core.geometry import fov_for_distance
-from sunerf_tpu_torch.evaluation.loader import SHLO, SuNeRFLoader
+from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
+from sunerf_tpu_torch.evaluation.serving import ServingModel, is_artifact
 
 
 def frame_to_jpeg(path: str, image: np.ndarray):
@@ -48,12 +49,17 @@ def render_video_frames(state_path: str, output_dir: str, n_frames: int = 60,
                         resolution: int = 256, time: float = 0.0,
                         batch_size: int = 4096, wavelengths=None,
                         distance: float = 215.0, tier=None, device='cuda'):
-    """Render the flyby of a deployment bundle into output_dir; returns the
-    frame paths. tier: optional (fraction, samples), adaptive per-ray
-    budgets for the frame renders (evaluation/loader.py)."""
-    if state_path.endswith('.shlo'):
-        raise NotImplementedError(SHLO)
-    loader = SuNeRFLoader(state_path, batch_size=batch_size, tier=tier, device=device)
+    """Render the flyby of a deployment bundle, or of a .tsrv serving
+    artifact, into output_dir; returns the frame paths. tier: optional
+    (fraction, samples), adaptive per-ray budgets for the frame renders
+    (evaluation/loader.py); an artifact has its own baked in."""
+    if is_artifact(state_path):
+        if tier is not None:
+            raise ValueError('--tier is baked into .tsrv artifacts at export time '
+                             '(evaluation.serving --tier)')
+        loader = ServingModel(state_path, device=device)
+    else:
+        loader = SuNeRFLoader(state_path, batch_size=batch_size, tier=tier, device=device)
     if wavelengths is None:
         wl_cfg = loader.wavelengths
         wavelengths = list(wl_cfg) if wl_cfg else None

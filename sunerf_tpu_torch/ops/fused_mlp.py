@@ -344,10 +344,17 @@ def _encode(config: NeRFConfig, params: dict, points: torch.Tensor) -> torch.Ten
     kernel; each grid level's features are grid_encode's, f32."""
     dims, freqs = encoding_columns(config.d_input, config.n_freqs,
                                    config.scale_factor, config.n_freqs_time)
-    u = points[:, dims] * torch.tensor(freqs, dtype=points.dtype,
-                                       device=points.device)
-    grid = [grid_encode(params[k], points, config.grid_bound)
-            for k in grid_keys(config)]
+    return _encode_columns(points, dims, torch.tensor(freqs, dtype=points.dtype,
+                                                      device=points.device),
+                           [params[k] for k in grid_keys(config)], config.grid_bound)
+
+
+def _encode_columns(points: torch.Tensor, dims, freqs: torch.Tensor, tables: list,
+                    bound: float) -> torch.Tensor:
+    """_encode from the encoding's columns (each sin/cos column's input
+    dimension and frequency) and the grid tables."""
+    u = points[:, dims] * freqs
+    grid = [grid_encode(t, points, bound) for t in tables]
     return torch.cat([points, reduced_sin(u), reduced_sin(u + _HALF_PI)] + grid,
                      dim=-1)
 
@@ -586,15 +593,40 @@ def pack_wgmma(w_in: torch.Tensor, w_h: torch.Tensor, w_out: torch.Tensor) -> to
     them: the rows of w_in (zero-padded to a multiple of 32), then of each
     w_h[i], 32 rows a chunk (_core_chunks); then the head, w_out^T with its
     O columns zero-padded to 8, element (k, n) at (k // 8) * 64 + n * 8 +
-    k % 8, the chunk zero-padded."""
+    k % 8, the chunk zero-padded. The kernel widths fill whole chunks; a
+    field of another width (the CPU's plain version reads it back through
+    unpack_wgmma) is zero-padded to a multiple of 8 units and its rows to
+    whole chunks."""
     e, h = w_in.shape
+    pad = -h % 8
+    if pad:
+        w_in, w_out = F.pad(w_in, (0, pad)), F.pad(w_out, (0, 0, 0, pad))
+        w_h = F.pad(w_h, (0, pad, 0, pad))
+        h += pad
     k_in = -(-e // _WGMMA_KC) * _WGMMA_KC
-    layers = _core_chunks(torch.cat([F.pad(w_in, (0, 0, 0, k_in - e)), w_h.reshape(-1, h)]))
+    rows = torch.cat([F.pad(w_in, (0, 0, 0, k_in - e)), w_h.reshape(-1, h)])
+    layers = _core_chunks(F.pad(rows, (0, 0, 0, -rows.shape[0] % _WGMMA_KC)))
     # (k group, k, n) -> (k group, n, k)
     head = F.pad(w_out.to(torch.bfloat16), (0, MAX_K0_OUTPUTS - w_out.shape[1]))
     head = head.reshape(h // 8, 8, MAX_K0_OUTPUTS).permute(0, 2, 1).reshape(-1)
     head = F.pad(head, (0, _WGMMA_KC * h - head.numel())).reshape(1, -1)
     return torch.cat([layers, head]).contiguous()
+
+
+def unpack_wgmma(packed: torch.Tensor, d_encoded: int, d_filter: int, n_layers: int,
+                 d_output: int) -> tuple:
+    """The inverse of pack_wgmma: (w_in [E, H], w_h [L-1, H, H], w_out
+    [H, O]) as bf16 tensors, the bf16 roundings of the packed weights."""
+    hp = packed.shape[1] // _WGMMA_KC
+    # (chunk, k group, n group, n, k) -> (chunk, k group, k, n group, n)
+    rows = packed[:-1].reshape(-1, _WGMMA_KC // 8, hp // 8, 8, 8)
+    rows = rows.permute(0, 1, 4, 2, 3).reshape(-1, hp)
+    k_in = -(-d_encoded // _WGMMA_KC) * _WGMMA_KC
+    w_in = rows[:d_encoded, :d_filter]
+    w_h = rows[k_in:k_in + (n_layers - 1) * hp].reshape(n_layers - 1, hp, hp)
+    head = packed[-1, :hp * MAX_K0_OUTPUTS].reshape(hp // 8, MAX_K0_OUTPUTS, 8)
+    w_out = head.permute(0, 2, 1).reshape(hp, MAX_K0_OUTPUTS)
+    return w_in, w_h[:, :d_filter, :d_filter], w_out[:d_filter, :d_output]
 
 
 def pack_wgmma_bwd(w_h: torch.Tensor) -> torch.Tensor:
@@ -752,16 +784,12 @@ class _KernelWeights:
 
 
 def _prepare(config: NeRFConfig, params: dict) -> _KernelWeights:
-    device = params['w_in'].device
-    dims, freqs = encoding_columns(config.d_input, config.n_freqs,
-                                   config.scale_factor, config.n_freqs_time)
+    col_dim, col_freq = _columns(config, params['w_in'].device)
     e_pad = -(-config.d_encoded // 16) * 16
-    f32 = dict(dtype=torch.float32, device=device)
     off = _grid_offset(config)
     with torch.no_grad():
         return _KernelWeights(
-            col_dim=torch.tensor(dims, dtype=torch.int32, device=device),
-            col_freq=torch.tensor(freqs, **f32),
+            col_dim=col_dim, col_freq=col_freq,
             b_in=params['b_in'].float().contiguous(),
             b_h=params['b_h'].float().contiguous(),
             w_out=params['w_out'].t().to(torch.bfloat16).contiguous(),
@@ -939,14 +967,17 @@ def grid_descriptors(config: NeRFConfig, params: dict) -> torch.Tensor:
     device: the kernels read it by pointer, so any number of levels fits.
     Made once per set of table addresses and kept (an optimizer's in-place
     update keeps the addresses)."""
-    tables = [params[k] for k in grid_keys(config)]
+    return _level_descriptors([params[k] for k in grid_keys(config)], config.grid_features)
+
+
+def _level_descriptors(tables: list, features: int) -> torch.Tensor:
     dev = tables[0].device
-    key = (dev, config.grid_sizes, config.grid_features) + tuple(t.data_ptr() for t in tables)
+    sizes = tuple(t.shape[0] for t in tables)
+    key = (dev, sizes, features) + tuple(t.data_ptr() for t in tables)
     hit = _grid_descriptors.get(key)
     if hit is None:
-        offsets = grid_offsets(config)
-        rows = [[t.data_ptr(), offsets[i], g]
-                for i, (t, g) in enumerate(zip(tables, config.grid_sizes))]
+        offsets = np.cumsum([0] + [g ** 3 * features for g in sizes]).tolist()
+        rows = [[t.data_ptr(), offsets[i], g] for i, (t, g) in enumerate(zip(tables, sizes))]
         hit = torch.tensor(rows, dtype=torch.int64).to(dev)
         if len(_grid_descriptors) >= 64:
             _grid_descriptors.clear()
@@ -982,17 +1013,20 @@ def pack_wgmma_grid(w_grid: torch.Tensor) -> torch.Tensor:
 def _grid_args(config: NeRFConfig, params: dict) -> _GridArgs:
     """The live float32 tables (checked by _check) as the kernels take
     them; the caller keeps `params` alive over the launch."""
+    return _grid_args_of([params[k] for k in grid_keys(config)], config.grid_features,
+                         config.grid_bound)
+
+
+def _grid_args_of(tables: list, features: int, bound: float) -> _GridArgs:
     args = _GridArgs()
-    if not config.grid_sizes:
+    if not tables:
         return args
-    tables = [params[k] for k in grid_keys(config)]
-    args.levels = grid_descriptors(config, params).data_ptr()
-    args.total = grid_offsets(config)[-1]
-    args.n_levels = len(config.grid_sizes)
-    args.features = config.grid_features
-    args.bound = config.grid_bound
-    args.vec4 = int(config.grid_features % 4 == 0
-                    and all(t.data_ptr() % 16 == 0 for t in tables))
+    args.levels = _level_descriptors(tables, features).data_ptr()
+    args.total = sum(t.numel() for t in tables)
+    args.n_levels = len(tables)
+    args.features = features
+    args.bound = bound
+    args.vec4 = int(features % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tables))
     return args
 
 
@@ -1017,30 +1051,159 @@ def _count_grid(config: NeRFConfig):
         GRID_LAUNCHES += 1
 
 
-def _forward_k0(config: NeRFConfig, params: dict,
-                points: torch.Tensor, defines: tuple = ()) -> torch.Tensor:
-    """The K0 wrapper: CUDA tensors launch csrc/fused_mlp_fwd_wgmma.cu (or
-    raise), CPU tensors run its plain version. `defines` launches a variant
-    built with those macros (scripts/backward_ablation.py's
-    measurement-only ablations)."""
-    global LAUNCHES
-    if points.device.type == 'cpu':
-        return fused_mlp_reference(config, params, points)
-    _check(config, params, points)
-    if not 1 <= config.d_output <= MAX_K0_OUTPUTS:
-        raise ValueError(f'the fused forward takes d_output from 1 to {MAX_K0_OUTPUTS}, '
-                         f'got {config.d_output}')
-    n = points.shape[0]
-    out = torch.empty((n, config.d_output), dtype=torch.float32,
-                      device=points.device)
+_column_cache: dict = {}
+
+
+def _columns(config: NeRFConfig, device) -> tuple:
+    """(col_dim int32, col_freq f32) of the encoding's sin/cos columns on
+    `device`, made once per config and device."""
+    key = (config.d_input, config.n_freqs, config.scale_factor, config.n_freqs_time,
+           str(torch.device(device)))
+    hit = _column_cache.get(key)
+    if hit is None:
+        dims, freqs = encoding_columns(*key[:4])
+        hit = _column_cache[key] = (
+            torch.tensor(dims, dtype=torch.int32, device=device),
+            torch.tensor(freqs, dtype=torch.float32, device=device))
+    return hit
+
+
+def k0_operands(config: NeRFConfig, params: dict) -> dict:
+    """K0's operands for this field as fused_mlp_fwd takes them, on the
+    params' device: the packed weights (pack_wgmma, made once per parameter
+    set and cached like _kernel_weights), the encoding's columns, the
+    float32 biases and the grid tables (live). A render passes them to the
+    op on every call; an exported program holds them as constants."""
+    col_dim, col_freq = _columns(config, params['w_in'].device)
+    with torch.no_grad():
+        return dict(weights=_wgmma_weights(params), col_dim=col_dim, col_freq=col_freq,
+                    b_in=params['b_in'].float().contiguous(),
+                    b_h=params['b_h'].float().contiguous(),
+                    b_out=params['b_out'].float().contiguous(),
+                    grids=[params[k] for k in grid_keys(config)])
+
+
+def k0_field_operands(config: NeRFConfig, params: dict) -> tuple:
+    """(config, k0_operands) of a field for a program that calls
+    fused_mlp_fwd itself (an export): on CUDA the field zero-padded to its
+    kernel width and checked as _forward_k0 checks it, so the program's
+    operands are what the kernel takes; on the CPU as it is."""
+    if config.grid_rank:
+        raise NotImplementedError(_NO_VM_KERNEL)
+    dev = params['w_in'].device
+    if dev.type == 'cuda':
+        config, params = _kernel_field(config, params)
+        _check(config, params, torch.empty((0, config.d_input), device=dev))
+        if not 1 <= config.d_output <= MAX_K0_OUTPUTS:
+            raise ValueError(f'the fused forward takes d_output from 1 to {MAX_K0_OUTPUTS}, '
+                             f'got {config.d_output}')
+    return config, k0_operands(config, params)
+
+
+@torch.library.custom_op('sunerf_tpu_torch::fused_mlp_fwd', mutates_args=())
+def fused_mlp_fwd(points: torch.Tensor, weights: torch.Tensor, col_dim: torch.Tensor,
+                  col_freq: torch.Tensor, b_in: torch.Tensor, b_h: torch.Tensor,
+                  b_out: torch.Tensor, grids: list[torch.Tensor],
+                  grid_bound: float) -> torch.Tensor:
+    """K0 as a registered op, sunerf_tpu_torch::fused_mlp_fwd: raw [N,
+    d_output] f32 of the field at points [N, d_input], base offsets
+    excluded, from k0_operands. The dims come from the operands' shapes
+    (d_filter = b_in's, L - 1 = b_h's rows, d_output = b_out's, F = the
+    tables' last axis); grid_bound is the one argument besides tensors. On
+    CUDA tensors it launches csrc/fused_mlp_fwd_wgmma.cu (or raises); on
+    any other device it is K0's plain version, which reads the weights back
+    with unpack_wgmma (bf16 values, so the same bits as
+    fused_mlp_reference)."""
+    e = points.shape[1] + 2 * col_dim.numel() + sum(t.shape[-1] for t in grids)
+    w_in, w_h, w_out = unpack_wgmma(weights, e, b_in.numel(), b_h.shape[0] + 1,
+                                    b_out.numel())
+    h = _encode_columns(points, col_dim.long(), col_freq, list(grids), grid_bound)
+    for w, b in [(w_in, b_in)] + list(zip(w_h, b_h)):
+        h = reduced_sin(_mm(h, w.contiguous()) + b)
+    return _mm(h, w_out.contiguous()) + b_out
+
+
+@fused_mlp_fwd.register_fake
+def _fused_mlp_fwd_fake(points, weights, col_dim, col_freq, b_in, b_h, b_out, grids,
+                        grid_bound):
+    return points.new_empty((points.shape[0], b_out.shape[0]))
+
+
+@fused_mlp_fwd.register_kernel('cuda')
+def _fused_mlp_fwd_cuda(points, weights, col_dim, col_freq, b_in, b_h, b_out, grids,
+                        grid_bound):
+    return _launch_k0(points, weights, col_dim, col_freq, b_in, b_h, b_out, list(grids),
+                      grid_bound)
+
+
+def _launch_k0(points, weights, col_dim, col_freq, b_in, b_h, b_out, grids: list,
+               grid_bound: float, defines: tuple = ()) -> torch.Tensor:
+    """Launches csrc/fused_mlp_fwd_wgmma.cu on fused_mlp_fwd's operands,
+    checked as the kernel reads them; the _GridArgs structure is made here,
+    at call time, from the tables' addresses."""
+    n, d_input = points.shape
+    dev = points.device
+    h, d_output, hidden = b_in.numel(), b_out.numel(), b_h.shape[0]
+    features = grids[0].shape[-1] if grids else 0
+    e = d_input + 2 * col_dim.numel() + len(grids) * features
+    chunks = -(-e // _WGMMA_KC) + hidden * h // _WGMMA_KC + 1
+    f32 = torch.float32
+    for name, t, shape, dtype in (
+            ('points', points, (n, d_input), f32),
+            ('weights', weights, (chunks, _WGMMA_KC * h), torch.bfloat16),
+            ('col_dim', col_dim, col_dim.shape, torch.int32),
+            ('col_freq', col_freq, col_dim.shape, f32), ('b_in', b_in, (h,), f32),
+            ('b_h', b_h, (hidden, h), f32), ('b_out', b_out, (d_output,), f32),
+            *((f'grids[{i}]', t, (t.shape[0],) * 3 + (features,), f32)
+              for i, t in enumerate(grids))):
+        build.check_tensor(name, t, shape, dtype, dev)
+    out = torch.empty((n, d_output), dtype=f32, device=dev)
     if n == 0:
         return out
-    w = _kernel_weights(config, params)
-    grid = _grid_args(config, params)
-    _launch('fused_mlp_fwd_wgmma', 9, 7, points.device, *_fwd_args(w, params, points, grid, out),
-            *_fwd_ints(config, w, n), defines=defines)
-    LAUNCHES += 1
-    _count_grid(config)
+    grid = _grid_args_of(grids, features, grid_bound)
+    _launch('fused_mlp_fwd_wgmma', 9, 7, dev, points.data_ptr(), col_dim.data_ptr(),
+            col_freq.data_ptr(), weights.data_ptr(), b_in.data_ptr(), b_h.data_ptr(),
+            b_out.data_ptr(), ctypes.addressof(grid), out.data_ptr(),
+            n, d_input, col_dim.numel(), -(-e // 16) * 16, h, hidden, d_output,
+            defines=defines)
+    return out
+
+
+def fused_mlp_packed(ops: dict, points: torch.Tensor, grid_bound: float) -> torch.Tensor:
+    """fused_mlp_fwd on k0_operands' dict: the call an exported program
+    makes, its operands baked in."""
+    return fused_mlp_fwd(points, ops['weights'], ops['col_dim'], ops['col_freq'],
+                         ops['b_in'], ops['b_h'], ops['b_out'], ops['grids'], grid_bound)
+
+
+def _tracing() -> bool:
+    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
+
+
+def _forward_k0(config: NeRFConfig, params: dict,
+                points: torch.Tensor, defines: tuple = ()) -> torch.Tensor:
+    """The K0 wrapper: the registered op fused_mlp_fwd on this field's
+    k0_operands; CUDA tensors launch csrc/fused_mlp_fwd_wgmma.cu (or
+    raise), CPU tensors run its plain version. It counts a launch here, in
+    eager calls only (an exported program runs the op without this
+    wrapper). `defines` launches a variant built with those macros, outside
+    the op (scripts/backward_ablation.py's measurement-only ablations)."""
+    global LAUNCHES
+    cuda = points.device.type == 'cuda'
+    if cuda:
+        _check(config, params, points)
+        if not 1 <= config.d_output <= MAX_K0_OUTPUTS:
+            raise ValueError(f'the fused forward takes d_output from 1 to {MAX_K0_OUTPUTS}, '
+                             f'got {config.d_output}')
+    ops = k0_operands(config, params)
+    if defines:
+        return _launch_k0(points, *(ops[k] for k in ('weights', 'col_dim', 'col_freq',
+                                                     'b_in', 'b_h', 'b_out', 'grids')),
+                          config.grid_bound, defines=defines)
+    out = fused_mlp_packed(ops, points, config.grid_bound)
+    if cuda and points.shape[0] and not _tracing():
+        LAUNCHES += 1
+        _count_grid(config)
     return out
 
 

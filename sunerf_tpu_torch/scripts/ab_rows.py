@@ -11,8 +11,11 @@ file measures the parent and the change. One JSON line:
   * k0_fine_ms, k0_coarse_ms: K0 (fused_mlp_forward, no grad) with the
     committed bundle's two fields at one render chunk's shapes (4096 rays x
     60 and x 20 samples), points U(-1.3, 1.3) from seed 0;
+  * k0_fine_host_us, k0_coarse_host_us: the host's microseconds to issue
+    one of those K0 calls (wrapper and dispatch, no synchronize inside);
   * render_256_ms: SuNeRFLoader.render_observer_image of the bundle at
-    256x256, lat 0.3, lon 1.1, 215 Rs, host clock to the host copy;
+    256x256, lat 0.3, lon 1.1, 215 Rs, host clock to the host copy
+    (--k0-render stops after it);
   * step_ms: bench.py's training step (scripts/probe_step.py's setup, knobs
     {}), CUDA events around whole steps;
   * k1_ms, k2_ms: the stashing forward and backward at 8x512, N = 196,608
@@ -107,6 +110,22 @@ def _graph_ms(fn, calls: int = 10, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _host_us(fn, reps: int = 20) -> float:
+    """The host's microseconds to issue one call (no synchronize inside:
+    the wrapper's and the dispatcher's cost, the kernel queued behind the
+    last), the median of reps after a synchronize each."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _events_ms(fn, reps: int = 10) -> float:
     import torch
     fn()
@@ -175,6 +194,9 @@ def _k3_ms(fn) -> tuple:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--tag', default='')
+    parser.add_argument('--k0-render', action='store_true',
+                        help="K0's rows and the render's alone (a change to K0's "
+                             "wrapper or to the render path)")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import torch
@@ -215,6 +237,7 @@ def main(argv=None) -> dict:
             pts[:, 3] = 0.0
             p = params[name]
             row[f'k0_{name}_ms'] = _events_ms(lambda: fused_mlp.fused_mlp_forward(cfg, p, pts))
+            row[f'k0_{name}_host_us'] = _host_us(lambda: fused_mlp.fused_mlp_forward(cfg, p, pts))
 
     # the 256^2 render
     loader = SuNeRFLoader(bundle, device='cuda')
@@ -227,6 +250,9 @@ def main(argv=None) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     row['render_256_ms'] = statistics.median(times)
     del loader
+    if args.k0_render:
+        print(json.dumps(row), flush=True)
+        return row
 
     # bench.py's training step
     config = emission_config()

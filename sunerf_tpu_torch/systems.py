@@ -1,8 +1,7 @@
 """System factories wiring fields, heads and renderers together
 (sunerf_tpu/systems.py): each returns a Renderer and an init function for
-its parameters on `device`. The emission, density-temperature, SimpleStar
-and Thomson systems are ported; the MHD field is not (ROADMAP Queue 1
-item 9). An occupancy config in the render kwargs (an OccupancyConfig or
+its parameters on `device`: the emission, density-temperature, SimpleStar,
+Thomson and MHD systems. An occupancy config in the render kwargs (an OccupancyConfig or
 a dict, as YAML and bundle specs carry it) adds the grid to the params as
 params['occupancy']."""
 from __future__ import annotations
@@ -216,6 +215,33 @@ def make_thomson_system(Rs_per_ds: float = 1.0,
     return renderer, _with_occupancy(init, renderer.occupancy, device)
 
 
+def make_mhd_renderer(loader, Rs_per_ds: float = 1.0,
+                      response: Optional[TemperatureResponse] = None,
+                      pixel_intensity_factor: float = 1e10, **render_kwargs):
+    """PSI MHD simulation cubes rendered through the DT head (reference
+    image_render.py:235-259 with MHDModel). Returns (renderer, params): the
+    cubes live in the field (loader.field, on the loader's device), the
+    params are log_abs and vol_c only."""
+    from sunerf_tpu_torch.models.mhd_field import mhd_apply
+    device = loader.device
+    response = response or load_aia_response(device=device)
+    head = DensityTemperatureHead(response=response,
+                                  pixel_intensity_factor=pixel_intensity_factor,
+                                  Rs_per_ds=Rs_per_ds)
+    render_kwargs = _normalize_occupancy(render_kwargs)
+    renderer = Renderer(field_apply=functools.partial(mhd_apply, loader.field),
+                        head=head, Rs_per_ds=Rs_per_ds,
+                        spec=_spec('mhd', None, Rs_per_ds, render_kwargs,
+                                   pixel_intensity_factor=pixel_intensity_factor,
+                                   data_path=loader.data_path),
+                        **render_kwargs)
+    p = loader.init_params()
+    params = {'coarse': p, 'fine': p}
+    if renderer.occupancy is not None:
+        params['occupancy'] = init_occupancy(renderer.occupancy, device)
+    return renderer, params
+
+
 def from_spec(spec: dict, use_fused: Optional[bool] = None, device='cuda'):
     """Rebuild a (renderer, init) pair from a serialized spec — the bundle
     reconstruction path of the evaluation loader. Specs of either package
@@ -245,6 +271,13 @@ def from_spec(spec: dict, use_fused: Optional[bool] = None, device='cuda'):
         return make_thomson_system(Rs_per_ds=spec['Rs_per_ds'], model_config=config,
                                    use_fused=use_fused, device=device, **kwargs)
     if head == 'mhd':
-        raise NotImplementedError('the MHD field is not ported yet (ROADMAP Queue 1 '
-                                  'item 9: PSI cubes, which need h5py)')
+        from sunerf_tpu_torch.models.mhd_field import MHDFieldLoader
+        data_path = spec.get('data_path')
+        if not data_path:
+            raise ValueError('mhd spec carries no data_path (cube files are not '
+                             'serialized into the bundle)')
+        renderer, params = make_mhd_renderer(
+            MHDFieldLoader(data_path, device=device), Rs_per_ds=spec['Rs_per_ds'],
+            pixel_intensity_factor=spec.get('pixel_intensity_factor', 1e10), **kwargs)
+        return renderer, (lambda _generator=None: params)
     raise ValueError(f'unknown head {head!r}')

@@ -514,7 +514,9 @@ def test_systems_round_trip_both_ways():
     dt_default, _ = make_density_temperature_system(device='cpu')
     assert dt_default.head.pixel_intensity_factor == 1e17
     assert dt_default.spec['model_config']['d_filter'] == 512
-    with pytest.raises(NotImplementedError, match='item 9'):
+    # the MHD field is ported (Queue 1 item 9): a spec without its cubes'
+    # data_path is refused, as in JAX
+    with pytest.raises(ValueError, match='data_path'):
         from_spec({'head': 'mhd', 'Rs_per_ds': 1.0}, device='cpu')
     # occupancy is ported: the DT system with a grid builds, its spec equals
     # JAX's and rebuilds (both ways) with the grid in the params
@@ -663,7 +665,9 @@ def test_render_observers_matches_jax(tmp_path):
         # about as close to the float64 frame as JAX's own float32 frame is
         assert _rel(truth, pdata) <= max(2.0 * _rel(truth, jdata), 1e-5), name
         assert _rel(jdata, pdata) < SYNTH_TOL, name
-    with pytest.raises(NotImplementedError, match='item 9'):
+    # MHDModel is ported (Queue 1 item 9; tests/test_torch_mhd.py): it needs
+    # the cubes' data_path, as in JAX
+    with pytest.raises(KeyError, match='data_path'):
         image_render.build_model_renderer({'model': 'MHDModel'}, device='cpu')
 
 

@@ -357,7 +357,9 @@ def test_shlo_states_raise_naming_item_12(tmp_path):
                  lambda: metrics_harness.main(['--state', state, '--data', 'x', '--device',
                                                'cpu']),
                  lambda: video.render_video_frames(state, str(tmp_path), device='cpu')):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 12'):
+        # the port serves its own .tsrv artifacts (Queue 1 item 12): a JAX
+        # .shlo is refused, named
+        with pytest.raises(ValueError, match='JAX StableHLO artifact'):
             call()
 
 

@@ -177,12 +177,12 @@ def test_thomson_system_round_trips_and_only_mhd_is_refused():
         make_thomson_system(device='cpu', sampling='spherical', occupancy={'nvol': [8, 8, 8]})
     with pytest.raises(ValueError, match='Unknown sampling'):
         make_thomson_system(device='cpu', sampling='uniform')
-    # every head rebuilds but the MHD field
+    # every head rebuilds; the MHD field needs its cubes' data_path
     for head in ('emission', 'density_temperature', 'simple_star', 'thomson'):
         renderer, _ = from_spec({'head': head, 'Rs_per_ds': 1.0,
                                  'render': {'n_stratified': 8}}, device='cpu')
         assert renderer.n_stratified == 8
-    with pytest.raises(NotImplementedError, match='item 9'):
+    with pytest.raises(ValueError, match='data_path'):
         from_spec({'head': 'mhd', 'Rs_per_ds': 1.0}, device='cpu')
     with pytest.raises(ValueError, match='unknown head'):
         from_spec({'head': 'nope', 'Rs_per_ds': 1.0}, device='cpu')
