@@ -1625,8 +1625,8 @@ cudaError_t launch_reduce(const float* part, int S, size_t P, float* out, cudaSt
 }
 
 // Raises `kernel`'s shared memory limit to the card's and returns how many
-// blocks of `threads` fit on the card at once, once per kernel (so no
-// attribute or occupancy call in a graph capture).
+// blocks of `threads` fit on the card at once, once per kernel and device
+// (so no attribute or occupancy call in a graph capture).
 template <typename K>
 cudaError_t persistent_blocks(K kernel, int& max_blocks, int threads = kThreads) {
   if (max_blocks > 0) return cudaSuccess;
@@ -1645,7 +1645,10 @@ cudaError_t persistent_blocks(K kernel, int& max_blocks, int threads = kThreads)
 
 template <int H, int kGate, bool kDpts>
 cudaError_t launch_chain(BwdParams p, cudaStream_t stream) {
-  static int max_blocks = 0;
+  static int blocks_of[kMaxDevices] = {};
+  int* const slot = device_slot(blocks_of);
+  if (slot == nullptr) return cudaErrorInvalidDevice;
+  int& max_blocks = *slot;
   cudaError_t err = persistent_blocks(chain_wgmma_kernel<H, kGate, kDpts>, max_blocks);
   if (err != cudaSuccess) return err;
   // a stage holds a weight chunk [32 x H] bf16, H / CW of K3's [32 x CW],
@@ -1690,7 +1693,10 @@ cudaError_t launch_chain_width(const BwdParams& p, cudaStream_t s) {
 
 template <int TN>
 cudaError_t launch_dw_tn(BwdParams p, int n_jobs, cudaStream_t stream) {
-  static int max_blocks = 0;
+  static int blocks_of[kMaxDevices] = {};
+  int* const slot = device_slot(blocks_of);
+  if (slot == nullptr) return cudaErrorInvalidDevice;
+  int& max_blocks = *slot;
   cudaError_t err = persistent_blocks(dw_wgmma_kernel<TN>, max_blocks);
   if (err != cudaSuccess) return err;
   const int stage = 2 * kBox * kBox * 2 + TN * kRows * 2;
@@ -1712,7 +1718,10 @@ inline cudaError_t launch_dw(const BwdParams& p, int n_jobs, cudaStream_t s) {
 
 template <int TN>
 cudaError_t launch_dw_i8_tn(BwdParams p, cudaStream_t stream) {
-  static int max_blocks = 0;
+  static int blocks_of[kMaxDevices] = {};
+  int* const slot = device_slot(blocks_of);
+  if (slot == nullptr) return cudaErrorInvalidDevice;
+  int& max_blocks = *slot;
   cudaError_t err = persistent_blocks(dw_i8_wgmma_kernel<TN>, max_blocks, kConsumers);
   if (err != cudaSuccess) return err;
   const int ops = kI8Bufs * (kI8TM * kRows + TN * kRows);

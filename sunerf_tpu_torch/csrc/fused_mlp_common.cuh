@@ -18,6 +18,18 @@ constexpr float kHalfPi = 1.5707963267948966f;
 constexpr float kCosScale = 127.0f;
 constexpr float kHalfPiSq = 2.4674011002723395f;   // (pi/2)^2 rounded to f32
 
+// A kernel's launch state (its raised shared-memory limit, the blocks that
+// fit at once) belongs to the device it was set on, so a launcher keeps one
+// slot a device: a process that launches on two cards sets each card's.
+// Returns the current device's slot of `slots` [kMaxDevices], or nullptr.
+constexpr int kMaxDevices = 64;
+inline int* device_slot(int* slots) {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kMaxDevices)
+    return nullptr;
+  return slots + device;
+}
+
 // What a forward writes beside its output: nothing (K0), the bf16 sin and
 // int8 cos stashes (K1, 'int8'), the packed bf16 sin with sign(cos) in its
 // last bit (K6a, 'lsb'), the int8 sin and cos pairs (K6b, 'i8pair'), or the

@@ -570,11 +570,14 @@ inline size_t smem_bytes(int H, int act_k, int stages, int fmt, int grid_bytes) 
 }
 
 // Raises the shared memory limit and finds how many blocks fit at once,
-// once per kernel (so no attribute or occupancy call in a graph capture);
-// then launches as many blocks as fit, each walking the tiles.
+// once per kernel and device (so no attribute or occupancy call in a graph
+// capture); then launches as many blocks as fit, each walking the tiles.
 template <int H, int kFmt>
 cudaError_t launch_width(const Params& p, cudaStream_t stream) {
-  static int max_blocks = 0;
+  static int blocks_of[kMaxDevices] = {};
+  int* const slot = device_slot(blocks_of);
+  if (slot == nullptr) return cudaErrorInvalidDevice;
+  int& max_blocks = *slot;
   if (max_blocks == 0) {
     cudaError_t err = cudaFuncSetAttribute(fwd_wgmma_kernel<H, kFmt>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,

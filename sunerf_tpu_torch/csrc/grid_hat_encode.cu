@@ -388,12 +388,15 @@ constexpr size_t smem_bytes(int variant) {
 }
 
 // Raises the kernel's shared memory limit and finds how many blocks fit at
-// once, both once per kernel, so that a launch inside a CUDA graph capture
-// makes no attribute or occupancy call; then launches one block per SM
-// (block slot), each walking the tiles.
+// once, both once per kernel and device, so that a launch inside a CUDA
+// graph capture makes no attribute or occupancy call; then launches one
+// block per SM (block slot), each walking the tiles.
 template <int kVariant, int kPh>
 cudaError_t launch(const HatParams& p, cudaStream_t stream) {
-  static int max_blocks = 0;
+  static int blocks_of[sunerf::kMaxDevices] = {};
+  int* const slot = sunerf::device_slot(blocks_of);
+  if (slot == nullptr) return cudaErrorInvalidDevice;
+  int& max_blocks = *slot;
   const size_t smem = smem_bytes(kVariant);
   if (max_blocks == 0) {
     cudaError_t err = cudaFuncSetAttribute(hat_encode_kernel<kVariant, kPh>,

@@ -42,6 +42,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+// resident_blocks' state is kept a device (a function attribute and its
+// occupancy belong to one device's context)
+constexpr int kMaxDevices = 64;
 
 // V features per thread: 4 (float4 taps) or 1
 template <int V>
@@ -99,7 +102,7 @@ cudaError_t launch(const float* pts, const float* table, float* out, int n, int 
   return cudaGetLastError();
 }
 
-// Blocks of `kernel` that fit on the card at once, found once per kernel
+// Blocks of `kernel` that fit on the card at once, found once per kernel and device
 template <typename K>
 cudaError_t resident_blocks(K kernel, int& blocks) {
   if (blocks > 0) return cudaSuccess;
@@ -175,7 +178,11 @@ extern "C" int sunerf_l2_sector_read(const void* table, void* out, int n, int G,
                                      void* stream) {
   if (n < 1 || G < 2 || F < 4 || F % 4 != 0 || reinterpret_cast<uintptr_t>(table) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int max_blocks = 0;
+  static int blocks_of[kMaxDevices] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  int& max_blocks = blocks_of[device];
   cudaError_t err = resident_blocks(sector_read_kernel, max_blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long want = (2LL * n + kThreads - 1) / kThreads;

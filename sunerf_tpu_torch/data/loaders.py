@@ -85,9 +85,8 @@ def load_map_stack(file_paths: list[str], resolution: Optional[int] = None,
     for p in file_paths:
         data, header = read_fits(p)
         if resolution and data.shape != (resolution, resolution):
-            raise NotImplementedError(
-                f'{p}: resampling {data.shape} to {resolution}^2 comes with '
-                f'data/prep.py (ROADMAP Queue 1 item 13)')
+            from sunerf_tpu_torch.data.prep import resample
+            data, header = resample(data, header, resolution)
         if apply_norm:
             wl = header.get('WAVELNTH')
             wl = int(wl) if wl is not None else None

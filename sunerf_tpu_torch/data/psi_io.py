@@ -18,8 +18,18 @@ file format):
     REFERENCE_LIST back-links are not read).
 Anything else raises ValueError naming what it met: another superblock
 version, a chunked or compact layout, a filter pipeline (compression), a
-shared message, another data type. The writers need h5py, as the JAX
-package's do; only CPU-host tools and tests write files.
+shared message, another data type.
+
+The writers (write_hdf, wrhdf_3d) write with numpy alone (_write_numpy) on
+every host, with h5py or without it (the card's host has none): the
+structures above, laid out where h5py 3.14 / HDF5 1.14 puts them for the
+same call (its 2048-byte metadata and small-data blocks, the global heap
+collection of 4096 bytes, the object headers that a dimension scale's
+attributes extend or continue), so the bytes are h5py's, the JAX package's
+writer's. That writer takes float32 / float64 data of rank 1 to 3, with a
+non-empty scale for every axis or with none (scales cast to the data's type,
+as h5py's path does); anything else goes through h5py where it imports, and
+raises ValueError by name where it does not.
 """
 from __future__ import annotations
 
@@ -36,12 +46,6 @@ _UNDEFINED = 0xFFFFFFFFFFFFFFFF
 _DATASPACE, _DATATYPE, _LAYOUT, _FILTERS, _ATTRIBUTE, _CONTINUATION, _SYMBOL_TABLE = (
     0x01, 0x03, 0x08, 0x0B, 0x0C, 0x10, 0x11)
 _FLOAT, _REFERENCE, _VLEN = 1, 7, 9    # datatype classes
-
-
-def _require_h5py():
-    if h5py is None:
-        raise ImportError('h5py is required to write PSI HDF5 files (the reader, '
-                          'read_hdf, needs numpy alone)')
 
 
 class _File:
@@ -318,10 +322,258 @@ def rdhdf_3d(path: str):
     return scales[0], scales[1], scales[2], data
 
 
+# ------------------------------------------------------------------ writer
+# The numpy writer lays the file out as h5py 3.14 does for write_hdf's calls
+# (create the file; the 'Data' dataset, written at once; per axis i a 'dim<i>'
+# dataset made a scale and attached to axis i):
+#   * metadata in blocks of _META_BLOCK bytes, the first at 0: superblock,
+#     root object header, root B-tree, local heap, Data's object header, the
+#     root's symbol table node, dim1's object header, then (rank 3) the
+#     continuation blocks of Data and dim1; a header that is last in its block
+#     grows in place to hold its REFERENCE_LIST, one that is not continues;
+#   * raw data in blocks from the end of the first metadata block: Data's,
+#     dim1's, the global heap collection of DIMENSION_LIST's references;
+#   * from rank 2, a second metadata block after the collection for the other
+#     scales' headers, then their raw data.
+_META_BLOCK = 2048
+_GCOL_SIZE = 4096
+_HEADER_SIZE = 256          # an object header's first allocation (its messages)
+_HEAP_SIZE = 88             # the root group's local heap data segment
+_BTREE_SIZE = 544           # a group B-tree node: K = 16
+_SNOD_SIZE = 328            # a symbol table node: 2 K = 8 entries
+_NULL, _FILL = 0x00, 0x05
+_SCALE_CLASS = b'DIMENSION_SCALE\0'     # a dimension scale's CLASS attribute
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + b'\0' * (-len(b) % 8)
+
+
+def _u8(v: int) -> bytes:
+    return int(v).to_bytes(8, 'little')
+
+
+def _msg(kind: int, body: bytes, flags: int = 0) -> bytes:
+    body = _pad8(body)
+    return (kind.to_bytes(2, 'little') + len(body).to_bytes(2, 'little')
+            + bytes([flags, 0, 0, 0]) + body)
+
+
+def _dataspace(shape: tuple) -> bytes:
+    """Version 1, with maximum dimensions (= the dimensions); () scalar."""
+    flags = 1 if shape else 0
+    dims = b''.join(_u8(d) for d in shape)
+    return bytes([1, len(shape), flags, 0, 0, 0, 0, 0]) + dims + (dims if shape else b'')
+
+
+def _float_type(dtype: np.dtype) -> bytes:
+    if dtype.itemsize == 4:
+        sign, exp_at, exp_bits, mant_bits, bias = 31, 23, 8, 23, 127
+    else:
+        sign, exp_at, exp_bits, mant_bits, bias = 63, 52, 11, 52, 1023
+    return (bytes([0x11, 0x20, sign, 0]) + dtype.itemsize.to_bytes(4, 'little')
+            + (0).to_bytes(2, 'little') + (8 * dtype.itemsize).to_bytes(2, 'little')
+            + bytes([exp_at, exp_bits, 0, mant_bits]) + bias.to_bytes(4, 'little'))
+
+
+def _string_type(size: int) -> bytes:
+    return bytes([0x13, 0, 0, 0]) + size.to_bytes(4, 'little')
+
+
+def _attribute(name: str, dtype: bytes, space: bytes, value: bytes) -> bytes:
+    """An attribute message body (version 1: each part padded to 8)."""
+    n = name.encode() + b'\0'
+    return (bytes([1, 0]) + len(n).to_bytes(2, 'little') + len(dtype).to_bytes(2, 'little')
+            + len(space).to_bytes(2, 'little') + _pad8(n) + _pad8(dtype) + _pad8(space)
+            + value)
+
+
+def _dimension_list(gcol: int, indices: list) -> bytes:
+    """DIMENSION_LIST: per axis one variable-length list holding one object
+    reference, stored as global heap object `indices[i]` of `gcol`."""
+    vlen_ref = (bytes([0x19, 0, 0, 0]) + (16).to_bytes(4, 'little')
+                + bytes([0x17, 0, 0, 0]) + (8).to_bytes(4, 'little'))
+    value = b''.join((1).to_bytes(4, 'little') + _u8(gcol) + i.to_bytes(4, 'little')
+                     for i in indices)
+    return _attribute('DIMENSION_LIST', vlen_ref, _dataspace((len(indices),)), value)
+
+
+def _reference_list(data_header: int, axis: int) -> bytes:
+    """REFERENCE_LIST of a scale: one (dataset reference, axis) pair."""
+    def member(name: str, offset: int, mtype: bytes) -> bytes:
+        return (_pad8(name.encode() + b'\0') + offset.to_bytes(4, 'little')
+                + bytes(4 + 4 + 4 + 16) + mtype)
+    ref = bytes([0x17, 0, 0, 0]) + (8).to_bytes(4, 'little')
+    uint32 = (bytes([0x10, 0, 0, 0]) + (4).to_bytes(4, 'little')
+             + (0).to_bytes(2, 'little') + (32).to_bytes(2, 'little'))
+    compound = (bytes([0x16, 2, 0, 0]) + (16).to_bytes(4, 'little')
+                + member('dataset', 0, ref) + member('dimension', 8, uint32))
+    value = _u8(data_header) + axis.to_bytes(4, 'little') + bytes(4)
+    return _attribute('REFERENCE_LIST', compound, _dataspace((1,)), value)
+
+
+def _scale_attributes(name: str) -> list:
+    return [_msg(_ATTRIBUTE, _attribute('CLASS', _string_type(len(_SCALE_CLASS)),
+                                        _dataspace(()), _SCALE_CLASS)),
+            _msg(_ATTRIBUTE, _attribute('NAME', _string_type(len(name) + 1), _dataspace(()),
+                                        name.encode() + b'\0'))]
+
+
+def _dataset_messages(shape: tuple, dtype: np.dtype, address: int) -> list:
+    nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+    layout = bytes([3, 1]) + _u8(address) + _u8(nbytes)
+    return [_msg(_DATASPACE, _dataspace(shape)), _msg(_DATATYPE, _float_type(dtype), 1),
+            _msg(_FILL, bytes([2, 2, 2, 1, 0, 0, 0, 0]), 1), _msg(_LAYOUT, layout)]
+
+
+def _header(messages: list, size: int, continued: int = 0) -> bytes:
+    """A version 1 object header of `size` bytes of messages, the space
+    left after them a null message; `continued`: the messages of its
+    continuation block, which its count includes."""
+    body = b''.join(messages)
+    n = len(messages) + continued
+    if len(body) < size:
+        body += _msg(_NULL, bytes(size - len(body) - 8))
+        n += 1
+    if len(body) != size:
+        raise AssertionError(f'object header messages of {len(body)} bytes, not {size}')
+    return (bytes([1, 0]) + n.to_bytes(2, 'little') + (1).to_bytes(4, 'little')
+            + size.to_bytes(4, 'little') + bytes(4) + body)
+
+
+def _continuation(address: int, length: int) -> bytes:
+    return _msg(_CONTINUATION, _u8(address) + _u8(length))
+
+
+def _write_numpy(path: str, data: np.ndarray, scales: list):
+    """The bytes h5py writes for write_hdf(path, data, scales) (see the
+    layout above), with numpy alone."""
+    dtype = data.dtype.newbyteorder('<')
+    rank = data.ndim
+    names = ['Data'] + [f'dim{i + 1}' for i in range(len(scales))]
+    raw = [np.ascontiguousarray(data, dtype).tobytes()] + [
+        np.ascontiguousarray(s, dtype).tobytes() for s in scales]
+    header_alloc = 16 + _HEADER_SIZE
+    grown = 16 + _HEADER_SIZE + 152     # a scale's header with its REFERENCE_LIST
+
+    # metadata of the first block
+    root, btree = 96, 136
+    heap = btree + _BTREE_SIZE
+    heap_data = heap + 32
+    data_hdr = heap_data + _HEAP_SIZE
+    snod = data_hdr + header_alloc
+    hdr = {'Data': data_hdr}
+    at = snod + _SNOD_SIZE
+    if scales:
+        hdr['dim1'] = at
+        at += header_alloc if rank == 3 else grown
+    conts = {}
+    if scales and rank == 3:
+        conts['Data'] = (at, 8 + 112)
+        at += 8 + 112
+        conts['dim1'] = (at, 8 + 184)
+        at += 8 + 184
+    # raw data from the end of the first metadata block
+    addr = {'Data': _META_BLOCK}
+    at = _META_BLOCK + len(raw[0])
+    gcol = None
+    if scales:
+        addr['dim1'] = at
+        gcol = at + len(raw[1])
+        at = gcol + _GCOL_SIZE
+        if rank > 1:             # the second metadata block, then the raw data
+            block = at
+            for i in range(2, rank + 1):
+                hdr[f'dim{i}'] = block + (i - 2) * grown
+            at = block + _META_BLOCK
+            for i in range(2, rank + 1):
+                addr[f'dim{i}'] = at
+                at += len(raw[i])
+    eof = at
+    indices = list(range(1, rank + 1)) if rank < 3 else [3, 4, 5]
+
+    buf = bytearray(eof)
+
+    def put(address: int, b: bytes):
+        buf[address:address + len(b)] = b
+
+    # superblock (version 0) and the root group's symbol table entry
+    put(0, _SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0]) + (4).to_bytes(2, 'little')
+        + (16).to_bytes(2, 'little') + bytes(4) + _u8(0) + _u8(_UNDEFINED) + _u8(eof)
+        + _u8(_UNDEFINED) + _u8(0) + _u8(root) + (1).to_bytes(4, 'little') + bytes(4)
+        + _u8(btree) + _u8(heap))
+    put(root, _header([_msg(_SYMBOL_TABLE, _u8(btree) + _u8(heap))], 24))
+    # the names in the local heap, 8 bytes each, after the empty name at 0
+    offsets = {n: 8 * (i + 1) for i, n in enumerate(names)}
+    free = 8 * (len(names) + 1)
+    put(heap, b'HEAP' + bytes(4) + _u8(_HEAP_SIZE) + _u8(free) + _u8(heap_data))
+    put(heap_data, b''.join(_pad8(n.encode() + b'\0') for n in [''] + names)
+        + _u8(1) + _u8(_HEAP_SIZE - free))
+    put(btree, b'TREE' + bytes([0, 0]) + (1).to_bytes(2, 'little') + _u8(_UNDEFINED)
+        + _u8(_UNDEFINED) + _u8(0) + _u8(snod) + _u8(offsets[names[-1]]))
+    put(snod, b'SNOD' + bytes([1, 0]) + len(names).to_bytes(2, 'little') + b''.join(
+        _u8(offsets[n]) + _u8(hdr[n]) + bytes(24) for n in names))
+
+    # Data: its messages, DIMENSION_LIST in the header or its continuation
+    msgs = _dataset_messages(data.shape, dtype, addr['Data'])
+    if scales:
+        dim_list = _msg(_ATTRIBUTE, _dimension_list(gcol, indices))
+        if rank == 3:
+            put(conts['Data'][0], dim_list)
+            msgs.append(_continuation(*conts['Data']))
+        else:
+            msgs.append(dim_list)
+    put(data_hdr, _header(msgs, _HEADER_SIZE, continued=int('Data' in conts)))
+    for i in range(1, len(scales) + 1):
+        name = f'dim{i}'
+        msgs = (_dataset_messages((len(scales[i - 1]),), dtype, addr[name])
+                + _scale_attributes(name))
+        ref = _msg(_ATTRIBUTE, _reference_list(data_hdr, i - 1))
+        if name in conts:
+            put(conts[name][0], ref)
+            put(hdr[name], _header(msgs + [_continuation(*conts[name])], _HEADER_SIZE,
+                                   continued=1))
+        else:
+            put(hdr[name], _header(msgs + [ref], grown - 16))
+    if gcol is not None:
+        objects = b''.join(i.to_bytes(2, 'little') + bytes(6) + _u8(8) + _u8(hdr[f'dim{k + 1}'])
+                           for k, i in enumerate(indices))
+        put(gcol, b'GCOL' + bytes([1, 0, 0, 0]) + _u8(_GCOL_SIZE) + objects + bytes(8)
+            + _u8(_GCOL_SIZE - 16 - len(objects)))
+    for name, b in zip(names, raw):
+        put(addr[name], b)
+    with open(path, 'wb') as f:
+        f.write(bytes(buf))
+
+
+def _numpy_scales(data: np.ndarray, scales) -> list:
+    """write_hdf's scales as the numpy writer takes them, or ValueError."""
+    if data.dtype not in (np.float32, np.float64) or not 1 <= data.ndim <= 3:
+        raise ValueError(f'without h5py, write_hdf takes float32 / float64 data of rank 1 '
+                         f'to 3, got {data.dtype} {list(data.shape)}')
+    scales = [] if scales is None else [np.asarray(s, data.dtype).reshape(-1) for s in scales]
+    if scales and (len(scales) != data.ndim or any(s.size == 0 for s in scales)):
+        raise ValueError('without h5py, write_hdf takes a non-empty scale for every axis '
+                         f'or none, got sizes {[s.size for s in scales]} for rank {data.ndim}')
+    return scales
+
+
 def write_hdf(path: str, data: np.ndarray, scales=None):
-    """Write a PSI-convention file with optional dimension scales (h5py)."""
-    _require_h5py()
+    """Write a PSI-convention file with optional dimension scales: with numpy
+    (_write_numpy, h5py's bytes) for every call it takes, else through h5py
+    where it imports (ValueError where it does not)."""
     data = np.asarray(data)
+    try:
+        numpy_scales = _numpy_scales(data, scales)
+    except ValueError:
+        if h5py is None:
+            raise
+        _write_h5py(path, data, scales)
+        return
+    _write_numpy(path, data, numpy_scales)
+
+
+def _write_h5py(path: str, data: np.ndarray, scales):
     with h5py.File(path, 'w') as f:
         dset = f.create_dataset('Data', data=data)
         if scales is not None:

@@ -2,12 +2,12 @@
 the weights baked in, served by ServingModel without the bundle or its spec
 (sunerf_tpu/evaluation/serving.py).
 
-The artifact is a zip container: meta.json and, per device it was exported
-for, two programs saved by torch.export.save, the render entry (rays ->
-image, height map, absorption map) and the points entry (a direct field
-query, the volume products' load_coords). One program per device: a traced
-graph bakes the device of its factory calls, so each is traced on its own
-device, never traced once and moved.
+The artifact is a zip container: meta.json and, per platform it was
+exported for, two programs saved by torch.export.save, the render entry
+(rays -> image, height map, absorption map) and the points entry (a direct
+field query, the volume products' load_coords). One program per platform:
+the CPU program and the CUDA program differ (the K0 op), so each is traced
+on its own device.
   * the CPU program ('cpu') is traced on CPU tensors through the float32
     field, with no custom op, so torch alone loads and runs it (JAX's
     portable module);
@@ -24,6 +24,11 @@ device, never traced once and moved.
     less hermetic than a tpu_custom_call blob.
 An MHD spec's cubes are constants of its programs, as in JAX.
 
+A CUDA program is traced on one card (cuda:0 at export) and loads onto any:
+ServingModel maps the devices baked into its graph (the factory calls'
+device arguments, the constants, the tensor metadata) to the card it serves
+on (map_program, torch.export's move_to_device_pass) before it runs it.
+
 Static batch (batch_size rays a call, 4096 by default); ServingModel pads
 and chunks any ray count. Rendering is deterministic (no generator: the
 midpoint samples); tier=(fraction, samples) bakes the tiered fine pass in
@@ -31,7 +36,8 @@ midpoint samples); tier=(fraction, samples) bakes the tiered fine pass in
 batch_size / n_devices rays, and ServingModel(path, mesh=...) gives each
 rank its rows of every chunk (parallel/mesh.render_tiled) and all-gathers
 them. Unlike JAX's sharded exports, whose pallas_call cannot be
-partitioned, each rank's CUDA program keeps the kernel.
+partitioned, each rank's CUDA program keeps the kernel: under an NCCL mesh
+rank r serves its rows on cuda:r (scripts/serve_cards.py).
 
 Usage:
   python -m sunerf_tpu_torch.evaluation.serving <bundle> model.tsrv \\
@@ -142,6 +148,21 @@ def _with_op(spec: dict, renderer, params: dict) -> tuple:
                     if renderer.coarse_field_apply is not None else None)
     return dataclasses.replace(renderer, field_apply=functools.partial(_packed_apply, fine),
                                coarse_field_apply=coarse_apply), packed
+
+
+def map_program(program, mapping: dict):
+    """An ExportedProgram with its devices mapped ({'cuda:0': 'cuda:1'}):
+    every device argument of its graph, its constants, buffers and tensor
+    metadata (torch.export.passes.move_to_device_pass, in place). A device
+    that `mapping` does not name stays."""
+    from torch.export.passes import move_to_device_pass
+    return move_to_device_pass(program, {str(k): str(v) for k, v in mapping.items()})
+
+
+def _cards_to(device: torch.device) -> dict:
+    """The mapping that moves a CUDA program traced on any card of this
+    host (or on 'cuda', no index) to `device`."""
+    return {'cuda': device, **{f'cuda:{i}': device for i in range(torch.cuda.device_count())}}
 
 
 def _trace(fn, tree, args) -> bytes:
@@ -265,9 +286,10 @@ def export_serving(state_path: str, out_path: str, batch_size: int = 4096,
 
 class ServingModel:
     """Run a .tsrv serving artifact: pad and chunk any ray count through its
-    fixed-batch program for `device` ('cuda', the default, which raises
-    without a card; 'cpu'). mesh: a parallel.mesh.Mesh for a sharded
-    artifact (n_devices ranks)."""
+    fixed-batch program for `device` ('cuda', the default: the current card,
+    which raises without one; 'cuda:k', any card of the host; 'cpu'). mesh: a
+    parallel.mesh.Mesh for a sharded artifact (n_devices ranks), each rank
+    serving on the mesh's device."""
 
     def __init__(self, path: str, device='cuda', mesh=None):
         check_not_shlo(path)
@@ -286,12 +308,12 @@ class ServingModel:
             if platform not in self.meta['platforms']:
                 raise ValueError(f'{path} has no program for {platform}: it was exported '
                                  f'for {self.meta["platforms"]}')
-            if platform == 'cuda' and self.device.index not in (None, 0):
-                raise ValueError(f'the CUDA program was traced on cuda:0 and bakes that '
-                                 f'device in; it cannot serve on {self.device}')
-            if platform == 'cuda' and self.meta.get('fused_cuda'):
-                # the program calls sunerf_tpu_torch::fused_mlp_fwd: register it
-                import sunerf_tpu_torch.ops.fused_mlp  # noqa: F401
+            if platform == 'cuda':
+                if self.device.index is None:
+                    self.device = torch.device('cuda', torch.cuda.current_device())
+                if self.meta.get('fused_cuda'):
+                    # the program calls sunerf_tpu_torch::fused_mlp_fwd: register it
+                    import sunerf_tpu_torch.ops.fused_mlp  # noqa: F401
             self._render = self._load(zf, program_name('render', platform))
             self._points = self._load(zf, program_name('points', platform))
         self.batch_size = int(self.meta['batch_size'])
@@ -303,9 +325,12 @@ class ServingModel:
                              f'{size} (pass a mesh of that size)')
         self.mesh = mesh
 
-    @staticmethod
-    def _load(zf: zipfile.ZipFile, name: str):
-        return torch.export.load(io.BytesIO(zf.read(name))).module()
+    def _load(self, zf: zipfile.ZipFile, name: str):
+        """A program of the artifact, a CUDA one mapped onto self.device."""
+        program = torch.export.load(io.BytesIO(zf.read(name)))
+        if self.device.type == 'cuda':
+            program = map_program(program, _cards_to(self.device))
+        return program.module()
 
     @property
     def wavelengths(self):

@@ -868,6 +868,21 @@ def kernel_width(d_filter: int) -> int:
                      f'(the widest kernel width), got {d_filter}')
 
 
+def check_kernel_config(config: NeRFConfig):
+    """Raises ValueError, naming the width or the output count, for a field
+    that the fused forward K0 cannot take on the card: d_filter above
+    KERNEL_WIDTHS[-1] (kernel_width) or d_output outside 1..MAX_K0_OUTPUTS.
+    systems' _select_apply calls it where a field's CUDA path is chosen (so
+    the loaders and the Trainer refuse such a field before any tensor is
+    made): a field converted from outside (utils/snf_converter) may have
+    any width. An export (k0_field_operands) and a direct call of the
+    wrappers meet the same limits in kernel_width and _check."""
+    kernel_width(config.d_filter)
+    if not 1 <= config.d_output <= MAX_K0_OUTPUTS:
+        raise ValueError(f'the fused forward takes d_output from 1 to {MAX_K0_OUTPUTS}, '
+                         f'got {config.d_output}')
+
+
 def pad_field(config: NeRFConfig, params: dict) -> tuple:
     """(config, params) of the same field zero-padded to kernel_width(
     d_filter): w_in's columns, b_in, both hidden axes of w_h, b_h and w_out's
@@ -922,6 +937,9 @@ def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
         raise ValueError(f'the kernels take d_filter in {KERNEL_WIDTHS}, got '
                          f'{config.d_filter}: fused_mlp_forward pads other widths '
                          f'(pad_field)')
+    if not 1 <= config.d_output <= MAX_K0_OUTPUTS:
+        raise ValueError(f'the fused forward takes d_output from 1 to {MAX_K0_OUTPUTS}, '
+                         f'got {config.d_output}')
     if points.dtype != torch.float32 or points.dim() != 2 \
             or points.shape[1] != config.d_input:
         raise ValueError(f'points must be float32 [N, {config.d_input}], got '
@@ -1094,9 +1112,6 @@ def k0_field_operands(config: NeRFConfig, params: dict) -> tuple:
     if dev.type == 'cuda':
         config, params = _kernel_field(config, params)
         _check(config, params, torch.empty((0, config.d_input), device=dev))
-        if not 1 <= config.d_output <= MAX_K0_OUTPUTS:
-            raise ValueError(f'the fused forward takes d_output from 1 to {MAX_K0_OUTPUTS}, '
-                             f'got {config.d_output}')
     return config, k0_operands(config, params)
 
 
@@ -1192,9 +1207,6 @@ def _forward_k0(config: NeRFConfig, params: dict,
     cuda = points.device.type == 'cuda'
     if cuda:
         _check(config, params, points)
-        if not 1 <= config.d_output <= MAX_K0_OUTPUTS:
-            raise ValueError(f'the fused forward takes d_output from 1 to {MAX_K0_OUTPUTS}, '
-                             f'got {config.d_output}')
     ops = k0_operands(config, params)
     if defines:
         return _launch_k0(points, *(ops[k] for k in ('weights', 'col_dim', 'col_freq',

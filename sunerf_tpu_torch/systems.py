@@ -31,9 +31,12 @@ def _select_apply(config: NeRFConfig, use_fused: Optional[bool], device):
     when the device is CUDA and the plain float32 field otherwise; True or
     False forces the choice. Dense grid levels run in the kernels' grid
     branch; VM levels (grid_rank > 0) have no kernel and always take the
-    float32 field, with a warning, as in the JAX package."""
+    float32 field, with a warning, as in the JAX package. On the card a
+    field the kernels cannot take raises ValueError by name here, before
+    any kernel runs (fused_mlp.check_kernel_config)."""
+    cuda = torch.device(device).type == 'cuda'
     if use_fused is None:
-        use_fused = torch.device(device).type == 'cuda'
+        use_fused = cuda
     if use_fused and config.grid_rank:
         warnings.warn(
             'grid_rank/grid_time tables run the float32 field path, not the '
@@ -41,6 +44,9 @@ def _select_apply(config: NeRFConfig, use_fused: Optional[bool], device):
             'plain-MLP configs (systems._select_apply)', stacklevel=3)
         use_fused = False
     if use_fused:
+        if cuda:
+            from sunerf_tpu_torch.ops.fused_mlp import check_kernel_config
+            check_kernel_config(config)
         # compute_dpts=False: the renderer detaches its sample points, so
         # the stashing backward computes no point cotangent
         return functools.partial(nerf_apply_fused, config, compute_dpts=False)

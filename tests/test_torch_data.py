@@ -179,8 +179,9 @@ def test_map_stack_and_instrument_tree(views, tmp_path):
     stack = load_map_stack(files, apply_norm=True)
     from sunerf_tpu.data.loaders import load_map_stack as jax_load_map_stack
     np.testing.assert_array_equal(stack, jax_load_map_stack(files, apply_norm=True))
-    with pytest.raises(NotImplementedError, match='Queue 1 item 13'):
-        load_map_stack(files, resolution=8)
+    # maps at another resolution are resampled (data/prep.resample), as JAX's
+    np.testing.assert_array_equal(load_map_stack(files, resolution=8, apply_norm=True),
+                                  jax_load_map_stack(files, resolution=8, apply_norm=True))
     from sunerf_tpu.data.loaders import scan_instrument_tree as jax_scan
     tree, jtree = scan_instrument_tree(str(tmp / 'renders')), jax_scan(str(tmp / 'renders'))
     np.testing.assert_array_equal(tree['all_wavelengths'], jtree['all_wavelengths'])

@@ -307,10 +307,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         '             or k == "sunerf_tpu" or k.startswith("sunerf_tpu."))\n'
         'print(len([k for k in sys.modules if k.startswith("sunerf_tpu_torch")]), bad)\n'
         'assert not bad, bad\n'
-        '# the walk reached the data-parallel package and the modules of the\n'
-        '# serving export and the MHD field\n'
+        '# the walk reached the data-parallel package, the modules of the\n'
+        '# serving export and the MHD field, and the acquisition, prep and\n'
+        '# converter layer with the protocol scripts\n'
         'for name in ("parallel.mesh", "evaluation.serving", "models.mhd_field",\n'
-        '             "data.psi_io", "scripts.probe_serving"):\n'
+        '             "data.psi_io", "scripts.probe_serving", "utils.snf_converter",\n'
+        '             "data.prep", "data.download", "data.degradation", "data.align",\n'
+        '             "data.plot_data", "utils.throughput", "utils.timing",\n'
+        '             "scripts.psi_protocol", "scripts.score_bundle",\n'
+        '             "scripts.serve_cards"):\n'
         '    assert "sunerf_tpu_torch." + name in sys.modules, name\n')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
