@@ -86,6 +86,12 @@ namespace {
 
 namespace hp = sunerf::hopper;
 
+// K5's kernels launched by this library since it was loaded, counted on the
+// host where each launch returned no error: prep_grid_kernel,
+// grid_scatter_kernel, grid_convert_kernel (read by the C entry
+// sunerf_kernel_launches of fused_mlp_stash_bwd.cu).
+unsigned long long grid_kernel_launches[3] = {0, 0, 0};
+
 constexpr int kMaxOut = 4;        // d_out the chain kernel takes
 constexpr int kRows = 64;         // points a chain tile and a dW chunk
 constexpr int kKC = 32;           // weight rows (k) per ring chunk
@@ -1671,6 +1677,7 @@ cudaError_t launch_chain(BwdParams p, cudaStream_t stream) {
     prep_kernel<<<tiles, kConsumers, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (p.grid.n_levels > 0) ++grid_kernel_launches[0];
   p.gmax_at = grid_max > 0 ? static_cast<int>(fixed - grid_max) + p.stages * p.stage_bytes
                            : kGridMaxAt;
   chain_wgmma_kernel<H, kGate, kDpts><<<tiles < max_blocks ? tiles : max_blocks, kThreads,
@@ -1804,9 +1811,11 @@ inline cudaError_t launch_after_chain(const BwdParams& p, cudaStream_t s) {
     grid_scatter_kernel<<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, s>>>(p, e_n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    ++grid_kernel_launches[1];
     grid_convert_kernel<<<static_cast<unsigned>((p.grid.total + 255) / 256), 256, 0, s>>>(p, e_n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    ++grid_kernel_launches[2];
   }
 
   if (p.hs8 != nullptr) {

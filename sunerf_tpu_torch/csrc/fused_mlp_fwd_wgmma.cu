@@ -5,6 +5,10 @@
 
 #include "fused_mlp_fwd_wgmma.cuh"
 
+// fwd_wgmma_kernel's launches by this library since it was loaded, counted
+// where the launch returned no error (read by sunerf_kernel_launches).
+static unsigned long long fwd_launches = 0;
+
 // C entry, bound with ctypes. pts [n, d_in] f32; col_dim, col_freq the
 // posenc columns (core/encoding.py encoding_columns); w pack_wgmma's
 // [chunks][32 x H] bf16; the biases f32; grid a GridParams; out [n, d_out]
@@ -30,6 +34,15 @@ extern "C" int sunerf_fused_mlp_fwd_wgmma(
   p.n_cols = n_cols;
   p.n_hidden = n_hidden;
   p.d_out = d_out;
-  return static_cast<int>(sunerf::fwd::launch<sunerf::kStashNone>(
-      p, e_pad, d_filter, static_cast<cudaStream_t>(stream)));
+  const cudaError_t err = sunerf::fwd::launch<sunerf::kStashNone>(
+      p, e_pad, d_filter, static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) ++fwd_launches;
+  return static_cast<int>(err);
+}
+
+// C entry: fwd_wgmma_kernel's launches by this library into out[0].
+// Returns 0.
+extern "C" int sunerf_kernel_launches(long long* out) {
+  out[0] = static_cast<long long>(fwd_launches);
+  return 0;
 }

@@ -230,6 +230,14 @@ extern "C" int sunerf_fused_mlp_stash_bwd(
   return static_cast<int>(launch_after_chain(p, s));
 }
 
+// C entry: K5's kernels launched by this library since it was loaded into
+// out[3] (prep_grid_kernel, grid_scatter_kernel, grid_convert_kernel), as
+// the launchers count them. Returns 0.
+extern "C" int sunerf_kernel_launches(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = static_cast<long long>(sunerf::grid_kernel_launches[i]);
+  return 0;
+}
+
 // C entry: the 'lsb' gate decode of the chain kernel on n packed sines
 // (int16 bits in, bf16 bits out) on `stream`, for the card's check of it on
 // every pattern. Returns a cudaError_t (0 = launched).

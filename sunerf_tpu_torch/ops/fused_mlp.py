@@ -1069,6 +1069,28 @@ def _count_grid(config: NeRFConfig):
         GRID_LAUNCHES += 1
 
 
+GRID_KERNELS = ('prep_grid_kernel', 'grid_scatter_kernel', 'grid_convert_kernel')
+# the kernels whose launches a library counts itself, by library: K0's, and
+# K5's own kernels in the stashing backward
+COUNTED_KERNELS = {'fused_mlp_fwd_wgmma': ('fwd_wgmma_kernel',),
+                   'fused_mlp_stash_bwd': GRID_KERNELS}
+
+
+def kernel_launches(library: str) -> dict:
+    """The kernels of COUNTED_KERNELS[library] by name: their launches by
+    the built library csrc/<library>.cu since it was loaded, as its
+    launchers count them where each launch returned no error (an exported
+    program's K0 launches included, which the wrapper's LAUNCHES does not
+    see). Builds the library on first use (needs nvcc)."""
+    names = COUNTED_KERNELS[library]
+    fn = build.load(library).sunerf_kernel_launches
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(names))()
+    fn(ctypes.addressof(out))
+    return dict(zip(names, out))
+
+
 _column_cache: dict = {}
 
 

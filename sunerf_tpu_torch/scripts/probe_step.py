@@ -47,8 +47,38 @@ def bench_batch(device, n: int = 1024, seed: int = 1) -> dict:
             'target_image': torch.full((n, 1), 0.05, device=device)}
 
 
+# each counter's kernel, by the name its wrapper builds and launches
+KERNEL_OF = {'LAUNCHES': 'fused_mlp_fwd_wgmma (K0)',
+             'STASH_FWD_LAUNCHES': 'fused_mlp_stash_fwd (K1)',
+             'STASH_BWD_LAUNCHES': 'fused_mlp_stash_bwd (K2)',
+             'GRID_LAUNCHES': 'grid branch of K0-K2 (K5)',
+             'DPTS_LAUNCHES': 'point cotangent of K2 (K3)',
+             'RECOMPUTE_BWD_LAUNCHES': 'fused_mlp_recompute_bwd (K4)',
+             'LSB_LAUNCHES': "'lsb' stash (K6a)", 'I8PAIR_LAUNCHES': "'i8pair' stash (K6b)"}
+
+
 def launch_counts() -> dict:
     return {k: getattr(fused_mlp, k) for k in COUNTERS}
+
+
+def zero_counts():
+    for k in COUNTERS:
+        setattr(fused_mlp, k, 0)
+
+
+def launches_by_kernel() -> dict:
+    """The launches counted since zero_counts(), by kernel name; kernels
+    not launched are left out."""
+    return {KERNEL_OF[k]: v for k, v in launch_counts().items() if v}
+
+
+def timed(fn, device, reps: int) -> tuple:
+    """(ms per fn() call by utils/profiling.timeit, the launches of one
+    call by kernel name)."""
+    zero_counts()
+    fn()
+    launches = launches_by_kernel()
+    return timeit(fn, device=device, reps=reps), launches
 
 
 def measure(knob: dict, device='cuda', n_steps: int = 0, reps: int = 10) -> dict:
@@ -69,8 +99,7 @@ def measure(knob: dict, device='cuda', n_steps: int = 0, reps: int = 10) -> dict
     step(state, batch, 0)                          # warm-up: libraries loaded
     if device.type == 'cuda':
         torch.cuda.synchronize()
-    for k in COUNTERS:
-        setattr(fused_mlp, k, 0)
+    zero_counts()
     step(state, batch, 0)
     launches = launch_counts()
     ms = timeit(step, state, batch, 0, device=device, reps=reps)

@@ -126,7 +126,7 @@ def ensure_scene(data_dir: str, resolution: int, prep_batch: int = 8192,
     return train_dir, gt_dir
 
 
-def main(argv=None) -> dict:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument('--steps', type=int, default=4000)
     parser.add_argument('--prep-batch', type=int, default=8192,
@@ -241,6 +241,84 @@ def main(argv=None) -> dict:
                              '(cubes/renders/prep) — reused across runs; the '
                              'pipeline is deterministic, so this only skips '
                              'recomputation (matrix runs save ~3 min each)')
+    return parser
+
+
+def row_config(args) -> dict:
+    """The row's config for parsed arguments: the matrix script's resume
+    signature (a key absent at its default keeps older rows' signatures)."""
+    config = {'n_stratified': args.n_stratified,
+              'n_hierarchical': args.n_hierarchical,
+              'proposal_coarse': args.proposal_coarse,
+              'coarse_shape': ([args.coarse_layers, args.coarse_filter]
+                               if args.proposal_coarse else None),
+              'steps': args.steps,
+              'tier_fraction': args.tier_fraction,
+              'tier_samples': args.tier_samples,
+              'seed': args.seed}
+    if args.resolution != 128:
+        # key absent at the mini-protocol default: keeps earlier rows'
+        # signatures unchanged (256 px rows written before this key exist
+        # in SCALE_PROOF_r4.jsonl; their resolution is documented there)
+        config['resolution'] = args.resolution
+    if (args.model_layers, args.model_filter) != (8, 512):
+        # key absent at reference parity: keeps earlier rows' signatures
+        # (and so psi_matrix.py idempotency) unchanged
+        config['model_shape'] = [args.model_layers, args.model_filter]
+    if args.grid_sizes:
+        # key absent when off: keeps pre-grid matrix rows' signatures
+        # (and so psi_matrix.py idempotency) unchanged
+        config['grid'] = {'sizes': list(args.grid_sizes),
+                          'features': args.grid_features,
+                          'bound': args.grid_bound}
+        if args.grid_hat_mxu:
+            # numerics-equivalent kernel strategy; recorded for provenance
+            # but only when on, so default rows keep their signatures
+            config['grid']['hat_mxu'] = True
+        if args.table_tv:
+            # loss-changing: must differentiate the row signature
+            config['grid']['table_tv'] = args.table_tv
+        if args.grid_rank:
+            # factorization changes the model: signature key (absent for
+            # dense rows so earlier signatures are unchanged)
+            config['grid']['rank'] = args.grid_rank
+        if args.grid_coarse:
+            # which field carries the tables changes the model: signature key
+            config['grid']['on'] = 'coarse'
+    if (args.table_lr_mult, args.adam_eps) != (1.0, 1e-8):
+        # recorded OUTSIDE the grid block: adam_eps changes the optimizer
+        # for ALL params, and a non-grid eps-control row must not collapse
+        # into the default-eps signature
+        config['optim'] = {'table_lr_mult': args.table_lr_mult,
+                           'adam_eps': args.adam_eps}
+    if int(round(args.anneal_frac * args.steps)):
+        # key absent when off: keeps pre-anneal matrix rows' signatures
+        # (and so psi_matrix.py idempotency) unchanged
+        config['anneal'] = {
+            'frac': args.anneal_frac,
+            'n_stratified': args.anneal_stratified,
+            'n_hierarchical': args.anneal_hierarchical}
+    if args.ema_decay:
+        # key absent when off: keeps non-EMA rows' signatures unchanged
+        config['ema_decay'] = args.ema_decay
+    if args.keep_best:
+        # key absent when off: keeps final-step rows' signatures unchanged
+        config['keep_best'] = True
+    if args.drift_probe_gate:
+        # selection-changing: must differentiate the row signature
+        config['probe_gate'] = {
+            'warn_db': args.drift_probe_warn_db,
+            'margin_db': args.drift_probe_gate_margin_db}
+    if args.occupancy:
+        # key absent when off: keeps pre-occupancy matrix rows' signatures
+        # (and so psi_matrix.py idempotency) unchanged
+        config['occupancy'] = {'threshold': args.occ_threshold,
+                               'floor': args.occ_floor}
+    return config
+
+
+def main(argv=None) -> dict:
+    parser = build_parser()
     args = parser.parse_args(argv)
 
     import torch
@@ -368,78 +446,15 @@ def main(argv=None) -> dict:
     metrics = evaluate_viewpoints(loader,
                                   sorted(glob.glob(os.path.join(gt_dir,
                                                                 '*.fits'))))
-    out = {'config': {'n_stratified': args.n_stratified,
-                      'n_hierarchical': args.n_hierarchical,
-                      'proposal_coarse': bool(coarse),
-                      'coarse_shape': ([args.coarse_layers,
-                                        args.coarse_filter] if coarse
-                                       else None),
-                      'steps': args.steps,
-                      'tier_fraction': args.tier_fraction,
-                      'tier_samples': args.tier_samples,
-                      'seed': args.seed},
+    out = {'config': row_config(args),
            'rays_per_sec': round(rate, 1),
            'effective_rays_per_sec': effective,
            'train': metrics['train'], 'test': metrics['test'],
            'workdir': workdir}
-    if args.resolution != 128:
-        # key absent at the mini-protocol default: keeps earlier rows'
-        # signatures unchanged (256 px rows written before this key exist
-        # in SCALE_PROOF_r4.jsonl; their resolution is documented there)
-        out['config']['resolution'] = args.resolution
-    if (args.model_layers, args.model_filter) != (8, 512):
-        # key absent at reference parity: keeps earlier rows' signatures
-        # (and so psi_matrix.py idempotency) unchanged
-        out['config']['model_shape'] = [args.model_layers, args.model_filter]
-    if args.grid_sizes:
-        # key absent when off: keeps pre-grid matrix rows' signatures
-        # (and so psi_matrix.py idempotency) unchanged
-        out['config']['grid'] = {'sizes': list(args.grid_sizes),
-                                 'features': args.grid_features,
-                                 'bound': args.grid_bound}
-        if args.grid_hat_mxu:
-            # numerics-equivalent kernel strategy; recorded for provenance
-            # but only when on, so default rows keep their signatures
-            out['config']['grid']['hat_mxu'] = True
-        if args.table_tv:
-            # loss-changing: must differentiate the row signature
-            out['config']['grid']['table_tv'] = args.table_tv
-        if args.grid_rank:
-            # factorization changes the model: signature key (absent for
-            # dense rows so earlier signatures are unchanged)
-            out['config']['grid']['rank'] = args.grid_rank
-        if args.grid_coarse:
-            # which field carries the tables changes the model: signature key
-            out['config']['grid']['on'] = 'coarse'
-    if (args.table_lr_mult, args.adam_eps) != (1.0, 1e-8):
-        # recorded OUTSIDE the grid block: adam_eps changes the optimizer
-        # for ALL params, and a non-grid eps-control row must not collapse
-        # into the default-eps signature
-        out['config']['optim'] = {'table_lr_mult': args.table_lr_mult,
-                                  'adam_eps': args.adam_eps}
-    if phase1_steps:
-        # key absent when off: keeps pre-anneal matrix rows' signatures
-        # (and so psi_matrix.py idempotency) unchanged
-        out['config']['anneal'] = {
-            'frac': args.anneal_frac,
-            'n_stratified': args.anneal_stratified,
-            'n_hierarchical': args.anneal_hierarchical}
-    if args.ema_decay:
-        # key absent when off: keeps non-EMA rows' signatures unchanged
-        out['config']['ema_decay'] = args.ema_decay
     if args.keep_best:
-        # key absent when off: keeps final-step rows' signatures unchanged;
         # records which bundle was actually scored (best may be absent if
         # no validation improved on -inf, i.e. the run produced no val rows)
-        out['config']['keep_best'] = True
         out['scored_bundle'] = os.path.basename(bundle)
-    if args.drift_probe_gate:
-        # selection-changing: must differentiate the row signature (the
-        # repair-experiment rows, VERDICT r4 #2); rejected-promotion count
-        # lands in highlat_probe below
-        out['config']['probe_gate'] = {
-            'warn_db': args.drift_probe_warn_db,
-            'margin_db': args.drift_probe_gate_margin_db}
     stab = [round(r['probe_stability_db'], 2) for r in recs
             if 'probe_stability_db' in r]
     drift = [round(r['probe_drift_since_best_db'], 2) for r in recs
@@ -459,10 +474,6 @@ def main(argv=None) -> dict:
             out['highlat_probe']['gate_rejections'] = int(
                 sum(1 for r in recs if r.get('probe_gate_rejected')))
     if args.occupancy:
-        # key absent when off: keeps pre-occupancy matrix rows' signatures
-        # (and so psi_matrix.py idempotency) unchanged
-        out['config']['occupancy'] = {'threshold': args.occ_threshold,
-                                      'floor': args.occ_floor}
         tail = [r for r in recs if 'occ_vol_frac' in r]
         if tail:
             out['occ_fracs'] = {k: tail[-1][k] for k in

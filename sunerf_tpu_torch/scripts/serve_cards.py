@@ -16,8 +16,8 @@ maps its CUDA program onto cuda:r, and serves the frame, every rank taking
 its rows of each chunk, one all-gather a frame. Each rank reports every
 map's max abs difference from the reference frame and whether the bits are
 the same, the frame's ms (host clock, median of --reps after a warm-up) and
-K0's launches on its card by kernel name (fwd_wgmma_kernel under
-torch.profiler).
+K0's launches on its card by kernel name (fwd_wgmma_kernel, as K0's
+library counts them: fused_mlp.kernel_launches).
 
 Prints one JSON object (and writes it to --out), with the cards' names and
 power limits as nvidia-smi prints them. --device cpu is a dry run on the CPU
@@ -45,17 +45,16 @@ K0_KERNEL = 'fwd_wgmma_kernel'
 
 
 def k0_launches(render, device: torch.device):
-    """K0's launches on `device` in one render, by kernel name under
-    torch.profiler; None off the card."""
+    """K0's launches in one render on `device` (this process renders on
+    that card alone), by kernel name as K0's library counts them; None off
+    the card."""
     if device.type != 'cuda':
         return None
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render()
-        torch.cuda.synchronize(device)
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and K0_KERNEL in e.name
-               and e.device_index == device.index)
+    from sunerf_tpu_torch.ops.fused_mlp import kernel_launches
+    before = kernel_launches('fused_mlp_fwd_wgmma')[K0_KERNEL]
+    render()
+    torch.cuda.synchronize(device)
+    return kernel_launches('fused_mlp_fwd_wgmma')[K0_KERNEL] - before
 
 
 def frame_ms(render, reps: int) -> float:
