@@ -106,28 +106,50 @@ Phases (the first failure ends the run with a non-zero exit):
              calls of a field of the width each runs at, the plain versions'
              times, the bound of the real width's work and the pad's own
              time.
-  7b. trainer  the committed bundle rendered at 256^2 from
+  7w. wide   the wide route (ops/wide_mlp.py, csrc/wide_mlp_fwd.cu and
+             wide_mlp_bwd.cu: one launch a layer) at fields the fused
+             kernels cannot hold, random weights from a seed: a. the wide K0
+             at 8x1024 / d_output 2, 2x640 / 9 and 8x512 / 16, N = 245,760,
+             at KERNEL_TOL, KERNEL_RMS_TOL and KERNEL_MAX_TOL; b. K1 + K2
+             ('int8') at the same shapes, N = 196,608 (and 65,536 at
+             8x1024): K1's out K0's bits, its RMS within KERNEL_RMS_TOL
+             or K1_RMS_FLOOR_FACTOR times the plain version's own f32 floor
+             on that field (CPU vs card) where that is higher, its stash
+             layer by layer as [stash] holds it, every gradient within
+             GRAD_TOL, the same bits
+             twice; K3, K4, K6a, K6b (scale groups of 768) and K5 (two grid
+             levels) at 2x640 under autograd (gradients within GRAD_TOL,
+             dpts within DPTS_TOL, the same bits twice, their kernels by
+             name); 'i8pair' at a scale group of 8 refused by name; c. an 8x1024 reference save_state.snf converted, its
+             256^2 frame on the wide K0 (32 launches by kernel name) against
+             the plain version (RENDER_TOL), exported and served from the
+             artifact with the live frame's bits, fine-tuned
+             WIDE_TUNE_STEPS steps through the Trainer (2 + 2 wide K1 / K2
+             launches a step by name, the loss finite and falling). Times:
+             scripts/probe_wide.py's rows (kernel, plain version, one bf16
+             torch.matmul a layer product, the bound).
+  7b. trainer  the committed bundle rendered at TRAINER_RES^2 from
              config/render_simple_star.yaml's 8 observers, written as FITS;
              `sunerf_tpu_torch.run_emission.main` at 8x512, 64 + 128, batch
-             1024, 300 steps (validation every 150 with keep_best, EMA
+             1024, TRAINER_STEPS steps (validation every 150 with keep_best, EMA
              0.999, a 4-view 64^2 drift probe; 20 steps profiled): 2 K1 and
              2 K2 launches a step, K0 launches for validation, finite and
-             falling losses, val_psnr at 300 above step 0's, save_state,
+             falling losses, val_psnr at the last step above step 0's, save_state,
              save_state_ema and save_state_best each served at 64^2 through
-             K0; a second main resumes at step 300 and logs 350; a 2x32 run
+             K0; a second main resumes there and logs 50 steps on; a 2x32 run
              (8 + 8 samples, 40 steps) on the padded kernels, loss falling.
-             Prints the Trainer's ms/step over steps 51-300 beside [train]'s
+             Prints the Trainer's ms/step over steps 51 on beside [train]'s
              bare step, the profiled window's device idle share and the
              Rice decoder that loaded.
   7c. dt     the analytic SimpleStar rendered by the port's
              evaluation.image_render.render_observers at
              config/render_simple_star.yaml's 8 observers and pif (1e9), at
-             256^2, over all seven AIA channels, as an aia / euvia / euvib
+             DT_RES^2, over all seven AIA channels, as an aia / euvia / euvib
              FITS tree, with euvib's 94 and 131 directories removed (its rays
              carry 0 for them); `sunerf_tpu_torch.run_density_temperature.main`
              with config/DT_2012_11.yaml (8x512 DT field for both passes,
-             64 + 128, batch 3072, pif 1e17) on that tree, cut to 300 steps
-             (validation every 150 with keep_best, EMA 0.999, the 4-view 64^2
+             64 + 128, batch 3072, pif 1e17) on that tree, cut to DT_STEPS
+             (validation at its half and its end with keep_best, EMA 0.999, the 4-view 64^2
              drift probe pinned at 94 A): 2 K1 and 2 K2 launches a step, K0
              launches for validation, finite and falling losses, no
              degenerate validation, the three bundles each served at 64^2
@@ -337,11 +359,11 @@ Phases (the first failure ends the run with a non-zero exit):
              check; each split's PSNR, SSIM, MAE and ME gaps within the
              bounds that the scaled RMS limit implies (_score_bounds), JAX's
              recorded row printed beside (not checked); psi_protocol's
-             training at 8x512, 64 + 128, 200 steps at 128^2: 2 K1 + 2 K2 a
+             training at 8x512, 64 + 128, PSI_PROTOCOL_STEPS at 128^2: 2 K1 + 2 K2 a
              step, a falling loss, its effective rays/s.
  22. dt_protocol  scripts/dt_protocol at 8x512, 64 + 128, batch 1024, the five
              channels (94 131 171 193 211), --hot-blob --mask-exercise
-             --keep-best at 128^2, cut to 200 of the matrix row's 8,000
+             --keep-best at 128^2, cut to DT_PROTOCOL_STEPS (100) of the matrix row's 8,000
              steps: 2 K1 + 2 K2 a step by kernel name, finite training
              losses and a falling held-out loss (the last validation's below
              the untrained field's at step 0); one step of the protocol's
@@ -373,18 +395,24 @@ Phases (the first failure ends the run with a non-zero exit):
              grid_scatter, grid_convert) launched once each by name, as the
              backward's library counts them (fused_mlp.kernel_launches).
  25. ablations  dt_ablation, occupancy_ablation (the A/B) and
-             occupancy_value_case at their configs' widths, 5 steps, one
+             occupancy_value_case at their configs' widths, 3 steps, one
              seed, 64^2; eval_budget_sweep re-scoring the committed bundle at
              64 + 128 on the psi_193 scene at 64^2 (36 K0 launches): finite
              rows, K0, K1, K2 (and K5 in dt_ablation's grid variant) by name.
-Phases 22-25 each run under PHASE_DEADLINE_S (their loaders spawn worker
-pools); past it the run fails.
+ 26. scripts18  spike_guard_demo, temporal_closed_loop and
+             recover_temporal_score (on the loop's workdir: the loop's
+             numbers), reprojection_baseline_psi (the psi_193 scene at
+             32^2), real_data_rehearsal and the two capacity probes, 3 steps
+             each at 32^2: finite rows, K0 / K1 / K2 by name where they
+             train or render.
+Phases 22-26 each run under PHASE_DEADLINE_S; past it the run fails. [time] lines give each phase's seconds.
 Then it prints the card's name and power limit, one {"kernels": [...]} line
 (K0 with the widths it serves on the render path and the serving artifact's
 launches and times, K1, K2, K3,
 K4, K5, K6a, K6b, P1 and P2; K0's entry with [eval]'s and the occupancy
 update's launches, K1's and K2's with the tiered steps' and the tier
-shapes', and each with its launches in phases 22-25) and, last,
+shapes', and each with its launches in phases 22-25; the wide route's K0,
+K1, K2, K3, K4, K6a, K6b and K5) and, last,
 {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -415,7 +443,8 @@ HBM_TBPS = 3.35              # H100 SXM device memory rate
 INT8_TOPS = 1979.0           # H100 SXM dense int8 tensor-core peak
 F32_TFLOPS = 67.0            # H100 SXM float32 peak outside the tensor cores
 KERNELS = ('fused_mlp_fwd_wgmma', 'fused_mlp_stash_fwd', 'fused_mlp_stash_bwd',
-           'fused_mlp_recompute_bwd', 'grid_tap_encode', 'grid_hat_encode')
+           'fused_mlp_recompute_bwd', 'grid_tap_encode', 'grid_hat_encode', 'wide_mlp_fwd',
+           'wide_mlp_bwd')
 KEYS = ('w_in', 'b_in', 'w_h', 'b_h', 'w_out', 'b_out')
 # K2's launches, by kernel name (the grid ones only with grid levels, the
 # i8pair ones only for that format)
@@ -493,16 +522,16 @@ WIDTHS_N = 65536
 # [trainer]: the committed bundle rendered at TRAINER_RES^2 from
 # config/render_simple_star.yaml's 8 observers (data/synthetic.py
 # synthesize_views) as the run's FITS views
-TRAINER_RES = 256
-TRAINER_STEPS = 300
+TRAINER_RES = 128
+TRAINER_STEPS = 150
 TRAINER_BATCH = 1024
 TRAINER_MODEL = {}        # the CLI's defaults: 8x512 for both fields
 TRAINER_RENDERING = {}    # 64 + 128 samples
 # [dt]: config/render_simple_star.yaml's observers (data/synthetic.py
 # OBSERVERS) rendered at DT_RES^2 over every AIA channel; euvib loses
 # DT_DROPPED; config/DT_2012_11.yaml cut to DT_STEPS
-DT_RES = 256
-DT_STEPS = 300
+DT_RES = 128
+DT_STEPS = 150
 DT_DROPPED = ('euvib', (94, 131))
 DT_CONFIG = 'config/DT_2012_11.yaml'
 # the image from the K0 raw against the image from the plain raw, each
@@ -532,7 +561,7 @@ TIER = (0.5, 16)
 TIER_BRIGHT_TOL = 1e-5
 TIER_L1_TOL = 0.05
 DT_TIER_RAYS = 3072
-TIERS_TRAINER_STEPS = 100
+TIERS_TRAINER_STEPS = 60
 # [occupancy]: run_emission to the first grid update (warmup 50, every 16:
 # step 64), then resumed to the second number
 OCC_STEPS = (64, 112)
@@ -542,7 +571,7 @@ OCC_STEPS = (64, 112)
 # frames against the single-device frame, of max
 DP_RAYS = 1024
 DP_MICRO = (4096, 1024)
-DP_TRAINER_STEPS = 50
+DP_TRAINER_STEPS = 30
 DP_TRAINER_MICRO = 512
 DP_DEADLINE_S = 180.0
 FRAME_TOL = 1e-6
@@ -587,6 +616,17 @@ def _fmt(e: dict) -> str:
     return (f"max {e['max_rel_err']:.2e} p99.99 {e['p9999_rel_err']:.2e} rms "
             f"{e['rms_rel_err']:.2e} points>{KERNEL_TOL:g} {e['points_over_tol']} "
             f"points>{KERNEL_MAX_TOL:g} {e['points_over_max']}")
+
+
+_T_START = time.perf_counter()
+_T_LAST = [_T_START]
+
+
+def _mark(tag: str):
+    """Print the seconds since the last mark and since the start."""
+    now = time.perf_counter()
+    print(f'[time] {tag}: {now - _T_LAST[0]:.1f} s (at {now - _T_START:.1f} s)', flush=True)
+    _T_LAST[0] = now
 
 
 def _check(ok: bool, what: str):
@@ -1529,7 +1569,7 @@ def _dt_phase(device) -> dict:
         config.update(path_to_save=workdir, work_directory=os.path.join(workdir, 'batches'))
         # the tree's own epoch in place of 2012-11's
         config['data'].update(data_path=os.path.join(tmp, 'tree'), ref_time=tree['ref_time'])
-        config['training'].update(total_steps=DT_STEPS, log_every_n_steps=150,
+        config['training'].update(total_steps=DT_STEPS, log_every_n_steps=DT_STEPS // 2,
                                   scalar_log_every=50, ema_decay=0.999, keep_best=True)
         path = os.path.join(tmp, 'dt.yaml')
         with open(path, 'w') as f:
@@ -1567,7 +1607,7 @@ def _dt_phase(device) -> dict:
         _check(all(np.isfinite(r['loss']) for r in steps), 'dt losses not finite')
         _check(steps[-1]['loss'] < steps[0]['loss'],
                f"dt loss did not fall: {steps[0]['loss']} -> {steps[-1]['loss']}")
-        _check(sorted(vals) == [0, 150, DT_STEPS], f'dt validations at {sorted(vals)}')
+        _check(sorted(vals) == [0, DT_STEPS // 2, DT_STEPS], f'dt validations at {sorted(vals)}')
         _check(not any(r.get('val_pred_degenerate') for r in vals.values()),
                'a DT validation was degenerate (near-zero prediction)')
         _check(probe_wl == 94.0, f'drift probe pinned at {probe_wl}, not 94')
@@ -4014,8 +4054,8 @@ PREP_RAW, PREP_RES = 512, 256
 PREP_VIEWS = 8
 PREP_STEPS = 30
 PSI_SCORE_RES = 256
-PSI_PROTOCOL = ('--steps', '200', '--resolution', '128')   # 8x512, 64 + 128 by default
-PSI_PROTOCOL_STEPS = 200
+PSI_PROTOCOL_STEPS = 100
+PSI_PROTOCOL = ('--steps', str(PSI_PROTOCOL_STEPS), '--resolution', '128')   # 8x512, 64 + 128
 PSI_JAX_ROW = 'BUNDLE_SCORES_r5.jsonl'
 # Where K0 runs the trained bundle over millions of samples, single bf16
 # flips move a few points beyond KERNEL_MAX_TOL of the plain version, while
@@ -4618,7 +4658,7 @@ def _psi_phase(device, plain_renderer) -> dict:
 # ------------- the quality protocols, the probes and the first ablations (item 14)
 
 DT_PROTOCOL_RES = 128
-DT_PROTOCOL_STEPS = 200
+DT_PROTOCOL_STEPS = 100
 DT_WAVELENGTHS = (94, 131, 171, 193, 211)
 DT_PROTOCOL = ('--steps', str(DT_PROTOCOL_STEPS), '--resolution', str(DT_PROTOCOL_RES),
                '--wavelengths', *map(str, DT_WAVELENGTHS), '--hot-blob', '--mask-exercise',
@@ -4643,11 +4683,11 @@ THOMSON_JAX_CPU = {'tB': {'mae_percent_of_mean': 0.7955, 'psnr_db': 41.03},
                    'pB': {'mae_percent_of_mean': 0.3017, 'psnr_db': 42.11}}
 THOMSON_CPU_FACTOR = 1.06
 PROBE_REPS = ('--reps', '2')
-ABLATION_STEPS = ('--steps', '5', '--seeds', '7', '--resolution', '64')
+ABLATION_STEPS = ('--steps', '3', '--seeds', '7', '--resolution', '64')
 K0, K1, K2, K5 = ('fused_mlp_fwd_wgmma (K0)', 'fused_mlp_stash_fwd (K1)',
                   'fused_mlp_stash_bwd (K2)', 'grid branch of K0-K2 (K5)')
-# each of phases 22-25 (whose loaders spawn worker pools) runs under this
-# deadline; a phase past it fails the run, and its pools end their workers
+# each of phases 22-26 runs under this deadline; a phase past it fails the
+# run, and any worker pool of its ends its workers
 PHASE_DEADLINE_S = 300
 
 
@@ -5049,6 +5089,352 @@ def _ablations_phase(device) -> dict:
     return out
 
 
+# the wide route (ops/wide_mlp.py): fields the fused kernels cannot hold.
+# (name, layers, width, d_output): a converted reference-style field at
+# twice the reference's default width, the converter test's 2x640 field at
+# 9 outputs, and 8x512 at 16 outputs; K0 at WIDE_N_FWD points, K1 + K2 at
+# WIDE_N_BWD (and 8x1024 also at the coarse step's 65,536)
+WIDE_SHAPES = (('8x1024:2', 8, 1024, 2), ('2x640:9', 2, 640, 9), ('8x512:16', 8, 512, 16))
+WIDE_N_FWD, WIDE_N_BWD, WIDE_N_COARSE = 245760, 196608, 65536
+WIDE_N_PATHS = 65536
+WIDE_SNF_RES = 256
+WIDE_TUNE_STEPS = 20
+WIDE_TUNE_RES = 64
+K0W, K1W, K2W = 'wide_fwd (K0)', 'wide_fwd (K1)', 'wide_bwd (K2)'
+# the wide K1's RMS over RMS against the plain version, at most this many
+# times the plain version's own f32 floor (CPU against card) on that field
+K1_RMS_FLOOR_FACTOR = 3.0
+
+
+def _wide_launches() -> dict:
+    """Both wide libraries' launches by kernel name, since they were loaded."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    return {**fused_mlp.kernel_launches('wide_mlp_fwd'),
+            **fused_mlp.kernel_launches('wide_mlp_bwd')}
+
+
+def _wide_delta(before: dict) -> dict:
+    after = _wide_launches()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _check_k1(tag: str, k1: dict):
+    """K1's out is K0's bits (K1_VS_K0_TOL), and within KERNEL_TOL at the
+    99.99th percentile and KERNEL_MAX_TOL of the plain version; its RMS
+    within KERNEL_RMS_TOL, or within K1_RMS_FLOOR_FACTOR times the f32
+    order's own floor on the same field where that floor is higher (the
+    plain version on the CPU against the card's on the first 2,048 points:
+    on a random field whose outputs sit near zero the RMS over RMS magnifies
+    any reordering of the f32 sums)."""
+    rms_tol = max(KERNEL_RMS_TOL,
+                  K1_RMS_FLOOR_FACTOR * k1['plain_cpu_vs_card']['rms_rel_err'])
+    _check(k1['p9999_rel_err'] <= KERNEL_TOL and k1['max_rel_err'] <= KERNEL_MAX_TOL
+           and k1['rms_rel_err'] <= rms_tol,
+           f'{tag}: K1 out vs plain {_fmt(k1)} (rms tol {rms_tol:.2e}: the f32 floor '
+           f"{k1['plain_cpu_vs_card']['rms_rel_err']:.2e})")
+    _check(k1['vs_k0_max_rel_err'] <= K1_VS_K0_TOL, f"{tag}: K1 vs K0 {k1['vs_k0_max_rel_err']}")
+    _check(k1['hs_within_1ulp_layerwise'] >= 0.999,
+           f"{tag}: K1 sin stash within 1 ulp for {k1['hs_within_1ulp_layerwise']:.6f}")
+    _check(k1['cs_max_diff_layerwise'] <= 1, f"{tag}: K1 int8 cos off by "
+                                              f"{k1['cs_max_diff_layerwise']}")
+
+
+def _check_grads(tag: str, row: dict):
+    for k, e in row['grads'].items():
+        tol = DPTS_TOL if k == 'dpts' else GRAD_TOL
+        _check(e['max_rel_err'] <= tol, f"{tag}: {k} vs plain {e['max_rel_err']:.3e} (tol {tol})")
+    _check(row['finite'], f'{tag}: gradients not finite')
+    _check(row['bit_identical'], f'{tag}: gradients differ over two runs')
+
+
+def _wide_kernel_rows(device) -> dict:
+    """[wide] a-b: the wide K0, K1 + K2 at WIDE_SHAPES and K3, K4, K6a, K5
+    at 2x640 against the plain versions (scripts/probe_wide.py's rows), and
+    'i8pair' refused by name on the wide route."""
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.scripts import probe_wide
+    rows = {}
+    for i, (name, layers, width, d_out) in enumerate(WIDE_SHAPES):
+        tag = f'[wide] {name}'
+        cfg, p, pts, _ = probe_wide.setup(layers, width, d_out, WIDE_N_FWD, device, seed=i)
+        k0 = probe_wide.k0_row(cfg, p, pts, reps=3)
+        print(f"{tag} K0 N={WIDE_N_FWD}: {_fmt(k0)}; {k0['ms']:.3f} ms (plain {k0['plain_ms']:.3f}, "
+              f"library {k0['library_ms']:.3f}, bound {k0['bound_ms']:.3f} by {k0['bound_by']}); "
+              f"launches {k0['launches']}", flush=True)
+        _check(k0['finite'] and k0['p9999_rel_err'] <= KERNEL_TOL
+               and k0['rms_rel_err'] <= KERNEL_RMS_TOL and k0['max_rel_err'] <= KERNEL_MAX_TOL,
+               f'{tag}: K0 vs plain {_fmt(k0)}')
+        _check(k0['launches'].get(K0W) == 1 and k0['launches'].get('WIDE_LAUNCHES') == 1,
+               f"{tag}: K0 launches {k0['launches']}")
+        del p, pts
+        row = {'k0': k0}
+        for n in ((WIDE_N_BWD, WIDE_N_COARSE) if width == 1024 else (WIDE_N_BWD,)):
+            cfg, p, pts, dy = probe_wide.setup(layers, width, d_out, n, device, seed=100 + i)
+            k1, k2 = probe_wide.k12_rows(cfg, p, pts, dy, reps=3)
+            print(f"{tag} K1 N={n}: {_fmt(k1)}; the f32 floor (plain on the CPU vs the "
+                  f"card's, 2,048 points): rms {k1['plain_cpu_vs_card']['rms_rel_err']:.2e}; "
+                  f"stash within 1 ulp "
+                  f"{k1['hs_within_1ulp_layerwise']:.6f}, int8 cos off by at most "
+                  f"{k1['cs_max_diff_layerwise']}; {k1['ms']:.3f} ms (plain {k1['plain_ms']:.3f}, "
+                  f"library {k1['library_ms']:.3f}, bound {k1['bound_ms']:.3f})", flush=True)
+            print(f"{tag} K2 N={n}: max over max|plain| " + '; '.join(
+                f"{k} {e['max_rel_err']:.2e}" for k, e in k2['grads'].items())
+                + f"; two runs bit-identical {k2['bit_identical']}; {k2['ms']:.3f} ms (plain "
+                f"{k2['plain_ms']:.3f}, library {k2['library_ms']:.3f}, bound {k2['bound_ms']:.3f}); "
+                f"launches {k2['launches']}", flush=True)
+            _check_k1(f'{tag} N={n}', k1)
+            _check_grads(f'{tag} K2 N={n}', k2)
+            _check(k1['launches'].get(K1W) == 1 and k2['launches'].get(K2W) == 1,
+                   f"{tag}: K1 / K2 launches {k1['launches']} {k2['launches']}")
+            row['k1' if n == WIDE_N_BWD else 'k1_coarse'] = k1
+            row['k2' if n == WIDE_N_BWD else 'k2_coarse'] = k2
+            del p, pts, dy
+            torch.cuda.empty_cache()
+        rows[name] = row
+    paths = probe_wide.path_rows(WIDE_N_PATHS, device, reps=3)
+    expect = {'K3': ('dpts_kernel (K3)', K1W, K2W), 'K4': ('dpts_kernel (K3)', 'wide_fwd (K4)',
+                                                         'wide_bwd (K4)'),
+              'K6a': ('dpts_kernel (K3)', 'wide_fwd (K6a)', 'wide_bwd (K6a)'),
+              'K6b': ('dpts_kernel (K3)', 'wide_fwd (K6b)', 'wide_bwd (K6b)', 'dw_i8_kernel (K6b)'),
+              'K5': ('grid_max_kernel (K5)', 'grid_scatter_kernel', 'grid_convert_kernel', K1W,
+                     K2W)}
+    for name, row in paths.items():
+        tag = f'[wide] {name} 2x640 N={WIDE_N_PATHS}'
+        print(f"{tag}: max over max|plain| " + '; '.join(
+            f"{k} {e['max_rel_err']:.2e}" for k, e in row['grads'].items())
+            + f"; bit-identical {row['bit_identical']}; {row['ms']:.3f} ms forward + backward; "
+            f"launches {row['launches']}", flush=True)
+        _check(row['keys_match'], f'{tag}: gradient keys')
+        _check_grads(tag, row)
+        _check(all(row['launches'].get(k, 0) >= 1 for k in expect[name]),
+               f"{tag}: launches {row['launches']}, expected {expect[name]}")
+    cfg, p, pts, _ = probe_wide.setup(2, 640, 2, 64, device, seed=7)
+    leaves = {k: v.requires_grad_() for k, v in p.items()}
+    try:
+        fused_mlp.fused_mlp_forward(cfg, leaves, pts, stash_format='i8pair',
+                                    stash_bwd_tile=8).sum().backward()
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    _check(refused is not None and 'got 8' in refused, f"[wide] i8pair group 8: {refused}")
+    print(f'[wide] i8pair on the wide route at scale group 8 refused by name: {refused}',
+          flush=True)
+    return {'rows': rows, 'paths': paths, 'i8pair_group_refused': refused}
+
+
+def _wide_snf(device) -> dict:
+    """[wide] c: an 8x1024 reference-style save_state.snf (random fields
+    from a seed, both passes 8x1024 as the reference's NeRF(d_filter)
+    builds them), converted by the port's CLI, served at 256^2 through
+    SuNeRFLoader on the wide K0 (32 launches by kernel name) against the
+    plain version, exported and served from the artifact (the live frame's
+    bits, 32 launches), then fine-tuned WIDE_TUNE_STEPS steps through the
+    Trainer on views of the committed bundle: 2 wide K1 + 2 wide K2 a step
+    by kernel name, the loss finite and falling."""
+    from sunerf_tpu_torch.data.loaders import build_single_channel_data
+    from sunerf_tpu_torch.data.synthetic import synthesize_views
+    from sunerf_tpu_torch.evaluation.loader import ModelLoader, SuNeRFLoader
+    from sunerf_tpu_torch.evaluation.serving import ServingModel, export_serving
+    from sunerf_tpu_torch.models.fields import (FieldOutput, NeRFConfig, emission_config,
+                                                init_nerf)
+    from sunerf_tpu_torch.ops import fused_mlp
+    from sunerf_tpu_torch.scripts.probe_step import launches_by_kernel, zero_counts
+    from sunerf_tpu_torch.systems import from_spec
+    from sunerf_tpu_torch.train.loop import Trainer, TrainerConfig
+    from sunerf_tpu_torch.train.objective import LossConfig
+    from sunerf_tpu_torch.train.optim import OptimConfig
+    from sunerf_tpu_torch.utils import snf_converter
+    t_phase = time.perf_counter()
+    cfg = emission_config(n_layers=8, d_filter=1024)
+    gen = torch.Generator().manual_seed(1024)
+    params = {k: {kk: vv.numpy() for kk, vv in init_nerf(gen, cfg, 'cpu').items()}
+              for k in ('fine', 'coarse')}
+    mc = dataclasses.asdict(cfg)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        snf = os.path.join(tmp, 'save_state.snf')
+        _write_reference_snf(snf, params, {'model_config': mc, 'coarse_model_config': mc})
+        converted = os.path.join(tmp, 'converted')
+        snf_converter.main(['--snf', snf, '--out', converted])
+        _drop_reference_modules()
+        loader = SuNeRFLoader(converted, device=device)
+        fine = NeRFConfig(**loader.config['renderer_spec']['model_config'])
+        _check(fine.d_filter == 1024 and fused_mlp.kernel_route(fine) == 'wide',
+               f'[wide] converted field {fine.n_layers}x{fine.d_filter}, route '
+               f'{fused_mlp.kernel_route(fine)}')
+        view = dict(VIEW, resolution=WIDE_SNF_RES)
+        loader.render_observer_image(**view)
+        torch.cuda.synchronize()
+        zero_counts()
+        before = _wide_launches()
+        frame = loader.render_observer_image(**view)
+        torch.cuda.synchronize()
+        out['live_launches'] = dict(_wide_delta(before), **launches_by_kernel())
+        n_chunks = WIDE_SNF_RES * WIDE_SNF_RES // loader.batch_size
+        _check(out['live_launches'].get(K0W) == 2 * n_chunks
+               and out['live_launches'].get('wide_mlp_fwd (K0 wide)') == 2 * n_chunks,
+               f"[wide] live frame launches {out['live_launches']}, not {2 * n_chunks} wide K0")
+        t0 = time.perf_counter()
+        loader.render_observer_image(**view)
+        out['frame_ms'] = (time.perf_counter() - t0) * 1e3
+
+        def plain(c):
+            return lambda p, x: FieldOutput(raw=fused_mlp.fused_mlp_reference(c, p, x))
+        spec = loader.config['renderer_spec']
+        base, _ = from_spec(spec, use_fused=False, device=device)
+        plain_renderer = dataclasses.replace(base, field_apply=plain(fine),
+                                             coarse_field_apply=plain(fine))
+        plain_frame = ModelLoader(plain_renderer, loader.params,
+                                  device=device).render_observer_image(**view)
+        out['vs_plain'] = {k: _rel(getattr(plain_frame, k), getattr(frame, k)) for k in MAPS}
+        for k in MAPS:
+            _check(bool(np.isfinite(getattr(frame, k)).all()), f'[wide] frame {k} not finite')
+        _check(out['vs_plain']['image'] <= RENDER_TOL,
+               f"[wide] frame image {out['vs_plain']['image']:.3e} of max from the plain version")
+        artifact = os.path.join(tmp, 'wide.tsrv')
+        t0 = time.perf_counter()
+        meta = export_serving(converted, artifact, batch_size=4096, platforms=('cuda',))
+        out['export_s'] = time.perf_counter() - t0
+        served = ServingModel(artifact, device='cuda')
+        served.render_observer_image(**view)
+        torch.cuda.synchronize()
+        before = _wide_launches()
+        sframe = served.render_observer_image(**view)
+        torch.cuda.synchronize()
+        out['served_launches'] = _wide_delta(before)
+        out['served_bits'] = all(np.array_equal(getattr(sframe, k), getattr(frame, k))
+                                 for k in MAPS)
+        print(f"[wide] 8x1024 reference .snf converted and served at {WIDE_SNF_RES}^2: live "
+              f"launches {out['live_launches']}, {out['frame_ms']:.1f} ms; vs the plain version "
+              + '; '.join(f'{k} {v:.3e}' for k, v in out['vs_plain'].items())
+              + f"; exported in {out['export_s']:.1f} s (fused_cuda {meta['fused_cuda']}); served "
+              f"from the artifact: launches {out['served_launches']}, the live frame's bits "
+              f"{out['served_bits']}", flush=True)
+        _check(meta['fused_cuda'] and out['served_bits'],
+               f"[wide] artifact frame: fused_cuda {meta['fused_cuda']}, bits {out['served_bits']}")
+        _check(out['served_launches'].get(K0W) == 2 * n_chunks,
+               f"[wide] artifact launches {out['served_launches']}")
+        del served, sframe, plain_frame
+
+        # fine-tune through the Trainer on the committed bundle's views
+        pattern = synthesize_views(tmp, device, WIDE_TUNE_RES)
+        data = build_single_channel_data(pattern, os.path.join(tmp, 'work'), batch_size=1024)
+        renderer, _ = from_spec(spec, device=device)
+        trainer = Trainer(renderer, loader.params, data,
+                          loss_config=LossConfig(lambda_regularization=0.1, scaling_vmax=10.0),
+                          optim_config=OptimConfig(lr_start=5e-4, lr_floor=5e-4),
+                          trainer_config=TrainerConfig(
+                              total_steps=WIDE_TUNE_STEPS, val_every=WIDE_TUNE_STEPS,
+                              checkpoint_every=WIDE_TUNE_STEPS, log_every=1,
+                              save_val_images=False),
+                          workdir=os.path.join(tmp, 'tune'), device=device)
+        zero_counts()
+        before = _wide_launches()
+        t0 = time.perf_counter()
+        trainer.fit()
+        out['tune_s'] = time.perf_counter() - t0
+        out['tune_launches'] = dict(_wide_delta(before), **launches_by_kernel())
+        recs = [json.loads(line) for line in open(os.path.join(tmp, 'tune', 'metrics.jsonl'))]
+        losses = [r['loss'] for r in recs if 'loss' in r]
+        out['tune_losses'] = losses
+        out['tune_ms_per_step'] = statistics.median(r['step_ms'] for r in recs if 'step_ms' in r)
+    n = WIDE_TUNE_STEPS
+    print(f"[wide] fine-tuned {n} steps ({out['tune_s']:.1f} s, {out['tune_ms_per_step']:.1f} "
+          f"ms/step): launches {out['tune_launches']}; losses " + ' '.join(
+              f'{v:.5f}' for v in losses), flush=True)
+    _check(len(losses) == n and all(np.isfinite(losses)), f'[wide] fine-tune losses {losses}')
+    _check(np.mean(losses[-5:]) < np.mean(losses[:5]), f'[wide] fine-tune loss not falling')
+    for k in (K1W, K2W, 'wide_mlp_fwd (K1 wide)', 'wide_mlp_bwd (K2 wide)'):
+        _check(out['tune_launches'].get(k) == 2 * n,
+               f"[wide] fine-tune {k}: {out['tune_launches'].get(k)}, not {2 * n}")
+    out['wall_s'] = time.perf_counter() - t_phase
+    return out
+
+
+def _wide_phase(device) -> dict:
+    """[wide]: the wide route on the card (see the docstring)."""
+    t0 = time.perf_counter()
+    out = _wide_kernel_rows(device)
+    torch.cuda.empty_cache()
+    out['snf'] = _wide_snf(device)
+    out['wall_s'] = time.perf_counter() - t0
+    print(f"[wide] {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# [scripts18]: the last seven scripts of item 14 at tiny depths
+SCRIPTS18_RES = ('--resolution', '32')
+SCRIPTS18_STEPS = 3
+
+
+def _scripts18_phase(device) -> dict:
+    """[scripts18]: spike_guard_demo, temporal_closed_loop and its
+    re-scoring, reprojection_baseline_psi (on the psi_193 scene at 32^2),
+    real_data_rehearsal and the two capacity probes, a few steps each:
+    finite rows, launches by kernel name where kernels run, the re-score
+    the loop's own numbers."""
+    from sunerf_tpu_torch.scripts import (probe_grid_capacity, probe_temporal_capacity,
+                                          psi_protocol, real_data_rehearsal,
+                                          recover_temporal_score, reprojection_baseline_psi,
+                                          spike_guard_demo, temporal_closed_loop)
+    t_phase = time.perf_counter()
+    dev = ['--device', str(device)]
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        row = fn()
+        out[name] = dict(row=row, s=time.perf_counter() - t0)
+        print(f"[scripts18] {name}: {out[name]['s']:.1f} s; {json.dumps(row)}", flush=True)
+        return row
+
+    with tempfile.TemporaryDirectory() as tmp:
+        row = timed('spike_guard_demo', lambda: spike_guard_demo.main(
+            ['--steps', str(SCRIPTS18_STEPS), *SCRIPTS18_RES, *dev, '--workdir',
+             os.path.join(tmp, 'guard')]))
+        n = 2 * 2 * SCRIPTS18_STEPS      # two runs, two fields a step
+        _check(all(np.isfinite(row[a]['val_psnr']) for a in ('unguarded', 'guarded'))
+               and row['launches'].get(K1) == n and row['launches'].get(K2) == n,
+               f'[scripts18] spike_guard_demo: {row}')
+        loop = timed('temporal_closed_loop', lambda: temporal_closed_loop.main(
+            ['--frames', '2', '--views', '2', '--steps', str(SCRIPTS18_STEPS), *SCRIPTS18_RES,
+             *dev, '--workdir', os.path.join(tmp, 'loop')]))
+        _check(all(np.isfinite(loop[k]) for k in ('temporal_psnr', 'temporal_ssim',
+                                                  'spatial_val_psnr'))
+               and loop['launches'].get(K1) == 2 * SCRIPTS18_STEPS
+               and loop['launches'].get(K0, 0) > 0,
+               f'[scripts18] temporal_closed_loop: {loop}')
+        again = timed('recover_temporal_score', lambda: recover_temporal_score.main(
+            [loop['workdir'], *dev]))
+        _check(all(again[k] == loop[k] for k in ('temporal_psnr', 'temporal_psnr_min',
+                                                 'temporal_ssim', 'n_eval_views'))
+               and again['launches'].get(K0, 0) > 0,
+               f'[scripts18] recover_temporal_score: {again} against {loop}')
+        train_dir, gt_dir = psi_protocol.ensure_scene(os.path.join(tmp, 'scene'), 32,
+                                                      device=device)
+        row = timed('reprojection_baseline_psi', lambda: {
+            k: v for k, v in reprojection_baseline_psi.main(
+                ['--train', os.path.join(train_dir, '*.fits'), '--gt',
+                 os.path.join(gt_dir, '*.fits'), '--shape-out', '128', '256']).items()
+            if k != 'views'})
+        _check(all(np.isfinite(v) for s in ('train', 'test') for v in row[s].values()),
+               f'[scripts18] reprojection_baseline_psi: {row}')
+        row = timed('real_data_rehearsal', lambda: real_data_rehearsal.main(
+            ['--steps', str(SCRIPTS18_STEPS), *SCRIPTS18_RES, *dev, '--workdir',
+             os.path.join(tmp, 'rehearsal')]))
+        _check(np.isfinite(row['rehearsal']['val_psnr']) and row['quant_err'] < 5e-3
+               and row['launches'].get(K1) == 2 * SCRIPTS18_STEPS,
+               f'[scripts18] real_data_rehearsal: {row}')
+        for name, module in (('probe_grid_capacity', probe_grid_capacity),
+                             ('probe_temporal_capacity', probe_temporal_capacity)):
+            row = timed(name, lambda m=module: m.main(['--steps', str(SCRIPTS18_STEPS), *dev]))
+            _check(all(np.isfinite(v) for label, r in row.items() if isinstance(r, dict)
+                       for v in r.values()), f'[scripts18] {name}: {row}')
+    out['wall_s'] = time.perf_counter() - t_phase
+    print(f"[scripts18] {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on the card',
@@ -5077,15 +5463,19 @@ def main() -> int:
 
     # 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    # the kernels, and the [lsb] phase's two measurement-only ablation
-    # variants of the stashing backward, one nvcc each, all at once
+    # the kernels, one nvcc each, all at once; then, while the phases run,
+    # the [lsb] phase's two measurement-only ablation variants of the
+    # stashing backward (read there)
     from sunerf_tpu_torch.scripts.backward_ablation import VARIANTS
-    builds = [(k, ()) for k in KERNELS] + [('fused_mlp_stash_bwd', d)
-                                           for _, d, _ in VARIANTS['lsb'] if d]
+    builds = [(k, ()) for k in KERNELS]
     with ThreadPoolExecutor(len(builds)) as pool:
         built = list(pool.map(lambda b: build.build(*b), builds))
-    print(f'[build] {", ".join(KERNELS)} and {len(builds) - len(KERNELS)} ablation variants: '
-          f'{time.perf_counter() - t0:.1f} s (parallel nvcc)', flush=True)
+    variants = [('fused_mlp_stash_bwd', d) for _, d, _ in VARIANTS['lsb'] if d]
+    variant_pool = ThreadPoolExecutor(len(variants))
+    variant_builds = [variant_pool.submit(build.build, *v) for v in variants]
+    _mark('build')
+    print(f'[build] {", ".join(KERNELS)}: {time.perf_counter() - t0:.1f} s (parallel nvcc); '
+          f'{len(variants)} ablation variants building meanwhile', flush=True)
     for (name, defines), (path, log) in zip(builds, built):
         print(f'[build] {" ".join((name,) + defines)}: {path}')
         for line in log.splitlines():
@@ -5111,8 +5501,8 @@ def main() -> int:
             pts[:, 3] = 0.0
             p = params[name]
             ref = fused_mlp.fused_mlp_reference(cfg, p, pts)
-            floor = _err_stats(ref, fused_mlp.fused_mlp_reference(
-                cfg, {k: v.cpu() for k, v in p.items()}, pts.cpu()))
+            floor = _err_stats(ref[:n // 4], fused_mlp.fused_mlp_reference(
+                cfg, {k: v.cpu() for k, v in p.items()}, pts[:n // 4].cpu()))
             out = fused_mlp.fused_mlp_forward(cfg, p, pts)
             torch.cuda.synchronize()
             _check(bool(torch.isfinite(out).all()), f'{name}: non-finite K0 output')
@@ -5133,11 +5523,13 @@ def main() -> int:
             print(f'[kernel] {name} plain on the CPU vs on the card: {_fmt(floor)}',
                   flush=True)
 
+    _mark('kernel')
     stash_rows = {}
     with torch.no_grad():
         for name, n_layers, width, n in STASH_SHAPES:
             stash_rows[name] = _stash_phase(name, n_layers, width, n, device)
     torch.cuda.empty_cache()
+    _mark('stash')
 
     # 3. render through the port's loader --------------------------------
     loader = SuNeRFLoader(BUNDLE, device='cuda')
@@ -5262,38 +5654,54 @@ def main() -> int:
         _check(len(paths) == 3 and all(os.path.getsize(p) > 0 for p in paths),
                'flyby frames missing')
     print(f'[flyby] 3 frames at 256x256: {flyby_s:.2f} s', flush=True)
+    _mark('render, golden, flyby')
 
     # 4a-4b. the serving export; the MHD field ------------------------------
     torch.cuda.empty_cache()
     export = _export_phase(device, loader, view)
+    _mark('export')
     torch.cuda.empty_cache()
     mhd = _mhd_phase(device)
+    _mark('mhd')
 
     train = _train_phase(device)
     _serve_phase(train.pop('renderer'), train.pop('state'))
     tune = _tune_phase(device, gview, g_fused)
+    _mark('train, serve, tune')
 
-    # 8-9. fields of any width up to 512; the Trainer through the CLI ------
+    # 8-9. fields of any width up to 512; the wide route above it; the
+    # Trainer through the CLI -----------------------------------------------
     torch.cuda.empty_cache()
     widths = _widths_phase(device)
+    _mark('widths')
+    torch.cuda.empty_cache()
+    wide = _wide_phase(device)
+    _mark('wide')
     torch.cuda.empty_cache()
     trainer = _trainer_phase(device, train)
+    _mark('trainer')
     torch.cuda.empty_cache()
     dt = _dt_phase(device)
+    _mark('dt')
     torch.cuda.empty_cache()
     thomson = _thomson_phase(device)
+    _mark('thomson')
 
     # 7e-7g. the evaluation layer, the tiers and the occupancy grid ----------
     torch.cuda.empty_cache()
     evals = _eval_phase(device, plain_renderer, fields['fine'][0])
+    _mark('eval')
     torch.cuda.empty_cache()
     tiers = _tiers_phase(device, trainer)
+    _mark('tiers')
     torch.cuda.empty_cache()
     occupancy = _occupancy_phase(device, trainer)
+    _mark('occupancy')
 
     # 7h. data parallel and microbatch ------------------------------------
     torch.cuda.empty_cache()
     dp = _dp_phase(device, trainer)
+    _mark('dp')
 
     # 8-11. dense feature grids (K5) ----------------------------------------
     torch.cuda.empty_cache()
@@ -5301,12 +5709,15 @@ def main() -> int:
         grid_rows = {name: _grid_kernel_phase(name, kw, n, device)
                      for name, kw, n in GRID_SHAPES}
     torch.cuda.empty_cache()
+    _mark('grid')
     grid_train = _grid_train_phase(device)
     grid_serve = _grid_serve_phase(grid_train, device)
     for k in ('renderer', 'state', 'configs'):
         grid_train.pop(k)
+    _mark('gridtrain, gridserve')
     torch.cuda.empty_cache()
     ngp = _ngp_phase(device)
+    _mark('ngp')
 
     # 12-16. the other backward paths (K3, K4, K6a, K6b) ------------------
     torch.cuda.empty_cache()
@@ -5315,43 +5726,65 @@ def main() -> int:
                      'proposal': _dpts_phase('proposal', 4, 128, 1024 * 20, device),
                      'fine_d12': _dpts_phase('fine', 8, 512, 1024 * 192, device, d_input=12)}
     torch.cuda.empty_cache()
+    _mark('dpts')
     recompute = _recompute_phase(262144, device)
+    _mark('recompute')
     torch.cuda.empty_cache()
+    for (name, defines), future in zip(variants, variant_builds):
+        path, _ = future.result()
+        print(f'[build] {" ".join((name,) + defines)}: {path}', flush=True)
+    variant_pool.shutdown()
     with torch.no_grad():
         formats = {fmt: _format_phase(fmt, 262144, device) for fmt in ('lsb', 'i8pair')}
+    _mark('lsb, i8pair')
     torch.cuda.empty_cache()
     bench = _bench_kernel_phase()
+    _mark('bench_kernel')
     torch.cuda.empty_cache()
     probe = _probe_step_phase(device)
+    _mark('probe_step')
     probe_launches = {str(r['knob']): r['launches'] for r in probe['rows']}
 
     # 17. the grid-encode probes (P1, P2) ------------------------------------
     torch.cuda.empty_cache()
     probes = _grid_probe_phase(device)
+    _mark('grid_probes')
 
     # 18-21. serving on any card; the converter; prep; the psi_193 protocol ----
     torch.cuda.empty_cache()
     serve_cards = _serve_cards_phase(device, view)
+    _mark('serve_cards')
     torch.cuda.empty_cache()
     snf = _snf_phase(device)
+    _mark('snf')
     torch.cuda.empty_cache()
     prep = _prep_phase(device)
+    _mark('prep')
     torch.cuda.empty_cache()
     psi = _psi_phase(device, plain_renderer)
+    _mark('psi')
 
     # 22-25. the quality protocols, the probes, the first ablations ----------
     torch.cuda.empty_cache()
     with _deadline(PHASE_DEADLINE_S, '[dt_protocol]'):
         dt_proto = _dt_protocol_phase(device)
+    _mark('dt_protocol')
     torch.cuda.empty_cache()
     with _deadline(PHASE_DEADLINE_S, '[thomson_protocol]'):
         thomson_proto = _thomson_protocol_phase(device)
+    _mark('thomson_protocol')
     torch.cuda.empty_cache()
     with _deadline(PHASE_DEADLINE_S, '[probes]'):
         item_probes = _probes_phase(device)
+    _mark('probes')
     torch.cuda.empty_cache()
     with _deadline(PHASE_DEADLINE_S, '[ablations]'):
         ablations = _ablations_phase(device)
+    _mark('ablations')
+    torch.cuda.empty_cache()
+    with _deadline(PHASE_DEADLINE_S, '[scripts18]'):
+        scripts18 = _scripts18_phase(device)
+    _mark('scripts18')
     ablation_launches = {k: ablations[k]['launches'] for k in (
         'dt_ablation', 'occupancy_ablation', 'occupancy_value_case', 'eval_budget_sweep')}
 
@@ -5593,6 +6026,52 @@ def main() -> int:
         'dense_tc_ms': hat['dense_tc_ms'], 'variants': probes['hat_rows'],
         'script': probes['hatbuild'], 'check': probes['checks']['hatbuild'],
     })
+    # the wide route: K0 on the converted 8x1024 field's frame (live), K1 and
+    # K2 in its fine-tune, the other paths on their own [wide] runs
+    wsnf, wpaths = wide['snf'], wide['paths']
+    wide_sources = ['sunerf_tpu_torch/csrc/wide_mlp.cuh', 'sunerf_tpu_torch/csrc/fused_mlp_common.cuh']
+    for key, kname, src, line, launches in (
+            ('k0', 'wide_mlp_fwd (K0 wide)', 'wide_mlp_fwd.cu', 343, wsnf['live_launches'][K0W]),
+            ('k1', 'wide_mlp_fwd (K1 wide)', 'wide_mlp_fwd.cu', 453, wsnf['tune_launches'][K1W]),
+            ('k2', 'wide_mlp_bwd (K2 wide)', 'wide_mlp_bwd.cu', 533, wsnf['tune_launches'][K2W])):
+        rows = {name: r[key] for name, r in wide['rows'].items()}
+        top = rows['8x1024:2']
+        kernels.append({
+            'name': kname, 'route': 'cuda', 'source': f'sunerf_tpu_torch/csrc/{src}',
+            'sources': [f'sunerf_tpu_torch/csrc/{src}', *wide_sources],
+            'replaces': f'sunerf_tpu/ops/pallas/fused_mlp.py:{line}',
+            'replaces_where': 'd_filter above 512 or d_output outside the fused heads',
+            'launches': launches,
+            'max_abs_err': max(r['max_abs_err'] for r in rows.values()),
+            'max_rel_err': max(r['max_rel_err'] for r in rows.values()),
+            'ms': top['ms'], 'plain_ms': top['plain_ms'], 'bound_ms': top['bound_ms'],
+            'bound_by': top['bound_by'], 'library_ms': top['library_ms'],
+            'library': 'one bf16 torch.matmul a layer product at the same shapes',
+            'shapes': rows,
+            **({'coarse_8x1024': wide['rows']['8x1024:2'][f'{key}_coarse']} if key != 'k0' else
+               {'snf': wsnf}),
+        })
+    for name, kname, src, line, counted in (
+            ('K3', 'dpts_kernel (K3 wide)', 'wide_mlp_bwd.cu', 646, 'dpts_kernel (K3)'),
+            ('K4', 'wide_mlp_fwd/bwd recompute (K4 wide)', 'wide_mlp_bwd.cu', 834, 'wide_bwd (K4)'),
+            ('K6a', "wide_mlp_fwd/bwd 'lsb' (K6a wide)", 'wide_mlp_fwd.cu', 481, 'wide_bwd (K6a)'),
+            ('K6b', "wide_mlp_fwd/bwd 'i8pair' (K6b wide)", 'wide_mlp_bwd.cu', 503,
+             'dw_i8_kernel (K6b)'),
+            ('K5', 'grid branch of the wide route (K5 wide)', 'wide_mlp_bwd.cu', 313,
+             'grid_max_kernel (K5)')):
+        r = wpaths[name]
+        kernels.append({
+            'name': kname, 'route': 'cuda', 'source': f'sunerf_tpu_torch/csrc/{src}',
+            'sources': ['sunerf_tpu_torch/csrc/wide_mlp_fwd.cu',
+                        'sunerf_tpu_torch/csrc/wide_mlp_bwd.cu', *wide_sources],
+            'replaces': f'sunerf_tpu/ops/pallas/fused_mlp.py:{line}',
+            'replaces_where': 'd_filter above 512 or d_output outside the fused heads',
+            'launches': r['launches'][counted], 'max_abs_err': r['max_abs_err'],
+            'max_rel_err': r['max_rel_err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
+            'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'], 'library_ms': None,
+            'timed': 'forward + backward under autograd at 2x640, N = 65,536',
+            'detail': r})
+    kernels[-1]['scripts18'] = scripts18
     for k in kernels:
         _check(k['launches'] > 0, f"{k['name']}: no launches on its path")
     print(smi)

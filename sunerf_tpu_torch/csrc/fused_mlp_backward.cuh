@@ -192,12 +192,6 @@ __host__ __device__ __forceinline__ size_t dz_index(int pt, int j, int c, int L,
          + hp::core_offset(pt & (kRows - 1), c, kRowGroups);
 }
 
-// bf16(bf16(q) * bf16(1/127)): the TPU kernel's dequantized int8
-__device__ __forceinline__ float cos_dequant(int8_t q) {
-  const float inv = __bfloat162float(__float2bfloat16_rn(1.0f / kCosScale));
-  return bf16_round(static_cast<float>(q) * inv);
-}
-
 // The bf16 bits of bf16(sign * sqrt(max(1 - s^2, 0))) of a packed bf16 sin
 // s (its 16 bits; finite), in f32 with every operation rounded on its own
 // (_unpack_sin_cos): the 'lsb' gate, from which its table is built.

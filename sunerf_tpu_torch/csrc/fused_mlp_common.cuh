@@ -90,6 +90,17 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// two int8 values in the low 16 bits (lo first in memory)
+__device__ __forceinline__ uint32_t pack_i8(int lo, int hi) {
+  return (static_cast<uint32_t>(lo) & 0xFFu) | ((static_cast<uint32_t>(hi) & 0xFFu) << 8);
+}
+
+// bf16(bf16(q) * bf16(1/127)): the TPU kernel's dequantized int8
+__device__ __forceinline__ float cos_dequant(int8_t q) {
+  const float inv = __bfloat162float(__float2bfloat16_rn(1.0f / kCosScale));
+  return bf16_round(static_cast<float>(q) * inv);
+}
+
 // The dense feature-grid levels (K5), any number of them, as the JAX
 // kernels loop over dims.grid_sizes: one descriptor a level in a small
 // device array (ops/fused_mlp.py grid_descriptors, int64 [levels, 3]) that

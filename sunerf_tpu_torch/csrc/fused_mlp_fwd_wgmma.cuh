@@ -277,10 +277,6 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
   if (lane == 0) hp::mbar_arrive(empty);
 }
 
-__device__ __forceinline__ uint32_t pack_i8(int lo, int hi) {
-  return (static_cast<uint32_t>(lo) & 0xFFu) | ((static_cast<uint32_t>(hi) & 0xFFu) << 8);
-}
-
 __device__ __forceinline__ void st_v4(void* ptr, uint4 v, uint64_t policy) {
   asm volatile("st.global.L2::cache_hint.v4.b32 [%0], {%1, %2, %3, %4}, %5;\n"
                :: "l"(ptr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(policy) : "memory");

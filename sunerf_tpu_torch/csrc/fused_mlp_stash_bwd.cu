@@ -249,3 +249,37 @@ extern "C" int sunerf_lsb_decode(const void* in, void* out, int n, void* stream)
                                                             static_cast<uint16_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
+
+// C entry: K5's scatter and conversion alone (grid_scatter_kernel, then
+// grid_convert_kernel, counted as above) for a grid cotangent made
+// elsewhere, the wide route's (ops/wide_mlp.py): pts [n, d_in], dgrid
+// [n, levels F] f32, gmax [levels] each level's max |dgrid| as float bits,
+// gacc [sum G^3 F] zeroed, grad_grid [sum G^3 F] out; grid a GridParams.
+// Returns a cudaError_t (0 = launched).
+extern "C" int sunerf_grid_scatter(const void* pts, const void* dgrid, void* gmax, void* gacc,
+                                   void* grad_grid, const void* grid, int n, int d_in,
+                                   void* stream) {
+  using namespace sunerf;
+  BwdParams p{};
+  p.pts = static_cast<const float*>(pts);
+  p.dgrid = static_cast<float*>(const_cast<void*>(dgrid));
+  p.gmax = static_cast<unsigned int*>(gmax);
+  p.gacc = static_cast<unsigned long long*>(gacc);
+  p.grad_grid = static_cast<float*>(grad_grid);
+  p.grid = grid_params(grid);
+  p.n = n;
+  p.d_in = d_in;
+  if (n < 1 || p.grid.n_levels < 1 || !grid_ok(p.grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int e_n = 0;
+  while ((1LL << e_n) < n) ++e_n;
+  const long long lanes = static_cast<long long>(n) * p.grid.n_levels * kScatterLanes;
+  grid_scatter_kernel<<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, s>>>(p, e_n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++grid_kernel_launches[1];
+  grid_convert_kernel<<<static_cast<unsigned>((p.grid.total + 255) / 256), 256, 0, s>>>(p, e_n);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++grid_kernel_launches[2];
+  return static_cast<int>(err);
+}

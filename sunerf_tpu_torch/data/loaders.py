@@ -9,11 +9,16 @@ Pipeline per map: FITS -> observer pose (pose_spherical of Carrington lon/lat
 npy shards on disk consumed by MmapDataset. The same numpy code as the JAX
 package's, so the same files give the same arrays and the same batch order.
 
-FITS loading fans out over worker processes (n_workers > 1). They are
-spawned, not forked (the parent may hold threads or a CUDA context), and
-run with the default SIGTERM disposition whatever handler the parent has
-installed (a Trainer's fit installs one while it runs), so a pool's
-terminate() always ends them.
+FITS loading fans out over worker processes where n_workers > 1 (None =
+one per CPU); by default it runs in process, since a spawned worker first
+imports torch and hands each map's rays back by pickle: on the 8-core host
+of an H100 machine 8 workers took 14.0 s to start, and 40 prepped 1024^2
+maps (160 MiB of FITS) loaded in 7.0 s in process against 46.0 s over 8
+workers (scripts/probe_loader_workers.py). Workers are spawned, not
+forked (the parent may hold threads or a CUDA context), and run with the
+default SIGTERM disposition whatever handler the parent has installed (a
+Trainer's fit installs one while it runs), so a pool's terminate() always
+ends them.
 
 Host-side, pure numpy; the device path never touches FITS or WCS.
 """
@@ -150,7 +155,7 @@ def build_single_channel_data(data_path, working_dir: str,
                               batch_size: int = 1024,
                               n_devices: int = 1,
                               debug: bool = False,
-                              n_workers: int | None = None,
+                              n_workers: int | None = 1,
                               seed: int = 42) -> RayData:
     """Emission-head pipeline: all pixels of all maps flattened to rays, one
     held-out validation image at index len//6, global shuffle, npy shards.
@@ -167,7 +172,8 @@ def build_single_channel_data(data_path, working_dir: str,
 
     batch_size is per-chip; the global batch is batch_size * n_devices
     (reference single_channel.py:67-68 scaled by N_GPUS). n_workers > 1
-    fans FITS loading out over processes (reference base_loader.py:72-74)."""
+    fans FITS loading out over processes (reference base_loader.py:72-74;
+    None = one per CPU)."""
     if isinstance(data_path, dict):
         source_globs = dict(data_path)
     elif isinstance(data_path, (list, tuple)):
@@ -403,7 +409,7 @@ def build_multi_thermal_data(data_path: str, working_dir: str,
                              n_devices: int = 1,
                              target_resolution: Optional[int] = None,
                              debug: bool = False,
-                             n_workers: int | None = None,
+                             n_workers: int | None = 1,
                              seed: int = 42) -> RayData:
     """DT-head pipeline: per-source wavelength stacks joined on rounded
     datetimes (scan_instrument_tree), per-pixel wavelength vectors over the

@@ -35,7 +35,11 @@ d_filter up to 512 runs at the next of them, zero-padded (`kernel_width`,
 `pad_field`: a padded unit's pre-activation is 0, its sin 0 and its outgoing
 weights 0, so the field and the real entries' gradients are unchanged),
 and the pad is an F.pad outside the autograd Functions, so autograd slices
-the gradients back to the caller's shapes. With no
+the gradients back to the caller's shapes. A field above 512 units, or
+with d_output outside the fused heads (1..8 forward, 1..4 where a backward
+runs), takes the wide route instead (`kernel_route`; ops/wide_mlp.py, one
+launch a layer, padded to a multiple of 8 units), the same wrappers and
+autograd Functions dispatching to it. With no
 gradient needed it runs K0. When a parameter (or, with compute_dpts, the
 points) needs one it runs, for stash=True (or None), `FusedMLPStash`, the
 autograd Function whose forward is the stashing forward of `stash_format`
@@ -868,24 +872,45 @@ def kernel_width(d_filter: int) -> int:
                      f'(the widest kernel width), got {d_filter}')
 
 
+def kernel_route(config: NeRFConfig, backward: bool = False) -> str:
+    """'fused' where every limit of the fused kernels holds (d_filter up to
+    KERNEL_WIDTHS[-1], d_output in 1..MAX_K0_OUTPUTS for a forward and in
+    1..MAX_BWD_OUTPUTS where a backward will run), else 'wide': the
+    per-layer kernels of ops/wide_mlp.py, which take any width and output
+    count. A field that trains takes one route for its forward and its
+    backward (backward=True for both)."""
+    outputs = MAX_BWD_OUTPUTS if backward else MAX_K0_OUTPUTS
+    if config.d_filter <= KERNEL_WIDTHS[-1] and 1 <= config.d_output <= outputs:
+        return 'fused'
+    return 'wide'
+
+
+def _route_field(config: NeRFConfig, params: dict, route: str) -> tuple:
+    """The field padded for its route's kernels: kernel_width ('fused') or
+    wide_width ('wide')."""
+    if route == 'wide':
+        return _kernel_field(config, params, wide_mlp.wide_width(config.d_filter))
+    return _kernel_field(config, params)
+
+
 def check_kernel_config(config: NeRFConfig):
-    """Raises ValueError, naming the width or the output count, for a field
-    that the fused forward K0 cannot take on the card: d_filter above
-    KERNEL_WIDTHS[-1] (kernel_width) or d_output outside 1..MAX_K0_OUTPUTS.
+    """Raises ValueError, naming the count, for a field that no kernel can
+    take on the card: d_filter or d_output below 1. Every other field runs
+    on the card, on the fused kernels or the wide route (kernel_route).
     systems' _select_apply calls it where a field's CUDA path is chosen (so
     the loaders and the Trainer refuse such a field before any tensor is
     made): a field converted from outside (utils/snf_converter) may have
-    any width. An export (k0_field_operands) and a direct call of the
-    wrappers meet the same limits in kernel_width and _check."""
-    kernel_width(config.d_filter)
-    if not 1 <= config.d_output <= MAX_K0_OUTPUTS:
-        raise ValueError(f'the fused forward takes d_output from 1 to {MAX_K0_OUTPUTS}, '
-                         f'got {config.d_output}')
+    any width and output count."""
+    if config.d_filter < 1:
+        raise ValueError(f'the kernels take d_filter from 1, got {config.d_filter}')
+    if config.d_output < 1:
+        raise ValueError(f'the kernels take d_output from 1, got {config.d_output}')
 
 
-def pad_field(config: NeRFConfig, params: dict) -> tuple:
-    """(config, params) of the same field zero-padded to kernel_width(
-    d_filter): w_in's columns, b_in, both hidden axes of w_h, b_h and w_out's
+def pad_field(config: NeRFConfig, params: dict, width: int = None) -> tuple:
+    """(config, params) of the same field zero-padded to `width` units
+    (by default kernel_width(d_filter); the wide route's wide_width):
+    w_in's columns, b_in, both hidden axes of w_h, b_h and w_out's
     rows. A padded unit has pre-activation 0 and sin 0, and its outgoing
     weights are 0, so it adds nothing to the next layer and the cotangent
     reaching it is 0: the field and the real entries' gradients are
@@ -893,7 +918,7 @@ def pad_field(config: NeRFConfig, params: dict) -> tuple:
     caller's tensors come back sliced to their shapes. Grid tables and
     other keys pass through. A field of a kernel width is returned as it
     is."""
-    width = kernel_width(config.d_filter)
+    width = kernel_width(config.d_filter) if width is None else width
     if width == config.d_filter:
         return config, params
     pad = width - config.d_filter
@@ -906,21 +931,23 @@ def pad_field(config: NeRFConfig, params: dict) -> tuple:
     return dataclasses.replace(config, d_filter=width), padded
 
 
-def _kernel_field(config: NeRFConfig, params: dict) -> tuple:
-    """pad_field for the kernels. A field that needs gradients is padded
-    afresh, through autograd, on every call (one copy of its weights); one
-    that does not (a render) is padded once and reused while the same
-    tensors, unmodified, come back, as the packed weights are."""
-    if kernel_width(config.d_filter) == config.d_filter:
+def _kernel_field(config: NeRFConfig, params: dict, width: int = None) -> tuple:
+    """pad_field for the kernels, to `width` (by default kernel_width). A
+    field that needs gradients is padded afresh, through autograd, on every
+    call (one copy of its weights); one that does not (a render) is padded
+    once and reused while the same tensors, unmodified, come back, as the
+    packed weights are."""
+    width = kernel_width(config.d_filter) if width is None else width
+    if width == config.d_filter:
         return config, params
     keys = param_keys(config)
     if torch.is_grad_enabled() and any(params[k].requires_grad for k in keys):
-        return pad_field(config, params)
+        return pad_field(config, params, width)
     stamp = (config,) + tuple((id(params[k]), _version(params[k])) for k in keys)
     hit = _padded.get(params['w_in'])
     if hit is None or hit[0] != stamp:
         with torch.no_grad():
-            hit = (stamp, pad_field(config, params))
+            hit = (stamp, pad_field(config, params, width))
         _padded[params['w_in']] = hit
     return hit[1]
 
@@ -1070,10 +1097,18 @@ def _count_grid(config: NeRFConfig):
 
 
 GRID_KERNELS = ('prep_grid_kernel', 'grid_scatter_kernel', 'grid_convert_kernel')
-# the kernels whose launches a library counts itself, by library: K0's, and
-# K5's own kernels in the stashing backward
-COUNTED_KERNELS = {'fused_mlp_fwd_wgmma': ('fwd_wgmma_kernel',),
-                   'fused_mlp_stash_bwd': GRID_KERNELS}
+# the kernels whose launches a library counts itself, by library, in the
+# order of its sunerf_kernel_launches: K0's, K5's own kernels in the
+# stashing backward, and the wide route's (ops/wide_mlp.py): its forwards by
+# format and its kernels, its backwards by format and its kernels
+COUNTED_KERNELS = {
+    'fused_mlp_fwd_wgmma': ('fwd_wgmma_kernel',),
+    'fused_mlp_stash_bwd': GRID_KERNELS,
+    'wide_mlp_fwd': ('wide_fwd (K0)', 'wide_fwd (K1)', 'wide_fwd (K6a)', 'wide_fwd (K6b)',
+                     'wide_fwd (K4)', 'encode_kernel', 'wide_gemm_kernel'),
+    'wide_mlp_bwd': ('wide_bwd (K2)', 'wide_bwd (K6a)', 'wide_bwd (K6b)', 'wide_bwd (K4)',
+                     'wide_gemm_kernel chain', 'wide_gemm_kernel dW', 'dpts_kernel (K3)',
+                     'grid_max_kernel (K5)', 'dw_i8_kernel (K6b)')}
 
 
 def kernel_launches(library: str) -> dict:
@@ -1124,16 +1159,24 @@ def k0_operands(config: NeRFConfig, params: dict) -> dict:
 
 
 def k0_field_operands(config: NeRFConfig, params: dict) -> tuple:
-    """(config, k0_operands) of a field for a program that calls
-    fused_mlp_fwd itself (an export): on CUDA the field zero-padded to its
-    kernel width and checked as _forward_k0 checks it, so the program's
-    operands are what the kernel takes; on the CPU as it is."""
+    """(config, operands) of a field for a program that calls the forward's
+    registered op itself (an export): k0_operands for fused_mlp_fwd, or on
+    the wide route (kernel_route) wide_mlp.wide_operands for wide_mlp_fwd;
+    fused_mlp_packed calls the one its operands are for. On CUDA the field
+    is zero-padded to its route's width and checked as the forward checks
+    it, so the program's operands are what the kernel takes; on the CPU as
+    it is."""
     if config.grid_rank:
         raise NotImplementedError(_NO_VM_KERNEL)
+    check_kernel_config(config)
     dev = params['w_in'].device
+    route = kernel_route(config)
     if dev.type == 'cuda':
-        config, params = _kernel_field(config, params)
-        _check(config, params, torch.empty((0, config.d_input), device=dev))
+        config, params = _route_field(config, params, route)
+        check = wide_mlp._check if route == 'wide' else _check
+        check(config, params, torch.empty((0, config.d_input), device=dev))
+    if route == 'wide':
+        return config, wide_mlp.wide_operands(config, params)
     return config, k0_operands(config, params)
 
 
@@ -1207,8 +1250,11 @@ def _launch_k0(points, weights, col_dim, col_freq, b_in, b_h, b_out, grids: list
 
 
 def fused_mlp_packed(ops: dict, points: torch.Tensor, grid_bound: float) -> torch.Tensor:
-    """fused_mlp_fwd on k0_operands' dict: the call an exported program
-    makes, its operands baked in."""
+    """fused_mlp_fwd on k0_operands' dict, or wide_mlp_fwd on
+    wide_operands': the call an exported program makes, its operands baked
+    in."""
+    if 'w_in_t' in ops:
+        return wide_mlp.wide_mlp_packed(ops, points, grid_bound)
     return fused_mlp_fwd(points, ops['weights'], ops['col_dim'], ops['col_freq'],
                          ops['b_in'], ops['b_h'], ops['b_out'], ops['grids'], grid_bound)
 
@@ -1218,14 +1264,18 @@ def _tracing() -> bool:
 
 
 def _forward_k0(config: NeRFConfig, params: dict,
-                points: torch.Tensor, defines: tuple = ()) -> torch.Tensor:
+                points: torch.Tensor, defines: tuple = (), backward: bool = False) -> torch.Tensor:
     """The K0 wrapper: the registered op fused_mlp_fwd on this field's
     k0_operands; CUDA tensors launch csrc/fused_mlp_fwd_wgmma.cu (or
     raise), CPU tensors run its plain version. It counts a launch here, in
     eager calls only (an exported program runs the op without this
     wrapper). `defines` launches a variant built with those macros, outside
-    the op (scripts/backward_ablation.py's measurement-only ablations)."""
+    the op (scripts/backward_ablation.py's measurement-only ablations).
+    A field on the wide route (kernel_route(config, backward)) runs
+    wide_mlp.wide_forward instead."""
     global LAUNCHES
+    if kernel_route(config, backward) == 'wide':
+        return wide_mlp.wide_forward(config, params, points)
     cuda = points.device.type == 'cuda'
     if cuda:
         _check(config, params, points)
@@ -1270,9 +1320,12 @@ def fused_mlp_stash_forward(config: NeRFConfig, params: dict,
     """The stashing forward's wrapper (K1 'int8', K6a 'lsb', K6b 'i8pair')
     -> (out [N, d_out] f32, hs, cs) as fused_mlp_stash_reference returns
     them. CUDA tensors launch the kernel (or raise), CPU tensors run its
-    plain version."""
+    plain version. A field on the wide route runs
+    wide_mlp.wide_stash_forward."""
     global STASH_FWD_LAUNCHES
     _check_format(config, fmt)
+    if kernel_route(config, backward=True) == 'wide':
+        return wide_mlp.wide_stash_forward(config, params, points, fmt)
     if points.device.type == 'cpu':
         return fused_mlp_stash_reference(config, params, points, fmt)
     _check(config, params, points)
@@ -1341,11 +1394,15 @@ def fused_mlp_stash_backward(config: NeRFConfig, params: dict,
     'lsb', K6b 'i8pair' with its dz scale group of `group` points) ->
     parameter gradients in the JAX layout and, with compute_dpts, 'dpts'
     (see fused_mlp_stash_bwd_reference). CUDA tensors launch the kernels
-    (or raise), CPU tensors run their plain version."""
+    (or raise), CPU tensors run their plain version. A field on the wide
+    route runs wide_mlp.wide_stash_backward."""
     global STASH_BWD_LAUNCHES, DPTS_LAUNCHES
     _check_format(config, fmt)
     if compute_dpts and config.grid_sizes:
         raise NotImplementedError(_NO_GRID_DPTS)
+    if kernel_route(config, backward=True) == 'wide':
+        return wide_mlp.wide_stash_backward(config, params, points, dy, hs, cs, fmt,
+                                            compute_dpts, group)
     if points.device.type == 'cpu':
         return fused_mlp_stash_bwd_reference(config, params, points, dy, hs, cs, fmt,
                                              compute_dpts, group)
@@ -1436,10 +1493,13 @@ def fused_mlp_recompute_backward(config: NeRFConfig, params: dict,
     """The K4 wrapper -> parameter gradients and 'dpts' (see
     fused_mlp_recompute_bwd_reference). Its scratch is sized by
     RECOMPUTE_CHUNK points, not N. CUDA tensors launch the kernels (or
-    raise), CPU tensors run the plain version."""
+    raise), CPU tensors run the plain version. A field on the wide route
+    runs wide_mlp.wide_recompute_backward."""
     global RECOMPUTE_BWD_LAUNCHES
     if config.grid_sizes:
         raise NotImplementedError(_NO_GRID_RECOMPUTE)
+    if kernel_route(config, backward=True) == 'wide':
+        return wide_mlp.wide_recompute_backward(config, params, points, dy)
     if points.device.type == 'cpu':
         return fused_mlp_recompute_bwd_reference(config, params, points, dy)
     grads = _recompute_backward_launch(config, params, points, dy)
@@ -1529,7 +1589,7 @@ class FusedMLPRecompute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, config, points, *weights):
         params = dict(zip(param_keys(config), weights))
-        out = _forward_k0(config, params, points)
+        out = _forward_k0(config, params, points, backward=True)
         ctx.config = config
         ctx.save_for_backward(points, *weights)
         return out
@@ -1559,24 +1619,32 @@ def fused_mlp_forward(config: NeRFConfig, params: dict, points: torch.Tensor,
     compute_dpts=False gives the points no gradient on the stashing path
     (the renderer detaches them). Grid configs take the 'int8' stash only
     and no point cotangent, and their recompute backward raises, as in the
-    JAX package. On the card a d_filter outside KERNEL_WIDTHS runs zero-padded
-    to the next kernel width (pad_field); above 512 it raises."""
+    JAX package. kernel_route picks the kernels: the fused ones, or above
+    512 units or outside their heads the wide route (ops/wide_mlp.py; its
+    'i8pair' takes stash_bwd_tile a multiple of 32), for the forward and the
+    backward alike. On the card a
+    d_filter outside KERNEL_WIDTHS runs zero-padded to the next kernel width
+    (pad_field), on the wide route to a multiple of 8."""
     if config.grid_rank:
         raise NotImplementedError(_NO_VM_KERNEL)
     _check_format(config, stash_format)
-    if points.device.type == 'cuda':
-        config, params = _kernel_field(config, params)
     stash = True if stash is None else bool(stash)
     keys = param_keys(config)
-    if torch.is_grad_enabled():
-        wants_dpts = points.requires_grad and (compute_dpts or not stash)
+    wants_dpts = torch.is_grad_enabled() and points.requires_grad and (compute_dpts or not stash)
+    grad = wants_dpts or (torch.is_grad_enabled()
+                          and any(params[k].requires_grad for k in keys))
+    if points.device.type == 'cuda':
+        config, params = _route_field(config, params, kernel_route(config, grad))
+    if grad:
         if wants_dpts and config.grid_sizes:
             raise NotImplementedError(_NO_GRID_DPTS)
-        if wants_dpts or any(params[k].requires_grad for k in keys):
-            if stash:
-                return FusedMLPStash.apply(config, points, stash_format, compute_dpts,
-                                           stash_bwd_tile, *(params[k] for k in keys))
-            if config.grid_sizes:
-                raise NotImplementedError(_NO_GRID_RECOMPUTE)
-            return FusedMLPRecompute.apply(config, points, *(params[k] for k in keys))
+        if stash:
+            return FusedMLPStash.apply(config, points, stash_format, compute_dpts,
+                                       stash_bwd_tile, *(params[k] for k in keys))
+        if config.grid_sizes:
+            raise NotImplementedError(_NO_GRID_RECOMPUTE)
+        return FusedMLPRecompute.apply(config, points, *(params[k] for k in keys))
     return _forward_k0(config, params, points)
+
+
+from sunerf_tpu_torch.ops import wide_mlp  # noqa: E402  (the wide route; registers its op)

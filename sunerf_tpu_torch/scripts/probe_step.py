@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from sunerf_tpu_torch.models.fields import emission_config, init_nerf, nerf_apply_fused
-from sunerf_tpu_torch.ops import fused_mlp
+from sunerf_tpu_torch.ops import fused_mlp, wide_mlp
 from sunerf_tpu_torch.rendering.emission import EmissionHead
 from sunerf_tpu_torch.rendering.renderer import Renderer
 from sunerf_tpu_torch.train.objective import LossConfig
@@ -54,16 +54,26 @@ KERNEL_OF = {'LAUNCHES': 'fused_mlp_fwd_wgmma (K0)',
              'GRID_LAUNCHES': 'grid branch of K0-K2 (K5)',
              'DPTS_LAUNCHES': 'point cotangent of K2 (K3)',
              'RECOMPUTE_BWD_LAUNCHES': 'fused_mlp_recompute_bwd (K4)',
-             'LSB_LAUNCHES': "'lsb' stash (K6a)", 'I8PAIR_LAUNCHES': "'i8pair' stash (K6b)"}
+             'LSB_LAUNCHES': "'lsb' stash (K6a)", 'I8PAIR_LAUNCHES': "'i8pair' stash (K6b)",
+             'WIDE_LAUNCHES': 'wide_mlp_fwd (K0 wide)',
+             'WIDE_STASH_FWD_LAUNCHES': 'wide_mlp_fwd (K1 wide)',
+             'WIDE_STASH_BWD_LAUNCHES': 'wide_mlp_bwd (K2 wide)',
+             'WIDE_RECOMPUTE_BWD_LAUNCHES': 'wide_mlp_bwd (K4 wide)'}
+# the wide route's counters (ops/wide_mlp.py), beside fused_mlp's COUNTERS
+WIDE_COUNTERS = ('WIDE_LAUNCHES', 'WIDE_STASH_FWD_LAUNCHES', 'WIDE_STASH_BWD_LAUNCHES',
+                 'WIDE_RECOMPUTE_BWD_LAUNCHES')
 
 
 def launch_counts() -> dict:
-    return {k: getattr(fused_mlp, k) for k in COUNTERS}
+    return {**{k: getattr(fused_mlp, k) for k in COUNTERS},
+            **{k: getattr(wide_mlp, k) for k in WIDE_COUNTERS}}
 
 
 def zero_counts():
     for k in COUNTERS:
         setattr(fused_mlp, k, 0)
+    for k in WIDE_COUNTERS:
+        setattr(wide_mlp, k, 0)
 
 
 def launches_by_kernel() -> dict:

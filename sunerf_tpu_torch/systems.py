@@ -32,8 +32,10 @@ def _select_apply(config: NeRFConfig, use_fused: Optional[bool], device):
     False forces the choice. Dense grid levels run in the kernels' grid
     branch; VM levels (grid_rank > 0) have no kernel and always take the
     float32 field, with a warning, as in the JAX package. On the card a
-    field the kernels cannot take raises ValueError by name here, before
-    any kernel runs (fused_mlp.check_kernel_config)."""
+    field runs on the fused kernels or, above 512 units or outside their
+    heads, on the wide route (fused_mlp.kernel_route); one that no kernel
+    takes (d_output 0) raises ValueError by name here, before any kernel
+    runs (fused_mlp.check_kernel_config)."""
     cuda = torch.device(device).type == 'cuda'
     if use_fused is None:
         use_fused = cuda

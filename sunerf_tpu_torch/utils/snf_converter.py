@@ -20,11 +20,12 @@ restored module tree, and maps the parameters onto our pytree layout:
 
 The widths come from the weights; a coarse field of another shape than the
 fine one (a proposal field) gets the spec's coarse_model_config, which JAX's
-converter does not write (its config is otherwise the same dict). So a
-converted field may be one the kernels cannot take (d_filter above 512,
-d_output outside K0's 1..8): on the card its loader or export raises
-ValueError naming the width (ops/fused_mlp.check_kernel_config) before any
-kernel runs; on the CPU the float32 field serves it.
+converter does not write (its config is otherwise the same dict). A
+converted field may have any width and output count: one that the fused
+kernels cannot hold (d_filter above 512, d_output outside their heads) runs
+on the card on the wide route (ops/fused_mlp.kernel_route,
+ops/wide_mlp.py); only d_output 0 is refused by name
+(ops/fused_mlp.check_kernel_config), as JAX's kernels refuse it.
 
 Usage:
   python -m sunerf_tpu_torch.utils.snf_converter --snf save_state.snf --out save_state

@@ -172,6 +172,27 @@ def test_loader_workers_match_one_process(views, tmp_path):
                                       np.load(two.train.batch_files[k]))
 
 
+def test_loader_workers_default_in_process(monkeypatch, views, tmp_path):
+    """Both builders load FITS in process unless asked for workers (no pool
+    is made), and the probe that measures a worker's cost runs on the CPU
+    (one worker: in process)."""
+    import inspect
+    from sunerf_tpu_torch.data import loaders
+    from sunerf_tpu_torch.scripts import probe_loader_workers
+    for fn in (loaders.build_single_channel_data, loaders.build_multi_thermal_data):
+        assert inspect.signature(fn).parameters['n_workers'].default == 1
+    import multiprocessing
+    monkeypatch.setattr(multiprocessing, 'get_context', lambda *a: pytest.fail('a pool'))
+    _, pattern = views
+    build_single_channel_data(pattern, str(tmp_path / 'one'))
+    row = probe_loader_workers.main(['--maps', '2', '--resolution', '32', '--small-maps', '2',
+                                     '--small-resolution', '16', '--workers', '1',
+                                     '--workdir', str(tmp_path)])
+    assert row['sets']['real']['maps'] == 2 and row['workers'] == 1
+    assert all(np.isfinite(v) for v in (row['start_s'], row['read_mib_s'],
+                                        row['break_even_mib']))
+
+
 def test_map_stack_and_instrument_tree(views, tmp_path):
     tmp, pattern = views
     import glob

@@ -231,15 +231,17 @@ def test_grid_kernels_match_plain_versions(cuda, n_layers, d_filter, grid_sizes,
 
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    """Above the widest kernel width (512) a field raises; below it the
-    entry pads (test_narrow_fields_run_padded_on_the_kernels), and only
-    the low-level wrappers, which take the kernels' own widths, refuse
-    another."""
+    """Above the widest kernel width (512) a field takes the wide route
+    (ops/wide_mlp.py) and runs; below it the entry pads
+    (test_narrow_fields_run_padded_on_the_kernels), and only the low-level
+    wrappers, which take the kernels' own widths, refuse another."""
     cfg = emission_config(n_layers=2, d_filter=600)
     params = init_nerf(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
     pts = torch.zeros(8, 4, device=cuda)
-    with pytest.raises(ValueError, match='d_filter'):
-        fused_mlp.fused_mlp_forward(cfg, params, pts)
+    with torch.no_grad():
+        out = fused_mlp.fused_mlp_forward(cfg, params, pts)
+    assert fused_mlp.kernel_route(cfg) == 'wide'
+    assert _rel(fused_mlp.fused_mlp_reference(cfg, params, pts), out) <= 2e-2
     cfg = emission_config(n_layers=2, d_filter=96)
     params = init_nerf(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
     with pytest.raises(ValueError, match='pad_field'):

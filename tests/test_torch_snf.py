@@ -33,7 +33,7 @@ from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader
 from sunerf_tpu_torch.evaluation.serving import (ServingModel, _cards_to, export_programs,
                                                  export_serving, map_program)
 from sunerf_tpu_torch.models.fields import AIA_WAVELENGTHS, NeRFConfig
-from sunerf_tpu_torch.ops.fused_mlp import check_kernel_config
+from sunerf_tpu_torch.ops.fused_mlp import check_kernel_config, kernel_route
 from sunerf_tpu_torch.systems import from_spec
 from sunerf_tpu_torch.utils import snf_converter
 from sunerf_tpu_torch.utils.checkpoint import load_state
@@ -199,28 +199,33 @@ def test_converter_describes_a_proposal_coarse_field(tmp_path):
     assert renderer.coarse_field_apply is not None
 
 
-@pytest.mark.parametrize('width,d_output,named', [(640, 2, '640'), (64, 9, '9'), (64, 0, '0')])
-def test_converted_field_outside_the_kernels_is_refused_by_name(tmp_path, width, d_output,
-                                                                  named):
-    """A converted 2x640 field (or d_output outside K0's 1..8) raises
-    ValueError naming the width at the CUDA path's check (called directly,
-    and through from_spec for the card, before any tensor is made), and the
-    float32 field serves it on the CPU."""
+@pytest.mark.parametrize('width,d_output,route', [(640, 2, 'wide'), (64, 9, 'wide'),
+                                               (64, 0, None)])
+def test_converted_field_outside_the_fused_kernels_takes_the_wide_route(tmp_path, width,
+                                                                       d_output, route):
+    """A converted 2x640 field, or one with d_output outside the fused
+    heads (9), is accepted by the CUDA path's check and routed to the wide
+    kernels (ops/fused_mlp.kernel_route), and the float32 field serves it on
+    the CPU; d_output 0, which JAX's kernels refuse too, raises ValueError
+    naming it at the check (called directly, and through from_spec for the
+    card, before any tensor is made)."""
     path, _ = _snf(tmp_path, 2, width, d_output=max(d_output, 1))
     params, config = _convert(snf_converter.convert_snf, path)
     mc = dict(config['renderer_spec']['model_config'], d_output=d_output)
-    with pytest.raises(ValueError, match=f'got {named}$'):
-        check_kernel_config(NeRFConfig(**mc))
     spec = dict(config['renderer_spec'], model_config=mc)
-    with pytest.raises(ValueError, match=f'got {named}$'):
-        from_spec(spec, device='cuda')
-    if d_output:
-        out = str(tmp_path / 'wide')
-        _convert(lambda p: snf_converter.main(['--snf', p, '--out', out]), path)
-        view = SuNeRFLoader(out, render_overrides={'n_stratified': 8, 'n_hierarchical': 8},
-                            device='cpu').render_observer_image(distance=NEAR, resolution=4,
-                                                                **VIEW)
-        assert np.isfinite(view.image).all()
+    if route is None:
+        with pytest.raises(ValueError, match=f'got {d_output}$'):
+            check_kernel_config(NeRFConfig(**mc))
+        with pytest.raises(ValueError, match=f'got {d_output}$'):
+            from_spec(spec, device='cuda')
+        return
+    check_kernel_config(NeRFConfig(**mc))
+    assert kernel_route(NeRFConfig(**mc)) == kernel_route(NeRFConfig(**mc), True) == route
+    out = str(tmp_path / 'wide')
+    _convert(lambda p: snf_converter.main(['--snf', p, '--out', out]), path)
+    view = SuNeRFLoader(out, render_overrides={'n_stratified': 8, 'n_hierarchical': 8},
+                        device='cpu').render_observer_image(distance=NEAR, resolution=4, **VIEW)
+    assert np.isfinite(view.image).all()
 
 
 def _tiny_export(fused: bool):
