@@ -120,7 +120,10 @@ Phases (the first failure ends the run with a non-zero exit):
              twice; K3, K4, K6a, K6b (scale groups of 768) and K5 (two grid
              levels) at 2x640 under autograd (gradients within GRAD_TOL,
              dpts within DPTS_TOL, the same bits twice, their kernels by
-             name); 'i8pair' at a scale group of 8 refused by name; c. an 8x1024 reference save_state.snf converted, its
+             name); K6b at scale groups 8 and 40 (no multiple of 32) against
+             the plain version (GRAD_TOL, dpts DPTS_TOL, the same bits
+             twice); every product of K0 / K1 / K2 on wide_wgmma_kernel by
+             name; c. an 8x1024 reference save_state.snf converted, its
              256^2 frame on the wide K0 (32 launches by kernel name) against
              the plain version (RENDER_TOL), exported and served from the
              artifact with the live frame's bits, fine-tuned
@@ -5101,6 +5104,7 @@ WIDE_SNF_RES = 256
 WIDE_TUNE_STEPS = 20
 WIDE_TUNE_RES = 64
 K0W, K1W, K2W = 'wide_fwd (K0)', 'wide_fwd (K1)', 'wide_bwd (K2)'
+WGMMA = 'wide_wgmma_kernel'   # the wide route's GEMM, by the name its libraries count
 # the wide K1's RMS over RMS against the plain version, at most this many
 # times the plain version's own f32 floor (CPU against card) on that field
 K1_RMS_FLOOR_FACTOR = 3.0
@@ -5150,7 +5154,7 @@ def _check_grads(tag: str, row: dict):
 def _wide_kernel_rows(device) -> dict:
     """[wide] a-b: the wide K0, K1 + K2 at WIDE_SHAPES and K3, K4, K6a, K5
     at 2x640 against the plain versions (scripts/probe_wide.py's rows), and
-    'i8pair' refused by name on the wide route."""
+    K6b's backward at scale groups 8 and 40."""
     from sunerf_tpu_torch.ops import fused_mlp
     from sunerf_tpu_torch.scripts import probe_wide
     rows = {}
@@ -5164,7 +5168,8 @@ def _wide_kernel_rows(device) -> dict:
         _check(k0['finite'] and k0['p9999_rel_err'] <= KERNEL_TOL
                and k0['rms_rel_err'] <= KERNEL_RMS_TOL and k0['max_rel_err'] <= KERNEL_MAX_TOL,
                f'{tag}: K0 vs plain {_fmt(k0)}')
-        _check(k0['launches'].get(K0W) == 1 and k0['launches'].get('WIDE_LAUNCHES') == 1,
+        _check(k0['launches'].get(K0W) == 1 and k0['launches'].get('WIDE_LAUNCHES') == 1
+               and k0['launches'].get(WGMMA) == layers + 1,
                f"{tag}: K0 launches {k0['launches']}")
         del p, pts
         row = {'k0': k0}
@@ -5184,7 +5189,12 @@ def _wide_kernel_rows(device) -> dict:
                 f"launches {k2['launches']}", flush=True)
             _check_k1(f'{tag} N={n}', k1)
             _check_grads(f'{tag} K2 N={n}', k2)
-            _check(k1['launches'].get(K1W) == 1 and k2['launches'].get(K2W) == 1,
+            # every product on wide_wgmma_kernel: K1's layers and head, K2's
+            # chain (L) and dW (L + 1)
+            _check(k1['launches'].get(K1W) == 1 and k2['launches'].get(K2W) == 1
+                   and k1['launches'].get(WGMMA) == layers + 1
+                   and k2['launches'].get(f'{WGMMA} chain') == layers
+                   and k2['launches'].get(f'{WGMMA} dW') == layers + 1,
                    f"{tag}: K1 / K2 launches {k1['launches']} {k2['launches']}")
             row['k1' if n == WIDE_N_BWD else 'k1_coarse'] = k1
             row['k2' if n == WIDE_N_BWD else 'k2_coarse'] = k2
@@ -5208,18 +5218,18 @@ def _wide_kernel_rows(device) -> dict:
         _check_grads(tag, row)
         _check(all(row['launches'].get(k, 0) >= 1 for k in expect[name]),
                f"{tag}: launches {row['launches']}, expected {expect[name]}")
-    cfg, p, pts, _ = probe_wide.setup(2, 640, 2, 64, device, seed=7)
-    leaves = {k: v.requires_grad_() for k, v in p.items()}
-    try:
-        fused_mlp.fused_mlp_forward(cfg, leaves, pts, stash_format='i8pair',
-                                    stash_bwd_tile=8).sum().backward()
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    _check(refused is not None and 'got 8' in refused, f"[wide] i8pair group 8: {refused}")
-    print(f'[wide] i8pair on the wide route at scale group 8 refused by name: {refused}',
-          flush=True)
-    return {'rows': rows, 'paths': paths, 'i8pair_group_refused': refused}
+    groups = probe_wide.i8pair_group_rows(WIDE_N_PATHS, device, reps=3)
+    for name, row in groups.items():
+        tag = f'[wide] K6b i8pair {name} 2x640 N={WIDE_N_PATHS}'
+        print(f"{tag}: max over max|plain| " + '; '.join(
+            f"{k} {e['max_rel_err']:.2e}" for k, e in row['grads'].items())
+            + f"; bit-identical {row['bit_identical']}; {row['ms']:.3f} ms backward (plain "
+            f"{row['plain_ms']:.3f}); launches {row['launches']}", flush=True)
+        _check_grads(tag, row)
+        _check(row['launches'].get('dw_i8_kernel (K6b)') == 1
+               and row['launches'].get('wide_bwd (K6b)') == 1,
+               f"{tag}: launches {row['launches']}")
+    return {'rows': rows, 'paths': paths, 'i8pair_groups': groups}
 
 
 def _wide_snf(device) -> dict:
@@ -5272,7 +5282,8 @@ def _wide_snf(device) -> dict:
         out['live_launches'] = dict(_wide_delta(before), **launches_by_kernel())
         n_chunks = WIDE_SNF_RES * WIDE_SNF_RES // loader.batch_size
         _check(out['live_launches'].get(K0W) == 2 * n_chunks
-               and out['live_launches'].get('wide_mlp_fwd (K0 wide)') == 2 * n_chunks,
+               and out['live_launches'].get('wide_mlp_fwd (K0 wide)') == 2 * n_chunks
+               and out['live_launches'].get(WGMMA) == 2 * n_chunks * (fine.n_layers + 1),
                f"[wide] live frame launches {out['live_launches']}, not {2 * n_chunks} wide K0")
         t0 = time.perf_counter()
         loader.render_observer_image(**view)
@@ -5347,6 +5358,10 @@ def _wide_snf(device) -> dict:
     for k in (K1W, K2W, 'wide_mlp_fwd (K1 wide)', 'wide_mlp_bwd (K2 wide)'):
         _check(out['tune_launches'].get(k) == 2 * n,
                f"[wide] fine-tune {k}: {out['tune_launches'].get(k)}, not {2 * n}")
+    # K2's products on wide_wgmma_kernel: 8 chain steps and 9 dW a backward
+    for k, per in ((f'{WGMMA} chain', 8), (f'{WGMMA} dW', 9)):
+        _check(out['tune_launches'].get(k) == 2 * n * per,
+               f"[wide] fine-tune {k}: {out['tune_launches'].get(k)}, not {2 * n * per}")
     out['wall_s'] = time.perf_counter() - t_phase
     return out
 

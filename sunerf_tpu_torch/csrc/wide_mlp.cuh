@@ -15,48 +15,81 @@
 // every layer; at H = 1024 two consumer warpgroups would need 256 f32
 // accumulators a thread and a layer's input and output together 256 KB, so
 // no such tile fits. Here each layer is its own launch of one GEMM kernel
-// (wide_gemm_kernel), the activations going through device memory:
+// (wide_wgmma_kernel), the activations going through device memory:
 //   C[M, N] = epilogue(sum over k of A[m, k] B[k, n])
-// on mma.sync m16n8k16 (bf16 in, f32 accumulate) from a 3-stage cp.async
-// ring of 128 x 32 and 32 x 128 tiles, 8 warps of 64 x 32 outputs a block.
-// Either operand is K-major (a row of k contiguous, fragments by ldmatrix)
-// or MN-major (a row of m or n contiguous, fragments by ldmatrix.trans), so
-// one kernel takes the forward's layers (activations x W^T, both K-major),
-// the backward's chain (dz x W, both K-major) and the dW products over the
-// points (stash^T x dz, both MN-major). Loads past an operand's extent are
-// zero-filled (cp.async's source size 0); K-major extents along k and the
-// row strides are multiples of 8 (the wrapper pads the width to a multiple
-// of 8 and the head's outputs to 8 where they are a K). The epilogue is a
-// functor on each accumulator pair (row, col, col + 1):
+// A block of three warpgroups takes 128 x TN output tiles of a persistent
+// walk (one block an SM): one producer thread issues 2-D TMA boxes in the
+// 128-byte swizzle into a ring of 4 to 8 stages of 64 k each (full and
+// empty mbarriers a stage), and two consumer warpgroups (their registers
+// raised by setmaxnreg, the producer's lowered) run wgmma m64nTNk16 (bf16
+// in, f32 accumulate) from shared memory, 64 rows each. TN is 128 or 256
+// for the layers and the chain (whichever pads N less), the smallest of 8,
+// 16, 32, 64 that holds N for the head and denc (tile_n). Both operands are
+// K-major (a row of k contiguous: the forward's activations x W^T, the
+// chain's dz x W) or both MN-major (a row of m or n contiguous, taken with
+// wgmma's transpose bits: the dW products over the points, stash^T x dz).
+// TMA zero-fills past an operand's extents; every row stride is a multiple
+// of 16 bytes (the wrapper pads the width to a multiple of 16, e_pad to 16,
+// o_pad to 8). The epilogue is a functor on each accumulator pair (row,
+// col, col + 1), the pairs wgmma's accumulator gives a thread:
 //   FwdEpi<kFmt>   y = reduce_2pi(acc + b); the bf16 sin to the next
 //                  layer's input, and the stash of the format ('int8' the
 //                  int8 cos8, 'lsb' the packed sin, K4 the bf16 cos10);
 //   HeadEpi        out = acc + b_out, f32, any d_output;
 //   ChainEpi<kFmt> dz = bf16(bf16(acc) * gate), the gate decoded from the
-//                  stash of the layer;
-//   StoreEpi       f32 partials (dW over a split of the points) or denc.
-// dW products split the points into ranges, each with its own f32
-// partials, summed in a fixed order (sum_parts_kernel), and the bias
-// gradients are column sums in a fixed order (colsum_kernel), so a run
-// gives the bits of the last.
+//                  stash of the layer, and dz's column sums (the bias
+//                  gradient's first step);
+//   StoreEpi       f32 outputs (dW, denc).
+// The epilogue does not overlap the products (the consumers hold the
+// accumulators), so it is made cheap where it is heavy. FwdEpi and
+// ChainEpi, which write 2 or 3 bytes an output, are staged: a warpgroup
+// puts a chunk of 64 rows x 32 columns into shared memory and copies it out
+// in 16- or 8-byte pieces that fill whole sectors (pair stores straight
+// from the accumulators wrote a layer's bf16 at ~1 TB/s); the parameters
+// they read come from shared memory, FwdEpi's bias copied there under the
+// products and the chain's gate loaded by the producer through the ring
+// after the tile's k stages (GateRing), since a load from device memory in
+// the epilogue waits behind the chunk's stores. A dW product splits the points into ranges
+// (dw_plan: about one tile a block over the card); each (tile, range)
+// writes its f32 partial, and the tile's last block to arrive (a counter a
+// tile, reset by that block) sums the partials in range order into the
+// epilogue, so there is no second pass, no float atomics, and a run gives
+// the bits of the last. The bias gradients sum the chain's column sums in
+// a fixed order (colsum_kernel). (scripts/probe_wide_gemm.py on an H100
+// 80GB HBM3 at 700 W, 8x1024 at N = 196,608: the eight dW_h products in
+// point ranges take 5.48 ms, one launch over all layers' tiles, which would
+// keep every layer's dz, 3.2 GB, 5.34 ms.)
 //
 // Bound on this card: operations, 2 N H (E + (L-1) H + O) flop for the
 // forward (3.65 TFLOP at 8x1024, N = 245,760: 3.69 ms at 989 TFLOP/s bf16
-// dense); mma.sync reaches a fraction of wgmma's rate, which is the price
-// of this route's simplicity.
+// dense); a layer a launch also moves each layer's bf16 activations through
+// device memory (written once, read once: 0.8 GB a layer at that N, about
+// 0.25 ms at 3.35 TB/s), which the stashing forwards write anyway. The
+// design's own floor (scripts/probe_wide_gemm.py, H100 80GB HBM3, 700 W):
+// the mainloop reaches ~635 TFLOP/s (a layer of 8x1024 at N = 196,608 in
+// 0.65 ms with no epilogue, one bf16 torch.matmul 0.56 ms), and the
+// epilogues add 0.2-0.4 ms a layer that no product hides.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fused_mlp_common.cuh"
+#include "hopper.cuh"
 
 namespace sunerf {
 namespace wide {
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3, kThreads = 256;
-constexpr int kPad = 8;          // bf16 of padding a shared row (no bank conflicts)
+namespace hp = sunerf::hopper;
+
+constexpr int kBM = 128;         // output rows a tile (two consumer warpgroups of 64)
+constexpr int kBK = 64;          // k a stage: one 128-byte swizzled row of bf16
+constexpr int kConsumers = 256, kThreads = 384;
+constexpr int kMaxStages = 8;
+constexpr int kRingBytes = 196608;   // the ring's shared memory at most
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kMaxSplits = 16;   // dW point ranges at most (ops/wide_mlp.py WIDE_MAX_SPLITS)
 constexpr int kSumRows = 128;    // colsum_kernel's row ranges at most (WIDE_SUM_PARTS)
 // f32((1/127)^2), the 'i8pair' dW scale factor (ops/fused_mlp.py _INV_COS_SQ)
@@ -69,184 +102,461 @@ struct Operand {
   long long ld;
 };
 
+// A product as the launchers state it
 struct Gemm {
   Operand a, b;
   int m, n;           // the outputs (rows, columns) the epilogue sees
-  int m_load, n_load; // the extents loaded along m and n (multiples of 8 where MN-major)
+  int m_load, n_load; // the operands' extents along m and n (zero past them)
   int k;              // the contraction's extent
-  int k_split;        // k a split (blockIdx.z), a multiple of kBK
 };
 
-template <bool kKMajor, int kRows>
-struct Tile {
-  static constexpr int kLd = kKMajor ? kBK + kPad : kRows + kPad;
-  static constexpr int kElems = kKMajor ? kRows * kLd : kBK * kLd;
+// The kernel's parameters: the operands' tensor maps and the walk
+struct GemmParams {
+  CUtensorMap a, b;
+  int m, n, k;
+  int k_split;        // k a split, a multiple of kBK
+  int splits, tiles_m, tiles_n;
+  float* part;        // splits > 1: the partials [splits][m][n]
+  unsigned int* count; // splits > 1: the arrivals a tile, zero between launches
+  CUtensorMap gate;   // ChainEpi: the stash the gate is read from (GateRing)
+  int gate_x;         // its column of the layer's first gate
 };
 
-constexpr size_t gemm_smem_bytes() {
-  return static_cast<size_t>(kStages) * 2 * (kBM * (kBK + kPad)) * sizeof(__nv_bfloat16);
+// The N tile of a product with n outputs (ops/wide_mlp.py tile_n): from
+// min_tn (the layers and the chain 128; MN-major B 64, its boxes' width;
+// else 8), the smallest of 8, 16, .. 128 that holds n, and above 128 columns
+// 256 unless 128 pads n less.
+__host__ __device__ inline int tile_n(int n, int min_tn) {
+  if (n > 128) {
+    const int pad256 = (n + 255) / 256 * 256 - n, pad128 = (n + 127) / 128 * 128 - n;
+    return pad256 <= pad128 ? 256 : 128;
+  }
+  int tn = 8;
+  while (tn < n || tn < min_tn) tn *= 2;
+  return tn;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// The split of a dW product's points (ops/wide_mlp.py dw_plan): as many
+// ranges as keep every block of the card on one tile, at least 1024 points a
+// range, at most kMaxSplits; k_split a multiple of kBK.
+inline void dw_plan(int m, int n_out, int tn, int points, int sms, int& splits, int& k_split) {
+  const int tiles = ((m + kBM - 1) / kBM) * ((n_out + tn - 1) / tn);
+  const int want = max(1, min(sms / tiles, min(kMaxSplits, (points + 1023) / 1024)));
+  k_split = ((points + want - 1) / want + kBK - 1) / kBK * kBK;
+  splits = (points + k_split - 1) / k_split;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
-}
+// A tile's shared memory: A [128 x 64] and B [TN x 64] (K-major) or
+// [64 x 128] and [64 x TN] (MN-major, boxes of 64 columns), 128-byte rows in
+// the 128-byte swizzle; as many stages as kRingBytes holds, up to kMaxStages.
+template <int TN>
+struct Ring {
+  static constexpr int kABytes = kBM * kBK * 2;
+  static constexpr int kBBytes = TN * kBK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages =
+      kRingBytes / kStageBytes < kMaxStages ? kRingBytes / kStageBytes : kMaxStages;
+  static constexpr size_t kSmem = static_cast<size_t>(kStages) * kStageBytes + 1024;
+};
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+// A staged epilogue (FwdEpi, ChainEpi) writes its outputs a chunk of 64 rows
+// x kChunk columns at a time into shared memory, a region a consumer
+// warpgroup (x: 16-bit values, kPitch16 bytes a row; y, FwdEpi's stash:
+// 16-bit values, or int8 ones kPitch8 bytes a row, two such halves kHalf8
+// apart; z: FwdEpi's bias or the chain's column sums), then copies
+// the chunk out in 8-column pieces (flush_chunk: 16 bytes of bf16 or 8 of
+// int8, each row's pieces side by side), so that the stores fill whole
+// sectors; the pitches keep a warp's pair writes on distinct banks.
+constexpr int kChunk = 32;
+constexpr int kPitch16 = 2 * kChunk + 16, kPitch8 = kChunk + 16;
+constexpr int kHalf8 = 64 * kPitch8;
+constexpr int kEpiX = 64 * kPitch16;
+constexpr int kEpiZ = kEpiX + 2 * kHalf8;   // the tile's f32 bias (z), 256 at most
+constexpr int kEpiBytes = kEpiZ + 256 * 4;
+static_assert(64 * kPitch16 <= 2 * kHalf8, "a 16-bit y region fits");
 
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
-}
-
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  if constexpr (kTrans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One operand's tile of stage `kt0` (k from kt0) into shared memory:
-// K-major [128 rows][kBK], MN-major [kBK][128], 16-byte pieces, zero past
-// the extents (rows r0 + .. < extent, k < k_end).
-template <bool kKMajor>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const Operand& op, int r0,
-                                          int extent, int kt0, int k_end) {
-  using T = Tile<kKMajor, kBM>;
-  for (int c = threadIdx.x; c < kBM * kBK / 8; c += kThreads) {
-    int r, kk;
-    if constexpr (kKMajor) {
-      r = c >> 2;
-      kk = (c & 3) * 8;
-    } else {
-      kk = c >> 4;
-      r = (c & 15) * 8;
+// rows < rows of a staged chunk at s (pitch bytes a row) to dst (element
+// (0, 0) of the chunk, ld elements a row), its 8-column pieces below cols,
+// two pieces a thread t of the warpgroup
+template <int kBytes, class T>
+__device__ __forceinline__ void flush_chunk(const unsigned char* s, int pitch, T* dst,
+                                            long long ld, int rows, int cols, int t) {
+  static_assert(sizeof(T) == kBytes, "element size");
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int i = t + 128 * k, r = i >> 2, piece = i & 3;
+    if (r < rows && 8 * piece < cols) {
+      T* d = dst + static_cast<size_t>(r) * ld + 8 * piece;
+      if constexpr (kBytes == 2)
+        *reinterpret_cast<int4*>(d) = *reinterpret_cast<const int4*>(s + r * pitch + 16 * piece);
+      else
+        *reinterpret_cast<int2*>(d) = *reinterpret_cast<const int2*>(s + r * pitch + 8 * piece);
     }
-    const int gr = r0 + r, gk = kt0 + kk;
-    const bool ok = gr < extent && gk < k_end;
-    const __nv_bfloat16* src = op.ptr;
-    if (ok)
-      src += kKMajor ? static_cast<size_t>(gr) * op.ld + gk : static_cast<size_t>(gk) * op.ld + gr;
-    cp_async16(s + (kKMajor ? r * T::kLd + kk : kk * T::kLd + r), src, ok);
   }
 }
 
-template <bool kAK, bool kBK_, class Epi>
-__global__ void __launch_bounds__(kThreads) wide_gemm_kernel(const Gemm g, const Epi epi) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  using TA = Tile<kAK, kBM>;
-  using TB = Tile<kBK_, kBN>;
-  auto* sa = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto* sb = sa + kStages * TA::kElems;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int kb = blockIdx.z * g.k_split;
-  const int ke = min(g.k, kb + g.k_split);
-  const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) hp::mbar_arrive(empty);
+}
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+// The persistent walk's work item `it`: (split, m tile, n tile), the n tiles
+// of one m tile side by side (its A rows read once from device memory).
+__device__ __forceinline__ void gemm_item(const GemmParams& g, int it, int& split, int& mt,
+                                          int& nt) {
+  const int tiles = g.tiles_m * g.tiles_n;
+  split = it / tiles;
+  const int r = it - split * tiles;
+  mt = r / g.tiles_n;
+  nt = r - mt * g.tiles_n;
+}
 
-  auto load = [&](int stage, int kt) {
-    load_tile<kAK>(sa + stage * TA::kElems, g.a, m0, g.m_load, kb + kt * kBK, ke);
-    load_tile<kBK_>(sb + stage * TB::kElems, g.b, n0, g.n_load, kb + kt * kBK, ke);
+// The gate of a chain tile (ChainEpi) comes through the ring: after a tile's
+// k stages the producer loads its gate as TMA boxes of [64 rows][128 bytes]
+// in the 128-byte swizzle, a warpgroup's rows side by side, into one ring
+// stage or, where the two warpgroups' do not fit in one, a stage each.
+template <int TN, class Epi>
+struct GateRing {
+  static constexpr int kElem = Epi::kGateBytes;
+  static constexpr int kBoxes = TN * kElem / 128;   // a warpgroup's boxes
+  static constexpr int kWgBytes = kBoxes * 8192;
+  static constexpr int kStages = 2 * kWgBytes <= Ring<TN>::kStageBytes ? 1 : 2;
+  static_assert(kBoxes >= 1 && kWgBytes <= Ring<TN>::kStageBytes, "a warpgroup's gate fits a stage");
+};
+
+template <bool kKMajor, int TN, class Epi>
+__global__ void __launch_bounds__(kThreads, 1) wide_wgmma_kernel(const __grid_constant__ GemmParams g,
+                                                                 const Epi epi) {
+  using R = Ring<TN>;
+  static_assert(kKMajor || TN >= 64, "MN-major B is taken in boxes of 64 columns");
+  static_assert(!Epi::kStaged || TN <= 256, "z holds 256 columns");
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
+  __shared__ int last;
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
+  const int items = g.splits * g.tiles_m * g.tiles_n;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kConsumers / 32);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  auto advance = [](int& stage, int& phase) {
+    if (++stage == R::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
   };
+
+  if (wg == 0) {
+    hp::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    // evict-normal: an A box is read by the tiles_n blocks of its m tile,
+    // a B box by every block; a gate box once
+    const uint64_t policy = hp::evict_normal_policy(), once = hp::evict_first_policy();
+    int stage = 0, phase = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      int split, mt, nt;
+      gemm_item(g, it, split, mt, nt);
+      const int kb = split * g.k_split, ke = min(g.k, kb + g.k_split);
+      for (int k = kb; k < ke; k += kBK) {
+        hp::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* sa = smem + stage * R::kStageBytes;
+        unsigned char* sb = sa + R::kABytes;
+        hp::mbar_expect_tx(&full[stage], R::kStageBytes);
+        if constexpr (kKMajor) {
+          hp::tensor_load_2d(sa, &g.a, k, mt * kBM, &full[stage], policy);
+          hp::tensor_load_2d(sb, &g.b, k, nt * TN, &full[stage], policy);
+        } else {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
+          for (int j = 0; j < kBM / 64; ++j)
+            hp::tensor_load_2d(sa + j * 8192, &g.a, mt * kBM + 64 * j, k, &full[stage], policy);
+#pragma unroll
+          for (int j = 0; j < TN / 64; ++j)
+            hp::tensor_load_2d(sb + j * 8192, &g.b, nt * TN + 64 * j, k, &full[stage], policy);
+        }
+        advance(stage, phase);
+      }
+      if constexpr (Epi::kGate) {
+        using G = GateRing<TN, Epi>;
+#pragma unroll
+        for (int gs = 0; gs < G::kStages; ++gs) {
+          hp::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* sg = smem + stage * R::kStageBytes;
+          constexpr int kWgs = G::kStages == 1 ? 2 : 1;
+          hp::mbar_expect_tx(&full[stage], kWgs * G::kWgBytes);
+#pragma unroll
+          for (int w = 0; w < kWgs; ++w)
+#pragma unroll
+            for (int b = 0; b < G::kBoxes; ++b)
+              hp::tensor_load_2d(sg + (w * G::kBoxes + b) * 8192, &g.gate,
+                                 g.gate_x + nt * TN + b * (128 / G::kElem),
+                                 mt * kBM + 64 * (G::kStages == 1 ? w : gs), &full[stage], once);
+          advance(stage, phase);
+        }
+      }
+    }
+    return;
   }
-  // ldmatrix's row addresses: matrix j = lane / 8, its row lane % 8
-  const int j = lane >> 3, r = lane & 7;
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < nk) load(next % kStages, next);
-    cp_async_commit();
-    const __nv_bfloat16* ta = sa + (kt % kStages) * TA::kElems;
-    const __nv_bfloat16* tb = sb + (kt % kStages) * TB::kElems;
+
+  hp::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, w4 = warp & 3, gq = lane >> 2, q = lane & 3;
+  const int t = threadIdx.x - 128 * (cw + 1);   // the thread in its warpgroup
+  const uint32_t s0 = hp::smem_u32(smem);
+  unsigned char* epi_smem = smem + R::kStages * R::kStageBytes + cw * kEpiBytes;
+  int stage = 0, phase = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int split, mt, nt;
+    gemm_item(g, it, split, mt, nt);
+    const int kb = split * g.k_split, ke = min(g.k, kb + g.k_split);
+    const int row0 = mt * kBM + cw * 64;
+    float acc[TN / 2];
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bfr[2][4];
+    for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+    if constexpr (Epi::kStaged)
+      epi.begin(reinterpret_cast<float*>(epi_smem + kEpiZ), nt * TN, min(TN, g.n - nt * TN), t);
+    int held = -1;
+    for (int k = kb; k < ke; k += kBK) {
+      hp::mbar_wait(&full[stage], phase);
+      const uint32_t sa = s0 + stage * R::kStageBytes + cw * 8192, sb = s0 + stage * R::kStageBytes
+                                                                      + R::kABytes;
+      hp::wgmma_fence();
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int mb = wm * 64 + mt * 16;
-        // a0 (m 0-7, k 0-7), a1 (m 8-15, k 0-7), a2 (m 0-7, k 8-15), a3
-        if constexpr (kAK)
-          ldsm_x4<false>(af[mt], ta + (mb + (j & 1) * 8 + r) * TA::kLd + kk + (j >> 1) * 8);
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        if constexpr (kKMajor)
+          hp::wgmma_ss(acc, hp::make_desc_sw128(sa + ks * 32), hp::make_desc_sw128(sb + ks * 32),
+                       1);
         else
-          ldsm_x4<true>(af[mt], ta + (kk + (j >> 1) * 8 + r) * TA::kLd + mb + (j & 1) * 8);
+          hp::wgmma_ss_tt(acc, hp::make_desc_sw128_mn(sa + ks * 2048, 8192),
+                          hp::make_desc_sw128_mn(sb + ks * 2048, 8192), 1);
       }
+      hp::wgmma_commit();
+      // the stage before this one is read: back to the producer
+      hp::wgmma_wait<1>();
+      if (held >= 0) release(&empty[held], lane);
+      held = stage;
+      advance(stage, phase);
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+    if (held >= 0) release(&empty[held], lane);
+
+    // accumulator entry 4 j + i: row 16 w4 + gq + 8 (i / 2) of this
+    // warpgroup's 64, column 8 j + 2 q + (i % 2)
+    if constexpr (Epi::kStaged) {
+      // the gate's stage(s) after the tile's k stages
+      int gate_stage[2] = {stage, stage};
+      const unsigned char* gate = nullptr;
+      if constexpr (Epi::kGate) {
+        using G = GateRing<TN, Epi>;
+        int gate_phase[2] = {phase, phase};
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int nb = wn * 32 + np * 16;
-        // b (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-        if constexpr (kBK_)
-          ldsm_x4<false>(bfr[np], tb + (nb + (j >> 1) * 8 + r) * TB::kLd + kk + (j & 1) * 8);
-        else
-          ldsm_x4<true>(bfr[np], tb + (kk + (j & 1) * 8 + r) * TB::kLd + nb + (j >> 1) * 8);
+        for (int gs = 0; gs < G::kStages; ++gs) {
+          gate_stage[gs] = stage;
+          gate_phase[gs] = phase;
+          advance(stage, phase);
+        }
+        const int mine = G::kStages == 1 ? 0 : cw;
+        hp::mbar_wait(&full[gate_stage[mine]], gate_phase[mine]);
+        gate = smem + gate_stage[mine] * R::kStageBytes + (G::kStages == 1 ? cw * G::kWgBytes : 0);
       }
+      // a chunk of kChunk columns at a time through this warpgroup's region
+      unsigned char* x = epi_smem;
+      unsigned char* y = x + kEpiX;
+      const float* z = reinterpret_cast<const float*>(x + kEpiZ);
+      const int rows = g.m - row0, bar = 2 + cw;
+      unsigned char* yg = y;   // FwdEpi's stash region, or the chain's gate
+      if constexpr (Epi::kGate) yg = const_cast<unsigned char*>(gate);
+      // begin's z is written by the warpgroup's other threads
+      hp::named_sync(bar, 128);
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+      for (int c = 0; c < TN / kChunk; ++c) {
+        const int c0 = nt * TN + kChunk * c;
+        if (c0 < g.n) {
+          float2 sum[kChunk / 8];
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2],
-                   bfr[nt >> 1][(nt & 1) * 2 + 1]);
+          for (int jj = 0; jj < kChunk / 8; ++jj) {
+            sum[jj] = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int j = c * (kChunk / 8) + jj, cc = 8 * jj + 2 * q, r = w4 * 16 + gq + 8 * h;
+              if (c0 + cc < g.n) {
+                const float2 v = epi.put(x, yg, r, cc, kChunk * c + cc, z + kChunk * c,
+                                         acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+                if (r < rows) {
+                  sum[jj].x += v.x;
+                  sum[jj].y += v.y;
+                }
+              }
+            }
+          }
+          if constexpr (Epi::kColsum) {
+            // the chunk's column sums over this warpgroup's rows: over the
+            // 8 lanes of a column pair, then the 4 warps in order
+            float* red = reinterpret_cast<float*>(x + kEpiZ);
+#pragma unroll
+            for (int jj = 0; jj < kChunk / 8; ++jj) {
+#pragma unroll
+              for (int off = 4; off < 32; off *= 2) {
+                sum[jj].x += __shfl_xor_sync(0xffffffffu, sum[jj].x, off);
+                sum[jj].y += __shfl_xor_sync(0xffffffffu, sum[jj].y, off);
+              }
+              if (gq == 0)
+                *reinterpret_cast<float2*>(red + w4 * kChunk + 8 * jj + 2 * q) = sum[jj];
+            }
+          }
+          hp::named_sync(bar, 128);
+          epi.flush(x, y, row0, c0, rows, g.n - c0, t);
+          if constexpr (Epi::kColsum) {
+            const float* red = reinterpret_cast<const float*>(x + kEpiZ);
+            if (t < kChunk && c0 + t < g.n)
+              epi.db_part[static_cast<size_t>(2 * mt + cw) * g.n + c0 + t] =
+                  ((red[t] + red[kChunk + t]) + red[2 * kChunk + t]) + red[3 * kChunk + t];
+          }
+          // the region is written again by the next chunk
+          hp::named_sync(bar, 128);
+        }
+      }
+      if constexpr (Epi::kGate) {
+#pragma unroll
+        for (int gs = 0; gs < GateRing<TN, Epi>::kStages; ++gs) release(&empty[gate_stage[gs]], lane);
+      }
+    } else {
+      const int rw = row0 + w4 * 16 + gq, col0 = nt * TN + 2 * q;
+      if (g.splits == 1) {
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = rw + 8 * h, col = col0 + 8 * j;
+            if (row < g.m && col < g.n) epi(row, col, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+        continue;
+      }
+      // a range of the points: its partial, and the tile's last arrival sums
+      // the partials in range order
+      const size_t slice = static_cast<size_t>(g.m) * g.n;
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rw + 8 * h, col = col0 + 8 * j;
+          if (row < g.m && col < g.n) {
+            float* p = g.part + split * slice + static_cast<size_t>(row) * g.n + col;
+            p[0] = acc[4 * j + 2 * h];
+            if (col + 1 < g.n) p[1] = acc[4 * j + 2 * h + 1];
+          }
+        }
+      __threadfence();
+      hp::named_sync(1, kConsumers);
+      if (threadIdx.x == 128) {
+        unsigned int* cnt = g.count + mt * g.tiles_n + nt;
+        const bool is_last = atomicAdd(cnt, 1u) == static_cast<unsigned int>(g.splits - 1);
+        if (is_last) *cnt = 0u;
+        last = is_last;
+      }
+      hp::named_sync(1, kConsumers);
+      if (!last) continue;
+      __threadfence();
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rw + 8 * h, col = col0 + 8 * j;
+          if (row < g.m && col < g.n) {
+            const float* p = g.part + static_cast<size_t>(row) * g.n + col;
+            const bool two = col + 1 < g.n;
+            float v0 = 0.f, v1 = 0.f;
+            for (int sp = 0; sp < g.splits; ++sp, p += slice) {
+              v0 += __ldcg(p);
+              if (two) v1 += __ldcg(p + 1);
+            }
+            epi(row, col, v0, v1);
+          }
+        }
     }
   }
-  cp_async_wait<0>();
-
-  const int gq = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + mt * 16 + gq + 8 * h;
-        const int col = n0 + wn * 32 + nt * 8 + 2 * q;
-        if (row < g.m && col < g.n) epi(row, col, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-      }
 }
 
-// Launch wide_gemm_kernel: grid (n tiles, m tiles, splits), 3 stages of
-// dynamic shared memory (its limit raised on every launch: a few
-// microseconds, and right on any device).
-template <bool kAK, bool kBK_, class Epi>
-cudaError_t launch_gemm(const Gemm& g, int splits, const Epi& epi, cudaStream_t s) {
-  auto kernel = wide_gemm_kernel<kAK, kBK_, Epi>;
-  const size_t bytes = gemm_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+// Launch wide_wgmma_kernel<kKMajor, TN> on g: the operands' tensor maps
+// (K-major A [m_load rows][k] in boxes of [128][64], B [n_load][k] in
+// [TN][64]; MN-major A [k rows][m_load] and B [k][n_load] in [64][64]), a
+// persistent grid of at most one block an SM, its shared memory (the limit
+// raised on every launch: a few microseconds, and right on any device).
+template <bool kKMajor, int TN, class Epi>
+cudaError_t launch_tn(const Gemm& g, int splits, int k_split, float* part, unsigned int* count,
+                      const Epi& epi, cudaStream_t s) {
+  using R = Ring<TN>;
+  GemmParams p{};
+  cudaError_t err = kKMajor
+      ? hp::encode_2d(&p.a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, g.a.ptr, g.k, g.m_load, g.a.ld * 2,
+                      kBK, kBM, true)
+      : hp::encode_2d(&p.a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, g.a.ptr, g.m_load, g.k, g.a.ld * 2,
+                      64, kBK, true);
   if (err != cudaSuccess) return err;
-  const dim3 grid((g.n + kBN - 1) / kBN, (g.m + kBM - 1) / kBM, splits);
-  kernel<<<grid, kThreads, bytes, s>>>(g, epi);
+  err = kKMajor
+      ? hp::encode_2d(&p.b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, g.b.ptr, g.k, g.n_load, g.b.ld * 2,
+                      kBK, TN, true)
+      : hp::encode_2d(&p.b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, g.b.ptr, g.n_load, g.k, g.b.ld * 2,
+                      64, kBK, true);
+  if (err != cudaSuccess) return err;
+  p.m = g.m;
+  p.n = g.n;
+  p.k = g.k;
+  p.k_split = k_split;
+  p.splits = splits;
+  p.tiles_m = (g.m + kBM - 1) / kBM;
+  p.tiles_n = (g.n + TN - 1) / TN;
+  p.part = part;
+  p.count = count;
+  if constexpr (Epi::kGate) {
+    if ((err = epi.gate_map(&p.gate, g.m)) != cudaSuccess) return err;
+    p.gate_x = static_cast<int>(epi.at);
+  }
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  auto kernel = wide_wgmma_kernel<kKMajor, TN, Epi>;
+  const size_t smem = R::kSmem + (Epi::kStaged ? 2 * kEpiBytes : 0);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int items = splits * p.tiles_m * p.tiles_n;
+  kernel<<<min(items, sms), kThreads, smem, s>>>(p, epi);
   return cudaGetLastError();
+}
+
+// Launch the product g at N tile tn (tile_n) in `splits` ranges of k_split
+// (splits > 1: partials and counts, see wide_wgmma_kernel). An epilogue
+// declares the least tile it is built for (kMinTile), so only the tiles a
+// product can take are compiled.
+template <bool kKMajor, class Epi>
+cudaError_t launch_gemm(const Gemm& g, int tn, int splits, int k_split, float* part,
+                        unsigned int* count, const Epi& epi, cudaStream_t s) {
+  constexpr int kMin = kKMajor ? Epi::kMinTile : (Epi::kMinTile > 64 ? Epi::kMinTile : 64);
+#define SUNERF_WIDE_TILE(TN)                                                          \
+  if constexpr (TN >= kMin)                                                           \
+    if (tn == TN) return launch_tn<kKMajor, TN>(g, splits, k_split, part, count, epi, s);
+  SUNERF_WIDE_TILE(8)
+  SUNERF_WIDE_TILE(16)
+  SUNERF_WIDE_TILE(32)
+  SUNERF_WIDE_TILE(64)
+  SUNERF_WIDE_TILE(128)
+  SUNERF_WIDE_TILE(256)
+#undef SUNERF_WIDE_TILE
+  return cudaErrorInvalidValue;
+}
+
+// One product in one range of the points (no partials): the layers, the
+// head, the chain, denc
+template <class Epi>
+cudaError_t launch_kmajor(const Gemm& g, const Epi& epi, cudaStream_t s) {
+  const int tn = tile_n(g.n, Epi::kMinTile);
+  return launch_gemm<true>(g, tn, 1, (g.k + kBK - 1) / kBK * kBK, nullptr, nullptr, epi, s);
 }
 
 // ----------------------------------------------------------------- epilogues
@@ -257,8 +567,11 @@ cudaError_t launch_gemm(const Gemm& g, int splits, const Epi& epi, cudaStream_t 
 // is the bf16 sin stash itself), kStashLsb the packed sin to hs,
 // kStashI8pair the int8 round(127 sin) pairs to hs and the int8 cos8 H
 // columns on, kStashBf16Cos (K4) the bf16 cos10 to cs (act the sin stash).
+// Staged: the sin into x, the stash into y, then copied out.
 template <int kFmt>
 struct FwdEpi {
+  static constexpr int kMinTile = 128;
+  static constexpr bool kStaged = true, kGate = false, kColsum = false;
   const float* bias;
   __nv_bfloat16* act;
   long long act_ld;
@@ -268,35 +581,61 @@ struct FwdEpi {
   long long at;
   int h;             // 'i8pair': the cos8 half's offset from the sin8 half
 
-  __device__ __forceinline__ void operator()(int row, int col, float v0, float v1) const {
-    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+  // the bias of columns [col0, col0 + cols) into z, a thread t of 128 two
+  __device__ __forceinline__ void begin(float* z, int col0, int cols, int t) const {
+    if (2 * t < cols)
+      *reinterpret_cast<float2*>(z + 2 * t) = __ldg(reinterpret_cast<const float2*>(bias + col0 + 2 * t));
+  }
+
+  // (r, c) of the chunk, its bias at zc[c] (z from the chunk's first column)
+  __device__ __forceinline__ float2 put(unsigned char* x, unsigned char* y, int r, int c, int,
+                                        const float* zc, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(zc + c);
     const float y0 = reduce_2pi(v0 + b.x), y1 = reduce_2pi(v1 + b.y);
     const float s0 = sin_poly(y0), s1 = sin_poly(y1);
-    *reinterpret_cast<uint32_t*>(act + static_cast<size_t>(row) * act_ld + col) = pack_bf16(s0, s1);
-    const size_t st = static_cast<size_t>(row) * stash_ld + at + col;
+    *reinterpret_cast<uint32_t*>(x + r * kPitch16 + 2 * c) = pack_bf16(s0, s1);
     if constexpr (kFmt == kStashInt8) {
-      *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(cs) + st) =
+      *reinterpret_cast<uint16_t*>(y + r * kPitch8 + c) =
           static_cast<uint16_t>(pack_i8(cos8_q(y0), cos8_q(y1)));
     } else if constexpr (kFmt == kStashLsb) {
-      *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(hs) + st) =
+      *reinterpret_cast<uint32_t*>(y + r * kPitch16 + 2 * c) =
           pack_sin_csign(s0, __fmul_rn(y0, y0) > kHalfPiSq)
           | (pack_sin_csign(s1, __fmul_rn(y1, y1) > kHalfPiSq) << 16);
     } else if constexpr (kFmt == kStashI8pair) {
       // the sin rounded from f32, not from its bf16
-      int8_t* q = static_cast<int8_t*>(hs) + st;
-      *reinterpret_cast<uint16_t*>(q) = static_cast<uint16_t>(
+      *reinterpret_cast<uint16_t*>(y + r * kPitch8 + c) = static_cast<uint16_t>(
           pack_i8(__float2int_rn(__fmul_rn(s0, kCosScale)), __float2int_rn(__fmul_rn(s1, kCosScale))));
-      *reinterpret_cast<uint16_t*>(q + h) =
+      *reinterpret_cast<uint16_t*>(y + kHalf8 + r * kPitch8 + c) =
           static_cast<uint16_t>(pack_i8(cos8_q(y0), cos8_q(y1)));
     } else if constexpr (kFmt == kStashBf16Cos) {
-      *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(cs) + st) =
-          pack_bf16(cos10(y0), cos10(y1));
+      *reinterpret_cast<uint32_t*>(y + r * kPitch16 + 2 * c) = pack_bf16(cos10(y0), cos10(y1));
+    }
+    return make_float2(0.f, 0.f);
+  }
+
+  __device__ __forceinline__ void flush(const unsigned char* x, const unsigned char* y, int row0,
+                                        int col0, int rows, int cols, int t) const {
+    flush_chunk<2>(x, kPitch16, act + static_cast<size_t>(row0) * act_ld + col0, act_ld, rows,
+                   cols, t);
+    const size_t st = static_cast<size_t>(row0) * stash_ld + at + col0;
+    if constexpr (kFmt == kStashInt8) {
+      flush_chunk<1>(y, kPitch8, static_cast<int8_t*>(cs) + st, stash_ld, rows, cols, t);
+    } else if constexpr (kFmt == kStashLsb) {
+      flush_chunk<2>(y, kPitch16, static_cast<__nv_bfloat16*>(hs) + st, stash_ld, rows, cols, t);
+    } else if constexpr (kFmt == kStashI8pair) {
+      flush_chunk<1>(y, kPitch8, static_cast<int8_t*>(hs) + st, stash_ld, rows, cols, t);
+      flush_chunk<1>(y + kHalf8, kPitch8, static_cast<int8_t*>(hs) + st + h, stash_ld, rows, cols,
+                     t);
+    } else if constexpr (kFmt == kStashBf16Cos) {
+      flush_chunk<2>(y, kPitch16, static_cast<__nv_bfloat16*>(cs) + st, stash_ld, rows, cols, t);
     }
   }
 };
 
 // The head: out[row, col] = acc + b_out[col], f32, d_output columns.
 struct HeadEpi {
+  static constexpr int kMinTile = 8;
+  static constexpr bool kStaged = false, kGate = false, kColsum = false;
   const float* bias;
   float* out;
   int d_out;
@@ -319,46 +658,72 @@ __device__ __forceinline__ float lsb_gate(uint16_t bits) {
 // The chain: dz = bf16(bf16(acc) * gate) of a layer, the gate at column
 // `at` + col of its stash rows (stride stash_ld) by format: kStashInt8 the
 // int8 cs, kStashLsb the packed sin hs, kStashI8pair the int8 cos8 of the
-// pairs hs, kStashBf16Cos the bf16 cs.
+// pairs hs, kStashBf16Cos the bf16 cs. Staged: the gate read from the ring
+// (GateRing: TMA boxes, 128-byte swizzle), dz into x, and the column sums
+// of dz a warpgroup's 64 rows into db_part (the bias gradient's first step).
 template <int kFmt>
 struct ChainEpi {
+  static constexpr int kMinTile = 128;
+  static constexpr bool kStaged = true, kGate = true, kColsum = true;
+  static constexpr bool kGate8 = kFmt == kStashInt8 || kFmt == kStashI8pair;
+  static constexpr int kGateBytes = kGate8 ? 1 : 2;
   __nv_bfloat16* dz;
   int h;
   const void* gate;
   long long stash_ld;
   long long at;
+  float* db_part;   // [2 m tiles][h]
 
-  __device__ __forceinline__ void operator()(int row, int col, float v0, float v1) const {
-    const size_t st = static_cast<size_t>(row) * stash_ld + at + col;
+  // the stash as the producer loads the gate: [rows][stash_ld] in boxes of
+  // [64 rows][128 bytes]
+  cudaError_t gate_map(CUtensorMap* map, int rows) const {
+    return hp::encode_2d(map, kGate8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         gate, stash_ld, rows, stash_ld * kGateBytes, 128 / kGateBytes, 64, true);
+  }
+
+  __device__ __forceinline__ void begin(float*, int, int, int) const {}
+
+  // dz of (r, c) of the chunk into x, its gate at tile column tc of the
+  // warpgroup's gate boxes g; returns dz as stored (bf16 values)
+  __device__ __forceinline__ float2 put(unsigned char* x, unsigned char* g, int r, int c, int tc,
+                                        const float*, float v0, float v1) const {
     float g0, g1;
-    if constexpr (kFmt == kStashInt8 || kFmt == kStashI8pair) {
-      const int8_t* c = static_cast<const int8_t*>(gate) + st;
-      g0 = cos_dequant(c[0]);
-      g1 = cos_dequant(c[1]);
-    } else if constexpr (kFmt == kStashLsb) {
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(static_cast<const __nv_bfloat16*>(gate) + st);
-      g0 = lsb_gate(static_cast<uint16_t>(w & 0xFFFFu));
-      g1 = lsb_gate(static_cast<uint16_t>(w >> 16));
+    if constexpr (kGate8) {
+      const unsigned char* p = g + (tc >> 7) * 8192 + hp::swizzle128(r, tc & 127);
+      g0 = cos_dequant(static_cast<int8_t>(p[0]));
+      g1 = cos_dequant(static_cast<int8_t>(p[1]));
     } else {
-      const __nv_bfloat162 c = *reinterpret_cast<const __nv_bfloat162*>(
-          static_cast<const __nv_bfloat16*>(gate) + st);
-      g0 = __low2float(c);
-      g1 = __high2float(c);
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(
+          g + (tc >> 6) * 8192 + hp::swizzle128(r, (tc & 63) * 2));
+      if constexpr (kFmt == kStashLsb) {
+        g0 = lsb_gate(static_cast<uint16_t>(w & 0xFFFFu));
+        g1 = lsb_gate(static_cast<uint16_t>(w >> 16));
+      } else {
+        g0 = __bfloat162float(__ushort_as_bfloat16(static_cast<uint16_t>(w & 0xFFFFu)));
+        g1 = __bfloat162float(__ushort_as_bfloat16(static_cast<uint16_t>(w >> 16)));
+      }
     }
-    *reinterpret_cast<uint32_t*>(dz + static_cast<size_t>(row) * h + col) =
-        pack_bf16(__fmul_rn(bf16_round(v0), g0), __fmul_rn(bf16_round(v1), g1));
+    const float d0 = bf16_round(__fmul_rn(bf16_round(v0), g0));
+    const float d1 = bf16_round(__fmul_rn(bf16_round(v1), g1));
+    *reinterpret_cast<uint32_t*>(x + r * kPitch16 + 2 * c) = pack_bf16(d0, d1);
+    return make_float2(d0, d1);
+  }
+
+  __device__ __forceinline__ void flush(const unsigned char* x, const unsigned char*, int row0,
+                                        int col0, int rows, int cols, int t) const {
+    flush_chunk<2>(x, kPitch16, dz + static_cast<size_t>(row0) * h + col0, h, rows, cols, t);
   }
 };
 
-// f32 outputs [rows][ld] at blockIdx.z's slice (`slice` elements a split):
-// the dW partials, or denc (one split).
+// f32 outputs [rows][ld]: dW (summed over the points' ranges) or denc.
 struct StoreEpi {
+  static constexpr int kMinTile = 8;
+  static constexpr bool kStaged = false, kGate = false, kColsum = false;
   float* out;
   long long ld;
-  long long slice;
 
   __device__ __forceinline__ void operator()(int row, int col, float v0, float v1) const {
-    float* o = out + blockIdx.z * slice + static_cast<size_t>(row) * ld + col;
+    float* o = out + static_cast<size_t>(row) * ld + col;
     o[0] = v0;
     if (col + 1 < ld) o[1] = v1;
   }
@@ -369,26 +734,59 @@ struct StoreEpi {
 // The encoding [x, sin u, cos u, grid features, zeros] of each point as
 // bf16 rows of e_pad, as the plain version computes it: a thread a point,
 // u = x[dim] * freq in f32, cos u = sin(u + pi/2) with the sum rounded to
-// f32, each grid level's features grid_level_features'.
-__global__ void encode_kernel(const float* pts, const int* col_dim, const float* col_freq,
-                              const GridParams grid, __nv_bfloat16* enc, int n, int d_in,
-                              int n_cols, int e_pad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* x = pts + static_cast<size_t>(i) * d_in;
-  __nv_bfloat16* e = enc + static_cast<size_t>(i) * e_pad;
-  for (int a = 0; a < d_in; ++a) e[a] = __float2bfloat16_rn(__ldg(x + a));
-  for (int j = 0; j < n_cols; ++j) {
-    const float u = __fmul_rn(__ldg(x + __ldg(col_dim + j)), __ldg(col_freq + j));
-    e[d_in + j] = __float2bfloat16_rn(fast_sin(u));
-    e[d_in + n_cols + j] = __float2bfloat16_rn(fast_sin(__fadd_rn(u, kHalfPi)));
+// f32, each grid level's features grid_level_features'. A block's
+// kEncPoints rows are put together in shared memory (an odd number of words
+// a row apart, so a warp's writes fall on distinct banks) and copied out a
+// word a thread, whole rows side by side.
+constexpr int kEncPoints = 64;
+
+inline size_t encode_smem(int e_pad) {
+  return static_cast<size_t>(kEncPoints) * (e_pad + 2) * sizeof(__nv_bfloat16);
+}
+
+__global__ void __launch_bounds__(kEncPoints) encode_kernel(
+    const float* pts, const int* col_dim, const float* col_freq, const GridParams grid,
+    __nv_bfloat16* enc, int n, int d_in, int n_cols, int e_pad) {
+  extern __shared__ __nv_bfloat16 rows[];
+  const int pitch = e_pad + 2;
+  const int i0 = blockIdx.x * kEncPoints, i = i0 + threadIdx.x;
+  if (i < n) {
+    const float* x = pts + static_cast<size_t>(i) * d_in;
+    __nv_bfloat16* e = rows + threadIdx.x * pitch;
+    for (int a = 0; a < d_in; ++a) e[a] = __float2bfloat16_rn(__ldg(x + a));
+    for (int j = 0; j < n_cols; ++j) {
+      const float u = __fmul_rn(__ldg(x + __ldg(col_dim + j)), __ldg(col_freq + j));
+      e[d_in + j] = __float2bfloat16_rn(fast_sin(u));
+      e[d_in + n_cols + j] = __float2bfloat16_rn(fast_sin(__fadd_rn(u, kHalfPi)));
+    }
+    int c = d_in + 2 * n_cols;
+    for (int l = 0; l < grid.n_levels; ++l, c += grid.features)
+      grid_level_features<4>(grid, l, x, [&](int f, float v) {
+        e[c + f] = __float2bfloat16_rn(v);
+      });
+    for (; c < e_pad; ++c) e[c] = __float2bfloat16_rn(0.f);
   }
-  int c = d_in + 2 * n_cols;
-  for (int l = 0; l < grid.n_levels; ++l, c += grid.features)
-    grid_level_features<4>(grid, l, x, [&](int f, float v) {
-      e[c + f] = __float2bfloat16_rn(v);
-    });
-  for (; c < e_pad; ++c) e[c] = __float2bfloat16_rn(0.f);
+  __syncthreads();
+  const int words = e_pad / 2, points = min(kEncPoints, n - i0);
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(rows);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(enc + static_cast<size_t>(i0) * e_pad);
+  for (int w = threadIdx.x; w < points * words; w += kEncPoints) {
+    const int r = w / words;
+    dst[w] = src[r * (pitch / 2) + (w - r * words)];
+  }
+}
+
+// Launch encode_kernel (its shared memory above 48 KB where e_pad asks)
+inline cudaError_t encode(const float* pts, const int* col_dim, const float* col_freq,
+                          const GridParams& grid, __nv_bfloat16* enc, int n, int d_in, int n_cols,
+                          int e_pad, cudaStream_t s) {
+  const size_t bytes = encode_smem(e_pad);
+  const cudaError_t err = cudaFuncSetAttribute(
+      encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  encode_kernel<<<(n + kEncPoints - 1) / kEncPoints, kEncPoints, bytes, s>>>(
+      pts, col_dim, col_freq, grid, enc, n, d_in, n_cols, e_pad);
+  return cudaGetLastError();
 }
 
 // dy [n, d_out] f32 -> bf16 [n, ld] (columns past d_out zero): the
@@ -453,17 +851,6 @@ cudaError_t column_sums(const T* in, long long ld, int n, int cols, float* part,
   return sum_parts(part, ranges, static_cast<size_t>(cols), out, s);
 }
 
-// The split of a dW product's points: enough ranges for about two blocks
-// an SM, at least 1024 points a range, at most kMaxSplits; k_split a
-// multiple of kBK.
-inline void dw_split(int m, int n_out, int points, int sms, int& splits, int& k_split) {
-  const int tiles = ((m + kBM - 1) / kBM) * ((n_out + kBN - 1) / kBN);
-  int want = (2 * sms + tiles - 1) / tiles;
-  want = max(1, min(want, min(kMaxSplits, (points + 1023) / 1024)));
-  k_split = ((points + want - 1) / want + kBK - 1) / kBK * kBK;
-  splits = max(1, (points + k_split - 1) / k_split);
-}
-
 // ------------------------------------------------------------ 'i8pair' dW_h
 
 // out[row, c] = bf16(bf16(q) * bf16(1/127)) of the int8 stash columns
@@ -514,24 +901,52 @@ __device__ __forceinline__ uint32_t i8_column4(const int8_t* s, int k, int c) {
          | (static_cast<uint32_t>(static_cast<uint8_t>(s[(k + 3) * kI8Ld + c])) << 24);
 }
 
+// 'i8pair''s dW_h tiles: 128 x 128 outputs, 32-point slices, 8 warps
+constexpr int kI8K = 32, kI8BN = 128, kI8Threads = 256;
+
+// The split of 'i8pair''s dW_h points (ops/wide_mlp.py i8_plan): ranges of
+// whole scale groups, enough for about two blocks an SM, at least 1024
+// points a range, at most kMaxSplits.
+inline void i8_plan(int h, int points, int group, int sms, int& splits, int& k_split) {
+  const int tiles = ((h + kBM - 1) / kBM) * ((h + kI8BN - 1) / kI8BN);
+  int want = (2 * sms + tiles - 1) / tiles;
+  want = max(1, min(want, min(kMaxSplits, (points + 1023) / 1024)));
+  k_split = ((points + want - 1) / want + group - 1) / group * group;
+  splits = (points + k_split - 1) / k_split;
+}
+
+// The bytes of an m16n8k32 fragment register holding rows k .. k+3 (row k
+// in the low byte) that lie in [lo, hi): 0xFF where they do, else 0.
+__device__ __forceinline__ uint32_t row_mask4(int k, int lo, int hi) {
+  uint32_t m = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (k + e >= lo && k + e < hi) m |= 0xFFu << (8 * e);
+  return m;
+}
+
 // 'i8pair' dW_h = sin8^T dz8 on the int8 tensor cores (mma.sync m16n8k32
-// s32.s8.s8), K6b's _dw_i8: per group of `group` points (a multiple of 32,
-// so a 32-point tile lies in one group) dz is quantized with scale 127 / m
-// (m the group's max |dz|, a rounded division; 0 where m = 0) to
-// round_half_even(dz scale); the group's exact int32 sum goes to f32 and is
-// scaled by f32(m (1/127)^2) into f32 accumulators, group after group in
-// order. A block takes a 128 x 128 tile of dW over its split's points
-// (whole groups), loading each 32-point tile of sin8 (as stored) and of dz
-// (quantized on the way) into shared memory; out is the split's f32
-// partials [m][n].
-__global__ void __launch_bounds__(kThreads) dw_i8_kernel(
+// s32.s8.s8), K6b's _dw_i8 at any scale group of `group` points (1 to
+// 133,144, so that a group's int32 sum cannot overflow): each point's dz is
+// quantized with its own group's scale 127 / m (m the group's max |dz|, a
+// rounded division; 0 where m = 0) to round_half_even(dz scale); each
+// group's exact int32 sum goes to f32 and is scaled by f32(m (1/127)^2) into
+// f32 accumulators, group after group in point order. A block takes a
+// 128 x 128 tile of dW over its split's points (whole groups), loading each
+// 32-point slice of sin8 (as stored) and of dz (quantized on the way) into
+// shared memory; where a group boundary falls inside a slice, the slice's
+// products are issued once for each of its groups, the other groups' dz
+// rows masked to zero in the fragments, and a group's sum is flushed where
+// it ends. One int32 accumulator set is live at a time (a group that runs
+// on into the next slice keeps it). out is the split's f32 partials [m][n].
+__global__ void __launch_bounds__(kI8Threads) dw_i8_kernel(
     const int8_t* s8, long long s8_ld, const __nv_bfloat16* dz, int h, int n_pts,
     const unsigned int* gmax, int group, int k_split, float* out) {
-  __shared__ int8_t sa[kBK * kI8Ld];
-  __shared__ int8_t sb[kBK * kI8Ld];
+  __shared__ int8_t sa[kI8K * kI8Ld];
+  __shared__ int8_t sb[kI8K * kI8Ld];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kI8BN;
   const int kb = blockIdx.z * k_split;
   const int ke = min(n_pts, kb + k_split);
   int acc_i[4][4][4];
@@ -546,15 +961,16 @@ __global__ void __launch_bounds__(kThreads) dw_i8_kernel(
         acc[i][j][e] = 0.f;
       }
   const int gq = lane >> 2, q = lane & 3;
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
-    const float m = __uint_as_float(gmax[k0 / group]);
-    const float scale = m > 0.f ? __fdiv_rn(kCosScale, m) : 0.f;
-    // the tiles: thread t takes 16 columns of one point row of each
+  for (int k0 = kb; k0 < ke; k0 += kI8K) {
+    // the slices: thread t takes 16 columns of one point row of each, the
+    // point's dz quantized with its own group's scale
     const int r = threadIdx.x >> 3, c = (threadIdx.x & 7) * 16;
     const int pt = k0 + r;
     int4 va = make_int4(0, 0, 0, 0);
     int8_t vb[16];
     if (pt < ke) {
+      const float m = __uint_as_float(gmax[pt / group]);
+      const float scale = m > 0.f ? __fdiv_rn(kCosScale, m) : 0.f;
       if (m0 + c < h)
         va = *reinterpret_cast<const int4*>(s8 + static_cast<size_t>(pt) * s8_ld + m0 + c);
 #pragma unroll
@@ -587,23 +1003,30 @@ __global__ void __launch_bounds__(kThreads) dw_i8_kernel(
       bfr[nt][0] = i8_column4(sb, 4 * q, col);
       bfr[nt][1] = i8_column4(sb, 16 + 4 * q, col);
     }
+    // the slice's groups in order: the points [lo, hi) of group gi
+    const int k1 = min(k0 + kI8K, ke);
+    for (int gi = k0 / group; gi * group < k1; ++gi) {
+      const int lo = max(k0, gi * group), hi = min(k1, (gi + 1) * group);
+      const uint32_t mk0 = row_mask4(k0 + 4 * q, lo, hi), mk1 = row_mask4(k0 + 16 + 4 * q, lo, hi);
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+      for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_s8(acc_i[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
-    // the group's end (or the split's): its exact sum, scaled, into f32
-    if ((k0 + kBK) % group == 0 || k0 + kBK >= ke) {
-      const float f = __fmul_rn(m, kInvCosSq);
+        for (int nt = 0; nt < 4; ++nt)
+          mma_s8(acc_i[mt][nt], af[mt], bfr[nt][0] & mk0, bfr[nt][1] & mk1);
+      // the group's end (or the split's): its exact sum, scaled, into f32
+      if (hi == (gi + 1) * group || hi == ke) {
+        const float f = __fmul_rn(__uint_as_float(gmax[gi]), kInvCosSq);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[i][j][e] = __fadd_rn(acc[i][j][e],
-                                     __fmul_rn(static_cast<float>(acc_i[i][j][e]), f));
-            acc_i[i][j][e] = 0;
-          }
+            for (int e = 0; e < 4; ++e) {
+              acc[i][j][e] = __fadd_rn(acc[i][j][e],
+                                       __fmul_rn(static_cast<float>(acc_i[i][j][e]), f));
+              acc_i[i][j][e] = 0;
+            }
+      }
     }
   }
   float* o = out + static_cast<size_t>(blockIdx.z) * h * h;
@@ -658,8 +1081,10 @@ struct WideArgs {
   unsigned long long* gacc;     // K5: [sum G^3 F], zeroed
   float* g_grid;                // K5: [sum G^3 F]
   unsigned int* group_max;      // 'i8pair': [ceil(n / group)] scratch
+  unsigned int* tile_count;     // [dW tiles at most] arrivals, zero (wide_wgmma_kernel)
+  float* db_part;               // [2 ceil(n / 128), H] the chain's column sums (ChainEpi)
   int n, d_in, n_cols, e_pad, h, n_hidden, d_out, o_pad, fmt;
-  int group;                    // 'i8pair': dz's scale group, a multiple of 32
+  int group;                    // 'i8pair': dz's scale group, 1 to 133,144
 };
 
 }  // namespace wide

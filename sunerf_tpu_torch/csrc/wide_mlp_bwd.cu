@@ -20,10 +20,12 @@
 //       the fused backward's grid_scatter_kernel and grid_convert_kernel
 //       (fused_mlp_stash_bwd.cu sunerf_grid_scatter: fixed-point sums, the
 //       same bits every run)
-// Each product is a launch of wide_gemm_kernel: the chain (ChainEpi, dz
-// through two [n, H] buffers), each dW over ranges of the points (StoreEpi
-// partials, summed in order), denc (StoreEpi); the bias gradients are
-// colsum_kernel's fixed-order column sums.
+// Each product is a launch of wide_wgmma_kernel: the chain (ChainEpi, both
+// operands K-major, dz through two [n, H] buffers), each dW over ranges of
+// the points (both operands MN-major; the ranges' partials summed in order
+// by each tile's last block, StoreEpi), denc (StoreEpi); the bias gradients
+// are the chain epilogue's column sums a warpgroup's 64 rows, then
+// colsum_kernel's over those, all in a fixed order.
 
 #include "wide_mlp.cuh"
 
@@ -32,10 +34,11 @@ namespace {
 
 // launches by this library since it was loaded, counted where a launch
 // returned no error (read by sunerf_kernel_launches): backwards by format
-// (K2, K6a, K6b, K4), then the chain and dW GEMMs', the point cotangent's
-// (dpts_kernel, K3), the grid cotangent's maxima (grid_max_kernel, K5) and
-// the int8 dW_h products ('i8pair', dw_i8_kernel)
-constexpr int kCounts = 9;
+// (K2, K6a, K6b, K4), then the chain and dW GEMMs' (wide_wgmma_kernel), the
+// point cotangent's (dpts_kernel, K3), the grid cotangent's maxima
+// (grid_max_kernel, K5), the int8 dW_h products ('i8pair', dw_i8_kernel)
+// and the denc GEMMs' (K3, K5)
+constexpr int kCounts = 10;
 unsigned long long wide_launches[kCounts] = {};
 
 // K3's tail a thread a point: dpts[d] = denc[d] + the sum over the phase
@@ -83,28 +86,30 @@ __global__ void grid_max_kernel(const float* dgrid, int n, int levels, int featu
 }
 
 // dW [m, n_out] = A^T B over the points (both MN-major, [points][ld]),
-// split over ranges of the points into `part`, summed in order into out
-cudaError_t dw_product(const wide::Operand& a, int m, const wide::Operand& b, int n_out,
-                       int n_load, int points, int sms, float* part, float* out, cudaStream_t s) {
+// over ranges of the points (dw_plan) whose partials each tile's last block
+// sums in order
+cudaError_t dw_product(const wide::WideArgs& a, const wide::Operand& A, int m,
+                       const wide::Operand& B, int n_out, int n_load, int sms, float* out,
+                       cudaStream_t s) {
+  const int tn = wide::tile_n(n_out, 64);
   int splits, k_split;
-  wide::dw_split(m, n_out, points, sms, splits, k_split);
+  wide::dw_plan(m, n_out, tn, a.n, sms, splits, k_split);
   wide::Gemm g{};
-  g.a = a;
-  g.b = b;
+  g.a = A;
+  g.b = B;
   g.m = g.m_load = m;
   g.n = n_out;
   g.n_load = n_load;
-  g.k = points;
-  g.k_split = k_split;
-  const long long slice = static_cast<long long>(m) * n_out;
-  cudaError_t err = wide::launch_gemm<false, false>(g, splits, wide::StoreEpi{part, n_out, slice}, s);
-  if (err != cudaSuccess) return err;
-  ++wide_launches[5];
-  return wide::sum_parts(part, splits, static_cast<size_t>(slice), out, s);
+  g.k = a.n;
+  const cudaError_t err = wide::launch_gemm<false>(g, tn, splits, k_split, a.part, a.tile_count,
+                                                   wide::StoreEpi{out, n_out}, s);
+  if (err == cudaSuccess) ++wide_launches[5];
+  return err;
 }
 
 // The chain step into layer `layer`'s dz: dz_out = bf16(bf16(A B^T) * gate)
-// with A [n, k] and B^T [H, k] K-major
+// with A [n, k] and B^T [H, k] K-major, and the layer's bias gradient from
+// the epilogue's column sums (db_part)
 template <int kFmt>
 cudaError_t chain_step(const wide::WideArgs& a, const wide::Operand& in, const wide::Operand& w,
                        int k, int layer, __nv_bfloat16* dz_out, cudaStream_t s) {
@@ -115,17 +120,21 @@ cudaError_t chain_step(const wide::WideArgs& a, const wide::Operand& in, const w
   constexpr int kPer = kFmt == kStashI8pair ? 2 : 1;
   wide::ChainEpi<kFmt> epi{dz_out, a.h, kInHs ? a.hs : a.cs, kPer * lh,
                            static_cast<long long>(kPer) * layer * a.h
-                               + (kFmt == kStashI8pair ? a.h : 0)};
+                               + (kFmt == kStashI8pair ? a.h : 0),
+                           a.db_part};
   wide::Gemm g{};
   g.a = in;
   g.b = w;
   g.m = g.m_load = a.n;
   g.n = g.n_load = a.h;
   g.k = k;
-  g.k_split = (k + wide::kBK - 1) / wide::kBK * wide::kBK;
-  const cudaError_t err = wide::launch_gemm<true, true>(g, 1, epi, s);
-  if (err == cudaSuccess) ++wide_launches[4];
-  return err;
+  cudaError_t err = wide::launch_kmajor(g, epi, s);
+  if (err != cudaSuccess) return err;
+  ++wide_launches[4];
+  // the layer's bias gradient: the warpgroups' column sums, summed in order
+  const int parts = 2 * ((a.n + wide::kBM - 1) / wide::kBM);
+  return wide::column_sums(a.db_part, a.h, parts, a.h, a.part_sum,
+                           layer > 0 ? a.g_b_h + static_cast<size_t>(layer - 1) * a.h : a.g_b_in, s);
 }
 
 // 'i8pair': dW_h[layer] = sin8_layer^T dz8 per scale group on the int8
@@ -138,12 +147,10 @@ cudaError_t dw_i8_product(const wide::WideArgs& a, const __nv_bfloat16* dz, int 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int splits, k_split;
-  wide::dw_split(H, H, n, sms, splits, k_split);
-  k_split = (k_split + a.group - 1) / a.group * a.group;
-  splits = (n + k_split - 1) / k_split;
+  wide::i8_plan(H, n, a.group, sms, splits, k_split);
   const long long lh = static_cast<long long>(a.n_hidden + 1) * H;
-  const dim3 grid((H + wide::kBN - 1) / wide::kBN, (H + wide::kBM - 1) / wide::kBM, splits);
-  wide::dw_i8_kernel<<<grid, wide::kThreads, 0, s>>>(
+  const dim3 grid((H + wide::kI8BN - 1) / wide::kI8BN, (H + wide::kBM - 1) / wide::kBM, splits);
+  wide::dw_i8_kernel<<<grid, wide::kI8Threads, 0, s>>>(
       static_cast<const int8_t*>(a.hs) + 2LL * layer * H, 2 * lh, dz, H, n, a.group_max, a.group,
       k_split, a.part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -160,8 +167,9 @@ cudaError_t denc_product(const wide::WideArgs& a, const __nv_bfloat16* dz0, int 
   g.m = g.m_load = a.n;
   g.n = g.n_load = cols;
   g.k = a.h;
-  g.k_split = (a.h + wide::kBK - 1) / wide::kBK * wide::kBK;
-  return wide::launch_gemm<true, true>(g, 1, wide::StoreEpi{out, cols, 0}, s);
+  const cudaError_t err = wide::launch_kmajor(g, wide::StoreEpi{out, cols}, s);
+  if (err == cudaSuccess) ++wide_launches[9];
+  return err;
 }
 
 template <int kFmt>
@@ -175,9 +183,8 @@ cudaError_t backward(const wide::WideArgs& a, cudaStream_t s) {
   const long long lh = static_cast<long long>(L) * H;
   const auto* hs = static_cast<const __nv_bfloat16*>(a.hs);
 
-  wide::encode_kernel<<<(n + 127) / 128, 128, 0, s>>>(a.pts, a.col_dim, a.col_freq, grid, a.enc,
-                                                      n, a.d_in, a.n_cols, a.e_pad);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = wide::encode(a.pts, a.col_dim, a.col_freq, grid, a.enc, n, a.d_in, a.n_cols,
+                                 a.e_pad, s);
   if (err != cudaSuccess) return err;
   const long long dy_elems = static_cast<long long>(n) * a.o_pad;
   wide::dy_bf16_kernel<<<static_cast<unsigned>((dy_elems + 255) / 256), 256, 0, s>>>(
@@ -197,21 +204,18 @@ cudaError_t backward(const wide::WideArgs& a, cudaStream_t s) {
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     last = {dz[1], H};
   }
-  if ((err = dw_product(last, H, {a.dyb, a.o_pad}, a.d_out, a.o_pad, n, sms, a.part, a.g_w_out,
-                        s)) != cudaSuccess)
+  if ((err = dw_product(a, last, H, {a.dyb, a.o_pad}, a.d_out, a.o_pad, sms, a.g_w_out, s))
+      != cudaSuccess)
     return err;
   if ((err = chain_step<kFmt>(a, {a.dyb, a.o_pad}, {a.w_out_b, a.o_pad}, a.o_pad, L - 1, dz[cur],
                               s)) != cudaSuccess)
     return err;
   for (int j = L - 1; j >= 1; --j) {
-    if ((err = wide::column_sums(dz[cur], H, n, H, a.part_sum,
-                                 a.g_b_h + static_cast<size_t>(j - 1) * H, s)) != cudaSuccess)
-      return err;
     float* g_w = a.g_w_h + static_cast<size_t>(j - 1) * H * H;
     if constexpr (kFmt == kStashI8pair) {
       if ((err = dw_i8_product(a, dz[cur], j - 1, sms, g_w, s)) != cudaSuccess) return err;
-    } else if ((err = dw_product({hs + static_cast<size_t>(j - 1) * H, lh}, H, {dz[cur], H}, H, H,
-                                 n, sms, a.part, g_w, s)) != cudaSuccess) {
+    } else if ((err = dw_product(a, {hs + static_cast<size_t>(j - 1) * H, lh}, H, {dz[cur], H}, H,
+                                 H, sms, g_w, s)) != cudaSuccess) {
       return err;
     }
     if ((err = chain_step<kFmt>(a, {dz[cur], H}, {a.w_h_b + static_cast<size_t>(j - 1) * H * H, H},
@@ -219,10 +223,8 @@ cudaError_t backward(const wide::WideArgs& a, cudaStream_t s) {
       return err;
     cur ^= 1;
   }
-  if ((err = wide::column_sums(dz[cur], H, n, H, a.part_sum, a.g_b_in, s)) != cudaSuccess)
-    return err;
-  if ((err = dw_product({a.enc, a.e_pad}, a.e_pad, {dz[cur], H}, H, H, n, sms, a.part, a.g_w_in,
-                        s)) != cudaSuccess)
+  if ((err = dw_product(a, {a.enc, a.e_pad}, a.e_pad, {dz[cur], H}, H, H, sms, a.g_w_in, s))
+      != cudaSuccess)
     return err;
 
   if (a.dpts != nullptr) {
@@ -260,10 +262,10 @@ extern "C" int sunerf_wide_mlp_bwd(const void* args, void* stream) {
   using namespace sunerf;
   const wide::WideArgs& a = *static_cast<const wide::WideArgs*>(args);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.n <= 0 || a.h % 8 != 0 || a.e_pad % 16 != 0 || a.d_out < 1 || a.o_pad % 8 != 0
+  if (a.n <= 0 || a.h % 16 != 0 || a.e_pad % 16 != 0 || a.d_out < 1 || a.o_pad % 8 != 0
       || a.o_pad < a.d_out
-      || (a.fmt == kStashI8pair && (a.group < 1 || a.group % wide::kBK != 0
-                                    || a.group_max == nullptr)))
+      || a.part == nullptr || a.tile_count == nullptr || a.db_part == nullptr
+      || (a.fmt == kStashI8pair && (a.group < 1 || a.group > 133144 || a.group_max == nullptr)))
     return cudaErrorInvalidValue;
   cudaError_t err;
   int slot;

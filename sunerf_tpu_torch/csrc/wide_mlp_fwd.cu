@@ -8,9 +8,9 @@
 // wide_mlp.cuh.
 //
 // A forward is encode_kernel (the points' encoding, grid features included,
-// to a bf16 scratch), then L launches of wide_gemm_kernel with FwdEpi (layer
-// 0 from the encoding, layer i from layer i-1's bf16 sin), then the head
-// with HeadEpi. 'int8' and K4 keep each layer's sin in the stash hs, where
+// to a bf16 scratch), then L launches of wide_wgmma_kernel with FwdEpi (layer
+// 0 from the encoding, layer i from layer i-1's bf16 sin; N tiles of 128 or
+// 256), then the head with HeadEpi (an N tile of 8 or 16 for o_pad columns). 'int8' and K4 keep each layer's sin in the stash hs, where
 // the next layer reads it; K0, 'lsb' and 'i8pair' pass it through two [n, H]
 // buffers.
 
@@ -24,6 +24,7 @@ using namespace sunerf::wide;
 // launches by this library since it was loaded, counted where a launch
 // returned no error (read by sunerf_kernel_launches): forwards by format
 // (K0, K1, K6a, K6b, K4), then encode_kernel's and the layer and head GEMMs'
+// (wide_wgmma_kernel)
 constexpr int kCounts = 7;
 unsigned long long launches[kCounts] = {};
 
@@ -32,9 +33,8 @@ cudaError_t forward(const WideArgs& a, cudaStream_t s) {
   const int n = a.n, H = a.h, L = a.n_hidden + 1;
   const GridParams grid = grid_params(a.grid);
   if (!grid_ok(grid)) return cudaErrorInvalidValue;
-  encode_kernel<<<(n + 127) / 128, 128, 0, s>>>(a.pts, a.col_dim, a.col_freq, grid, a.enc, n,
-                                                a.d_in, a.n_cols, a.e_pad);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = encode(a.pts, a.col_dim, a.col_freq, grid, a.enc, n, a.d_in, a.n_cols, a.e_pad,
+                           s);
   if (err != cudaSuccess) return err;
   ++launches[5];
   constexpr bool kInStash = kFmt == kStashInt8 || kFmt == kStashBf16Cos;
@@ -61,8 +61,7 @@ cudaError_t forward(const WideArgs& a, cudaStream_t s) {
     g.m = g.m_load = n;
     g.n = g.n_load = H;
     g.k = l == 0 ? a.e_pad : H;
-    g.k_split = (g.k + kBK - 1) / kBK * kBK;
-    err = launch_gemm<true, true>(g, 1, epi, s);
+    err = launch_kmajor(g, epi, s);
     if (err != cudaSuccess) return err;
     ++launches[6];
     in = epi.act;
@@ -75,8 +74,7 @@ cudaError_t forward(const WideArgs& a, cudaStream_t s) {
   g.m = g.m_load = n;
   g.n = g.n_load = a.d_out;
   g.k = H;
-  g.k_split = (H + kBK - 1) / kBK * kBK;
-  err = launch_gemm<true, true>(g, 1, head, s);
+  err = launch_kmajor(g, head, s);
   if (err == cudaSuccess) ++launches[6];
   return err;
 }
@@ -90,7 +88,7 @@ cudaError_t forward(const WideArgs& a, cudaStream_t s) {
 extern "C" int sunerf_wide_mlp_fwd(const void* args, void* stream) {
   const WideArgs& a = *static_cast<const WideArgs*>(args);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.n <= 0 || a.h % 8 != 0 || a.e_pad % 16 != 0 || a.d_out < 1) return cudaErrorInvalidValue;
+  if (a.n <= 0 || a.h % 16 != 0 || a.e_pad % 16 != 0 || a.d_out < 1) return cudaErrorInvalidValue;
   cudaError_t err;
   int slot;
   switch (a.fmt) {

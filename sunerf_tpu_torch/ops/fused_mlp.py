@@ -38,7 +38,7 @@ and the pad is an F.pad outside the autograd Functions, so autograd slices
 the gradients back to the caller's shapes. A field above 512 units, or
 with d_output outside the fused heads (1..8 forward, 1..4 where a backward
 runs), takes the wide route instead (`kernel_route`; ops/wide_mlp.py, one
-launch a layer, padded to a multiple of 8 units), the same wrappers and
+launch a layer, padded to a multiple of 16 units), the same wrappers and
 autograd Functions dispatching to it. With no
 gradient needed it runs K0. When a parameter (or, with compute_dpts, the
 points) needs one it runs, for stash=True (or None), `FusedMLPStash`, the
@@ -1105,10 +1105,10 @@ COUNTED_KERNELS = {
     'fused_mlp_fwd_wgmma': ('fwd_wgmma_kernel',),
     'fused_mlp_stash_bwd': GRID_KERNELS,
     'wide_mlp_fwd': ('wide_fwd (K0)', 'wide_fwd (K1)', 'wide_fwd (K6a)', 'wide_fwd (K6b)',
-                     'wide_fwd (K4)', 'encode_kernel', 'wide_gemm_kernel'),
+                     'wide_fwd (K4)', 'encode_kernel', 'wide_wgmma_kernel'),
     'wide_mlp_bwd': ('wide_bwd (K2)', 'wide_bwd (K6a)', 'wide_bwd (K6b)', 'wide_bwd (K4)',
-                     'wide_gemm_kernel chain', 'wide_gemm_kernel dW', 'dpts_kernel (K3)',
-                     'grid_max_kernel (K5)', 'dw_i8_kernel (K6b)')}
+                     'wide_wgmma_kernel chain', 'wide_wgmma_kernel dW', 'dpts_kernel (K3)',
+                     'grid_max_kernel (K5)', 'dw_i8_kernel (K6b)', 'wide_wgmma_kernel denc')}
 
 
 def kernel_launches(library: str) -> dict:

@@ -2,7 +2,10 @@
 hold (d_filter above 512, or d_output outside their heads: 1..8 for the
 forward K0, 1..4 where a backward runs; fused_mlp.kernel_route) runs on
 kernels with one launch a layer, the activations through device memory
-(csrc/wide_mlp.cuh), at any width and any output count:
+(csrc/wide_mlp.cuh), at any width and any output count. Every bf16 product
+is a launch of one warp-specialised GEMM, wide_wgmma_kernel (TMA boxes in
+the 128-byte swizzle into a ring, wgmma from shared memory, a persistent
+walk over 128 x TN tiles), with the layer's work in its epilogue:
 
   K0 no-grad forward      -> csrc/wide_mlp_fwd.cu  (fmt 0)
   K1 'int8' stashing fwd  -> the same, the int8 cos8 stash in its epilogue
@@ -22,12 +25,16 @@ go to the kernels as bf16 copies: the forward's W^T (pack_wide: w_in^T
 [H, e_pad], w_h^T, w_out^T [d_out, H]) and the backward's W as stored
 (pack_wide_bwd: w_h, w_out [H, o_pad], w_in [E, H]), each made once per
 parameter set and cached on the identity and version of its tensors.
-'i8pair''s dz scale group (stash_bwd_tile) must be a multiple of 32 on the
-wide route (the default 768 is), so that a 32-point tile lies in one group;
-another raises by name. On a CUDA tensor a wrapper launches its kernels or raises (there is no
-fallback); on a CPU tensor it runs the plain version (fused_mlp_reference,
-fused_mlp_stash_reference, fused_mlp_stash_bwd_reference,
-fused_mlp_recompute_bwd_reference), which defines its function."""
+The host plans of the kernels are mirrored here and tested on the CPU:
+tile_n (a product's N tile), dw_plan (a dW product's ranges of the points),
+i8_plan ('i8pair''s dW_h ranges of whole scale groups) and
+operand_row_bytes (every TMA operand's row stride and base offset in bytes,
+multiples of 16). 'i8pair' takes any scale group (stash_bwd_tile) from 1 to
+133,144 points. On a CUDA tensor a wrapper launches its kernels or raises
+(there is no fallback); on a CPU tensor it runs the plain version
+(fused_mlp_reference, fused_mlp_stash_reference,
+fused_mlp_stash_bwd_reference, fused_mlp_recompute_bwd_reference), which
+defines its function."""
 from __future__ import annotations
 
 import ctypes
@@ -47,16 +54,19 @@ WIDE_STASH_BWD_LAUNCHES = 0      # wide K2 / K6a (with K3, K5)
 WIDE_RECOMPUTE_BWD_LAUNCHES = 0  # wide K4
 WIDE_MAX_SPLITS = 16    # dW point ranges at most (csrc/wide_mlp.cuh kMaxSplits)
 WIDE_SUM_PARTS = 128    # column-sum row ranges at most (kSumRows)
+TILE_M, TILE_K = 128, 64   # a GEMM tile's rows and a ring stage's k (kBM, kBK)
+I8_TILE = 128           # 'i8pair''s dW_h tiles (kBM x kI8BN)
 _FWD_FMT = {'int8': 1, 'lsb': 2, 'i8pair': 3, 'recompute': 4}   # kStash* codes (K0 is 0)
-I8_GROUP_QUANTUM = 32   # 'i8pair' scale groups on the wide route: multiples of this
 _packs: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _packs_bwd: WeakIdKeyDictionary = WeakIdKeyDictionary()
 
 
 def wide_width(d_filter: int) -> int:
     """The width a field runs at on the wide route: d_filter rounded up to a
-    multiple of 8 (the kernels' 16-byte rows), zero-padded (pad_field)."""
-    return -(-d_filter // 8) * 8
+    multiple of 16, zero-padded (pad_field): every bf16 row, and the 'int8'
+    stash's int8 rows of L H, a multiple of 16 bytes, as a TMA tensor map
+    takes them."""
+    return -(-d_filter // 16) * 16
 
 
 def e_pad(config: NeRFConfig) -> int:
@@ -67,6 +77,65 @@ def e_pad(config: NeRFConfig) -> int:
 def o_pad(d_output: int) -> int:
     """d_output rounded up to 8: the chain's first K."""
     return -(-d_output // 8) * 8
+
+
+def tile_n(n: int, min_tn: int) -> int:
+    """A product's N tile (csrc/wide_mlp.cuh tile_n): from min_tn (the layers
+    and the chain 128, an MN-major B 64, else 8) the smallest of 8 .. 128
+    that holds n; above 128 columns 256 unless 128 pads n less."""
+    if n > 128:
+        pad256, pad128 = -(-n // 256) * 256 - n, -(-n // 128) * 128 - n
+        return 256 if pad256 <= pad128 else 128
+    tn = 8
+    while tn < n or tn < min_tn:
+        tn *= 2
+    return tn
+
+
+def dw_plan(m: int, n_out: int, points: int, sms: int) -> tuple:
+    """A dW product's ranges of the points (csrc/wide_mlp.cuh dw_plan): as
+    many as keep every block of the card on one tile, at least 1024 points
+    a range, at most WIDE_MAX_SPLITS -> (tn, splits, k_split), k_split a
+    multiple of TILE_K. Range s holds points [s k_split, (s+1) k_split)."""
+    tn = tile_n(n_out, 64)
+    tiles = -(-m // TILE_M) * -(-n_out // tn)
+    want = max(1, min(sms // tiles, WIDE_MAX_SPLITS, -(-points // 1024)))
+    k_split = -(-(-(-points // want)) // TILE_K) * TILE_K
+    return tn, -(-points // k_split), k_split
+
+
+def i8_plan(h: int, points: int, group: int, sms: int) -> tuple:
+    """'i8pair''s dW_h ranges (csrc/wide_mlp.cuh i8_plan): whole scale
+    groups, about two blocks an SM, at least 1024 points a range, at most
+    WIDE_MAX_SPLITS -> (splits, k_split), k_split a multiple of group."""
+    tiles = (-(-h // I8_TILE)) ** 2
+    want = max(1, min(-(-2 * sms // tiles), WIDE_MAX_SPLITS, -(-points // 1024)))
+    k_split = -(-(-(-points // want)) // group) * group
+    return -(-points // k_split), k_split
+
+
+def dw_tiles(config: NeRFConfig) -> int:
+    """The most output tiles of one dW product (dW_in, dW_h, dW_out): the
+    arrival counters' length."""
+    h, ep = config.d_filter, e_pad(config)
+    return max(-(-m // TILE_M) * -(-n // tile_n(n, 64))
+               for m, n in ((ep, h), (h, h), (h, config.d_output)))
+
+
+def operand_row_bytes(config: NeRFConfig) -> dict:
+    """Each TMA operand of the wide GEMM as the launchers take it: (row
+    stride, largest base offset) in bytes, the offset that of a layer's
+    slice of the bf16 stash, of w_h, or of w_in's grid rows (K5's denc); the
+    chain's gates are read from the stashes' first column on ('cs' the
+    'int8' cos8, 'hs8' the 'i8pair' pairs; 'hs' also the 'lsb' and K4
+    gates). TMA needs both multiples of 16."""
+    h, L, ep, op = config.d_filter, config.n_layers, e_pad(config), o_pad(config.d_output)
+    w_h_at = 2 * max(L - 2, 0) * h * h
+    return {'enc': (2 * ep, 0), 'act': (2 * h, 0), 'hs': (2 * L * h, 2 * (L - 1) * h),
+            'cs': (L * h, 0), 'hs8': (2 * L * h, 0),
+            'w_in_t': (2 * ep, 0), 'w_h_t': (2 * h, w_h_at), 'w_out_t': (2 * h, 0),
+            'dyb': (2 * op, 0), 'dz': (2 * h, 0), 'w_h_b': (2 * h, w_h_at),
+            'w_out_b': (2 * op, 0), 'w_in_b': (2 * h, 2 * (config.d_encoded - config.d_grid) * h)}
 
 
 def pack_wide(w_in: torch.Tensor, w_h: torch.Tensor, w_out: torch.Tensor) -> dict:
@@ -127,7 +196,8 @@ class _WideArgs(ctypes.Structure):
         'pts', 'col_dim', 'col_freq', 'w_in_t', 'w_h_t', 'w_out_t', 'b_in', 'b_h', 'b_out',
         'grid', 'out', 'act', 'enc', 'hs', 'cs', 'dy', 'w_h_b', 'w_out_b', 'w_in_b', 'dyb',
         'dz', 'part', 'part_sum', 'g_w_in', 'g_b_in', 'g_w_h', 'g_b_h', 'g_w_out', 'g_b_out',
-        'denc', 'dpts', 'dgrid', 'gmax', 'gacc', 'g_grid', 'group_max')]
+        'denc', 'dpts', 'dgrid', 'gmax', 'gacc', 'g_grid', 'group_max', 'tile_count',
+        'db_part')]
         + [(k, ctypes.c_int) for k in ('n', 'd_in', 'n_cols', 'e_pad', 'h', 'n_hidden', 'd_out',
                                         'o_pad', 'fmt', 'group')])
 
@@ -138,7 +208,7 @@ def _ptr(t):
 
 def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
     """What the wide kernels take: CUDA float32 points [N, d_input], a width
-    of a multiple of 8 (wide_field pads), d_output >= 1, no VM levels, grid
+    of a multiple of 16 (wide_field pads), d_output >= 1, no VM levels, grid
     levels of 2 or more cells."""
     if points.device.type != 'cuda':
         raise ValueError(f'no wide kernel for device {points.device}')
@@ -147,8 +217,8 @@ def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
     if min(config.grid_sizes, default=2) < 2:
         raise ValueError(f'the wide kernels take grid levels of 2 or more cells a side, got '
                          f'{config.grid_sizes}')
-    if config.d_filter % 8:
-        raise ValueError(f'the wide kernels take d_filter a multiple of 8, got '
+    if config.d_filter % 16:
+        raise ValueError(f'the wide kernels take d_filter a multiple of 16, got '
                          f'{config.d_filter}: fused_mlp_forward pads other widths (wide_field)')
     if config.d_output < 1:
         raise ValueError(f'the wide kernels take d_output from 1, got {config.d_output}')
@@ -167,7 +237,7 @@ def _check(config: NeRFConfig, params: dict, points: torch.Tensor):
 
 def wide_field(config: NeRFConfig, params: dict) -> tuple:
     """fused_mlp._kernel_field at wide_width: the field zero-padded to a
-    multiple of 8 units (a render's pad made once and reused)."""
+    multiple of 16 units (a render's pad made once and reused)."""
     return fm._kernel_field(config, params, wide_width(config.d_filter))
 
 
@@ -209,8 +279,8 @@ def _launch_forward(points, ops: dict, grid_bound: float, fmt: int, hs=None, cs=
             *((f'grids[{i}]', t, (t.shape[0],) * 3 + (features,), f32)
               for i, t in enumerate(grids))):
         build.check_tensor(name, t, shape, dtype, dev)
-    if h % 8 or d_out < 1:
-        raise ValueError(f'the wide kernels take d_filter a multiple of 8 and d_output >= 1, '
+    if h % 16 or d_out < 1:
+        raise ValueError(f'the wide kernels take d_filter a multiple of 16 and d_output >= 1, '
                          f'got {h} and {d_out}')
     out = torch.empty((n, d_out), dtype=f32, device=dev)
     if n == 0:
@@ -344,7 +414,9 @@ def _launch_backward(config: NeRFConfig, params: dict, points: torch.Tensor, dy:
                    gmax=torch.zeros(len(config.grid_sizes), dtype=torch.int32, device=dev),
                    gacc=torch.zeros(offsets[-1], dtype=torch.int64, device=dev),
                    group_max=(torch.empty(-(-n // group), dtype=torch.int32, device=dev)
-                              if fmt == _FWD_FMT['i8pair'] else None))
+                              if fmt == _FWD_FMT['i8pair'] else None),
+                   tile_count=torch.zeros(dw_tiles(config), dtype=torch.int32, device=dev),
+                   db_part=torch.empty((2 * -(-n // TILE_M), H), **f32))
     for k, t in scratch.items():
         setattr(a, k, _ptr(t))
     a.group = group
@@ -378,10 +450,6 @@ def wide_stash_backward(config: NeRFConfig, params: dict, points: torch.Tensor,
     _check(config, params, points)
     if fmt == 'i8pair':
         fm._check_group(group)
-        if group % I8_GROUP_QUANTUM:
-            raise NotImplementedError(
-                f"the wide route's 'i8pair' backward takes a scale group (stash_bwd_tile) "
-                f"that is a multiple of {I8_GROUP_QUANTUM}, got {group}")
     hs_shape, hs_dtype, cs_shape, cs_dtype = fm._stash_shapes(config, points.shape[0], fmt)
     build.check_tensor('hs', hs, hs_shape, hs_dtype, points.device)
     if cs_shape is not None:

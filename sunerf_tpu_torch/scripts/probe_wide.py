@@ -15,7 +15,8 @@ wide K2 (fused_mlp_stash_backward) against fused_mlp_stash_bwd_reference fed
 the kernel's stash, twice (the bits), at --n-bwd points. --paths adds K3,
 K4, 'lsb' (K6a), 'i8pair' (K6b) and a grid field (K5) at 2x640 through
 fused_mlp_forward
-under autograd, against the plain versions. Times: CUDA events, the median
+under autograd, against the plain versions, and K6b's backward at scale
+groups 8 and 40. Times: CUDA events, the median
 of --reps calls after 2 (host clock on --device cpu: a CPU number). The
 library yardstick of a row is one bf16 torch.matmul per layer product at
 the same shapes (K0: the L layers and the head; K2: the chain's and dW's
@@ -324,6 +325,35 @@ def path_rows(n: int, device, reps: int) -> dict:
     return rows
 
 
+def i8pair_group_rows(n: int, device, reps: int, groups=(8, 40)) -> dict:
+    """Wide K6b ('i8pair') at scale groups that are no multiple of 32, on a
+    2x640 / d_output 2 field at n points: its backward (dpts included)
+    against the plain version fed the kernel's own stash, twice (the bits),
+    its launches by kernel name, ms beside the plain version's."""
+    rows = {}
+    cfg, p, pts, dy = setup(2, 640, 2, n, device, seed=642)
+    _, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, p, pts, 'i8pair')
+    for group in groups:
+        def run(group=group):
+            return fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs, 'i8pair', True,
+                                                      group)
+
+        def plain(group=group):
+            return fused_mlp.fused_mlp_stash_bwd_reference(cfg, p, pts, dy, hs, cs, 'i8pair',
+                                                           True, group)
+        got, again, ref = run(), run(), plain()
+        row = dict(grads=grad_err(ref, got),
+                   bit_identical=all(torch.equal(got[k], again[k]) for k in got),
+                   finite=all(bool(torch.isfinite(v).all()) for v in got.values()))
+        row['max_rel_err'] = max(g['max_rel_err'] for g in row['grads'].values())
+        row['max_abs_err'] = max(g['max_abs_err'] for g in row['grads'].values())
+        row['launches'] = launches(run)
+        row['ms'] = timed_ms(run, device, reps)
+        row['plain_ms'] = timed_ms(plain, device, max(2, reps // 4))
+        rows[f'group {group}'] = row
+    return rows
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--shapes', nargs='*', default=list(SHAPES))
@@ -352,6 +382,8 @@ def main(argv=None) -> dict:
     if args.paths:
         rows['paths'] = path_rows(args.n_paths, device, args.reps)
         print('paths', json.dumps(rows['paths']), flush=True)
+        rows['i8pair_groups'] = i8pair_group_rows(args.n_paths, device, args.reps)
+        print('i8pair_groups', json.dumps(rows['i8pair_groups']), flush=True)
     if args.out:
         with open(args.out, 'w') as f:
             json.dump(rows, f, indent=1)

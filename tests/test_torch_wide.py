@@ -107,7 +107,7 @@ def test_kernel_route(width, d_output, forward, backward):
 
 def test_wide_width_and_pads():
     assert [wide_mlp.wide_width(w) for w in (1, 8, 9, 513, 640, 1000, 1001)] \
-        == [8, 8, 16, 520, 640, 1000, 1008]
+        == [16, 16, 16, 528, 640, 1008, 1008]
     assert [wide_mlp.o_pad(o) for o in (1, 8, 9, 16)] == [8, 8, 16, 16]
     assert wide_mlp.e_pad(NeRFConfig(**FWD)) == 48          # 4 + 2 * 4 * 4 = 36 -> 48
 
@@ -147,7 +147,7 @@ def _jax_stash(fmt, shape_key, seed=0):
 @pytest.mark.parametrize('fmt', ['int8', 'lsb', 'i8pair'])
 def test_plain_stash_matches_jax_kernel_at_2x640_nine_outputs(fmt):
     """The stashing forwards' plain versions (the wide K1 / K6a stash
-    layouts; i8pair's, which the wide route refuses on the card) against
+    layouts; i8pair's, K6b's) against
     _fused_mlp_stash_fwd at 2x640 / d_output 9, the port's layers fed JAX's
     own bf16 activations."""
     key = tuple(FWD.items())
@@ -210,6 +210,30 @@ def test_plain_stash_backward_matches_jax_kernel_at_five_outputs(fmt, compute_dp
     assert ('dpts' in got) == compute_dpts
     if compute_dpts:
         assert _rel(dpts_j, got['dpts'].numpy()) < DPTS_TOL
+
+
+@pytest.mark.parametrize('group', [8, 24, 40, 768])
+def test_plain_i8pair_backward_matches_jax_kernel_at_any_group(group):
+    """'i8pair''s plain backward (what the wide K6b computes, at any scale
+    group since the wide route takes any) at 2x640 / d_output 9 against
+    JAX's kernel in interpret mode with its backward tile (the group) of
+    the same size: groups 8, 24 and 40 are no multiple of 32 (40 leaves a
+    partial last group of the 48 points), 768 holds them all."""
+    jc, tc, params, pts, dy = _setup(FWD, seed=12)
+    dims = jfm._dims_from_config(jc)
+    fwd = jax.jit(lambda p, x: jfm._fused_mlp_stash_fwd(dims, 8, group, True, False, 'i8pair',
+                                                        p, x))
+    _, residuals = fwd(jax.tree.map(jnp.asarray, params), jnp.asarray(pts))
+    bwd = jax.jit(lambda r, g: jfm._fused_mlp_stash_bwd(dims, 8, group, True, False, 'i8pair',
+                                                        r, g))
+    dparams, _ = bwd(residuals, jnp.asarray(dy))
+    hs_j = residuals[2]
+    got = fused_mlp.fused_mlp_stash_backward(
+        tc, params_from_numpy(params, 'cpu'), torch.from_numpy(pts), torch.from_numpy(dy),
+        _stash_to_torch('i8pair', hs_j), None, 'i8pair', False, group=group)
+    for k in KEYS:
+        assert got[k].shape == dparams[k].shape, k
+        assert _rel(np.asarray(dparams[k]), got[k].numpy()) < I8PAIR_TOL, (group, k)
 
 
 def test_plain_recompute_backward_matches_jax_kernel_at_five_outputs():
