@@ -120,10 +120,15 @@ Phases (the first failure ends the run with a non-zero exit):
              twice; K3, K4, K6a, K6b (scale groups of 768) and K5 (two grid
              levels) at 2x640 under autograd (gradients within GRAD_TOL,
              dpts within DPTS_TOL, the same bits twice, their kernels by
-             name); K6b at scale groups 8 and 40 (no multiple of 32) against
-             the plain version (GRAD_TOL, dpts DPTS_TOL, the same bits
-             twice); every product of K0 / K1 / K2 on wide_wgmma_kernel by
-             name; c. an 8x1024 reference save_state.snf converted, its
+             name); K6b's backward at scale groups 8 and 40 (no multiple of
+             32) and 768 against the plain version (GRAD_TOL, dpts
+             DPTS_TOL, the same bits twice), and K6b at 8x1024 / d_output 2,
+             N = 196,608, group 768 under autograd (the same checks; its
+             int8 dW_h, wide_dw_i8_wgmma_kernel, and the groups' maxima,
+             wide_dz_group_max_kernel, once a hidden layer by name; dW_h's
+             bf16 torch.bmm and torch._int_mm yardsticks); every product of K0 / K1 / K2
+             on wide_wgmma_kernel by name; c. an 8x1024 reference
+             save_state.snf converted, its
              256^2 frame on the wide K0 (32 launches by kernel name) against
              the plain version (RENDER_TOL), exported and served from the
              artifact with the live frame's bits, fine-tuned
@@ -5151,10 +5156,15 @@ def _check_grads(tag: str, row: dict):
     _check(row['bit_identical'], f'{tag}: gradients differ over two runs')
 
 
+I8W, I8MAXW = 'wide_dw_i8_wgmma_kernel (K6b)', 'wide_dz_group_max_kernel (K6b)'
+
+
 def _wide_kernel_rows(device) -> dict:
     """[wide] a-b: the wide K0, K1 + K2 at WIDE_SHAPES and K3, K4, K6a, K5
-    at 2x640 against the plain versions (scripts/probe_wide.py's rows), and
-    K6b's backward at scale groups 8 and 40."""
+    at 2x640 against the plain versions (scripts/probe_wide.py's rows),
+    K6b's backward at scale groups 8, 40 and 768 there, and K6b at 8x1024 /
+    d_output 2, N = WIDE_N_BWD, the default group: its int8 dW_h and the
+    groups' maxima a hidden layer by kernel name."""
     from sunerf_tpu_torch.ops import fused_mlp
     from sunerf_tpu_torch.scripts import probe_wide
     rows = {}
@@ -5205,7 +5215,7 @@ def _wide_kernel_rows(device) -> dict:
     expect = {'K3': ('dpts_kernel (K3)', K1W, K2W), 'K4': ('dpts_kernel (K3)', 'wide_fwd (K4)',
                                                          'wide_bwd (K4)'),
               'K6a': ('dpts_kernel (K3)', 'wide_fwd (K6a)', 'wide_bwd (K6a)'),
-              'K6b': ('dpts_kernel (K3)', 'wide_fwd (K6b)', 'wide_bwd (K6b)', 'dw_i8_kernel (K6b)'),
+              'K6b': ('dpts_kernel (K3)', 'wide_fwd (K6b)', 'wide_bwd (K6b)', I8W, I8MAXW),
               'K5': ('grid_max_kernel (K5)', 'grid_scatter_kernel', 'grid_convert_kernel', K1W,
                      K2W)}
     for name, row in paths.items():
@@ -5226,10 +5236,29 @@ def _wide_kernel_rows(device) -> dict:
             + f"; bit-identical {row['bit_identical']}; {row['ms']:.3f} ms backward (plain "
             f"{row['plain_ms']:.3f}); launches {row['launches']}", flush=True)
         _check_grads(tag, row)
-        _check(row['launches'].get('dw_i8_kernel (K6b)') == 1
+        _check(row['launches'].get(I8W) == 1 and row['launches'].get(I8MAXW) == 1
                and row['launches'].get('wide_bwd (K6b)') == 1,
                f"{tag}: launches {row['launches']}")
-    return {'rows': rows, 'paths': paths, 'i8pair_groups': groups}
+    torch.cuda.empty_cache()
+    k6b = probe_wide.i8pair_wide_row(WIDE_N_BWD, device, reps=3)
+    tag = f'[wide] K6b i8pair 8x1024:2 N={WIDE_N_BWD} group {fused_mlp.STASH_BWD_TILE}'
+    lib = k6b['dw_h_library']
+    print(f"{tag}: max over max|plain| " + '; '.join(
+        f"{k} {e['max_rel_err']:.2e}" for k, e in k6b['grads'].items())
+        + f"; bit-identical {k6b['bit_identical']}; {k6b['ms']:.3f} ms forward + backward "
+        f"(plain {k6b['plain_ms']:.3f}, library {k6b['library_ms']:.3f}, bound "
+        f"{k6b['bound_ms']:.3f} by {k6b['bound_by']}); backward {k6b['bwd_ms']:.3f} ms (plain "
+        f"{k6b['bwd_plain_ms']:.3f}; dW_h bound {k6b['dw_h_bound_ms']:.3f} by "
+        f"{k6b['dw_h_bound_by']}; bf16 torch.bmm "
+        f"{lib['bmm_ms']:.3f}, torch._int_mm a layer, summed {lib['int_mm_ms']:.3f}); launches "
+        f"{k6b['launches']}", flush=True)
+    _check(k6b['keys_match'], f'{tag}: gradient keys')
+    _check_grads(tag, k6b)
+    layers = WIDE_SHAPES[0][1]
+    _check(k6b['launches'].get(I8W) == layers - 1 and k6b['launches'].get(I8MAXW) == layers - 1
+           and k6b['launches'].get('wide_bwd (K6b)') == 1,
+           f"{tag}: launches {k6b['launches']}")
+    return {'rows': rows, 'paths': paths, 'i8pair_groups': groups, 'i8pair_8x1024': k6b}
 
 
 def _wide_snf(device) -> dict:
@@ -6070,8 +6099,7 @@ def main() -> int:
             ('K3', 'dpts_kernel (K3 wide)', 'wide_mlp_bwd.cu', 646, 'dpts_kernel (K3)'),
             ('K4', 'wide_mlp_fwd/bwd recompute (K4 wide)', 'wide_mlp_bwd.cu', 834, 'wide_bwd (K4)'),
             ('K6a', "wide_mlp_fwd/bwd 'lsb' (K6a wide)", 'wide_mlp_fwd.cu', 481, 'wide_bwd (K6a)'),
-            ('K6b', "wide_mlp_fwd/bwd 'i8pair' (K6b wide)", 'wide_mlp_bwd.cu', 503,
-             'dw_i8_kernel (K6b)'),
+            ('K6b', "wide_mlp_fwd/bwd 'i8pair' (K6b wide)", 'wide_mlp_bwd.cu', 503, I8W),
             ('K5', 'grid branch of the wide route (K5 wide)', 'wide_mlp_bwd.cu', 313,
              'grid_max_kernel (K5)')):
         r = wpaths[name]
@@ -6083,9 +6111,22 @@ def main() -> int:
             'replaces_where': 'd_filter above 512 or d_output outside the fused heads',
             'launches': r['launches'][counted], 'max_abs_err': r['max_abs_err'],
             'max_rel_err': r['max_rel_err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
-            'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'], 'library_ms': None,
+            'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
+            'library': 'one bf16 torch.matmul a layer product at the same shapes',
             'timed': 'forward + backward under autograd at 2x640, N = 65,536',
             'detail': r})
+        if name == 'K6b':
+            # the slice's full-width path: 8x1024 / d_output 2, N = 196,608
+            k6b = wide['i8pair_8x1024']
+            kernels[-1].update({
+                'launches': k6b['launches'][I8W], 'max_abs_err': k6b['max_abs_err'],
+                'max_rel_err': k6b['max_rel_err'], 'ms': k6b['ms'], 'plain_ms': k6b['plain_ms'],
+                'bound_ms': k6b['bound_ms'], 'bound_by': k6b['bound_by'],
+                'library_ms': k6b['library_ms'],
+                'timed': 'forward + backward under autograd at 8x1024 / d_output 2, N = 196,608, '
+                         'group 768',
+                'dw_h_library': k6b['dw_h_library'], 'at_2x640': r,
+                'groups_2x640': wide['i8pair_groups'], 'detail': k6b})
     kernels[-1]['scripts18'] = scripts18
     for k in kernels:
         _check(k['launches'] > 0, f"{k['name']}: no launches on its path")

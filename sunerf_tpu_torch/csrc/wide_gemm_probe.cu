@@ -1,8 +1,11 @@
 // The wide route's GEMM (wide_mlp.cuh wide_wgmma_kernel) taken apart, for
 // scripts/probe_wide_gemm.py: one layer's product with each epilogue, and
 // the dW products over the points in ranges (as the route runs them)
-// against one launch over every layer's tiles. Nothing of the route calls
-// it; it replaces no TPU kernel. Its variants' times show what bounds the
+// against one launch over every layer's tiles; and 'i8pair''s two kernels
+// alone (wide_dw_i8_wgmma_kernel; the chain step with its row maxima and
+// wide_dz_group_max_kernel), for the card tests
+// (tests/test_torch_wide_gemm.py). Nothing of the route calls it; it
+// replaces no TPU kernel. Its variants' times show what bounds the
 // route's kernels on the card: the products alone, the epilogues, the
 // stores straight from the accumulators against the staged ones.
 
@@ -105,4 +108,50 @@ extern "C" int sunerf_wide_dw_probe(const void* a, long long lda, const void* b,
   return static_cast<int>(launch_gemm<false>(g, tn, splits, k_split, part, count,
                                              StoreEpi{out, n_out},
                                              static_cast<cudaStream_t>(stream)));
+}
+
+// C entry: 'i8pair''s dW_h alone (wide_dw_i8_wgmma_kernel): out [h][h] f32 =
+// sin8^T dz8 per scale group of `group` points, sin8 the stash's columns
+// [a_x, a_x + h) of rows of ld bytes, dz [n][h] bf16, gmax the groups' max
+// |dz| bits; in the ranges of i8_plan (ranged != 0: part [kMaxSplits h h]
+// and count [ceil(h / 128)^2], zero) or in one range. Returns a cudaError_t.
+extern "C" int sunerf_wide_dw_i8_probe(const void* stash, long long ld, int a_x, const void* dz,
+                                       int n, int h, const unsigned int* gmax, int group,
+                                       int ranged, float* part, unsigned int* count, float* out,
+                                       void* stream) {
+  int splits = 1, k_split = (n + group - 1) / group * group;
+  if (ranged) {
+    int device = 0, sms = 132;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    i8_plan(h, n, group, sms, splits, k_split);
+  }
+  return static_cast<int>(dw_i8(static_cast<const int8_t*>(stash), ld, a_x,
+                                static_cast<const __nv_bfloat16*>(dz), n, h, gmax, group, splits,
+                                k_split, part, count, out, static_cast<cudaStream_t>(stream)));
+}
+
+// C entry: the 'i8pair' chain step alone and its scale groups' maxima: dz
+// [n][h] bf16 = bf16(bf16(a w^T) * gate) with a [n][k] and w [h][k] bf16
+// (K-major), the gate the int8 cos8 at column `at` of the stash's rows of ld
+// bytes; db_part [2 ceil(n / 128)][h] its column sums, rowmax [ceil(h /
+// 128)][n] its row maxima, gmax [ceil(n / group)] the groups' maxima
+// (wide_dz_group_max_kernel). Returns a cudaError_t.
+extern "C" int sunerf_wide_i8_chain_probe(const void* a, const void* w, int k, const void* stash,
+                                          long long ld, long long at, int n, int h, void* dz,
+                                          float* db_part, unsigned int* rowmax, int group,
+                                          unsigned int* gmax, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Gemm g{};
+  g.a = {static_cast<const __nv_bfloat16*>(a), k};
+  g.b = {static_cast<const __nv_bfloat16*>(w), k};
+  g.m = g.m_load = n;
+  g.n = g.n_load = h;
+  g.k = k;
+  using Epi = ChainEpi<kStashI8pair>;
+  const cudaError_t err = launch_kmajor(
+      g, Epi{static_cast<__nv_bfloat16*>(dz), h, stash, ld, at, db_part, rowmax}, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tn = tile_n(h, Epi::kMinTile);
+  return static_cast<int>(group_maxima(rowmax, n, (h + tn - 1) / tn, group, gmax, s));
 }

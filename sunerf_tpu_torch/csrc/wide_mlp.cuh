@@ -373,6 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1) wide_wgmma_kernel(const __grid_co
       if constexpr (Epi::kGate) yg = const_cast<unsigned char*>(gate);
       // begin's z is written by the warpgroup's other threads
       hp::named_sync(bar, 128);
+      unsigned int rmax[2] = {0u, 0u};   // kRowmax: max |dz| bits of this thread's rows
 #pragma unroll
       for (int c = 0; c < TN / kChunk; ++c) {
         const int c0 = nt * TN + kChunk * c;
@@ -391,6 +392,9 @@ __global__ void __launch_bounds__(kThreads, 1) wide_wgmma_kernel(const __grid_co
                   sum[jj].x += v.x;
                   sum[jj].y += v.y;
                 }
+                if constexpr (Epi::kRowmax)
+                  rmax[h] = max(rmax[h], max(__float_as_uint(fabsf(v.x)),
+                                             __float_as_uint(fabsf(v.y))));
               }
             }
           }
@@ -419,6 +423,17 @@ __global__ void __launch_bounds__(kThreads, 1) wide_wgmma_kernel(const __grid_co
           }
           // the region is written again by the next chunk
           hp::named_sync(bar, 128);
+        }
+      }
+      if constexpr (Epi::kRowmax) {
+        // each row's maximum over the tile's columns: over the 4 lanes of a
+        // row, a word a (N tile, point)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          unsigned int m = max(rmax[h], __shfl_xor_sync(0xffffffffu, rmax[h], 1));
+          m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          const int r = w4 * 16 + gq + 8 * h;
+          if (q == 0 && r < rows) epi.rowmax[static_cast<size_t>(nt) * g.m + row0 + r] = m;
         }
       }
       if constexpr (Epi::kGate) {
@@ -571,7 +586,7 @@ cudaError_t launch_kmajor(const Gemm& g, const Epi& epi, cudaStream_t s) {
 template <int kFmt>
 struct FwdEpi {
   static constexpr int kMinTile = 128;
-  static constexpr bool kStaged = true, kGate = false, kColsum = false;
+  static constexpr bool kStaged = true, kGate = false, kColsum = false, kRowmax = false;
   const float* bias;
   __nv_bfloat16* act;
   long long act_ld;
@@ -660,11 +675,14 @@ __device__ __forceinline__ float lsb_gate(uint16_t bits) {
 // int8 cs, kStashLsb the packed sin hs, kStashI8pair the int8 cos8 of the
 // pairs hs, kStashBf16Cos the bf16 cs. Staged: the gate read from the ring
 // (GateRing: TMA boxes, 128-byte swizzle), dz into x, and the column sums
-// of dz a warpgroup's 64 rows into db_part (the bias gradient's first step).
+// of dz a warpgroup's 64 rows into db_part (the bias gradient's first step);
+// 'i8pair' also each point's max |dz| over the tile's columns into rowmax
+// (the scale groups' maxima's first step, wide_dz_group_max_kernel).
 template <int kFmt>
 struct ChainEpi {
   static constexpr int kMinTile = 128;
   static constexpr bool kStaged = true, kGate = true, kColsum = true;
+  static constexpr bool kRowmax = kFmt == kStashI8pair;
   static constexpr bool kGate8 = kFmt == kStashInt8 || kFmt == kStashI8pair;
   static constexpr int kGateBytes = kGate8 ? 1 : 2;
   __nv_bfloat16* dz;
@@ -673,6 +691,7 @@ struct ChainEpi {
   long long stash_ld;
   long long at;
   float* db_part;   // [2 m tiles][h]
+  unsigned int* rowmax;  // 'i8pair': [N tiles][rows] each point's max |dz| over a tile's columns
 
   // the stash as the producer loads the gate: [rows][stash_ld] in boxes of
   // [64 rows][128 bytes]
@@ -864,182 +883,393 @@ __global__ void i8_dequant_kernel(const int8_t* q, long long ld, long long col0,
   out[t] = __float2bfloat16_rn(cos_dequant(q[row * ld + col0 + t % h]));
 }
 
-// gmax[g] = the bits of max |dz| over group g's rows [g G, (g+1) G) below n
-// and every column (non-negative floats order as their bits, NaN above
-// every finite one, as jnp.max propagates it): a block a group.
-__global__ void group_max_kernel(const __nv_bfloat16* dz, int n, int h, int group,
-                                 unsigned int* gmax) {
-  __shared__ unsigned int best;
-  if (threadIdx.x == 0) best = 0u;
-  __syncthreads();
-  const long long r0 = static_cast<long long>(blockIdx.x) * group;
-  const long long end = min(static_cast<long long>(n), r0 + group) * h;
+// The groups' maxima of 'i8pair''s dz scale (K6b's _mm_i8 takes max |dz|
+// over each group of `group` points): the chain's epilogue writes each
+// point's max |dz| over an N tile's columns as the bits of a non-negative
+// float (ChainEpi::rowmax, [tiles][n]); gmax[g] = the max of those words
+// over group g's points [g G, (g+1) G) below n and every tile, compared as
+// bits (non-negative floats order as their bits, NaN above every finite
+// one, as jnp.max propagates it): a warp a group, 8 groups a block. The
+// words replace a pass over dz (n H bf16, 403 MB a layer at 8x1024, N =
+// 196,608) with one over n tiles words (3.1 MB).
+constexpr int kGroupsPerBlock = 8;
+
+__global__ void __launch_bounds__(32 * kGroupsPerBlock) wide_dz_group_max_kernel(
+    const unsigned int* rowmax, int n, int tiles, int group, int n_groups, unsigned int* gmax) {
+  const int g = blockIdx.x * kGroupsPerBlock + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (g >= n_groups) return;
+  const long long r0 = static_cast<long long>(g) * group;
+  const long long r1 = min(static_cast<long long>(n), r0 + group);
   unsigned int m = 0u;
-  for (long long t = r0 * h + threadIdx.x; t < end; t += blockDim.x)
-    m = max(m, __float_as_uint(fabsf(__bfloat162float(dz[t]))));
-  atomicMax(&best, m);
-  __syncthreads();
-  if (threadIdx.x == 0) gmax[blockIdx.x] = best;
+  for (int t = 0; t < tiles; ++t)
+    for (long long r = r0 + lane; r < r1; r += 32)
+      m = max(m, __ldg(rowmax + static_cast<size_t>(t) * n + r));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) gmax[g] = m;
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+inline cudaError_t group_maxima(const unsigned int* rowmax, int n, int tiles, int group,
+                                unsigned int* gmax, cudaStream_t s) {
+  const int n_groups = (n + group - 1) / group;
+  wide_dz_group_max_kernel<<<(n_groups + kGroupsPerBlock - 1) / kGroupsPerBlock,
+                             32 * kGroupsPerBlock, 0, s>>>(rowmax, n, tiles, group, n_groups,
+                                                           gmax);
+  return cudaGetLastError();
 }
 
-// 4 bytes of column c of an int8 tile [rows][kI8Ld], rows k .. k+3: an
-// m16n8k32 fragment register (row k in the low byte)
-constexpr int kI8Ld = kBM + 16;
-__device__ __forceinline__ uint32_t i8_column4(const int8_t* s, int k, int c) {
-  return (static_cast<uint32_t>(static_cast<uint8_t>(s[k * kI8Ld + c])))
-         | (static_cast<uint32_t>(static_cast<uint8_t>(s[(k + 1) * kI8Ld + c])) << 8)
-         | (static_cast<uint32_t>(static_cast<uint8_t>(s[(k + 2) * kI8Ld + c])) << 16)
-         | (static_cast<uint32_t>(static_cast<uint8_t>(s[(k + 3) * kI8Ld + c])) << 24);
-}
-
-// 'i8pair''s dW_h tiles: 128 x 128 outputs, 32-point slices, 8 warps
-constexpr int kI8K = 32, kI8BN = 128, kI8Threads = 256;
+// 'i8pair''s dW_h tiles: kBM x kI8TN outputs over chunks of kI8Chunk points,
+// a ring of kI8Stages chunks, kI8Bufs buffers of int8 operands
+constexpr int kI8TN = 128, kI8Chunk = 64, kI8Stages = 6, kI8Bufs = 3;
+constexpr int kI8ABytes = kI8Chunk * 128;                       // the stash box
+constexpr int kI8StageBytes = kI8ABytes + (kI8TN / 64) * 8192;  // and dz's boxes
+constexpr int kI8A8 = kBM * kI8Chunk;                           // A8 [128 rows][64 k]
+constexpr int kI8OpBytes = kI8A8 + kI8TN * kI8Chunk;            // A8 and B8
+constexpr size_t kI8Smem =
+    static_cast<size_t>(kI8Stages) * kI8StageBytes + kI8Bufs * kI8OpBytes + 1024;
 
 // The split of 'i8pair''s dW_h points (ops/wide_mlp.py i8_plan): ranges of
-// whole scale groups, enough for about two blocks an SM, at least 1024
-// points a range, at most kMaxSplits.
+// whole scale groups, as many as keep every block of the card on one tile
+// (one wave of the persistent walk), at least 1024 points a range, at most
+// kMaxSplits.
 inline void i8_plan(int h, int points, int group, int sms, int& splits, int& k_split) {
-  const int tiles = ((h + kBM - 1) / kBM) * ((h + kI8BN - 1) / kI8BN);
-  int want = (2 * sms + tiles - 1) / tiles;
-  want = max(1, min(want, min(kMaxSplits, (points + 1023) / 1024)));
+  const int tiles = ((h + kBM - 1) / kBM) * ((h + kI8TN - 1) / kI8TN);
+  const int want = max(1, min(sms / tiles, min(kMaxSplits, (points + 1023) / 1024)));
   k_split = ((points + want - 1) / want + group - 1) / group * group;
   splits = (points + k_split - 1) / k_split;
 }
 
-// The bytes of an m16n8k32 fragment register holding rows k .. k+3 (row k
-// in the low byte) that lie in [lo, hi): 0xFF where they do, else 0.
-__device__ __forceinline__ uint32_t row_mask4(int k, int lo, int hi) {
-  uint32_t m = 0u;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (k + e >= lo && k + e < hi) m |= 0xFFu << (8 * e);
-  return m;
+// The int8 operands of wide_dw_i8_wgmma_kernel, both K-major (8-bit wgmma
+// takes no transpose) with the chunk's 64 points as K, in the no-swizzle
+// layout: core matrices of 8 rows x 16 k (16 bytes), element (row, k) at
+// ((k / 16) (rows / 8) + row / 8) 128 + (row % 8) 16 + k % 16. K runs over
+// the points in the order k = 16 kg + 8 h + j <-> point 8 j + 2 kg + h (the
+// sum over k does not care, as long as A and B agree): a thread with the
+// points 8 j + q (q = l / 4, j = 0..7) then writes 8 contiguous bytes of a
+// core-matrix row (kg = q / 2, h = q % 2). ops/wide_mlp.py
+// i8_build_operands mirrors the builds.
+__device__ __forceinline__ int i8_offset(int rows, int row, int q) {
+  return ((q >> 1) * (rows / 8) + row / 8) * 128 + (row % 8) * 16 + 8 * (q & 1);
 }
 
-// 'i8pair' dW_h = sin8^T dz8 on the int8 tensor cores (mma.sync m16n8k32
-// s32.s8.s8), K6b's _dw_i8 at any scale group of `group` points (1 to
-// 133,144, so that a group's int32 sum cannot overflow): each point's dz is
-// quantized with its own group's scale 127 / m (m the group's max |dz|, a
-// rounded division; 0 where m = 0) to round_half_even(dz scale); each
-// group's exact int32 sum goes to f32 and is scaled by f32(m (1/127)^2) into
-// f32 accumulators, group after group in point order. A block takes a
-// 128 x 128 tile of dW over its split's points (whole groups), loading each
-// 32-point slice of sin8 (as stored) and of dz (quantized on the way) into
-// shared memory; where a group boundary falls inside a slice, the slice's
-// products are issued once for each of its groups, the other groups' dz
-// rows masked to zero in the fragments, and a group's sum is flushed where
-// it ends. One int32 accumulator set is live at a time (a group that runs
-// on into the next slice keeps it). out is the split's f32 partials [m][n].
-__global__ void __launch_bounds__(kI8Threads) dw_i8_kernel(
-    const int8_t* s8, long long s8_ld, const __nv_bfloat16* dz, int h, int n_pts,
-    const unsigned int* gmax, int group, int k_split, float* out) {
-  __shared__ int8_t sa[kI8K * kI8Ld];
-  __shared__ int8_t sb[kI8K * kI8Ld];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kI8BN;
-  const int kb = blockIdx.z * k_split;
-  const int ke = min(n_pts, kb + k_split);
-  int acc_i[4][4][4];
-  float acc[4][4][4];
+// Bytes e of four words, in order (e may differ from lane to lane)
+__device__ __forceinline__ uint32_t gather_bytes(uint32_t w0, uint32_t w1, uint32_t w2,
+                                                 uint32_t w3, int e) {
+  const int sel = e | ((e + 4) << 4);
+  return __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel), 0x5410);
+}
+
+// A = sin8^T [128 rows m][64 points] from the stash box [64 points][128
+// bytes of m] (TMA, 128-byte swizzle: point p's 16-byte piece i at
+// p 128 + ((i ^ p) % 8) 16): thread t (warp w, lane l) the columns
+// m = 16 w + 4 (l % 4) + e, e = 0..3, of the points 8 j + l / 4 (one 32-bit
+// load a point, a byte transpose); the row order rotated by
+// 2 kg + (l % 4) / 2 so that a half warp's 8-byte stores cover 16 slots.
+__device__ __forceinline__ void build_a8(const unsigned char* box, unsigned char* a8) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, c3 = lane & 3;
+  const unsigned char* src = box + q * 128 + ((warp ^ q) << 4) + 4 * c3;
+  uint32_t w[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 8; ++j) w[j] = *reinterpret_cast<const uint32_t*>(src + 1024 * j);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc_i[i][j][e] = 0;
-        acc[i][j][e] = 0.f;
-      }
-  const int gq = lane >> 2, q = lane & 3;
-  for (int k0 = kb; k0 < ke; k0 += kI8K) {
-    // the slices: thread t takes 16 columns of one point row of each, the
-    // point's dz quantized with its own group's scale
-    const int r = threadIdx.x >> 3, c = (threadIdx.x & 7) * 16;
-    const int pt = k0 + r;
-    int4 va = make_int4(0, 0, 0, 0);
-    int8_t vb[16];
-    if (pt < ke) {
-      const float m = __uint_as_float(gmax[pt / group]);
-      const float scale = m > 0.f ? __fdiv_rn(kCosScale, m) : 0.f;
-      if (m0 + c < h)
-        va = *reinterpret_cast<const int4*>(s8 + static_cast<size_t>(pt) * s8_ld + m0 + c);
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const float x = n0 + c + e < h
-                            ? __bfloat162float(dz[static_cast<size_t>(pt) * h + n0 + c + e]) : 0.f;
-        vb[e] = static_cast<int8_t>(__float2int_rn(__fmul_rn(x, scale)));
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 16; ++e) vb[e] = 0;
-    }
-    __syncthreads();
-    *reinterpret_cast<int4*>(sa + r * kI8Ld + c) = va;
-#pragma unroll
-    for (int e = 0; e < 16; ++e) sb[r * kI8Ld + c + e] = vb[e];
-    __syncthreads();
-    uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int row = wm * 64 + mt * 16 + gq;
-      af[mt][0] = i8_column4(sa, 4 * q, row);
-      af[mt][1] = i8_column4(sa, 4 * q, row + 8);
-      af[mt][2] = i8_column4(sa, 16 + 4 * q, row);
-      af[mt][3] = i8_column4(sa, 16 + 4 * q, row + 8);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = wn * 32 + nt * 8 + gq;
-      bfr[nt][0] = i8_column4(sb, 4 * q, col);
-      bfr[nt][1] = i8_column4(sb, 16 + 4 * q, col);
-    }
-    // the slice's groups in order: the points [lo, hi) of group gi
-    const int k1 = min(k0 + kI8K, ke);
-    for (int gi = k0 / group; gi * group < k1; ++gi) {
-      const int lo = max(k0, gi * group), hi = min(k1, (gi + 1) * group);
-      const uint32_t mk0 = row_mask4(k0 + 4 * q, lo, hi), mk1 = row_mask4(k0 + 16 + 4 * q, lo, hi);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_s8(acc_i[mt][nt], af[mt], bfr[nt][0] & mk0, bfr[nt][1] & mk1);
-      // the group's end (or the split's): its exact sum, scaled, into f32
-      if (hi == (gi + 1) * group || hi == ke) {
-        const float f = __fmul_rn(__uint_as_float(gmax[gi]), kInvCosSq);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              acc[i][j][e] = __fadd_rn(acc[i][j][e],
-                                       __fmul_rn(static_cast<float>(acc_i[i][j][e]), f));
-              acc_i[i][j][e] = 0;
-            }
-      }
-    }
+  for (int e = 0; e < 4; ++e) {
+    const int er = (e + 2 * (q >> 1) + (c3 >> 1)) & 3;
+    *reinterpret_cast<uint2*>(a8 + i8_offset(kBM, 16 * warp + 4 * c3 + er, q)) =
+        make_uint2(gather_bytes(w[0], w[1], w[2], w[3], er),
+                   gather_bytes(w[4], w[5], w[6], w[7], er));
   }
-  float* o = out + static_cast<size_t>(blockIdx.z) * h * h;
+}
+
+// B = dz8 [kI8TN rows n][64 points] of a group segment: round_half_even(dz
+// scale) for the chunk's points [s0, s1), 0 for its others, from dz's boxes
+// [64 points][64 bf16] (TMA, 128-byte swizzle; box n / 64, point p's
+// 16-byte piece i at p 128 + ((i ^ p) % 8) 16): thread t the columns
+// n = 8 ng + 2 (l % 4) and n + 1 of the points 8 j + l / 4 for
+// ng = 2 w, 2 w + 1 (one 32-bit load a point; a warp's 32 loads on 32
+// banks); odd kg store column n + 1 first. The product is rounded to f32,
+// then to an integer by adding 1.5 2^23 (round half to even, the integer in
+// the low bits: its low byte is the int8). Each block quantizes its tile's
+// columns once a chunk for both warpgroups' rows.
+__device__ __forceinline__ void build_b8(const unsigned char* boxes, unsigned char* b8, int s0,
+                                         int s1, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, cp = lane & 3, kg = q >> 1;
+  constexpr float kRound = 12582912.0f;
+  float sc[8];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int j = 0; j < 8; ++j) sc[j] = (8 * j + q >= s0 && 8 * j + q < s1) ? scale : 0.0f;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+  for (int u = 0; u < kI8TN / 64; ++u) {
+    const int ng = (kI8TN / 64) * warp + u;
+    const int n = 8 * ng + 2 * cp;
+    const unsigned char* src = boxes + (ng >> 3) * 8192 + q * 128 + (((ng & 7) ^ q) << 4) + 4 * cp;
+    uint32_t lo[8], hi[8];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 64 + mt * 16 + gq + 8 * (e >> 1);
-        const int col = n0 + wn * 32 + nt * 8 + 2 * q + (e & 1);
-        if (row < h && col < h) o[static_cast<size_t>(row) * h + col] = acc[mt][nt][e];
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(src + 1024 * j);
+      lo[j] = __float_as_uint(__fadd_rn(__fmul_rn(__uint_as_float(x << 16), sc[j]), kRound));
+      hi[j] = __float_as_uint(__fadd_rn(__fmul_rn(__uint_as_float(x & 0xFFFF0000u), sc[j]),
+                                        kRound));
+    }
+    const uint2 vlo = make_uint2(gather_bytes(lo[0], lo[1], lo[2], lo[3], 0),
+                                 gather_bytes(lo[4], lo[5], lo[6], lo[7], 0));
+    const uint2 vhi = make_uint2(gather_bytes(hi[0], hi[1], hi[2], hi[3], 0),
+                                 gather_bytes(hi[4], hi[5], hi[6], hi[7], 0));
+    *reinterpret_cast<uint2*>(b8 + i8_offset(kI8TN, n + (kg & 1), q)) = (kg & 1) ? vhi : vlo;
+    *reinterpret_cast<uint2*>(b8 + i8_offset(kI8TN, n + 1 - (kg & 1), q)) = (kg & 1) ? vlo : vhi;
+  }
+}
+
+// Variants of wide_dw_i8_wgmma_kernel for scripts/probe_wide_gemm.py (built
+// with -D by build.build(name, defines); timed only, their sums are wrong):
+// 1 without the operand builds, 2 without the products, 3 without either.
+#ifndef SUNERF_WIDE_I8_ABLATION
+#define SUNERF_WIDE_I8_ABLATION 0
+#endif
+
+// The parameters of wide_dw_i8_wgmma_kernel
+struct I8Params {
+  CUtensorMap a;            // the stash [n][ld] bytes in boxes [64 points][128 bytes]
+  CUtensorMap b;            // dz [n][h] bf16 in boxes [64 points][64 columns]
+  int a_x;                  // the layer's sin8 column in the stash
+  int h, n, group, k_split, splits;
+  const unsigned int* gmax; // the groups' max |dz| bits (wide_dz_group_max_kernel)
+  float* out;               // dW_h [h][h]
+  float* part;              // splits > 1: the ranges' partials [splits][h][h]
+  unsigned int* count;      // splits > 1: the arrivals a tile, zero between launches
+};
+
+// 'i8pair' dW_h = sin8^T dz8 on the int8 tensor cores, K6b's _dw_i8 (the
+// i8pair branch of _bwd_stash_kernel, _mm_i8) at any scale group of `group`
+// points (1 to 133,144, so that a group's int32 sum cannot overflow): with
+// m = gmax[g] of group g, scale = 127 / m (a rounded division; 0 where
+// m = 0), dz8 = round_half_even(dz scale); each group's exact int32 sum of
+// sin8 (x) dz8 goes to f32 and is scaled by f32(m (1/127)^2) into f32 sums,
+// group after group in point order. Work items (range of whole groups,
+// 128-row tile of m, kI8TN-column tile of n), walked by persistent blocks of
+// two warpgroups in one wave, the items of a range side by side, so that
+// the tiles reading the same chunk of sin8 (h / kI8TN of them) and of dz
+// (h / 128) run at the same time and L2 serves the repeats. Thread 0 keeps
+// a ring of 64-point chunks kI8Stages ahead: the stash box [64 points][128
+// bytes of sin8] and dz's kI8TN columns as two boxes [64][64 bf16], by TMA
+// in the 128-byte swizzle (past n and past the width TMA's zeros), and
+// refills a stage as soon as the block is past its last read. No producer
+// warp: the int32 and f32 accumulator sets take 128 registers a thread, and
+// a ninth warp would cap them at 168. Both warpgroups transpose each chunk
+// into K-major int8 operands (build_a8, and build_b8 with dz quantized: once
+// a chunk for both warpgroups' rows), meet at one barrier, and run wgmma
+// m64n128k32 s32.s8.s8 twice, each warpgroup its 64 rows, the next chunk's
+// transposes under them. A chunk that crosses a group boundary (G = 8, 24,
+// 40, ...) is taken one segment at a time, its other points' dz8 zero.
+// Three operand buffers: a warpgroup waits for its products of the segment
+// before last before the barrier, so the buffer rewritten after it is no
+// longer read by either. Rows of a tile past h (the stash's next columns)
+// are computed and not stored. With one range the sums are _dw_i8's bits;
+// ranges' partials are summed in range order by each tile's last block (a
+// counter a tile, reset by that block).
+//
+// Bound on this card: operations, 2 n h^2 int8 (0.412 TOP a layer at
+// 8x1024, N = 196,608: 0.208 ms at 1979 TOPS dense); bytes, sin8 n h and dz
+// 2 n h once (0.604 GB, 0.180 ms at 3.35 TB/s). The design streams sin8
+// h / kI8TN and dz h / 128 times from L2 (4.8 GB a layer at 8x1024) and
+// builds both operands in the consumers' time: scripts/probe_wide_gemm.py
+// on an H100 80GB HBM3 at 700 W, a layer at 8x1024, the kernel 1.387 ms,
+// its ring's loads alone 0.707 (the L2 stream at 6.8 TB/s), the loads and
+// builds without the products 1.272.
+__global__ void __launch_bounds__(kConsumers, 1) wide_dw_i8_wgmma_kernel(
+    const __grid_constant__ I8Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kI8Stages];
+  __shared__ int last;
+  unsigned char* stages = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* ops = stages + kI8Stages * kI8StageBytes;
+  const int tiles_n = (p.h + kI8TN - 1) / kI8TN;
+  const int tiles = ((p.h + kBM - 1) / kBM) * tiles_n, items = p.splits * tiles;
+  auto item = [&](int it, int& split, int& mt, int& nt) {
+    split = it / tiles;
+    const int r = it - split * tiles;
+    mt = r / tiles_n;
+    nt = r - mt * tiles_n;
+  };
+
+  // thread 0's loader: the block's chunks in the order they are read
+  int ld_it = blockIdx.x, ld_c = ld_it < items ? (ld_it / tiles) * p.k_split : 0, ld_st = 0;
+  const uint64_t policy = hp::evict_normal_policy();
+  auto load_next = [&]() {
+    if (ld_it >= items) return;
+    int split, mt, nt;
+    item(ld_it, split, mt, nt);
+    unsigned char* s = stages + ld_st * kI8StageBytes;
+    hp::mbar_expect_tx(&full[ld_st], kI8StageBytes);
+    hp::tensor_load_2d(s, &p.a, p.a_x + mt * kBM, ld_c, &full[ld_st], policy);
+#pragma unroll
+    for (int b = 0; b < kI8TN / 64; ++b)
+      hp::tensor_load_2d(s + kI8ABytes + b * 8192, &p.b, nt * kI8TN + 64 * b, ld_c, &full[ld_st],
+                         policy);
+    if (++ld_st == kI8Stages) ld_st = 0;
+    ld_c += kI8Chunk;
+    if (ld_c >= min(p.n, (split + 1) * p.k_split)) {
+      ld_it += gridDim.x;
+      ld_c = ld_it < items ? (ld_it / tiles) * p.k_split : 0;
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kI8Stages; ++s) hp::mbar_init(&full[s], 1);
+    hp::fence_barrier_init();
+    for (int s = 0; s < kI8Stages; ++s) load_next();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, w4 = warp & 3, gq = lane >> 2, q = lane & 3;
+  const uint32_t ops0 = hp::smem_u32(ops);
+  const size_t hh = static_cast<size_t>(p.h) * p.h;
+  int stage = 0, phase = 0, buf = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int split, mt, nt;
+    item(it, split, mt, nt);
+    const int p0 = split * p.k_split, p1 = min(p.n, p0 + p.k_split);
+    int acc_i[kI8TN / 2];
+    float acc_f[kI8TN / 2];
+#pragma unroll
+    for (int e = 0; e < kI8TN / 2; ++e) {
+      acc_i[e] = 0;
+      acc_f[e] = 0.f;
+    }
+    int have = -1;   // the chunk in the stage being read
+    const unsigned char* sa = stages;
+    for (int g0 = p0; g0 < p1;) {
+      const int grp = g0 / p.group;
+      const int g1 = min(p1, (grp + 1) * p.group);
+      const float m = __uint_as_float(__ldg(p.gmax + grp));
+      const float scale = m > 0.f ? __fdiv_rn(kCosScale, m) : 0.f;
+      for (int s0 = g0; s0 < g1;) {
+        const int c = p0 + ((s0 - p0) & ~(kI8Chunk - 1));
+        if (c != have) {
+          hp::mbar_wait(&full[stage], phase);
+          sa = stages + stage * kI8StageBytes;
+          if (++stage == kI8Stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+          have = c;
+        }
+        const int c_end = min(c + kI8Chunk, p1), s1 = min(g1, c_end);
+        unsigned char* op = ops + buf * kI8OpBytes;
+        if (SUNERF_WIDE_I8_ABLATION != 1 && SUNERF_WIDE_I8_ABLATION != 3) {
+          build_a8(sa, op);
+          build_b8(sa + kI8ABytes, op + kI8A8, s0 - c, s1 - c, scale);
+        }
+        hp::fence_async_smem();
+        hp::named_sync(1, kConsumers);
+        // the block is past its reads of the chunk: refill its stage
+        if (s1 == c_end && threadIdx.x == 0) load_next();
+        const uint32_t a8 = ops0 + buf * kI8OpBytes, b8 = a8 + kI8A8;
+        hp::wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          if (SUNERF_WIDE_I8_ABLATION != 2 && SUNERF_WIDE_I8_ABLATION != 3)
+            hp::wgmma_s8(acc_i,
+                         hp::make_desc(a8 + wg * (64 / 8) * 128 + 2 * s * (kBM / 8) * 128,
+                                       (kBM / 8) * 128, 128),
+                         hp::make_desc(b8 + 2 * s * (kI8TN / 8) * 128, (kI8TN / 8) * 128, 128),
+                         s0 > g0 || s > 0);
+        hp::wgmma_commit();
+        if (++buf == kI8Bufs) buf = 0;
+        hp::wgmma_wait<1>();
+        s0 = s1;
       }
+      // the group ends: its exact int32 sum, scaled, into the f32 sum
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc_i);
+      const float f = __fmul_rn(m, kInvCosSq);
+#pragma unroll
+      for (int e = 0; e < kI8TN / 2; ++e)
+        acc_f[e] = __fadd_rn(acc_f[e], __fmul_rn(__int2float_rn(acc_i[e]), f));
+      g0 = g1;
+    }
+    // accumulator entry 4 j + i: row 16 w4 + gq + 8 (i / 2) of this
+    // warpgroup's 64, column 8 j + 2 q + (i % 2)
+    const int rw = mt * kBM + wg * 64 + w4 * 16 + gq, col0 = nt * kI8TN + 2 * q;
+    float* dst = p.splits == 1 ? p.out : p.part + split * hh;
+#pragma unroll
+    for (int j = 0; j < kI8TN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rw + 8 * r, col = col0 + 8 * j;
+        if (row < p.h && col < p.h)   // h is even: col + 1 < h too
+          *reinterpret_cast<float2*>(dst + static_cast<size_t>(row) * p.h + col) =
+              make_float2(acc_f[4 * j + 2 * r], acc_f[4 * j + 2 * r + 1]);
+      }
+    if (p.splits == 1) continue;
+    // a range's partial: the tile's last arrival sums the partials in range order
+    __threadfence();
+    hp::named_sync(1, kConsumers);
+    if (threadIdx.x == 0) {
+      unsigned int* cnt = p.count + mt * tiles_n + nt;
+      const bool is_last = atomicAdd(cnt, 1u) == static_cast<unsigned int>(p.splits - 1);
+      if (is_last) *cnt = 0u;
+      last = is_last;
+    }
+    hp::named_sync(1, kConsumers);
+    if (!last) continue;
+    __threadfence();
+#pragma unroll
+    for (int j = 0; j < kI8TN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rw + 8 * r, col = col0 + 8 * j;
+        if (row < p.h && col < p.h) {
+          const float* src = p.part + static_cast<size_t>(row) * p.h + col;
+          float v0 = 0.f, v1 = 0.f;
+          for (int sp = 0; sp < p.splits; ++sp, src += hh) {
+            v0 += __ldcg(src);
+            v1 += __ldcg(src + 1);
+          }
+          *reinterpret_cast<float2*>(p.out + static_cast<size_t>(row) * p.h + col) =
+              make_float2(v0, v1);
+        }
+      }
+  }
+}
+
+// Launch wide_dw_i8_wgmma_kernel: out [h][h] = dW_h of sin8, the stash's
+// columns [a_x, a_x + h) of rows of ld bytes, and dz [n][h] bf16, per scale
+// group of `group` points with the groups' maxima gmax, in `splits` ranges
+// of k_split points (i8_plan; splits > 1: partials [splits][h][h] and
+// counts [tiles], zero). A persistent grid of at most one block an SM.
+inline cudaError_t dw_i8(const int8_t* stash, long long ld, int a_x, const __nv_bfloat16* dz,
+                         int n, int h, const unsigned int* gmax, int group, int splits,
+                         int k_split, float* part, unsigned int* count, float* out,
+                         cudaStream_t s) {
+  I8Params p{};
+  cudaError_t err = hp::encode_2d(&p.a, CU_TENSOR_MAP_DATA_TYPE_UINT8, stash, ld, n, ld, 128,
+                                  kI8Chunk, true);
+  if (err != cudaSuccess) return err;
+  err = hp::encode_2d(&p.b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dz, h, n, 2LL * h, 64, kI8Chunk,
+                      true);
+  if (err != cudaSuccess) return err;
+  p.a_x = a_x;
+  p.h = h;
+  p.n = n;
+  p.group = group;
+  p.k_split = k_split;
+  p.splits = splits;
+  p.gmax = gmax;
+  p.out = out;
+  p.part = part;
+  p.count = count;
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  err = cudaFuncSetAttribute(wide_dw_i8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kI8Smem));
+  if (err != cudaSuccess) return err;
+  const int items = splits * ((h + kBM - 1) / kBM) * ((h + kI8TN - 1) / kI8TN);
+  wide_dw_i8_wgmma_kernel<<<min(items, sms), kConsumers, kI8Smem, s>>>(p);
+  return cudaGetLastError();
 }
 
 // The arguments of both entries (ops/wide_mlp.py _WideArgs), by pointer.
@@ -1081,8 +1311,10 @@ struct WideArgs {
   unsigned long long* gacc;     // K5: [sum G^3 F], zeroed
   float* g_grid;                // K5: [sum G^3 F]
   unsigned int* group_max;      // 'i8pair': [ceil(n / group)] scratch
-  unsigned int* tile_count;     // [dW tiles at most] arrivals, zero (wide_wgmma_kernel)
+  unsigned int* tile_count;     // [dW tiles at most] arrivals, zero (wide_wgmma_kernel,
+                                // wide_dw_i8_wgmma_kernel)
   float* db_part;               // [2 ceil(n / 128), H] the chain's column sums (ChainEpi)
+  unsigned int* dz_rowmax;      // 'i8pair': [ceil(H / 128), n] the chain's row maxima
   int n, d_in, n_cols, e_pad, h, n_hidden, d_out, o_pad, fmt;
   int group;                    // 'i8pair': dz's scale group, 1 to 133,144
 };

@@ -1,6 +1,7 @@
 // The wide route's backward for Hopper (sm_90a), one launch a layer
-// (wide_mlp.cuh): K2 ('int8'), K6a ('lsb'), K6b ('i8pair': dW_h on the int8
-// tensor cores, dw_i8_kernel) and K4's backward (its bf16 cos gate) with
+// (wide_mlp.cuh): K2 ('int8'), K6a ('lsb'), K6b ('i8pair': dW_h on int8
+// wgmma, wide_dw_i8_wgmma_kernel, its scale groups' maxima from the chain's
+// epilogue) and K4's backward (its bf16 cos gate) with
 // the point cotangent K3 and the grid levels' d_table K5,
 // for a field above the fused kernels' widths or outside their heads. It
 // replaces, at those shapes, the TPU kernels
@@ -36,9 +37,10 @@ namespace {
 // returned no error (read by sunerf_kernel_launches): backwards by format
 // (K2, K6a, K6b, K4), then the chain and dW GEMMs' (wide_wgmma_kernel), the
 // point cotangent's (dpts_kernel, K3), the grid cotangent's maxima
-// (grid_max_kernel, K5), the int8 dW_h products ('i8pair', dw_i8_kernel)
-// and the denc GEMMs' (K3, K5)
-constexpr int kCounts = 10;
+// (grid_max_kernel, K5), the int8 dW_h products ('i8pair',
+// wide_dw_i8_wgmma_kernel), the denc GEMMs' (K3, K5) and the scale groups'
+// maxima ('i8pair', wide_dz_group_max_kernel)
+constexpr int kCounts = 11;
 unsigned long long wide_launches[kCounts] = {};
 
 // K3's tail a thread a point: dpts[d] = denc[d] + the sum over the phase
@@ -109,7 +111,8 @@ cudaError_t dw_product(const wide::WideArgs& a, const wide::Operand& A, int m,
 
 // The chain step into layer `layer`'s dz: dz_out = bf16(bf16(A B^T) * gate)
 // with A [n, k] and B^T [H, k] K-major, and the layer's bias gradient from
-// the epilogue's column sums (db_part)
+// the epilogue's column sums (db_part); 'i8pair' also each point's max |dz|
+// an N tile (dz_rowmax)
 template <int kFmt>
 cudaError_t chain_step(const wide::WideArgs& a, const wide::Operand& in, const wide::Operand& w,
                        int k, int layer, __nv_bfloat16* dz_out, cudaStream_t s) {
@@ -121,7 +124,7 @@ cudaError_t chain_step(const wide::WideArgs& a, const wide::Operand& in, const w
   wide::ChainEpi<kFmt> epi{dz_out, a.h, kInHs ? a.hs : a.cs, kPer * lh,
                            static_cast<long long>(kPer) * layer * a.h
                                + (kFmt == kStashI8pair ? a.h : 0),
-                           a.db_part};
+                           a.db_part, a.dz_rowmax};
   wide::Gemm g{};
   g.a = in;
   g.b = w;
@@ -137,25 +140,24 @@ cudaError_t chain_step(const wide::WideArgs& a, const wide::Operand& in, const w
                            layer > 0 ? a.g_b_h + static_cast<size_t>(layer - 1) * a.h : a.g_b_in, s);
 }
 
-// 'i8pair': dW_h[layer] = sin8_layer^T dz8 per scale group on the int8
-// tensor cores (dw_i8_kernel), over ranges of whole groups, summed in order
+// 'i8pair': dW_h[layer] = sin8_layer^T dz8 per scale group on int8 wgmma
+// (wide_dw_i8_wgmma_kernel), over ranges of whole groups summed in order in
+// the kernel; the groups' maxima from the chain's row maxima of dz
+// (wide_dz_group_max_kernel)
 cudaError_t dw_i8_product(const wide::WideArgs& a, const __nv_bfloat16* dz, int layer, int sms,
                           float* out, cudaStream_t s) {
   const int n = a.n, H = a.h;
-  const int n_groups = (n + a.group - 1) / a.group;
-  wide::group_max_kernel<<<n_groups, 256, 0, s>>>(dz, n, H, a.group, a.group_max);
-  cudaError_t err = cudaGetLastError();
+  const int tn = wide::tile_n(H, wide::ChainEpi<kStashI8pair>::kMinTile);   // the chain's
+  cudaError_t err = wide::group_maxima(a.dz_rowmax, n, (H + tn - 1) / tn, a.group, a.group_max, s);
   if (err != cudaSuccess) return err;
+  ++wide_launches[10];
   int splits, k_split;
   wide::i8_plan(H, n, a.group, sms, splits, k_split);
   const long long lh = static_cast<long long>(a.n_hidden + 1) * H;
-  const dim3 grid((H + wide::kI8BN - 1) / wide::kI8BN, (H + wide::kBM - 1) / wide::kBM, splits);
-  wide::dw_i8_kernel<<<grid, wide::kI8Threads, 0, s>>>(
-      static_cast<const int8_t*>(a.hs) + 2LL * layer * H, 2 * lh, dz, H, n, a.group_max, a.group,
-      k_split, a.part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ++wide_launches[8];
-  return wide::sum_parts(a.part, splits, static_cast<size_t>(H) * H, out, s);
+  err = wide::dw_i8(static_cast<const int8_t*>(a.hs), 2 * lh, 2 * layer * H, dz, n, H,
+                    a.group_max, a.group, splits, k_split, a.part, a.tile_count, out, s);
+  if (err == cudaSuccess) ++wide_launches[8];
+  return err;
 }
 
 // denc [n, cols] f32 = dz_0 bf16(W_in[rows from row0])^T
@@ -265,7 +267,8 @@ extern "C" int sunerf_wide_mlp_bwd(const void* args, void* stream) {
   if (a.n <= 0 || a.h % 16 != 0 || a.e_pad % 16 != 0 || a.d_out < 1 || a.o_pad % 8 != 0
       || a.o_pad < a.d_out
       || a.part == nullptr || a.tile_count == nullptr || a.db_part == nullptr
-      || (a.fmt == kStashI8pair && (a.group < 1 || a.group > 133144 || a.group_max == nullptr)))
+      || (a.fmt == kStashI8pair && (a.group < 1 || a.group > 133144 || a.group_max == nullptr
+                                    || a.dz_rowmax == nullptr)))
     return cudaErrorInvalidValue;
   cudaError_t err;
   int slot;

@@ -1108,7 +1108,8 @@ COUNTED_KERNELS = {
                      'wide_fwd (K4)', 'encode_kernel', 'wide_wgmma_kernel'),
     'wide_mlp_bwd': ('wide_bwd (K2)', 'wide_bwd (K6a)', 'wide_bwd (K6b)', 'wide_bwd (K4)',
                      'wide_wgmma_kernel chain', 'wide_wgmma_kernel dW', 'dpts_kernel (K3)',
-                     'grid_max_kernel (K5)', 'dw_i8_kernel (K6b)', 'wide_wgmma_kernel denc')}
+                     'grid_max_kernel (K5)', 'wide_dw_i8_wgmma_kernel (K6b)',
+                     'wide_wgmma_kernel denc', 'wide_dz_group_max_kernel (K6b)')}
 
 
 def kernel_launches(library: str) -> dict:

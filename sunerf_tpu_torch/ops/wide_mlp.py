@@ -14,7 +14,8 @@ walk over 128 x TN tiles), with the layer's work in its epilogue:
   K4 recompute forward    -> the same, bf16 sin and cos, chunk by chunk
   K2 / K6a / K6b / K4 bwd -> csrc/wide_mlp_bwd.cu: the chain, dW and db
                              products ('i8pair''s dW_h per scale group on
-                             the int8 tensor cores, dw_i8_kernel), with K3
+                             int8 wgmma, wide_dw_i8_wgmma_kernel, the
+                             groups' maxima from the chain's epilogue), with K3
                              (the point cotangent) and K5 (the grid levels'
                              cotangent, spread over the tables by the fused
                              backward's scatter, csrc/fused_mlp_stash_bwd.cu)
@@ -27,11 +28,13 @@ go to the kernels as bf16 copies: the forward's W^T (pack_wide: w_in^T
 parameter set and cached on the identity and version of its tensors.
 The host plans of the kernels are mirrored here and tested on the CPU:
 tile_n (a product's N tile), dw_plan (a dW product's ranges of the points),
-i8_plan ('i8pair''s dW_h ranges of whole scale groups) and
+i8_plan ('i8pair''s dW_h ranges of whole scale groups),
 operand_row_bytes (every TMA operand's row stride and base offset in bytes,
-multiples of 16). 'i8pair' takes any scale group (stash_bwd_tile) from 1 to
-133,144 points. On a CUDA tensor a wrapper launches its kernels or raises
-(there is no fallback); on a CPU tensor it runs the plain version
+multiples of 16), and 'i8pair''s int8 operand builds (i8_build_operands)
+and scale groups' maxima (dz_row_maxima, dz_group_maxima). 'i8pair' takes
+any scale group (stash_bwd_tile) from 1 to 133,144 points. On a CUDA tensor
+a wrapper launches its kernels or raises (there is no fallback); on a CPU
+tensor it runs the plain version
 (fused_mlp_reference, fused_mlp_stash_reference,
 fused_mlp_stash_bwd_reference, fused_mlp_recompute_bwd_reference), which
 defines its function."""
@@ -55,7 +58,7 @@ WIDE_RECOMPUTE_BWD_LAUNCHES = 0  # wide K4
 WIDE_MAX_SPLITS = 16    # dW point ranges at most (csrc/wide_mlp.cuh kMaxSplits)
 WIDE_SUM_PARTS = 128    # column-sum row ranges at most (kSumRows)
 TILE_M, TILE_K = 128, 64   # a GEMM tile's rows and a ring stage's k (kBM, kBK)
-I8_TILE = 128           # 'i8pair''s dW_h tiles (kBM x kI8BN)
+I8_TN = 128             # 'i8pair''s dW_h tiles (kBM x kI8TN)
 _FWD_FMT = {'int8': 1, 'lsb': 2, 'i8pair': 3, 'recompute': 4}   # kStash* codes (K0 is 0)
 _packs: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _packs_bwd: WeakIdKeyDictionary = WeakIdKeyDictionary()
@@ -104,22 +107,113 @@ def dw_plan(m: int, n_out: int, points: int, sms: int) -> tuple:
     return tn, -(-points // k_split), k_split
 
 
+def i8_tiles(h: int) -> int:
+    """'i8pair''s dW_h output tiles of TILE_M x I8_TN."""
+    return -(-h // TILE_M) * -(-h // I8_TN)
+
+
 def i8_plan(h: int, points: int, group: int, sms: int) -> tuple:
     """'i8pair''s dW_h ranges (csrc/wide_mlp.cuh i8_plan): whole scale
-    groups, about two blocks an SM, at least 1024 points a range, at most
-    WIDE_MAX_SPLITS -> (splits, k_split), k_split a multiple of group."""
-    tiles = (-(-h // I8_TILE)) ** 2
-    want = max(1, min(-(-2 * sms // tiles), WIDE_MAX_SPLITS, -(-points // 1024)))
+    groups, as many as keep every block of the card on one tile (one wave
+    of the persistent walk), at least 1024 points a range, at most
+    WIDE_MAX_SPLITS -> (splits, k_split), k_split a multiple of group.
+    Range s holds points [s k_split, (s+1) k_split)."""
+    want = max(1, min(sms // i8_tiles(h), WIDE_MAX_SPLITS, -(-points // 1024)))
     k_split = -(-(-(-points // want)) // group) * group
     return -(-points // k_split), k_split
 
 
+def _swizzle128(row, byte):
+    """csrc/hopper.cuh swizzle128: the byte of (row, byte column) in a box of
+    128-byte rows as TMA writes it in the 128-byte swizzle."""
+    return row * 128 + (((byte // 16) ^ (row % 8)) % 8) * 16 + byte % 16
+
+
+def i8_build_operands(box: torch.Tensor, dz_box: torch.Tensor, s0: int, s1: int,
+                      scale: float):
+    """A mirror of build_a8 and build_b8 (csrc/wide_mlp.cuh) for one segment
+    [s0, s1) of a 64-point chunk: box [64 points, 128] int8 (the stash box:
+    sin8 of the tile's 128 rows m) and dz_box [64 points, I8_TN] bf16 (dz's
+    columns of the tile, zeros past the width as TMA fills them), placed in
+    shared memory as TMA writes them (128-byte swizzle; dz in boxes of 64
+    columns, 8192 bytes apart) -> the int8 operand buffers A [128 * 64] and
+    B [I8_TN * 64] as the 256 threads write them: thread t (warp w, lane l,
+    q = l // 4) loads the points 8 j + q (j = 0..7) at the device's byte
+    addresses (A: box + 128 q + 16 (w ^ q) + 4 (l % 4) + 1024 j, 4 columns
+    m = 16 w + 4 (l % 4) + e; B: boxes + 8192 (ng // 8) + 128 q + 16 ((ng %
+    8) ^ q) + 4 (l % 4) + 1024 j, the columns n = 8 ng + 2 (l % 4) + e of
+    ng = 2 w + u) and stores their 8 bytes at fused_mlp.i8_operand_index's
+    row (m or n), k = 16 (q // 2) + 8 (q % 2) + j, which stands for chunk
+    point fused_mlp.i8_point(k); B's bytes are the low bytes of dz * scale +
+    I8_ROUND in f32 for points [s0, s1), 0 for the others."""
+    t = torch.arange(256)
+    w, lane = t // 32, t % 32
+    q = (lane // 4).view(256, 1, 1)
+    cp = (lane % 4).view(256, 1, 1)
+    wq = w.view(256, 1, 1)
+    j = torch.arange(8).view(1, 1, 8)
+    k = 16 * (q // 2) + 8 * (q % 2) + j
+    e = torch.arange(4).view(1, 4, 1)
+    pr = torch.arange(64).view(64, 1)
+    # shared memory as TMA leaves it
+    stored_a = torch.zeros(64 * 128, dtype=torch.uint8)
+    stored_a[_swizzle128(pr, torch.arange(128).view(1, 128)).reshape(-1)] = \
+        box.view(torch.uint8).reshape(-1)
+    col = torch.arange(I8_TN).view(1, I8_TN)
+    stored_b = torch.zeros(I8_TN // 64 * 8192, dtype=torch.uint8)
+    at_b = (col // 64) * 8192 + _swizzle128(pr, 2 * (col % 64))
+    bits = dz_box.to(torch.bfloat16).contiguous().view(torch.int16).to(torch.int32)
+    stored_b[at_b.reshape(-1)] = (bits & 0xFF).to(torch.uint8).reshape(-1)
+    stored_b[(at_b + 1).reshape(-1)] = ((bits >> 8) & 0xFF).to(torch.uint8).reshape(-1)
+    # A: a 32-bit load a point, byte e column m
+    a8 = torch.zeros(128 * 64, dtype=torch.uint8)
+    m = 16 * wq + 4 * cp + e
+    a8[fm.i8_operand_index(128, m, k)] = stored_a[q * 128 + ((wq ^ q) << 4) + 4 * cp + 1024 * j
+                                                  + e]
+    # B: a 32-bit load a point, its two bf16 columns n and n + 1
+    b8 = torch.zeros(I8_TN * 64, dtype=torch.uint8)
+    pt = 8 * j + q
+    sc = torch.where((pt >= s0) & (pt < s1), torch.tensor(scale, dtype=torch.float32),
+                     torch.tensor(0.0))
+    for u in range(I8_TN // 64):
+        ng = (I8_TN // 64) * wq + u
+        src = (ng // 8) * 8192 + q * 128 + (((ng % 8) ^ q) << 4) + 4 * cp + 1024 * j
+        for half in range(2):
+            lo = stored_b[src + 2 * half].to(torch.int32)
+            hi = stored_b[src + 2 * half + 1].to(torch.int32)
+            x = ((hi << 24) | (lo << 16)).view(torch.float32)
+            y = x * sc + torch.tensor(fm.I8_ROUND, dtype=torch.float32)
+            n = 8 * ng + 2 * cp + half
+            b8[fm.i8_operand_index(I8_TN, n, k)] = (y.view(torch.int32) & 0xFF).to(torch.uint8)
+    return a8.view(torch.int8), b8.view(torch.int8)
+
+
+def dz_row_maxima(dz: torch.Tensor, tn: int) -> torch.Tensor:
+    """A mirror of the 'i8pair' chain epilogue's row maxima (ChainEpi::
+    rowmax): dz [n, H] (bf16 values) -> int32 [ceil(H / tn), n], each
+    point's max |dz| over an N tile's tn columns as the bits of a
+    non-negative float (NaN above every finite value)."""
+    n, h = dz.shape
+    bits = dz.float().abs().view(torch.int32)   # non-negative: bits order as values
+    pad = -(-h // tn) * tn - h
+    return F.pad(bits, (0, pad)).view(n, -1, tn).amax(2).t().contiguous()
+
+
+def dz_group_maxima(rowmax: torch.Tensor, group: int) -> torch.Tensor:
+    """A mirror of wide_dz_group_max_kernel: rowmax [tiles, n] (dz_row_maxima)
+    -> f32 [ceil(n / group)], the max over each group's points below n and
+    every tile, compared as bits."""
+    n = rowmax.shape[1]
+    pad = -(-n // group) * group - n
+    return F.pad(rowmax.amax(0), (0, pad)).view(-1, group).amax(1).view(torch.float32)
+
+
 def dw_tiles(config: NeRFConfig) -> int:
-    """The most output tiles of one dW product (dW_in, dW_h, dW_out): the
-    arrival counters' length."""
+    """The most output tiles of one dW product (dW_in, dW_h, dW_out, and
+    'i8pair''s int8 dW_h): the arrival counters' length."""
     h, ep = config.d_filter, e_pad(config)
-    return max(-(-m // TILE_M) * -(-n // tile_n(n, 64))
-               for m, n in ((ep, h), (h, h), (h, config.d_output)))
+    return max(i8_tiles(h), *(-(-m // TILE_M) * -(-n // tile_n(n, 64))
+                              for m, n in ((ep, h), (h, h), (h, config.d_output))))
 
 
 def operand_row_bytes(config: NeRFConfig) -> dict:
@@ -197,7 +291,7 @@ class _WideArgs(ctypes.Structure):
         'grid', 'out', 'act', 'enc', 'hs', 'cs', 'dy', 'w_h_b', 'w_out_b', 'w_in_b', 'dyb',
         'dz', 'part', 'part_sum', 'g_w_in', 'g_b_in', 'g_w_h', 'g_b_h', 'g_w_out', 'g_b_out',
         'denc', 'dpts', 'dgrid', 'gmax', 'gacc', 'g_grid', 'group_max', 'tile_count',
-        'db_part')]
+        'db_part', 'dz_rowmax')]
         + [(k, ctypes.c_int) for k in ('n', 'd_in', 'n_cols', 'e_pad', 'h', 'n_hidden', 'd_out',
                                         'o_pad', 'fmt', 'group')])
 
@@ -405,6 +499,7 @@ def _launch_backward(config: NeRFConfig, params: dict, points: torch.Tensor, dy:
     a = _fwd_args(points, ops, grid, None, enc, fmt, hs, cs)
     a.dy, a.w_h_b, a.w_out_b, a.w_in_b = (dy.data_ptr(), bwd['w_h_b'].data_ptr(),
                                           bwd['w_out_b'].data_ptr(), bwd['w_in_b'].data_ptr())
+    i8 = fmt == _FWD_FMT['i8pair']
     scratch = dict(dyb=torch.empty((n, op), **bf16), dz=torch.empty((2, n, H), **bf16),
                    part=torch.empty(WIDE_MAX_SPLITS * max(ep * H, H * H, H * O), **f32),
                    part_sum=torch.empty(WIDE_SUM_PARTS * max(H, O), **f32),
@@ -414,9 +509,11 @@ def _launch_backward(config: NeRFConfig, params: dict, points: torch.Tensor, dy:
                    gmax=torch.zeros(len(config.grid_sizes), dtype=torch.int32, device=dev),
                    gacc=torch.zeros(offsets[-1], dtype=torch.int64, device=dev),
                    group_max=(torch.empty(-(-n // group), dtype=torch.int32, device=dev)
-                              if fmt == _FWD_FMT['i8pair'] else None),
+                              if i8 else None),
                    tile_count=torch.zeros(dw_tiles(config), dtype=torch.int32, device=dev),
-                   db_part=torch.empty((2 * -(-n // TILE_M), H), **f32))
+                   db_part=torch.empty((2 * -(-n // TILE_M), H), **f32),
+                   dz_rowmax=(torch.empty((-(-H // TILE_M), n), dtype=torch.int32, device=dev)
+                              if i8 else None))
     for k, t in scratch.items():
         setattr(a, k, _ptr(t))
     a.group = group

@@ -74,6 +74,21 @@ device's time, not the host's dispatch), the median of 5 replays; K0, K1,
 K2 and the step are CUDA events around one call, the median of 10; the
 render the host clock, the median of 5; K4, K6a and K6b CUDA events, the
 median of 5.
+
+--wide-i8pair measures the wide route's 'i8pair' (wide K6b) rows alone
+(wide_i8pair_rows), on random emission fields from a seed as
+scripts/probe_wide.py builds them (points U(-1.3, 1.3), time U(0, 1), dy
+normal), CUDA events, the median of 10:
+  * k6b_<shape>_ms: forward + backward (dpts included) under autograd
+    through fused_mlp_forward(stash_format='i8pair') at the default group,
+    8x1024 / d_output 2 at N = 196,608 and 2x640 / 2 at N = 65,536;
+  * k6b_<shape>_bwd_<group>_ms: the backward alone
+    (fused_mlp_stash_backward fed the kernel's own stash), 8x1024 at group
+    768, 2x640 at groups 768, 8 and 40, and k6b_<shape>_bwd_<group>_kernels
+    its device ms by kernel name (torch.profiler);
+  * dw_h_bmm_<shape>_ms, dw_h_int_mm_<shape>_ms: dW_h's yardsticks at
+    those shapes (one bf16 torch.bmm of the hidden layers' sin^T dz;
+    torch._int_mm a layer over all points, summed).
 """
 from __future__ import annotations
 
@@ -191,17 +206,69 @@ def _k3_ms(fn) -> tuple:
     return with_ms, with_ms - statistics.median(runs[False])
 
 
+def wide_i8pair_rows(tag: str) -> dict:
+    """The wide K6b rows of --wide-i8pair (see the docstring)."""
+    import dataclasses
+
+    import torch
+
+    from sunerf_tpu_torch.models.fields import emission_config, init_nerf
+    from sunerf_tpu_torch.ops import fused_mlp
+    dev = torch.device('cuda')
+    row = {'tag': tag, 'cwd': os.getcwd(), 'device': torch.cuda.get_device_name(0)}
+    for shape, layers, width, n, groups in (('8x1024', 8, 1024, 196608, (768,)),
+                                            ('2x640', 2, 640, 65536, (768, 8, 40))):
+        cfg = dataclasses.replace(emission_config(n_layers=layers, d_filter=width), d_output=2)
+        gen = torch.Generator(device=dev).manual_seed(width)
+        p = init_nerf(gen, cfg, dev)
+        pts = torch.rand(n, 4, generator=gen, device=dev) * 2.6 - 1.3
+        pts[:, 3] = torch.rand(n, generator=gen, device=dev)
+        dy = torch.randn(n, 2, generator=gen, device=dev)
+
+        def fwd_bwd():
+            leaves = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+            x = pts.clone().requires_grad_()
+            fused_mlp.fused_mlp_forward(cfg, leaves, x, stash_format='i8pair').backward(dy)
+        row[f'k6b_{shape}_ms'] = _events_ms(fwd_bwd)
+        _, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, p, pts, 'i8pair')
+        for group in groups:
+            def bwd(group=group):
+                return fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs, 'i8pair', True,
+                                                          group)
+            row[f'k6b_{shape}_bwd_{group}_ms'] = _events_ms(bwd)
+            row[f'k6b_{shape}_bwd_{group}_kernels'] = _by_kernel(bwd)
+        L, h = layers, width
+        g2 = torch.Generator(device=dev).manual_seed(7)
+        s8 = hs.view(n, L, 2, h)[:, :L - 1, 0].permute(1, 2, 0).contiguous()
+        sb = s8.to(torch.bfloat16)
+        dz = torch.randn((L - 1, n, h), generator=g2, device=dev).to(torch.bfloat16)
+        row[f'dw_h_bmm_{shape}_ms'] = _events_ms(lambda: torch.bmm(sb, dz))
+        del sb, dz
+        dz8 = torch.randint(-127, 128, (L - 1, n, h), generator=g2, device=dev,
+                            dtype=torch.int8)
+        row[f'dw_h_int_mm_{shape}_ms'] = _events_ms(
+            lambda: [torch._int_mm(s8[j], dz8[j]) for j in range(L - 1)], reps=5)
+        del p, pts, dy, hs, cs, s8, dz8
+        torch.cuda.empty_cache()
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--tag', default='')
     parser.add_argument('--k0-render', action='store_true',
                         help="K0's rows and the render's alone (a change to K0's "
                              "wrapper or to the render path)")
+    parser.add_argument('--wide-i8pair', action='store_true',
+                        help="the wide route's 'i8pair' (K6b) rows alone")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('ab_rows: no CUDA device; it measures the card')
+    if args.wide_i8pair:
+        return wide_i8pair_rows(args.tag)
     from torch.nn.functional import grid_sample
 
     from sunerf_tpu_torch.evaluation.loader import SuNeRFLoader

@@ -15,12 +15,17 @@ wide K2 (fused_mlp_stash_backward) against fused_mlp_stash_bwd_reference fed
 the kernel's stash, twice (the bits), at --n-bwd points. --paths adds K3,
 K4, 'lsb' (K6a), 'i8pair' (K6b) and a grid field (K5) at 2x640 through
 fused_mlp_forward
-under autograd, against the plain versions, and K6b's backward at scale
-groups 8 and 40. Times: CUDA events, the median
+under autograd, against the plain versions, K6b's backward alone at scale
+groups 8, 40 and 768, and K6b at 8x1024 / d_output 2, N = --n-bwd, the
+default group (forward + backward under autograd, and the backward
+alone). Times: CUDA events, the median
 of --reps calls after 2 (host clock on --device cpu: a CPU number). The
 library yardstick of a row is one bf16 torch.matmul per layer product at
 the same shapes (K0: the L layers and the head; K2: the chain's and dW's
-products), timed only; nothing on the route calls it. The bound: the
+products; a path: its forward's and backward's products), timed only;
+nothing on the route calls it; K6b's dW_h has two more, one bf16 torch.bmm
+of the hidden layers' sin^T dz and torch._int_mm of each layer's int8
+product over all points. The bound: the
 operations at 989 TFLOP/s bf16 dense (K6b's dW_h products at 1979 TOPS
 int8 dense) and the bytes at 3.35 TB/s, the larger. main returns {shape: {k0, k1, k2}} (and 'paths'), each with its
 errors, ms, plain_ms, library_ms, bound_ms, bound_by and launches by
@@ -186,6 +191,37 @@ def _matmul_ms(shapes, device, reps) -> float:
     return total
 
 
+def layer_products(cfg, n: int, dpts: bool = False, recompute: bool = False) -> list:
+    """The (m, k, n) of each layer product of a forward and backward: the
+    forward's L layers and head (twice where the backward recomputes it),
+    the chain's dh, the dW products and, with dpts, K3's denc."""
+    h, L, d = cfg.d_filter, cfg.n_layers, cfg.d_output
+    e = -(-cfg.d_encoded // 16) * 16
+    fwd = [(n, e, h)] + [(n, h, h)] * (L - 1) + [(n, h, d)]
+    bwd = [(n, d, h), (h, n, d)] + [(n, h, h), (h, n, h)] * (L - 1) + [(e, n, h)]
+    return fwd * (2 if recompute else 1) + bwd + ([(n, h, cfg.d_encoded)] if dpts else [])
+
+
+def dw_h_yardsticks(cfg, hs: torch.Tensor, reps: int) -> dict:
+    """K6b's dW_h yardsticks at the stash's shapes, timed only: one bf16
+    torch.bmm of the hidden layers' sin^T dz ([L-1, H, n] x [L-1, n, H], the
+    stash's sin8 as bf16, dz normal) and torch._int_mm of each layer's int8
+    product over all points ([H, n] x [n, H], dz8 uniform in [-127, 127]),
+    summed over the layers."""
+    n, L, h = hs.shape[0], cfg.n_layers, cfg.d_filter
+    dev = hs.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    s8 = hs.view(n, L, 2, h)[:, :L - 1, 0].permute(1, 2, 0).contiguous()
+    sb = s8.to(torch.bfloat16)
+    dz = torch.randn((L - 1, n, h), generator=gen, device=dev).to(torch.bfloat16)
+    out = {'bmm_ms': timed_ms(lambda: torch.bmm(sb, dz), dev, reps)}
+    del sb, dz
+    dz8 = torch.randint(-127, 128, (L - 1, n, h), generator=gen, device=dev, dtype=torch.int8)
+    out['int_mm_ms'] = timed_ms(lambda: [torch._int_mm(s8[j], dz8[j]) for j in range(L - 1)],
+                                dev, reps)
+    return out
+
+
 def k0_row(cfg, p, pts, reps: int) -> dict:
     """The wide K0 against fused_mlp_reference, its times and bound."""
     dev, n, h = pts.device, pts.shape[0], cfg.d_filter
@@ -320,14 +356,69 @@ def path_rows(n: int, device, reps: int) -> dict:
         row['bound_ms'], row['bound_by'] = bound(
             flops - i8_ops, n * 4 * (2 * c.d_input + 2 * c.d_output) + 2 * param_bytes(c) + stash,
             i8_ops)
-        row['library_ms'] = None
+        row['library_ms'] = _matmul_ms(layer_products(c, n, compute_dpts, name == 'K4'), device,
+                                       reps)
+        if fmt == 'i8pair' and device.type == 'cuda':
+            _, hs, _ = fused_mlp.fused_mlp_stash_forward(c, q, pts, fmt)
+            row['dw_h_library'] = dw_h_yardsticks(c, hs, reps)
+            del hs
         rows[name] = row
     return rows
 
 
-def i8pair_group_rows(n: int, device, reps: int, groups=(8, 40)) -> dict:
-    """Wide K6b ('i8pair') at scale groups that are no multiple of 32, on a
-    2x640 / d_output 2 field at n points: its backward (dpts included)
+def i8pair_wide_row(n: int, device, reps: int) -> dict:
+    """Wide K6b ('i8pair') at the converted reference's width, 8x1024 /
+    d_output 2 at n points and the default scale group: forward + backward
+    (dpts included) under autograd against the plain version, twice (the
+    bits), its launches by kernel name, ms beside the plain version's, the
+    bound (dW_h at the int8 rate) and the yardsticks (layer_products,
+    dw_h_yardsticks); then the backward alone fed the kernel's own stash
+    (bwd_ms, bwd_plain_ms)."""
+    layers, width, d_out, group = 8, 1024, 2, fused_mlp.STASH_BWD_TILE
+    cfg, p, pts, dy = setup(layers, width, d_out, n, device, seed=1024 + group)
+    knobs = dict(stash_format='i8pair', stash_bwd_tile=group)
+    got = _autograd(cfg, p, pts, dy, **knobs)
+    again = _autograd(cfg, p, pts, dy, **knobs)
+
+    def plain():
+        _, hs, cs = fused_mlp.fused_mlp_stash_reference(cfg, p, pts, 'i8pair')
+        return fused_mlp.fused_mlp_stash_bwd_reference(cfg, p, pts, dy, hs, cs, 'i8pair', True,
+                                                       group)
+    ref = plain()
+    row = dict(grads=grad_err(ref, got), keys_match=set(got) == set(ref),
+               bit_identical=all(torch.equal(got[k], again[k]) for k in got),
+               finite=all(bool(torch.isfinite(v).all()) for v in got.values()))
+    row['max_rel_err'] = max(g['max_rel_err'] for g in row['grads'].values())
+    row['max_abs_err'] = max(g['max_abs_err'] for g in row['grads'].values())
+    del got, again, ref
+    row['launches'] = launches(lambda: _autograd(cfg, p, pts, dy, **knobs))
+    row['ms'] = timed_ms(lambda: _autograd(cfg, p, pts, dy, **knobs), device, reps)
+    row['plain_ms'] = timed_ms(plain, device, max(2, reps // 4))
+    i8_ops = 2.0 * n * (layers - 1) * width ** 2
+    row['bound_ms'], row['bound_by'] = bound(
+        fwd_flops(cfg, n) + bwd_flops(cfg, n) - i8_ops,
+        n * 4 * (2 * cfg.d_input + 2 * d_out) + 2 * param_bytes(cfg)
+        + 2 * n * layers * width * STASH_BYTES['i8pair'], i8_ops)
+    row['library_ms'] = _matmul_ms(layer_products(cfg, n, True), device, reps)
+    _, hs, cs = fused_mlp.fused_mlp_stash_forward(cfg, p, pts, 'i8pair')
+
+    def bwd():
+        return fused_mlp.fused_mlp_stash_backward(cfg, p, pts, dy, hs, cs, 'i8pair', True, group)
+    row['bwd_ms'] = timed_ms(bwd, device, reps)
+    row['bwd_plain_ms'] = timed_ms(
+        lambda: fused_mlp.fused_mlp_stash_bwd_reference(cfg, p, pts, dy, hs, cs, 'i8pair', True,
+                                                        group), device, max(2, reps // 4))
+    if device.type == 'cuda':
+        row['dw_h_library'] = dw_h_yardsticks(cfg, hs, reps)
+    # dW_h alone: its int8 operations and its bytes (sin8 and dz read once)
+    row['dw_h_bound_ms'], row['dw_h_bound_by'] = bound(
+        0.0, (layers - 1) * n * width * 3.0, i8_ops)
+    return row
+
+
+def i8pair_group_rows(n: int, device, reps: int, groups=(8, 40, 768)) -> dict:
+    """Wide K6b ('i8pair') at scale groups that are no multiple of 32 and at
+    the default, on a 2x640 / d_output 2 field at n points: its backward (dpts included)
     against the plain version fed the kernel's own stash, twice (the bits),
     its launches by kernel name, ms beside the plain version's."""
     rows = {}
@@ -384,6 +475,8 @@ def main(argv=None) -> dict:
         print('paths', json.dumps(rows['paths']), flush=True)
         rows['i8pair_groups'] = i8pair_group_rows(args.n_paths, device, args.reps)
         print('i8pair_groups', json.dumps(rows['i8pair_groups']), flush=True)
+        rows['i8pair_8x1024'] = i8pair_wide_row(args.n_bwd, device, args.reps)
+        print('i8pair_8x1024', json.dumps(rows['i8pair_8x1024']), flush=True)
     if args.out:
         with open(args.out, 'w') as f:
             json.dump(rows, f, indent=1)

@@ -1,7 +1,7 @@
 """The wide route's GEMM taken apart on the card (csrc/wide_gemm_probe.cu):
-one layer's product at 8x1024 widths with each epilogue, and the dW
-products over the points in ranges against one launch over every layer's
-tiles.
+one layer's product at 8x1024 widths with each epilogue, the dW products
+over the points in ranges against one launch over every layer's tiles, and
+'i8pair''s int8 dW_h (wide_dw_i8_wgmma_kernel) with and without its parts.
 
     python -m sunerf_tpu_torch.scripts.probe_wide_gemm [--n 196608] [--h 1024]
         [--layers 8] [--reps 20] [--out FILE]
@@ -17,7 +17,14 @@ through the ring, the staged dz and its column sums), 'products, N tile
 shapes (timed only). Then dW_h of --layers layers over the points: a
 launch a layer in dw_plan's ranges (the route's), and one launch over the
 layers' stacked tiles in one range (a grouped dW that would keep every
-layer's dz). Prints one JSON object with the card's name and power limit.
+layer's dz). Then one layer's int8 dW_h at the default scale group of 768
+(a stash of --layers layers, random int8 sin8, dz normal): in i8_plan's
+ranges (the route's) and in one range, and the variants built with
+-DSUNERF_WIDE_I8_ABLATION=1 (no operand builds: the ring's loads and the
+products alone), =2 (no products: the loads and the builds alone) and =3
+(the ring's loads alone),
+beside one torch._int_mm of the layer's int8 product (timed only). Prints
+one JSON object with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -133,6 +140,45 @@ def dw_rows(n: int, h: int, layers: int, reps: int) -> dict:
             'grouped_dz_bytes': layers * n * h * 2}
 
 
+def i8_rows(n: int, h: int, layers: int, reps: int) -> dict:
+    """One layer's int8 dW_h (layer 1 of the stash) in ranges, in one range,
+    and without its builds or its products, beside torch._int_mm."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ld, group = 2 * layers * h, 768
+    stash = torch.randint(-127, 128, (n, ld), generator=gen, device=dev, dtype=torch.int8)
+    dz = torch.randn(n, h, generator=gen, device=dev).to(torch.bfloat16)
+    gmax = dz.float().abs().amax(1)
+    gmax = torch.nn.functional.pad(gmax, (0, -(-n // group) * group - n)).view(-1, group)
+    gmax = gmax.amax(1).view(torch.int32).contiguous()
+    part = torch.empty(16 * h * h, device=dev)
+    count = torch.zeros((-(-h // 128)) ** 2, dtype=torch.int32, device=dev)
+    out = torch.empty(h, h, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = {}
+    for name, defines, ranged in (('ranges', (), 1), ('one range', (), 0),
+                                  ('no builds', ('SUNERF_WIDE_I8_ABLATION=1',), 1),
+                                  ('no products', ('SUNERF_WIDE_I8_ABLATION=2',), 1),
+                                  ('loads alone', ('SUNERF_WIDE_I8_ABLATION=3',), 1)):
+        fn = build.load('wide_gemm_probe', defines).sunerf_wide_dw_i8_probe
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+
+        def run(fn=fn, ranged=ranged):
+            if fn(stash.data_ptr(), ld, 2 * h, dz.data_ptr(), n, h, gmax.data_ptr(), group,
+                  ranged, part.data_ptr(), count.data_ptr(), out.data_ptr(), stream):
+                raise RuntimeError('wide_dw_i8_probe failed')
+        rows[name] = _timed(run, reps)
+    s8 = stash[:, 2 * h:3 * h].t().contiguous()
+    dz8 = torch.randint(-127, 128, (n, h), generator=gen, device=dev, dtype=torch.int8)
+    rows['torch._int_mm'] = _timed(lambda: torch._int_mm(s8, dz8), reps)
+    rows['tops'] = 2.0 * n * h * h / rows['ranges'] / 1e9
+    rows['l2_stream_gb'] = n * h * (-(-h // 128) + 2 * -(-h // 128)) / 1e9
+    return rows
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--n', type=int, default=196608)
@@ -146,6 +192,8 @@ def main(argv=None) -> dict:
     out = {'card': _card(), 'n': args.n, 'h': args.h,
            'layer': layer_rows(args.n, args.h, args.reps),
            'dw': dw_rows(args.n, args.h, args.layers, args.reps)}
+    torch.cuda.empty_cache()
+    out['dw_i8'] = i8_rows(args.n, args.h, args.layers, args.reps)
     print(json.dumps(out), flush=True)
     if args.out:
         with open(args.out, 'w') as f:
